@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,10 +40,9 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (q, k, v, lens, out, part_ml, part_acc, B, T, Hq, Hkv, D, max_len,
-    #  rows_per_warp, n_splits, chunk, scale, stream)
-    "decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # (q, k, v, lens, out, B, T, Hq, Hkv, D, max_len, scale, stream)
+    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P],
     # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
     #  stream)
     "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -59,6 +59,15 @@ def reset_launches() -> None:
         launches.clear()
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM,
+    114 on the PCIe card); sizes int8_matmul's contraction split."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
@@ -73,7 +82,7 @@ def _nvcc() -> str:
     return path
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
+def build() -> Path:
     """Compile the sources (in parallel) and link them into one shared
     library; returns its path. The compiler's output, register and
     shared-memory reports included, goes to `build.log` beside it."""
@@ -82,15 +91,15 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     for src in srcs:
         h.update(src.name.encode() + src.read_bytes())
     digest = h.hexdigest()[:16]
-    lib_path = build_dir / f"libport_kernels-{digest}.so"
+    lib_path = BUILD_DIR / f"libport_kernels-{digest}.so"
     if lib_path.exists():
         return lib_path
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{digest}-{os.getpid()}"
     jobs = []
     for src in srcs:
-        obj = build_dir / f"{src.stem}-{tag}.o"
+        obj = BUILD_DIR / f"{src.stem}-{tag}.o"
         proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -101,11 +110,11 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         logs.append(f"== {src.name} (rc {proc.returncode})\n{out}")
         if proc.returncode:
             failed.append(src.name)
-    (build_dir / "build.log").write_text("\n".join(logs))
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
                            + "\n".join(logs))
-    tmp = build_dir / f"libport_kernels-{tag}.so.tmp"
+    tmp = BUILD_DIR / f"libport_kernels-{tag}.so.tmp"
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
          *(str(obj) for _, obj, _ in jobs)],

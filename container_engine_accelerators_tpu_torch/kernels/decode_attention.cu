@@ -15,15 +15,13 @@
 //
 // What bounds it on an H100: bytes. Every step streams the live part of
 // the cache once (HBM, 3.35 TB/s on the SXM part); the arithmetic is
-// ~2 flops per cache byte per query row. The design:
-//   - one CTA per (query block, KV head, batch row, key split): its rows
-//     are queries of one GQA group (G = Hq/Hkv), so the G heads sharing
-//     a KV head read each K/V tile once. On the TPU one core walked the
-//     whole cache in order; here a decode step has only B*Hkv groups, too
-//     few for 132 SMs, so the key range is split across CTAs (`n_splits`
-//     chunks, chosen by the caller) and a second kernel merges their
-//     (m, l, acc) partials. With one split the first kernel writes the
-//     output itself;
+// ~2 flops per cache byte per query row. The design, the simple first
+// version:
+//   - one CTA per (query block, KV head, batch row): its rows are queries
+//     of one GQA group (G = Hq/Hkv), so the G heads sharing a KV head
+//     read each K/V tile once. Each CTA walks its keys in order, as one
+//     TPU core did. A decode step has only B*Hkv CTAs, too few for 132
+//     SMs; splitting the key range across CTAs waits for a later version;
 //   - the key loop stops at cache_len + (last query of the block) + 1:
 //     positions at or past `live` are never read, so a reused cache
 //     holding NaN there cannot reach the accumulator;
@@ -32,7 +30,7 @@
 //     reads its row without bank conflicts; one warp reduction per tile
 //     gives the tile max and sum;
 //   - decode (T*G <= 4 rows) runs one row per warp; prefill four, so a
-//     CTA's 16 rows share each tile it loads (eight measured slower).
+//     CTA's 16 rows share each tile it loads.
 // No TMA and no wgmma yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,19 +56,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Partials, when n_splits > 1: ml [S, B, Hkv, n_rows, 2] and
-// acc [S, B, Hkv, n_rows, D], f32, row = t * G + (h - kvh * G).
 template <int D, int RPW>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const int* __restrict__ lens,
-                        __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ part_ml,
-                        float* __restrict__ part_acc,
-                        int B, int T, int Hq, int Hkv, int max_len,
-                        int n_splits, int chunk, float scale) {
+                        __nv_bfloat16* __restrict__ out, int T, int Hq,
+                        int Hkv, int max_len, float scale) {
   constexpr int kPairs = D / 2;                    // bf16x2 words per row
   constexpr int kStride = kPairs + 1;              // odd: conflict-free
   constexpr int kPairsPerLane = (kPairs + 31) / 32;
@@ -83,17 +76,15 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
-  const int split = blockIdx.x % n_splits;
   const int G = Hq / Hkv;
   const int n_rows = T * G;
-  const int row0 = (blockIdx.x / n_splits) * kRows;
+  const int row0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int cache_len = lens[b];
   const int live = min(cache_len + T, max_len);
   const int t_last = min(row0 + kRows - 1, n_rows - 1) / G;
-  const int k_begin = split * chunk;
-  const int k_end = min(min(live, cache_len + t_last + 1), k_begin + chunk);
+  const int k_end = min(live, cache_len + t_last + 1);
 
   // Stage this block's query rows (rows past T*G stay zero); bf16 here,
   // f32 in the arithmetic, as the Pallas body casts q.
@@ -126,7 +117,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const uint4* v4 = reinterpret_cast<const uint4*>(v);
   uint32_t* k_w = reinterpret_cast<uint32_t*>(k_s);
   uint32_t* v_w = reinterpret_cast<uint32_t*>(v_s);
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();   // the previous tile is consumed; q_s is staged
     constexpr int kChunks = kPairs / kVec;         // 16-B loads per row
     for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
@@ -199,93 +190,23 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   for (int rr = 0; rr < RPW; ++rr) {
     const int row = row0 + warp * RPW + rr;
     if (row >= n_rows) continue;
-    if (n_splits == 1) {
-      const int t = row / G, h = kvh * G + row % G;
-      const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-      __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-#pragma unroll
-      for (int i = 0; i < kPairsPerLane; ++i) {
-        const int p = lane + 32 * i;
-        if (p < kPairs)
-          out2[((size_t)(b * T + t) * Hq + h) * kPairs + p] =
-              __floats2bfloat162_rn(acc[rr][i].x * inv, acc[rr][i].y * inv);
-      }
-    } else {
-      const size_t prow = (((size_t)split * B + b) * Hkv + kvh) * n_rows + row;
-      if (lane == 0) {
-        part_ml[2 * prow] = m[rr];
-        part_ml[2 * prow + 1] = l[rr];
-      }
-      float2* pacc = reinterpret_cast<float2*>(part_acc + prow * D);
-#pragma unroll
-      for (int i = 0; i < kPairsPerLane; ++i) {
-        const int p = lane + 32 * i;
-        if (p < kPairs) pacc[p] = acc[rr][i];
-      }
-    }
-  }
-}
-
-// Merge the split partials of one row per warp: weights exp(m_s - M),
-// out = sum_s w_s acc_s / sum_s w_s l_s. Needs n_splits <= 32.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_combine(const float* __restrict__ part_ml,
-                         const float* __restrict__ part_acc,
-                         __nv_bfloat16* __restrict__ out, int B, int T,
-                         int Hq, int Hkv, int n_splits) {
-  constexpr int kPairs = D / 2;
-  constexpr int kPairsPerLane = (kPairs + 31) / 32;
-  const int G = Hq / Hkv;
-  const int n_rows = T * G;
-  const size_t rows_total = (size_t)B * Hkv * n_rows;
-  const size_t grow = (size_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (grow >= rows_total) return;   // uniform across the warp
-  const int row = grow % n_rows;
-  const int kvh = (grow / n_rows) % Hkv;
-  const int b = grow / ((size_t)n_rows * Hkv);
-
-  float m_s = kNegInf, l_s = 0.f;
-  if (lane < n_splits) {
-    m_s = part_ml[2 * (lane * rows_total + grow)];
-    l_s = part_ml[2 * (lane * rows_total + grow) + 1];
-  }
-  const float big = warp_max(m_s);
-  const float w = lane < n_splits ? expf(m_s - big) : 0.f;
-  const float inv = 1.f / fmaxf(warp_sum(w * l_s), 1e-30f);
-  float2 o[kPairsPerLane];
-#pragma unroll
-  for (int i = 0; i < kPairsPerLane; ++i) o[i] = make_float2(0.f, 0.f);
-  for (int s = 0; s < n_splits; ++s) {
-    const float ws = __shfl_sync(kFull, w, s);
-    const float2* pacc =
-        reinterpret_cast<const float2*>(part_acc + (s * rows_total + grow) * D);
+    const int t = row / G, h = kvh * G + row % G;
+    const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+    __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
 #pragma unroll
     for (int i = 0; i < kPairsPerLane; ++i) {
       const int p = lane + 32 * i;
-      if (p < kPairs) {
-        const float2 a = pacc[p];
-        o[i].x += ws * a.x;
-        o[i].y += ws * a.y;
-      }
+      if (p < kPairs)
+        out2[((size_t)(b * T + t) * Hq + h) * kPairs + p] =
+            __floats2bfloat162_rn(acc[rr][i].x * inv, acc[rr][i].y * inv);
     }
-  }
-  const int t = row / G, h = kvh * G + row % G;
-  __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-#pragma unroll
-  for (int i = 0; i < kPairsPerLane; ++i) {
-    const int p = lane + 32 * i;
-    if (p < kPairs)
-      out2[((size_t)(b * T + t) * Hq + h) * kPairs + p] =
-          __floats2bfloat162_rn(o[i].x * inv, o[i].y * inv);
   }
 }
 
 struct Args {
   const void *q, *k, *v, *lens;
-  void *out, *part_ml, *part_acc;
-  int B, T, Hq, Hkv, max_len, n_splits, chunk;
+  void* out;
+  int B, T, Hq, Hkv, max_len;
   float scale;
   cudaStream_t stream;
 };
@@ -294,63 +215,41 @@ template <int D, int RPW>
 void launch(const Args& a) {
   constexpr int kRows = kWarps * RPW;
   const int n_rows = a.T * (a.Hq / a.Hkv);
-  const dim3 grid(((n_rows + kRows - 1) / kRows) * a.n_splits, a.Hkv, a.B);
+  const dim3 grid((n_rows + kRows - 1) / kRows, a.Hkv, a.B);
   decode_attention_kernel<D, RPW><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<const int*>(a.lens), static_cast<__nv_bfloat16*>(a.out),
-      static_cast<float*>(a.part_ml), static_cast<float*>(a.part_acc), a.B,
-      a.T, a.Hq, a.Hkv, a.max_len, a.n_splits, a.chunk, a.scale);
-  if (a.n_splits > 1) {
-    const size_t rows_total = (size_t)a.B * a.Hkv * n_rows;
-    decode_attention_combine<D>
-        <<<(unsigned)((rows_total + kWarps - 1) / kWarps), kThreads, 0,
-           a.stream>>>(static_cast<const float*>(a.part_ml),
-                       static_cast<const float*>(a.part_acc),
-                       static_cast<__nv_bfloat16*>(a.out), a.B, a.T, a.Hq,
-                       a.Hkv, a.n_splits);
-  }
+      a.T, a.Hq, a.Hkv, a.max_len, a.scale);
 }
 
+// Decode (at most 4 query rows per GQA group) runs one row per warp,
+// prefill four.
 template <int D>
-int launch_rows(const Args& a, int rows_per_warp) {
-  if (rows_per_warp == 1)
+void launch_rows(const Args& a) {
+  if (a.T * (a.Hq / a.Hkv) <= kWarps)
     launch<D, 1>(a);
-  else if (rows_per_warp == 4)
-    launch<D, 4>(a);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+    launch<D, 4>(a);
 }
 
 }  // namespace
 
-// The caller plans rows_per_warp (1 or 4), n_splits (1..32) and chunk
-// (keys per split, a multiple of 64) and, for n_splits > 1, allocates
-// part_ml [n_splits*B*Hkv*T*G*2] and part_acc [n_splits*B*Hkv*T*G*D]
-// f32. Returns cudaGetLastError() after the launches (0 = launched);
-// a shape it does not take returns cudaErrorInvalidValue unlaunched.
+// Returns cudaGetLastError() after the launch (0 = launched); a head dim
+// it does not take returns cudaErrorInvalidValue unlaunched.
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lens,
-                                     void* out, void* part_ml,
-                                     void* part_acc, int B, int T, int Hq,
-                                     int Hkv, int D, int max_len,
-                                     int rows_per_warp, int n_splits,
-                                     int chunk, float scale, void* stream) {
-  if (n_splits < 1 || n_splits > 32 || chunk % kBlockK ||
-      (long long)n_splits * chunk < max_len)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, lens, out, part_ml, part_acc, B, T, Hq, Hkv,
-               max_len, n_splits, chunk, scale,
+                                     void* out, int B, int T, int Hq,
+                                     int Hkv, int D, int max_len, float scale,
+                                     void* stream) {
+  const Args a{q, k, v, lens, out, B, T, Hq, Hkv, max_len, scale,
                static_cast<cudaStream_t>(stream)};
-  int err;
   switch (D) {
-    case 32: err = launch_rows<32>(a, rows_per_warp); break;
-    case 64: err = launch_rows<64>(a, rows_per_warp); break;
-    case 128: err = launch_rows<128>(a, rows_per_warp); break;
+    case 32: launch_rows<32>(a); break;
+    case 64: launch_rows<64>(a); break;
+    case 128: launch_rows<128>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,8 @@
 //     a time, and is converted to f32 there; no shared-memory copy;
 //   - x is staged in shared memory in f32, 8 rows by 256 columns at a
 //     time, and read as a broadcast;
-//   - a decode-sized product has too few column blocks to fill 132 SMs,
-//     so the contraction is split (`splits` blocks along D, chosen by the
+//   - a decode-sized product has too few column blocks to fill the
+//     card's SMs (132 on an H100 SXM), so the contraction is split (`splits` blocks along D, chosen by the
 //     caller) into an f32 scratch [splits, T, F]; a second small kernel
 //     sums the splits in a fixed order, scales and casts. No atomics, so
 //     the result is the same from run to run.

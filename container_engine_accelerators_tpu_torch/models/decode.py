@@ -58,22 +58,19 @@ def _check_kv_dtype(cfg: LlamaConfig):
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device: str | torch.device, dtype: torch.dtype | None = None
-               ) -> KVCache:
-    """Zeroed cache; `dtype` overrides cfg.dtype."""
+               device: str | torch.device) -> KVCache:
+    """Zeroed cache in cfg.dtype."""
     _check_kv_dtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    dtype = dtype or cfg.dtype
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    length=0)
 
 
 def init_slot_cache(cfg: LlamaConfig, slots: int, max_len: int,
-                    device: str | torch.device,
-                    dtype: torch.dtype | None = None) -> KVCache:
+                    device: str | torch.device) -> KVCache:
     """KVCache with per-slot lengths ([slots] int32, all zero)."""
-    cache = init_cache(cfg, slots, max_len, device, dtype)
+    cache = init_cache(cfg, slots, max_len, device)
     return dataclasses.replace(
         cache, length=torch.zeros(slots, dtype=torch.int32, device=device))
 
@@ -184,26 +181,25 @@ def pick_tokens(logits: torch.Tensor, temps: torch.Tensor,
 
 
 def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
-             max_new_tokens: int, max_len: int | None = None,
-             temperature: float = 0.0,
+             max_new_tokens: int, temperature: float = 0.0,
              generator: torch.Generator | None = None,
              plain: bool = False) -> torch.Tensor:
     """Greedy (temperature 0) or sampled generation. prompt: [B, T0]
     integer tokens. Returns [B, T0 + max_new_tokens] int64 on the
     prompt's device, without waiting for the device.
 
-    Unlike the JAX package, max_len is not rounded up to a multiple of
-    128: that padding existed for the TPU kernel's tiling; the CUDA
-    kernel takes any length, and padding would only add masked slots
-    that change no token. Sampling draws from `generator` (a fixed seed
-    when None), so a seed gives the same tokens on the same device; the
-    draws are not jax.random's."""
+    The cache holds T0 + max_new_tokens positions. Unlike the JAX
+    package, that length is not rounded up to a multiple of 128: the
+    padding existed for the TPU kernel's tiling; the CUDA kernel takes
+    any length, and padding would only add masked slots that change no
+    token. Sampling draws from `generator` (a fixed seed when None), so
+    a seed gives the same tokens on the same device; the draws are not
+    jax.random's."""
     b, t0 = prompt.shape
     prompt = prompt.long()
-    max_len = max_len or (t0 + max_new_tokens)
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device=prompt.device).manual_seed(0)
-    cache = init_cache(cfg, b, max_len, prompt.device)
+    cache = init_cache(cfg, b, t0 + max_new_tokens, prompt.device)
 
     def pick(logits):
         last = logits[:, -1]

@@ -23,9 +23,6 @@ import torch
 from container_engine_accelerators_tpu_torch import kernels
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
-_SM_COUNT = 132     # H100 SXM; sizes the key split
-_BLOCK_K = 64       # keys per tile in kernels/decode_attention.cu
-_MAX_SPLITS = 32
 
 
 def _lengths(cache_len, b: int, device: torch.device) -> torch.Tensor:
@@ -82,25 +79,6 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, t, hq, d).to(q.dtype)
 
 
-def plan(b: int, t: int, hq: int, hkv: int, max_len: int
-         ) -> tuple[int, int, int]:
-    """(rows_per_warp, n_splits, chunk) for the kernel. Decode (at most
-    4 query rows per GQA group) runs one row per warp, prefill four.
-    When the (query block, KV head, batch row) CTAs cannot fill two
-    waves of the card, the key range is split into chunks of a multiple
-    of 64 keys, aiming at four CTAs per SM."""
-    n_rows = t * (hq // hkv)
-    rows_per_warp = 1 if n_rows <= 4 else 4
-    ctas = -(-n_rows // (4 * rows_per_warp)) * hkv * b
-    n_splits = 1
-    if ctas < 2 * _SM_COUNT:
-        n_splits = min(_MAX_SPLITS, -(-4 * _SM_COUNT // ctas),
-                       -(-max_len // _BLOCK_K))
-    chunk = -(-max_len // n_splits)
-    chunk = -(-chunk // _BLOCK_K) * _BLOCK_K
-    return rows_per_warp, -(-max_len // chunk), chunk
-
-
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len) -> torch.Tensor:
     """Launch kernels/decode_attention.cu on CUDA tensors."""
@@ -124,19 +102,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          "tensors")
     lens = _lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
-    rows_per_warp, n_splits, chunk = plan(b, t, hq, hkv, max_len)
-    part_ml = part_acc = None
-    if n_splits > 1:
-        n = n_splits * b * hq * t   # partial rows: splits x B x Hkv x T*G
-        part_ml = torch.empty(n * 2, dtype=torch.float32, device=q.device)
-        part_acc = torch.empty(n * d, dtype=torch.float32, device=q.device)
     lib = kernels.load()
     err = lib.decode_attention_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        b, t, hq, hkv, d, max_len, rows_per_warp, n_splits, chunk,
+        lens.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, max_len,
         d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check("decode_attention", err)
     return out

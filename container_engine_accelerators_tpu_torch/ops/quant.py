@@ -21,7 +21,6 @@ from torch import nn
 from container_engine_accelerators_tpu_torch import kernels
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-_SM_COUNT = 132            # H100 SXM; sizes the contraction split
 _COLS_PER_BLOCK = 512      # kernels/int8_matmul.cu: 128 threads x 4
 _ROWS_PER_BLOCK = 8
 
@@ -76,11 +75,12 @@ def int8_matmul_plain(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     return (acc * qw.scales).to(x.dtype)
 
 
-def _splits(t: int, d: int, f: int) -> tuple[int, int]:
+def _splits(t: int, d: int, f: int, sms: int) -> tuple[int, int]:
     """(splits, d_per_split): enough blocks along the contraction dim to
-    put ~2 blocks on every SM when the output alone gives too few."""
+    put ~2 blocks on each of the card's `sms` SMs when the output alone
+    gives too few."""
     blocks = (-(-f // _COLS_PER_BLOCK)) * (-(-t // _ROWS_PER_BLOCK))
-    splits = max(1, min(-(-2 * _SM_COUNT // blocks), d // 128))
+    splits = max(1, min(-(-2 * sms // blocks), d // 128))
     d_per_split = -(-d // splits)
     return -(-d // d_per_split), d_per_split
 
@@ -102,7 +102,7 @@ def int8_matmul_cuda(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
         raise ValueError("int8_matmul kernel takes F % 4 == 0 and a "
                          f"4-byte aligned weight, got F={f}")
     x = x.contiguous()
-    splits, d_per_split = _splits(t, d, f)
+    splits, d_per_split = _splits(t, d, f, kernels.sm_count(x.device))
     partial = torch.empty((splits, t, f), dtype=torch.float32,
                           device=x.device)
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)

@@ -15,8 +15,8 @@ from container_engine_accelerators_tpu.ops.decode_attention import (
 from container_engine_accelerators_tpu_torch import kernels
 from container_engine_accelerators_tpu_torch.ops.decode_attention import (
     decode_attention,
+    decode_attention_cuda,
     decode_attention_plain,
-    plan,
 )
 
 # f32 inputs, f32 math on both sides, sums in another order: 2e-5.
@@ -87,13 +87,28 @@ def test_cpu_dispatch_is_the_plain_version():
         decode_attention_plain(*args[:3], torch.tensor([1, 2, 3]))
 
 
-@pytest.mark.parametrize("b,t,hq,hkv,max_len", [
-    (8, 1, 32, 8, 2048), (1, 1, 32, 8, 161), (8, 128, 32, 8, 2048),
-    (2, 512, 32, 8, 2048), (1, 1, 4, 2, 9000), (1, 1, 4, 2, 5)])
-def test_kernel_plan_covers_the_cache(b, t, hq, hkv, max_len):
-    rows_per_warp, n_splits, chunk = plan(b, t, hq, hkv, max_len)
-    assert rows_per_warp == (1 if t * hq // hkv <= 4 else 4)
-    assert chunk % 64 == 0 and 1 <= n_splits <= 32
-    assert (n_splits - 1) * chunk < max_len <= n_splits * chunk
-    if t == 1 and b * hkv <= 64 and max_len >= 512:
-        assert n_splits > 1     # a small decode batch is split over keys
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("args,error", [
+    ((_bf16(1, 1, 4, 96), _bf16(1, 16, 2, 96), _bf16(1, 16, 2, 96), 0),
+     ValueError),                                      # head_dim 96
+    ((_bf16(1, 1, 4, 64).float(), _bf16(1, 16, 2, 64).float(),
+      _bf16(1, 16, 2, 64).float(), 0), TypeError),     # f32
+    ((_bf16(1, 1, 4, 64), _bf16(1, 2, 16, 64).transpose(1, 2),
+      _bf16(1, 16, 2, 64), 0), ValueError),            # strided cache
+    ((_bf16(2, 1, 4, 64), _bf16(2, 16, 2, 64), _bf16(2, 16, 2, 64),
+      torch.tensor([1, 2, 3])), ValueError),           # lengths not [B]
+    ((_bf16(1, 1, 3, 64), _bf16(1, 16, 2, 64), _bf16(1, 16, 2, 64), 0),
+     ValueError),                                      # Hq % Hkv != 0
+    ((_bf16(1, 1, 4, 64), _bf16(1, 16, 2, 64), _bf16(1, 16, 2, 32), 0),
+     ValueError),                                      # k, v differ
+])
+def test_kernel_wrapper_refuses_before_launch(args, error):
+    # The wrapper checks every argument before it builds or launches the
+    # kernel, so a shape the kernel cannot take raises here, on the CPU.
+    kernels.reset_launches()
+    with pytest.raises(error):
+        decode_attention_cuda(*args)
+    assert kernels.launches["decode_attention"] == 0

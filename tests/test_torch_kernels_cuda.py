@@ -23,6 +23,8 @@ from container_engine_accelerators_tpu_torch.ops.decode_attention import (
 
 pytestmark = pytest.mark.cuda
 
+ROW_RTOL, ROW_ATOL = 2 ** -7, 1e-6   # decode attention, per output row
+
 
 @pytest.fixture
 def cuda():
@@ -36,8 +38,11 @@ def cuda():
                                       (128, 32, 8)])
 @pytest.mark.parametrize("t", [1, 7, 128])
 def test_decode_attention_kernel_matches_plain(cuda, d, hq, hkv, t):
-    # bf16 inputs, f32 math in both; the outputs round to bf16, so one
-    # bf16 ulp of |o| <= ~3 after a different summation order: 2e-2.
+    # bf16 inputs, f32 math in both; the outputs round to bf16, so a
+    # different summation order may move an element by one bf16 ulp,
+    # at most 2^-7 of the largest |o| of its row. Held per row: a long
+    # cache averages |o| down, and one absolute bound would let a few
+    # dropped keys pass there.
     b, max_len = 3, 512
     gen = torch.Generator(device=cuda).manual_seed(d + t)
     q = torch.randn(b, t, hq, d, generator=gen, device=cuda).bfloat16()
@@ -53,8 +58,10 @@ def test_decode_attention_kernel_matches_plain(cuda, d, hq, hkv, t):
         torch.cuda.synchronize()
         assert kernels.launches["decode_attention"] == 1
         want = decode_attention_plain(q, k, v, cache_len)
-        torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                   atol=2e-2)
+        err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
+        scale = want.float().abs().reshape(-1, d).amax(-1)
+        assert bool((err <= ROW_RTOL * scale + ROW_ATOL).all()), (
+            (err / scale).max().item())
 
 
 def test_decode_attention_kernel_ignores_nan_past_live(cuda):

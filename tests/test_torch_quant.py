@@ -80,8 +80,9 @@ def test_quantize_llama_params_covers_projections_and_head():
     assert not isinstance(model.layers[0].wq, quant.QuantWeight)
 
 
+@pytest.mark.parametrize("sms", [132, 114])     # H100 SXM and PCIe
 @pytest.mark.parametrize("t,d,f", [(8, 4096, 14336), (8, 4096, 128256),
                                    (1024, 4096, 4096), (1, 14336, 4096)])
-def test_contraction_split_covers_d_exactly(t, d, f):
-    splits, per = quant._splits(t, d, f)
+def test_contraction_split_covers_d_exactly(t, d, f, sms):
+    splits, per = quant._splits(t, d, f, sms)
     assert splits >= 1 and per * (splits - 1) < d <= per * splits
