@@ -6,21 +6,34 @@
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
   build    compile the port's CUDA kernels from this checkout;
-  k1_*     kernels/decode_attention.cu against decode_attention_plain at
-           Llama-3-8B widths, timed beside the plain version and
-           F.scaled_dot_product_attention (timing only);
+  k1_*     kernels/decode_attention.cu (contiguous) against
+           decode_attention_plain at Llama-3-8B widths, timed beside the
+           plain version and F.scaled_dot_product_attention (timing only);
   k2_*     kernels/int8_matmul.cu against int8_matmul_plain, timed beside
            torch.matmul on the dequantized weight (timing only);
+  k3_*     the paged entry of kernels/decode_attention.cu against
+           paged_decode_attention_plain at 8B widths and page 128, timed
+           beside the plain version, K1 on a contiguous copy of the same
+           keys, and SDPA on that copy (timing only);
   serve    llama3_8b at full width and depth, random bf16 weights from a
            seed, behind BatchingEngine + make_server on an ephemeral
            port: concurrent requests in two buckets plus one streamed;
            then decode ms per step at batch 8 and a torch.profiler
            breakdown of the device time of a decode step;
-  int8     the same weights through quantize_llama_params and generate.
-Then the kernels line (launches on the main path, errors, times and
-bounds) and, last, {"ok": true, "device": {...}}. Any failure exits
-non-zero before that line. Without CUDA, or outside a checkout of the
-repository, it exits non-zero at once.
+  int8     the same weights through quantize_llama_params and generate;
+  paged    the same weights behind PagedContinuousEngine + make_server:
+           one request that leaves a 256-token prefix in the prefix
+           cache, then a concurrent burst of short, prefix-sharing, long
+           (two prefill chunks) and streamed requests; then the paged
+           decode tick at 8 slots and its torch.profiler breakdown;
+  paged_preempt  a second paged engine with a pool of 8 usable pages and
+           3 requests that need 12: requests are preempted and requeued;
+  continuous  ContinuousEngine (slot cache, K1 with per-slot lengths)
+           behind make_server on a burst of short and streamed requests.
+Then each phase's seconds, the kernels line (launches on the main path,
+errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
+failure exits non-zero before that line. Without CUDA, or outside a
+checkout of the repository, it exits non-zero at once.
 
 Times come from CUDA events around a run of launches that the host
 queued while the card was held busy, so they are the card's time, not
@@ -30,6 +43,7 @@ the host's. Bounds use the H100 SXM's published rates.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -45,8 +59,10 @@ SEED = 0
 
 K1_SOURCE = "container_engine_accelerators_tpu_torch/kernels/decode_attention.cu"
 K2_SOURCE = "container_engine_accelerators_tpu_torch/kernels/int8_matmul.cu"
+K3_SOURCE = K1_SOURCE
 K1_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:282"
 K2_REPLACES = "container_engine_accelerators_tpu/ops/quant.py:214"
+K3_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:391"
 # K1, per output row: bf16 output, f32 math on both sides, so a
 # different summation order moves an element by at most one bf16 ulp,
 # 2^-7 of the row's largest |o|. Held per row, since a long cache
@@ -102,6 +118,46 @@ def bound_ms(n_bytes: float, flops: float, kind: str) -> tuple[float, str]:
     return t_ops * 1e3, "operations"
 
 
+def _row_errors(got, want, d: int, what: str) -> tuple[float, float]:
+    """(max |diff|, worst row's max |diff| / max |o|). Fails unless each
+    output row is within K1_ROW_RTOL of its own max |o| (+ K1_ROW_ATOL)."""
+    row_err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
+    row_scale = want.float().abs().reshape(-1, d).amax(-1)
+    rel = (row_err / row_scale).max().item()
+    require(bool((row_err <= K1_ROW_RTOL * row_scale + K1_ROW_ATOL).all()),
+            f"{what}: a row's max|diff| exceeds {K1_ROW_RTOL} of its "
+            f"max|o| (worst {rel})")
+    return row_err.max().item(), rel
+
+
+def _attention_work(torch, lens_b, t: int, max_len: int, b: int, hq: int,
+                    hkv: int, d: int) -> tuple[float, float, object]:
+    """(bytes, flops, mask) of attention these inputs need: q and out
+    once, the live K/V rows once, 4*D flops per (query row, visible key);
+    and the SDPA mask [B, 1, T, max_len] of the same function."""
+    key_pos = torch.arange(max_len, device=lens_b.device)
+    t_idx = torch.arange(t, device=lens_b.device)
+    live = (lens_b + t).clamp(max=max_len)
+    mask = ((key_pos[None, None, :] < live[:, None, None])
+            & (key_pos[None, None, :]
+               <= lens_b[:, None, None] + t_idx[None, :, None]))
+    n_live = live.sum().item()
+    visible = torch.minimum(lens_b[:, None] + t_idx[None, :] + 1,
+                            live[:, None]).sum().item()
+    n_bytes = 2 * (2 * b * t * hq * d) + 2 * (2 * n_live * hkv * d)
+    return n_bytes, 4 * d * hq * visible, mask[:, None]
+
+
+def _sdpa(F, q, k, v, mask):
+    """One PyTorch call computing the same attention on a contiguous
+    cache: the library yardstick (timing only; the port never calls
+    it)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+
 # ---------------------------------------------------------------- K1
 
 def k1_phase(torch, dev) -> dict:
@@ -133,44 +189,16 @@ def k1_phase(torch, dev) -> dict:
         got = decode_attention_cuda(q, k, v, cache_len)
         torch.cuda.synchronize()
         want = decode_attention_plain(q, k, v, cache_len)
-        row_err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
-        row_scale = want.float().abs().reshape(-1, d).amax(-1)
-        err = row_err.max().item()
-        rel = (row_err / row_scale).max().item()
-        require(bool((row_err <= K1_ROW_RTOL * row_scale
-                      + K1_ROW_ATOL).all()),
-                f"K1 {name}: a row's max|diff| exceeds {K1_ROW_RTOL} of "
-                f"its max|o| (worst {rel})")
-
-        # SDPA yardstick: same mask, GQA heads, [B, H, T, S] views.
+        err, rel = _row_errors(got, want, d, f"K1 {name}")
         lens_b = (torch.as_tensor(lens, device=dev).reshape(-1)
                   .expand(b).long())
-        key_pos = torch.arange(max_len, device=dev)
-        t_idx = torch.arange(t, device=dev)
-        live = (lens_b + t).clamp(max=max_len)
-        mask = ((key_pos[None, None, :] < live[:, None, None])
-                & (key_pos[None, None, :]
-                   <= lens_b[:, None, None] + t_idx[None, :, None]))
-        mask = mask[:, None]
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt,
-                                                  attn_mask=mask,
-                                                  enable_gqa=True)
-
+        n_bytes, flops, mask = _attention_work(torch, lens_b, t, max_len, b,
+                                               hq, hkv, d)
         ms = device_ms(torch, lambda: decode_attention_cuda(q, k, v,
                                                             cache_len))
         plain_ms = device_ms(torch, lambda: decode_attention_plain(
             q, k, v, cache_len), iters=5)
-        library_ms = device_ms(torch, library, iters=5)
-        # Work these inputs need: q and out once, the live K/V rows
-        # once; 4*D flops per (query row, visible key).
-        n_live = live.sum().item()
-        visible = torch.minimum(lens_b[:, None] + t_idx[None, :] + 1,
-                                live[:, None]).sum().item()
-        n_bytes = 2 * (2 * b * t * hq * d) + 2 * (2 * n_live * hkv * d)
-        flops = 4 * d * hq * visible
+        library_ms = device_ms(torch, _sdpa(F, q, k, v, mask), iters=5)
         bms, by = bound_ms(n_bytes, flops, "bf16")
         results[name] = {"max_abs_err": err, "max_row_rel_err": rel,
                          "ms": ms, "plain_ms": plain_ms,
@@ -225,19 +253,106 @@ def k2_phase(torch, dev) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- K3
+
+def _page_pool(torch, dev, gen, lens, t, page, max_pages, hkv, d):
+    """(k_pool, v_pool, tables): each slot's live pages at permuted pool
+    rows, and table entries past them 0 or out-of-range garbage."""
+    live_pages = [-(-(n + t) // page) for n in lens]
+    n_pages = sum(live_pages) + 8
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = torch.randint(-3, n_pages + 3, (len(lens), max_pages),
+                           generator=gen, device=dev, dtype=torch.int32)
+    tables[:, ::2] = 0
+    used = 0
+    for i, n in enumerate(live_pages):
+        tables[i, :n] = perm[used:used + n].int()
+        used += n
+    shape = (n_pages, page, hkv, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    return k_pool, v_pool, tables
+
+
+def k3_phase(torch, dev) -> dict:
+    import torch.nn.functional as F
+
+    from container_engine_accelerators_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda,
+        paged_decode_attention_cuda,
+        paged_decode_attention_plain,
+    )
+
+    hq, hkv, d, page, max_pages = 32, 8, 128, 128, 16
+    max_len = page * max_pages
+    cases = [
+        ("decode", 1, [0, 1, 127, 128, 129, 2047, 1000, 513]),
+        ("prefill_chunk_512", 512, [512]),
+        ("prefix_suffix_128", 128, [256]),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    results = {}
+    for name, t, lens in cases:
+        b = len(lens)
+        k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
+                                            max_pages, hkv, d)
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = paged_decode_attention_cuda(q, k_pool, v_pool, lens_t, tables)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_plain(q, k_pool, v_pool, lens_t,
+                                            tables)
+        err, rel = _row_errors(got, want, d, f"K3 {name}")
+        # The same keys in a contiguous cache: K1 there shows what the
+        # paging costs, and SDPA there is the library yardstick (no one
+        # PyTorch call computes paged attention).
+        rows = tables.long().clamp(0, k_pool.shape[0] - 1)
+        k = k_pool[rows].reshape(b, max_len, hkv, d).contiguous()
+        v = v_pool[rows].reshape(b, max_len, hkv, d).contiguous()
+        n_bytes, flops, mask = _attention_work(torch, lens_t.long(), t,
+                                               max_len, b, hq, hkv, d)
+        n_bytes += tables.numel() * 4 + lens_t.numel() * 4
+        ms = device_ms(torch, lambda: paged_decode_attention_cuda(
+            q, k_pool, v_pool, lens_t, tables))
+        plain_ms = device_ms(torch, lambda: paged_decode_attention_plain(
+            q, k_pool, v_pool, lens_t, tables), iters=5)
+        k1_ms = device_ms(torch, lambda: decode_attention_cuda(q, k, v,
+                                                               lens_t))
+        library_ms = device_ms(torch, _sdpa(F, q, k, v, mask), iters=5)
+        bms, by = bound_ms(n_bytes, flops, "bf16")
+        results[name] = {"max_abs_err": err, "max_row_rel_err": rel,
+                         "ms": ms, "plain_ms": plain_ms,
+                         "k1_contiguous_ms": k1_ms,
+                         "library_ms": library_ms,
+                         "library": "SDPA on a contiguous copy",
+                         "bound_ms": bms, "bound_by": by}
+        emit({"phase": f"k3_{name}", "T": t, "slots": b, "Hq": hq,
+              "Hkv": hkv, "D": d, "page": page, "max_pages": max_pages,
+              "n_pages": k_pool.shape[0], "lengths": lens,
+              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL,
+              **results[name]})
+        del q, k, v, k_pool, v_pool, got, want, mask
+    return results
+
+
 # ---------------------------------------------------------------- serve
 
-def _post(url: str, body: dict) -> tuple[dict | list, float]:
+def _post(url: str, body: dict) -> tuple[dict | list, float, float]:
+    """(answer, sent, done): the JSON answer, or a stream's events, and
+    the monotonic clock when the request went out and when its answer
+    was in. The server runs in this process, so its events' `ts` are on
+    the same clock."""
     req = urllib.request.Request(url + "/generate",
                                  data=json.dumps(body).encode())
+    sent = time.monotonic()
     with urllib.request.urlopen(req, timeout=600) as resp:
         text = resp.read().decode()
-    done = time.perf_counter()
+    done = time.monotonic()
     if body.get("stream"):
         events = [json.loads(line[len("data: "):])
                   for line in text.split("\n\n") if line]
-        return events, done
-    return json.loads(text), done
+        return events, sent, done
+    return json.loads(text), sent, done
 
 
 def _check_answer(tokens: list, prompt: list, n_new: int, vocab: int,
@@ -247,6 +362,38 @@ def _check_answer(tokens: list, prompt: list, n_new: int, vocab: int,
     require(tokens[:len(prompt)] == prompt, f"{what}: prompt not echoed")
     require(all(0 <= tok < vocab for tok in tokens[len(prompt):]),
             f"{what}: token outside the vocabulary")
+
+
+def _answer_tokens(req: dict, ans) -> list:
+    """The tokens of one answer; a stream's token events must be its
+    done tokens."""
+    if req.get("stream"):
+        require("done" in ans[-1], f"stream did not finish: {ans[-1]}")
+        toks = ans[-1]["tokens"]
+        require([e["token"] for e in ans[:-1]]
+                == toks[len(req["tokens"]):], "stream tokens")
+        return toks
+    require("tokens" in ans, f"request failed: {ans}")
+    return ans["tokens"]
+
+
+def _check_burst(requests: list, answers: list, vocab: int,
+                 what: str) -> int:
+    """Check every answer of a burst; returns the tokens generated."""
+    generated = 0
+    for req, (ans, _, _) in zip(requests, answers):
+        _check_answer(_answer_tokens(req, ans), req["tokens"],
+                      req["max_new_tokens"], vocab, what)
+        generated += req["max_new_tokens"]
+    return generated
+
+
+def _stream_ttft_s(requests: list, answers: list) -> list:
+    """Per streamed request: its first token event's `ts` minus the time
+    it was sent (one monotonic clock, the server is in-process)."""
+    return [ans[0]["ts"] - sent
+            for req, (ans, sent, _) in zip(requests, answers)
+            if req.get("stream")]
 
 
 def _time_generate(torch, generate, model, prompt, cfg, n_new) -> float:
@@ -268,25 +415,18 @@ def step_times_ms(torch, generate, model, prompt, cfg) -> tuple[float, float]:
     return short * 1e3, (long - short) / 32 * 1e3
 
 
-def profile_decode(torch, dev, decode, model, cfg, batch,
-                   steps: int = 4) -> dict:
-    """Device time of decode steps by kernel, from torch.profiler: the
-    busy time per step and the kernels that take most of it. None where
-    the profiler saw no device activity."""
+def profile_steps(torch, step, steps: int = 4) -> dict:
+    """Device time of `steps` calls of step() by kernel, from
+    torch.profiler: the busy time per step and the kernels that take
+    most of it. None where the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache = decode.init_cache(cfg, batch.shape[0], batch.shape[1] + steps + 1,
-                              dev)
-    logits, cache = decode.decode_step(model, cache, batch, cfg)
-    tok = logits[:, -1].argmax(dim=-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            logits, cache = decode.decode_step(model, cache, tok[:, None],
-                                               cfg)
-            tok = logits[:, -1].argmax(dim=-1)
+            step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -299,11 +439,63 @@ def profile_decode(torch, dev, decode, model, cfg, batch,
                     for e in kernels[:6]}}
 
 
+def profile_decode(torch, dev, decode, model, cfg, batch,
+                   steps: int = 4) -> dict:
+    """profile_steps over decode steps of the contiguous cache at the
+    batch's prompt length."""
+    cache = decode.init_cache(cfg, batch.shape[0], batch.shape[1] + steps + 1,
+                              dev)
+    logits, cache = decode.decode_step(model, cache, batch, cfg)
+    tok = logits[:, -1].argmax(dim=-1)
+
+    def step():
+        nonlocal cache, tok
+        logits, cache = decode.decode_step(model, cache, tok[:, None], cfg)
+        tok = logits[:, -1].argmax(dim=-1)
+
+    return profile_steps(torch, step, steps)
+
+
+@contextlib.contextmanager
+def serving(engine):
+    """make_server(engine) on an ephemeral port, in a thread; yields its
+    URL. On exit the server and the engine stop, and their threads are
+    joined."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        make_server,
+    )
+
+    srv = make_server(engine, 0)
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    try:
+        yield f"http://localhost:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+        engine.thread.join(timeout=60)
+        server_thread.join(timeout=60)
+    require(not engine.thread.is_alive(), "engine worker did not stop")
+
+
+def burst(url: str, requests: list) -> tuple[list, float, float]:
+    """Send all requests at once; (answers, start, end of the last)."""
+    t_start = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+        answers = list(pool.map(lambda r: _post(url, r), requests))
+    return answers, t_start, max(done for _, _, done in answers)
+
+
+def healthz(url: str) -> dict:
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
 def serve_phase(torch, dev, np) -> tuple[dict, object, object]:
     from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.cli.serve import (
         BatchingEngine,
-        make_server,
     )
     from container_engine_accelerators_tpu_torch.models import decode
     from container_engine_accelerators_tpu_torch.models.llama import (
@@ -333,46 +525,19 @@ def serve_phase(torch, dev, np) -> tuple[dict, object, object]:
 
     engine = BatchingEngine(model, cfg, max_batch=8, window_ms=250.0,
                             engine_core="async")
-    srv = make_server(engine, 0)
-    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    server_thread.start()
-    url = f"http://localhost:{srv.server_address[1]}"
-    try:
+    with serving(engine) as url:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        t_start = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
-            answers = list(pool.map(lambda r: _post(url, r), requests))
-        t_end = max(done for _, done in answers)
+        answers, t_start, t_end = burst(url, requests)
         # A repeated greedy request answers the same tokens.
         repeat = {"tokens": requests[0]["tokens"], "max_new_tokens": 32}
         again = [_post(url, repeat)[0]["tokens"] for _ in range(2)]
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
         peak = torch.cuda.max_memory_allocated()
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
-            health = json.loads(resp.read())
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        engine.stop()
-        engine.thread.join(timeout=60)
-        server_thread.join(timeout=60)
-    require(not engine.thread.is_alive(), "engine worker did not stop")
+        health = healthz(url)
 
-    generated = 0
-    for req, (ans, _) in zip(requests, answers):
-        if req.get("stream"):
-            require("done" in ans[-1], "stream did not finish")
-            toks = ans[-1]["tokens"]
-            require([e["token"] for e in ans[:-1]]
-                    == toks[len(req["tokens"]):], "stream tokens")
-        else:
-            require("tokens" in ans, f"request failed: {ans}")
-            toks = ans["tokens"]
-        _check_answer(toks, req["tokens"], req["max_new_tokens"],
-                      cfg.vocab_size, "serve")
-        generated += req["max_new_tokens"]
+    generated = _check_burst(requests, answers, cfg.vocab_size, "serve")
     require(again[0] == again[1], "repeated greedy request changed")
     _check_answer(again[0], repeat["tokens"], 32, cfg.vocab_size, "repeat")
     require(health["requests"] == len(requests) + 2 and
@@ -408,7 +573,7 @@ def serve_phase(torch, dev, np) -> tuple[dict, object, object]:
         "phase": "serve", "model": "llama3_8b", "n_layers": cfg.n_layers,
         "params": n_params, "init_s": init_s,
         "requests": len(requests), "batches": health["batches"],
-        "time_to_first_batch_s": min(d for _, d in answers) - t_start,
+        "time_to_first_batch_s": min(d for _, _, d in answers) - t_start,
         "burst_s": t_end - t_start,
         "generated_tokens_per_s": generated / (t_end - t_start),
         "prefill_ms_b8_t128": prefill_ms,
@@ -472,6 +637,232 @@ def int8_phase(torch, dev, np, model, cfg) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- engines
+
+def _prompts(np, cfg, seed):
+    rs = np.random.RandomState(seed)
+    return lambda n: rs.randint(0, cfg.vocab_size, size=n).tolist()
+
+
+def paged_tick(torch, dev, np, model, cfg, ticks: int = 16) -> dict:
+    """The paged decode tick at 8 active slots (page 128, the default
+    pool of 65 pages): each slot prefilled with 128 tokens, then ticks
+    of decode_step_paged + argmax. Wall ms per tick, device-synchronised
+    around `ticks` ticks, and the torch.profiler breakdown of 4 more."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    slots, page, max_pages, n_pages = 8, 128, 16, 65
+    cache = decode.init_paged_cache(cfg, slots, n_pages, page, max_pages,
+                                    dev)
+    prompt = _prompts(np, cfg, SEED + 5)
+    for s in range(slots):
+        rows = [1 + 2 * s, 2 + 2 * s] + [0] * (max_pages - 2)
+        decode.set_slot_pages(cache, s, torch.tensor(rows, dtype=torch.int32,
+                                                     device=dev), 0)
+        _, cache = decode.prefill_suffix_paged(
+            model, cache, s, torch.tensor(prompt(128), device=dev), 128, cfg)
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    tok = torch.zeros(slots, dtype=torch.long, device=dev)
+
+    def tick():
+        nonlocal cache, tok
+        logits, cache = decode.decode_step_paged(model, cache, tok, active,
+                                                 cfg)
+        tok = logits.argmax(dim=-1)
+
+    for _ in range(4):
+        tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        tick()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+    profile = profile_steps(torch, tick)
+    busy = profile["busy_ms_per_step"]
+    return {"paged_decode_tick_ms_8_slots": tick_ms,
+            "tick_cache_lengths": [128 + 4, 128 + 4 + ticks + 4],
+            "device_busy_ms_per_tick": busy,
+            "device_idle_share": None if busy is None else 1 - busy / tick_ms,
+            "top_kernels_ms_per_tick": profile["top"]}
+
+
+def paged_phase(torch, dev, np, model, cfg) -> dict:
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    prompt = _prompts(np, cfg, SEED + 3)
+    prefix = prompt(256)
+    warm = {"tokens": prefix + prompt(128), "max_new_tokens": 16}
+    hits = [{"tokens": prefix + prompt(128), "max_new_tokens": 16}
+            for _ in range(3)]
+    # The long prompts go last, so the slots they join are decoding.
+    requests = ([{"tokens": prompt(128), "max_new_tokens": 32}
+                 for _ in range(8)] + hits
+                + [{"tokens": prompt(64), "max_new_tokens": 16,
+                    "stream": True} for _ in range(2)]
+                + [{"tokens": prompt(1024), "max_new_tokens": 16}
+                   for _ in range(2)])
+    engine = PagedContinuousEngine(model, cfg, max_slots=8, max_len=2048,
+                                   page=128, prefix_cap=256,
+                                   prefill_chunk=512, engine_core="async")
+    # Every prefill chunk as (request id, start, new_len, steps_run).
+    chunks = []
+    run_chunk = engine._run_chunk
+
+    def logged_chunk(slot, tokens, start, new_len):
+        chunks.append((engine._slots[slot]["rid"], start, new_len,
+                       engine.steps_run))
+        return run_chunk(slot, tokens, start, new_len)
+
+    engine._run_chunk = logged_chunk
+    with serving(engine) as url:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        first = _post(url, warm)
+        answers, t_start, t_end = burst(url, requests)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        health = healthz(url)
+
+    _check_answer(_answer_tokens(warm, first[0]), warm["tokens"], 16,
+                  cfg.vocab_size, "paged warm-up")
+    generated = _check_burst(requests, answers, cfg.vocab_size, "paged")
+    require(health["requests"] == 1 + len(requests) and
+            health["worker_alive"], f"healthz {health}")
+    require(engine.prefix_pages_reused >= 6,
+            f"prefix pages reused {engine.prefix_pages_reused} < 6")
+    require([c[3] for c in chunks] == engine.prefill_chunk_trace,
+            "chunk log disagrees with prefill_chunk_trace")
+    by_rid: dict = {}
+    for rid, start, new_len, steps in chunks:
+        by_rid.setdefault(rid, []).append((start, new_len, steps))
+    split = [c for c in by_rid.values() if len(c) > 1]
+    require(len(split) == 2 and all(
+        [c[:2] for c in cs] == [(0, 512), (512, 1024)] and cs[1][2] > cs[0][2]
+        for cs in split),
+        f"1024-token prompts: want two chunks with decode steps between, "
+        f"got {split}")
+    require(engine.pages_in_use == engine.prefix_index.pages_held(),
+            f"leaked pages: {engine.pages_in_use} in use, "
+            f"{engine.prefix_index.pages_held()} held by the prefix index")
+    require(launches.get("paged_decode_attention", 0) > 0,
+            "paged path launched no paged_decode_attention kernel")
+    # Not gated: with random 8B weights, near-ties let bf16 paths part.
+    matches = []
+    for req, (ans, _, _) in zip(hits, answers[8:11]):
+        n = len(req["tokens"])
+        ref = decode.generate(model, torch.tensor([req["tokens"]],
+                                                  device=dev), cfg, 16)
+        matches.append(sum(a == b for a, b in
+                           zip(ans["tokens"][n:], ref[0, n:].tolist())))
+    counters = {name: getattr(engine, name) for name in (
+        "prefix_pages_reused", "prefills_run", "prefill_chunks_run",
+        "prefill_tokens_run", "preemptions")}
+    del engine, chunks
+    result = {
+        "phase": "paged", "model": "llama3_8b", "max_slots": 8,
+        "max_len": 2048, "page": 128, "pool_pages": 65,
+        "prefill_chunk": 512, "requests": 1 + len(requests),
+        "burst_requests": len(requests), "burst_s": t_end - t_start,
+        "generated_tokens_per_s": generated / (t_end - t_start),
+        "stream_ttft_s": _stream_ttft_s(requests, answers),
+        "decode_steps": health["batches"],
+        **counters,
+        "long_prompt_chunks": split,
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "prefix_hit_tokens_matching_generate": [f"{m}/16" for m in matches],
+        **paged_tick(torch, dev, np, model, cfg),
+    }
+    emit(result)
+    return result
+
+
+def paged_preempt_phase(torch, dev, np, model, cfg) -> dict:
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+
+    prompt = _prompts(np, cfg, SEED + 6)
+    n_new = 250
+    prompts = [prompt(200) for _ in range(3)]
+    # 8 usable pages; each request grows to 450 tokens, 4 pages: 12.
+    engine = PagedContinuousEngine(model, cfg, max_slots=3, max_len=2048,
+                                   page=128, pool_pages=9,
+                                   prefill_chunk=512, engine_core="async")
+    try:
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        futs = [engine.submit(p, n_new, 0.0) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        seconds = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    finally:
+        engine.stop()
+        engine.thread.join(timeout=60)
+    require(not engine.thread.is_alive(), "engine worker did not stop")
+    for p, out in zip(prompts, outs):
+        _check_answer(out, p, n_new, cfg.vocab_size, "paged_preempt")
+    require(engine.preemptions > 0, "no request was preempted")
+    require(engine.requests_served == 3, "not every request finished")
+    require(engine.pages_in_use == engine.prefix_index.pages_held(),
+            "leaked pages after preemption")
+    require(launches.get("paged_decode_attention", 0) > 0,
+            "preempt path launched no paged_decode_attention kernel")
+    result = {"phase": "paged_preempt", "max_slots": 3, "pool_pages": 9,
+              "prompt": 200, "new_tokens": n_new,
+              "preemptions": engine.preemptions,
+              "prefills_run": engine.prefills_run, "seconds": seconds,
+              "generated_tokens_per_s": 3 * n_new / seconds,
+              "launches": launches}
+    emit(result)
+    return result
+
+
+def continuous_phase(torch, dev, np, model, cfg) -> dict:
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        ContinuousEngine,
+    )
+
+    prompt = _prompts(np, cfg, SEED + 7)
+    requests = ([{"tokens": prompt(128), "max_new_tokens": 32}
+                 for _ in range(8)]
+                + [{"tokens": prompt(64), "max_new_tokens": 16,
+                    "stream": True} for _ in range(2)])
+    engine = ContinuousEngine(model, cfg, max_slots=8, max_len=2048,
+                              prefill_chunk=512, engine_core="async")
+    with serving(engine) as url:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        answers, t_start, t_end = burst(url, requests)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        health = healthz(url)
+    generated = _check_burst(requests, answers, cfg.vocab_size,
+                             "continuous")
+    require(health["requests"] == len(requests) and health["worker_alive"],
+            f"healthz {health}")
+    require(launches.get("decode_attention", 0) > 0,
+            "continuous path launched no decode_attention kernel")
+    result = {"phase": "continuous", "model": "llama3_8b", "max_slots": 8,
+              "max_len": 2048, "requests": len(requests),
+              "burst_s": t_end - t_start,
+              "generated_tokens_per_s": generated / (t_end - t_start),
+              "stream_ttft_s": _stream_ttft_s(requests, answers),
+              "decode_steps": health["batches"],
+              "max_memory_allocated_bytes": peak, "launches": launches}
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -500,25 +891,40 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
         require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
 
-        t0 = time.perf_counter()
-        lib = kernels.build()
+        seconds = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t0
+            return out
+
+        lib = timed("build", kernels.build)
         kernels.load()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+        emit({"phase": "build", "seconds": seconds["build"],
               "library": os.path.basename(lib)})
 
-        k1 = k1_phase(torch, dev)
-        k2 = k2_phase(torch, dev)
-        serve, model, cfg = serve_phase(torch, dev, np)
-        int8 = int8_phase(torch, dev, np, model, cfg)
+        k1 = timed("k1", k1_phase, torch, dev)
+        k2 = timed("k2", k2_phase, torch, dev)
+        k3 = timed("k3", k3_phase, torch, dev)
+        serve, model, cfg = timed("serve", serve_phase, torch, dev, np)
+        int8 = timed("int8", int8_phase, torch, dev, np, model, cfg)
+        paged = timed("paged", paged_phase, torch, dev, np, model, cfg)
+        preempt = timed("paged_preempt", paged_preempt_phase, torch, dev,
+                        np, model, cfg)
+        cont = timed("continuous", continuous_phase, torch, dev, np, model,
+                     cfg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    emit({"phase_seconds": seconds})
 
     def launches(name):
-        return (serve["launches"].get(name, 0)
-                + int8["launches"].get(name, 0))
+        return sum(phase["launches"].get(name, 0)
+                   for phase in (serve, int8, paged, preempt, cont))
 
-    k1_main, k2_main = k1["decode_slots"], k2["w_gate_bf16"]
+    k1_main, k2_main, k3_main = (k1["decode_slots"], k2["w_gate_bf16"],
+                                 k3["decode"])
     emit({"kernels": [
         {"name": "decode_attention", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches("decode_attention"),
@@ -531,6 +937,14 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
          **{key: k2_main[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": launches("paged_decode_attention"),
+         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+         "max_row_rel_err": max(r["max_row_rel_err"] for r in k3.values()),
+         **{key: k3_main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "k1_contiguous_ms", "library")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

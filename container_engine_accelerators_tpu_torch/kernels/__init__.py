@@ -43,6 +43,10 @@ _SIGNATURES = {
     # (q, k, v, lens, out, B, T, Hq, Hkv, D, max_len, scale, stream)
     "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
+    # (q, k_pool, v_pool, lens, tables, out, B, T, Hq, Hkv, D, page,
+    #  max_pages, n_pages, scale, stream)
+    "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, ctypes.c_float, _P],
     # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
     #  stream)
     "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

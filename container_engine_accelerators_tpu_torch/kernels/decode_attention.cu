@@ -1,7 +1,8 @@
-// GQA attention of T new queries over a contiguous bf16 KV cache, for
-// every prefill and decode step of the serving path.
+// GQA attention of T new queries over a bf16 KV cache, for every
+// prefill and decode step of the serving path: K1 over a contiguous
+// cache, K3 over a paged one.
 //
-// Replaces the TPU kernel container_engine_accelerators_tpu/ops/
+// K1 replaces the TPU kernel container_engine_accelerators_tpu/ops/
 // decode_attention.py::decode_attention (_decode_kernel, pl.pallas_call
 // at line 282) in its bf16-cache mode. Same function:
 //   q     [B, T, Hq, D] bf16, queries at absolute positions
@@ -13,6 +14,18 @@
 // and p <= cache_len + t. Online softmax with m, l and the accumulator
 // in f32; p.v in f32, as the Pallas body does.
 //
+// K3 replaces ...::paged_decode_attention (paged_kernel, pl.pallas_call
+// at line 391) in its bf16 mode. It computes K1's function in logical
+// positions; only a key's address differs. The cache is a page pool
+//   k, v    [n_pages, page, Hkv, D] bf16
+//   tables  [B, max_pages] int32, the pool row of each logical page
+// and key `pos` of row b lives at pool row
+// clamp(tables[b, pos / page], 0, n_pages - 1), offset pos % page, with
+// max_len = max_pages * page. As in the Pallas version, the body is K1's:
+// the kernel is a template over how a key's row is addressed. The page
+// is looked up per key, not per tile, so a 64-key tile may straddle
+// pages and any page size works.
+//
 // What bounds it on an H100: bytes. Every step streams the live part of
 // the cache once (HBM, 3.35 TB/s on the SXM part); the arithmetic is
 // ~2 flops per cache byte per query row. The design, the simple first
@@ -23,8 +36,9 @@
 //     TPU core did. A decode step has only B*Hkv CTAs, too few for 132
 //     SMs; splitting the key range across CTAs waits for a later version;
 //   - the key loop stops at cache_len + (last query of the block) + 1:
-//     positions at or past `live` are never read, so a reused cache
-//     holding NaN there cannot reach the accumulator;
+//     positions at or past `live` are never read (nor, paged, are their
+//     table entries), so a reused cache holding NaN there, or a stale
+//     table entry, cannot reach the accumulator;
 //   - K/V tiles of 64 keys come in with 16-byte loads and sit in shared
 //     memory with an odd row stride (in 32-bit words), so a lane per key
 //     reads its row without bank conflicts; one warp reduction per tile
@@ -56,14 +70,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D, int RPW>
+// Row of key `pos` of batch row b, in units of Hkv * D elements.
+struct ContiguousKeys {
+  int max_len;
+  __device__ __forceinline__ size_t row(int b, int pos) const {
+    return (size_t)b * max_len + pos;
+  }
+};
+
+struct PagedKeys {
+  const int* tables;   // [B, max_pages]
+  int page, max_pages, n_pages;
+  __device__ __forceinline__ size_t row(int b, int pos) const {
+    int r = tables[(size_t)b * max_pages + pos / page];
+    r = min(max(r, 0), n_pages - 1);
+    return (size_t)r * page + pos % page;
+  }
+};
+
+template <int D, int RPW, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const int* __restrict__ lens,
                         __nv_bfloat16* __restrict__ out, int T, int Hq,
-                        int Hkv, int max_len, float scale) {
+                        int Hkv, int max_len, float scale, Keys keys) {
   constexpr int kPairs = D / 2;                    // bf16x2 words per row
   constexpr int kStride = kPairs + 1;              // odd: conflict-free
   constexpr int kPairsPerLane = (kPairs + 31) / 32;
@@ -125,8 +157,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int pos = k0 + j;
       uint4 kw = make_uint4(0, 0, 0, 0), vw = kw;
       if (pos < k_end) {   // never read at or past `live`
-        const size_t off =
-            ((size_t)(b * max_len + pos) * Hkv + kvh) * kChunks + c;
+        const size_t off = (keys.row(b, pos) * Hkv + kvh) * kChunks + c;
         kw = k4[off];
         vw = v4[off];
       }
@@ -206,38 +237,49 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 struct Args {
   const void *q, *k, *v, *lens;
   void* out;
-  int B, T, Hq, Hkv, max_len;
+  int B, T, Hq, Hkv, max_len;   // max_len: logical (max_pages * page)
   float scale;
   cudaStream_t stream;
 };
 
-template <int D, int RPW>
-void launch(const Args& a) {
+template <int D, int RPW, class Keys>
+void launch(const Args& a, Keys keys) {
   constexpr int kRows = kWarps * RPW;
   const int n_rows = a.T * (a.Hq / a.Hkv);
   const dim3 grid((n_rows + kRows - 1) / kRows, a.Hkv, a.B);
-  decode_attention_kernel<D, RPW><<<grid, kThreads, 0, a.stream>>>(
+  decode_attention_kernel<D, RPW, Keys><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<const int*>(a.lens), static_cast<__nv_bfloat16*>(a.out),
-      a.T, a.Hq, a.Hkv, a.max_len, a.scale);
+      a.T, a.Hq, a.Hkv, a.max_len, a.scale, keys);
 }
 
 // Decode (at most 4 query rows per GQA group) runs one row per warp,
 // prefill four.
-template <int D>
-void launch_rows(const Args& a) {
+template <int D, class Keys>
+void launch_rows(const Args& a, Keys keys) {
   if (a.T * (a.Hq / a.Hkv) <= kWarps)
-    launch<D, 1>(a);
+    launch<D, 1>(a, keys);
   else
-    launch<D, 4>(a);
+    launch<D, 4>(a, keys);
+}
+
+// Returns cudaGetLastError() after the launch (0 = launched); a head dim
+// it does not take returns cudaErrorInvalidValue unlaunched.
+template <class Keys>
+int launch_head_dim(const Args& a, int D, Keys keys) {
+  switch (D) {
+    case 32: launch_rows<32>(a, keys); break;
+    case 64: launch_rows<64>(a, keys); break;
+    case 128: launch_rows<128>(a, keys); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched); a head dim
-// it does not take returns cudaErrorInvalidValue unlaunched.
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lens,
                                      void* out, int B, int T, int Hq,
@@ -245,11 +287,16 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      void* stream) {
   const Args a{q, k, v, lens, out, B, T, Hq, Hkv, max_len, scale,
                static_cast<cudaStream_t>(stream)};
-  switch (D) {
-    case 32: launch_rows<32>(a); break;
-    case 64: launch_rows<64>(a); break;
-    case 128: launch_rows<128>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_head_dim(a, D, ContiguousKeys{max_len});
+}
+
+extern "C" int paged_decode_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const void* lens,
+    const void* tables, void* out, int B, int T, int Hq, int Hkv, int D,
+    int page, int max_pages, int n_pages, float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, lens, out, B, T, Hq, Hkv,
+               max_pages * page, scale, static_cast<cudaStream_t>(stream)};
+  return launch_head_dim(
+      a, D, PagedKeys{static_cast<const int*>(tables), page, max_pages,
+                      n_pages});
 }

@@ -1,20 +1,30 @@
 """Incremental decoding with a KV cache: the serving path's model code.
 
-The cache is a preallocated [L, B, max_len, Hkv, D] pair of tensors,
-written in place (the JAX package donates and rebuilds it; here the
-update is a slice or index assignment). `decode_step` runs T new tokens
-through embed, per layer RMSNorm, q/k/v projections, RoPE at absolute
-positions, the cache write, cached attention, wo plus residual, RMSNorm,
-SwiGLU plus residual, then the final norm and f32 logits. Attention goes
-through ops/decode_attention (the CUDA kernel on the card), and int8
-QuantWeight projections through ops/quant.int8_matmul.
+Two cache layouts. `KVCache` is a preallocated [L, B, max_len, Hkv, D]
+pair of tensors. `PagedKVCache` scatters each slot's logical cache over
+a shared page pool [L, n_pages, page, Hkv, D] through a block table
+[slots, max_pages]; pool row 0 is a trash page that is never allocated.
+Both are written in place (the JAX package donates and rebuilds them;
+here the update is a slice or index assignment), and the step functions
+below update tables and lengths in place too, returning the cache they
+were given.
+
+`decode_step` runs T new tokens through embed, per layer RMSNorm, q/k/v
+projections, RoPE at absolute positions, the cache write, cached
+attention, wo plus residual, RMSNorm, SwiGLU plus residual, then the
+final norm and f32 logits. Attention goes through ops/decode_attention
+(the CUDA kernels on the card), and int8 QuantWeight projections
+through ops/quant.int8_matmul.
 
 Nothing here synchronises with the device, so `generate` returns as soon
-as its work is queued; the serving engine fetches the tokens later.
+as its work is queued; the serving engines fetch the tokens later.
+`PageAllocator` and `PrefixIndex` are the host-side bookkeeping of the
+page pool, between device steps.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -32,6 +42,8 @@ from container_engine_accelerators_tpu_torch.ops import (
 from container_engine_accelerators_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    paged_decode_attention,
+    paged_decode_attention_plain,
 )
 from container_engine_accelerators_tpu_torch.ops.quant import (
     QuantWeight,
@@ -48,6 +60,24 @@ class KVCache:
     # path; host-known, so writes are plain slices), or a [B] int32
     # tensor on the device (per-slot lengths).
     length: int | torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVCache:
+    """Slot caches scattered over a shared page pool. Pool row 0 is a
+    permanent trash page: never allocated, it absorbs the writes of
+    inactive slots (whose table rows may already belong to another
+    request) and backs table entries past a slot's pages. Memory scales
+    with the pool, not with slots x max_len: the serving engine keeps the
+    live pages of all slots within n_pages - 1."""
+    k_pool: torch.Tensor   # [L, n_pages, page, Hkv, D]
+    v_pool: torch.Tensor   # [L, n_pages, page, Hkv, D]
+    tables: torch.Tensor   # [slots, max_pages] int32 pool row per page
+    length: torch.Tensor   # [slots] int32 live length per slot
+
+    @property
+    def page(self) -> int:
+        return self.k_pool.shape[2]
 
 
 def _check_kv_dtype(cfg: LlamaConfig):
@@ -75,6 +105,21 @@ def init_slot_cache(cfg: LlamaConfig, slots: int, max_len: int,
         cache, length=torch.zeros(slots, dtype=torch.int32, device=device))
 
 
+def init_paged_cache(cfg: LlamaConfig, slots: int, n_pages: int, page: int,
+                     max_pages: int, device: str | torch.device
+                     ) -> PagedKVCache:
+    """n_pages zeroed pool pages (row 0 is the trash page) shared by
+    `slots` slots of logical capacity max_pages * page tokens each."""
+    _check_kv_dtype(cfg)
+    shape = (cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.head_dim)
+    return PagedKVCache(
+        k_pool=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v_pool=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        tables=torch.zeros(slots, max_pages, dtype=torch.int32,
+                           device=device),
+        length=torch.zeros(slots, dtype=torch.int32, device=device))
+
+
 def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
     if isinstance(w, QuantWeight):
         matmul = int8_matmul_plain if plain else int8_matmul
@@ -83,22 +128,35 @@ def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
     return h @ w
 
 
-def decode_step(model: Llama, cache: KVCache, tokens: torch.Tensor,
-                cfg: LlamaConfig, active: torch.Tensor | None = None,
-                plain: bool = False) -> tuple[torch.Tensor, KVCache]:
+def decode_step(model: Llama, cache: KVCache | PagedKVCache,
+                tokens: torch.Tensor, cfg: LlamaConfig,
+                active: torch.Tensor | None = None,
+                plain: bool = False
+                ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """Run T new tokens ([B, T]; T = prompt length for prefill, 1 for
     decode). Returns (logits [B, T, vocab] f32, cache with the new K/V
     written in place and the lengths advanced).
 
-    With per-slot lengths, row b writes at min(length[b], max_len - T)
-    and `active` ([B] bool) gates which rows' lengths advance; inactive
-    rows still compute and write where the next prefill overwrites.
-    `plain=True` runs the kernels' plain PyTorch versions on any device
-    (the on-card reference for the kernel path)."""
+    With per-slot lengths (and always on a paged cache), row b writes at
+    min(length[b], max_len - T) and `active` ([B] bool) gates which rows'
+    lengths advance; inactive rows still compute. On a slot cache they
+    write where the next prefill overwrites; on a paged cache their
+    writes go to the trash row 0, since their table rows may already
+    belong to another request. The pages a write lands in must already
+    be in the table. `plain=True` runs the kernels' plain PyTorch
+    versions on any device (the on-card reference for the kernel
+    path)."""
     _check_kv_dtype(cfg)
     b, t = tokens.shape
     dev = tokens.device
-    max_len = cache.k.shape[2]
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        max_pages = cache.tables.shape[1]
+        max_len = max_pages * cache.page     # logical capacity
+        k_all, v_all = cache.k_pool, cache.v_pool
+    else:
+        max_len = cache.k.shape[2]
+        k_all, v_all = cache.k, cache.v
     per_slot = isinstance(cache.length, torch.Tensor)
     hd, dt = cfg.head_dim, cfg.dtype
     cos, sin = rope_frequencies(hd, max_len, cfg.rope_theta, device=dev)
@@ -115,7 +173,23 @@ def decode_step(model: Llama, cache: KVCache, tokens: torch.Tensor,
         positions = (cache.length + steps)[None, :].expand(b, t)
         att_len = torch.full((b,), cache.length, dtype=torch.int32,
                              device=dev)
-    attention = decode_attention_plain if plain else decode_attention
+    if paged:
+        # Token i of slot s lands at pool row tables[s, pos // page],
+        # offset pos % page. No accumulate: several inactive slots may
+        # hit the same trash cell, and which write wins does not matter.
+        page = cache.page
+        w_rows = cache.tables[rows, (positions // page).clamp(
+            max=max_pages - 1)].long()
+        if active is not None:
+            w_rows = torch.where(active[:, None], w_rows, 0)
+        w_offs = positions % page
+        paged_attn = (paged_decode_attention_plain if plain
+                      else paged_decode_attention)
+
+        def attention(q, k_pool, v_pool, lens):
+            return paged_attn(q, k_pool, v_pool, lens, cache.tables)
+    else:
+        attention = decode_attention_plain if plain else decode_attention
 
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
@@ -125,8 +199,11 @@ def decode_step(model: Llama, cache: KVCache, tokens: torch.Tensor,
         v = _proj(h, layer.wv, plain).reshape(b, t, -1, hd)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
-        k_cache, v_cache = cache.k[li], cache.v[li]
-        if per_slot:
+        k_cache, v_cache = k_all[li], v_all[li]
+        if paged:
+            k_cache[w_rows, w_offs] = k.to(k_cache.dtype)
+            v_cache[w_rows, w_offs] = v.to(v_cache.dtype)
+        elif per_slot:
             k_cache[rows, positions] = k.to(k_cache.dtype)
             v_cache[rows, positions] = v.to(v_cache.dtype)
         else:
@@ -154,20 +231,109 @@ def decode_step(model: Llama, cache: KVCache, tokens: torch.Tensor,
 
 
 def decode_step_slots(model: Llama, cache: KVCache, tokens: torch.Tensor,
-                      active: torch.Tensor, cfg: LlamaConfig
-                      ) -> tuple[torch.Tensor, KVCache]:
+                      active: torch.Tensor, cfg: LlamaConfig,
+                      plain: bool = False) -> tuple[torch.Tensor, KVCache]:
     """One decode step for every slot: tokens [B], active [B] bool.
     Returns (last-token logits [B, vocab] f32, cache)."""
     logits, cache = decode_step(model, cache, tokens[:, None], cfg,
-                                active=active)
+                                active=active, plain=plain)
     return logits[:, 0], cache
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator | None
             ) -> torch.Tensor:
-    """One categorical draw per row of `logits` [B, V]."""
+    """One categorical draw per row of `logits` [B, V]: argmax of p / E
+    with E ~ Exp(1), which is what torch.multinomial does for one draw,
+    without its input check, whose .item() would wait for the device."""
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / noise).argmax(dim=-1)
+
+
+def prefill_suffix_slot(model: Llama, cache: KVCache, slot: int,
+                        suffix_tokens: torch.Tensor, start: int,
+                        new_len: int, cfg: LlamaConfig, plain: bool = False
+                        ) -> tuple[torch.Tensor, KVCache]:
+    """(Continue) prefilling slot `slot` of a slot cache: the chunk
+    `suffix_tokens` [Ts] (padded; the padding's K/V sits past new_len,
+    where later chunks and decode overwrite it) lands at positions
+    [start, start + Ts). `new_len` is the slot's live length after the
+    chunk. Writes the slot's cache and sets length[slot] in place.
+    Returns (logits of the last live token [vocab] f32, meaningful on
+    the final chunk, and the cache)."""
+    sub = KVCache(k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1],
+                  length=torch.full((1,), start, dtype=torch.int32,
+                                    device=cache.length.device))
+    logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
+                            plain=plain)
+    cache.length[slot] = new_len
+    return logits[0, max(new_len - start - 1, 0)], cache
+
+
+def decode_step_paged(model: Llama, cache: PagedKVCache,
+                      tokens: torch.Tensor, active: torch.Tensor,
+                      cfg: LlamaConfig, plain: bool = False
+                      ) -> tuple[torch.Tensor, PagedKVCache]:
+    """One decode step for every slot of a paged cache: tokens [slots],
+    active [slots] bool. Each active slot's next page (tables[s,
+    len // page]) must already be assigned. Returns (logits [slots,
+    vocab] f32, cache)."""
+    logits, cache = decode_step(model, cache, tokens[:, None], cfg,
+                                active=active, plain=plain)
+    return logits[:, 0], cache
+
+
+def set_slot_pages(cache: PagedKVCache, slot: int, rows: torch.Tensor,
+                   length: int) -> PagedKVCache:
+    """Replace slot's table row with `rows` ([max_pages] int32 on the
+    cache's device: shared prefix rows, fresh rows, then trash-0
+    padding) and set its length, in place."""
+    cache.tables[slot] = rows
+    cache.length[slot] = length
+    return cache
+
+
+def prefill_suffix_paged(model: Llama, cache: PagedKVCache, slot: int,
+                         suffix_tokens: torch.Tensor, true_len: int,
+                         cfg: LlamaConfig, plain: bool = False
+                         ) -> tuple[torch.Tensor, PagedKVCache]:
+    """Prefill the next chunk of a slot whose first length[slot] tokens
+    are already in the cache (shared prefix pages, or earlier chunks):
+    the chunk [Ts] (padded to a page multiple) lands at
+    [length[slot], length[slot] + Ts), and the table must already cover
+    those pages. Writes the pools and sets length[slot] = true_len in
+    place. Returns (logits of the last live token [vocab] f32, cache).
+    The start is read on the device, so nothing waits for it."""
+    start = cache.length[slot:slot + 1].clone()
+    sub = PagedKVCache(k_pool=cache.k_pool, v_pool=cache.v_pool,
+                       tables=cache.tables[slot:slot + 1], length=start)
+    logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
+                            plain=plain)
+    cache.length[slot] = true_len
+    last = (true_len - 1 - start).clamp(min=0).long()
+    return logits[0].index_select(0, last)[0], cache
+
+
+def assign_pages(cache: PagedKVCache, page_pos: torch.Tensor,
+                 rows: torch.Tensor, mask: torch.Tensor) -> PagedKVCache:
+    """Point slot s's table entry page_pos[s] at pool row rows[s] where
+    mask[s]; other slots keep theirs. One masked scatter, in place, for
+    every slot that crosses a page boundary this step."""
+    idx = torch.arange(cache.tables.shape[0], device=cache.tables.device)
+    pos = page_pos.long()
+    cur = cache.tables[idx, pos]
+    cache.tables[idx, pos] = torch.where(mask, rows.to(torch.int32), cur)
+    return cache
+
+
+def merge_tokens(last: torch.Tensor, overrides: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Inject host-known tokens into the device-resident last-token
+    vector: `overrides` where `mask`, else `last`. All [B]; int32 out.
+    The serving engine keeps each slot's last token on the device between
+    ticks; a freshly prefilled slot's first token, sampled on the host,
+    enters the vector this way without waiting for the device."""
+    return torch.where(mask, overrides.to(last.dtype), last).to(torch.int32)
 
 
 def pick_tokens(logits: torch.Tensor, temps: torch.Tensor,
@@ -216,3 +382,141 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
         tok = pick(logits)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
+
+
+class PageAllocator:
+    """Host-side refcounted free list over the pool's page rows. Row 0
+    is the trash page and is never handed out. Decisions are made
+    between device steps; the device only sees the resulting tables.
+
+    Refcounts exist for prefix sharing: a full prompt page reused by a
+    second request (or kept by the prefix index) is shared, not copied,
+    and returns to the free list when its last holder frees it. Only
+    full pages are shared and decode writes only at positions at or past
+    a slot's length, so a shared page is never written."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError("pool needs >= 2 pages (row 0 is reserved)")
+        self._free = list(range(n_pages - 1, 0, -1))  # pop() -> low rows
+        self._refs: dict[int, int] = {}
+        self.n_pages = n_pages
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Allocated rows (any refcount), the trash row excluded."""
+        return self.n_pages - 1 - len(self._free)
+
+    def refcount(self, row: int) -> int:
+        return self._refs.get(row, 0)
+
+    def alloc(self, n: int = 1) -> list[int] | None:
+        """n pool rows (refcount 1 each), or None (nothing allocated)
+        if there are not enough."""
+        if n > len(self._free):
+            return None
+        rows = [self._free.pop() for _ in range(n)]
+        for r in rows:
+            self._refs[r] = 1
+        return rows
+
+    def share(self, row: int) -> int:
+        """Take another reference on an allocated row."""
+        if self._refs.get(row, 0) < 1:
+            raise ValueError(f"share of unallocated page row {row}")
+        self._refs[row] += 1
+        return row
+
+    def free(self, rows: list[int]) -> None:
+        """Drop one reference per row; rows reaching zero return to the
+        free list. Checks every row before it frees any."""
+        for r in rows:
+            if not 0 < r < self.n_pages:
+                raise ValueError(f"bad page row {r}")
+            if self._refs.get(r, 0) < 1:
+                raise ValueError(f"double free of page row {r}")
+        for r in rows:
+            self._refs[r] -= 1
+            if self._refs[r] == 0:
+                del self._refs[r]
+                self._free.append(r)
+
+
+class PrefixIndex:
+    """Host-side prefix cache over full prompt pages: a chain hash of
+    page-aligned token blocks -> the pool row holding that page's K/V.
+    Each entry holds its own allocator reference, so kept pages outlive
+    the request that computed them, and a later request with the same
+    prompt prefix shares the rows and skips their forward. LRU-bounded
+    by `cap` entries; the engine also evicts under pool pressure.
+
+    The chain hash (of (parent hash, page tokens)) makes a page's
+    identity include its whole prefix. Entries keep the page's tokens
+    and `match` compares them, so a 64-bit hash collision reads as a
+    miss instead of attaching another prompt's pages."""
+
+    def __init__(self, alloc: PageAllocator, cap: int = 256):
+        self.alloc = alloc
+        self.cap = cap
+        # hash -> (pool row, page token tuple), least recent first
+        self._lru: collections.OrderedDict[int, tuple[int, tuple]] = \
+            collections.OrderedDict()
+
+    @staticmethod
+    def chain_keys(tokens, page: int,
+                   n_full: int) -> list[tuple[int, tuple]]:
+        """(chain hash, page tokens) per full page of the prompt."""
+        keys, h = [], 0
+        for i in range(n_full):
+            block = tuple(tokens[i * page:(i + 1) * page])
+            h = hash((h, block))
+            keys.append((h, block))
+        return keys
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    def match(self, keys: list[tuple[int, tuple]]) -> list[int]:
+        """Pool rows of the longest indexed chain prefix, with one more
+        reference taken on each (the caller owns them). A hash hit whose
+        stored tokens differ stops the walk."""
+        rows = []
+        for h, block in keys:
+            hit = self._lru.get(h)
+            if hit is None or hit[1] != block:
+                break
+            self._lru.move_to_end(h)
+            rows.append(self.alloc.share(hit[0]))
+        return rows
+
+    def insert(self, key: tuple[int, tuple], row: int) -> None:
+        h, block = key
+        if h in self._lru:
+            self._lru.move_to_end(h)
+            return
+        self._lru[h] = (self.alloc.share(row), block)
+        if len(self._lru) > self.cap:
+            self.evict_lru()
+
+    def pages_held(self) -> int:
+        """Distinct pool rows the index references. After every request
+        has finished these are the only pages in use, so
+        `pages_in_use == pages_held()` says no page leaked."""
+        return len({row for row, _ in self._lru.values()})
+
+    def evict_lru(self) -> bool:
+        """Drop the least recently used entry and its reference; False
+        when empty."""
+        if not self._lru:
+            return False
+        _, (row, _) = self._lru.popitem(last=False)
+        self.alloc.free([row])
+        return True
+
+    def clear(self) -> None:
+        while self.evict_lru():
+            pass

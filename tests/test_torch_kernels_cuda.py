@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from container_engine_accelerators_tpu_torch import kernels
+from container_engine_accelerators_tpu_torch.cli import serve
 from container_engine_accelerators_tpu_torch.models import decode
 from container_engine_accelerators_tpu_torch.models.llama import (
     init_params,
@@ -19,6 +20,8 @@ from container_engine_accelerators_tpu_torch.ops import quant
 from container_engine_accelerators_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    paged_decode_attention,
+    paged_decode_attention_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +85,79 @@ def test_decode_attention_kernel_ignores_nan_past_live(cuda):
     assert torch.equal(got, want)
 
 
+def _paged_case(cuda, seed, lens, t, page, hq, hkv, d, max_pages):
+    """Pools with each slot's live pages at permuted rows. Every row no
+    live page uses, and every position at or past a slot's `live`
+    within its last page, holds NaN; table entries past the live pages
+    point at NaN rows, out of range, or 0."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    live_pages = [-(-(n + t) // page) for n in lens]
+    n_pages = sum(live_pages) + 4
+    perm = torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1
+    k_pool = torch.full((n_pages, page, hkv, d), float("nan"), device=cuda,
+                        dtype=torch.bfloat16)
+    v_pool = k_pool.clone()
+    unused = perm[sum(live_pages):].tolist()
+    tables = torch.zeros(len(lens), max_pages, dtype=torch.int32,
+                         device=cuda)
+    used = 0
+    for i, (n, pages) in enumerate(zip(lens, live_pages)):
+        rows = perm[used:used + pages]
+        used += pages
+        tables[i, :pages] = rows.int()
+        for j in range(pages, max_pages):
+            tables[i, j] = (unused[j % len(unused)], -7, n_pages + 3, 0)[j % 4]
+        for j, row in enumerate(rows.tolist()):
+            keys = min(page, n + t - j * page)   # live keys in this page
+            for pool in (k_pool, v_pool):
+                pool[row, :keys] = torch.randn(
+                    keys, hkv, d, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(len(lens), t, hq, d, generator=gen,
+                    device=cuda).bfloat16()
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k_pool, v_pool, lens, tables
+
+
+@pytest.mark.parametrize("page", [16, 64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [1, 5, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 1), (8, 2), (32, 8)])
+def test_paged_decode_attention_kernel_matches_plain(cuda, page, d, t, hq,
+                                                     hkv):
+    # K1's rule, per output row. NaN sits in every unreferenced page and
+    # past `live`: the kernel reads neither, the plain version zeroes
+    # what it gathers there.
+    max_pages = -(-(600 + t) // page) + 1
+    lens = [0, 1, page - 1, page, 600, 3 * page + 5 - t]
+    lens = [max(n, 0) for n in lens]
+    q, kp, vp, lens_t, tables = _paged_case(cuda, page + d + t + hq, lens, t,
+                                            page, hq, hkv, d, max_pages)
+    kernels.reset_launches()
+    got = paged_decode_attention(q, kp, vp, lens_t, tables)
+    torch.cuda.synchronize()
+    assert kernels.launches["paged_decode_attention"] == 1
+    want = paged_decode_attention_plain(q, kp, vp, lens_t, tables)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
+    scale = want.float().abs().reshape(-1, d).amax(-1)
+    assert bool((err <= ROW_RTOL * scale + ROW_ATOL).all()), (
+        (err / scale).max().item())
+
+
+def test_paged_kernel_equals_contiguous_kernel(cuda):
+    # The same keys, paged or contiguous, give the same bits: only the
+    # address of a key differs between K3 and K1.
+    t, page, hq, hkv, d, max_pages = 1, 64, 32, 8, 128, 8
+    lens = [0, 63, 64, 200, 511]
+    q, kp, vp, lens_t, tables = _paged_case(cuda, 1, lens, t, page, hq, hkv,
+                                            d, max_pages)
+    rows = tables.long().clamp(0, kp.shape[0] - 1)
+    k = kp[rows].reshape(len(lens), max_pages * page, hkv, d).contiguous()
+    v = vp[rows].reshape(len(lens), max_pages * page, hkv, d).contiguous()
+    assert torch.equal(paged_decode_attention(q, kp, vp, lens_t, tables),
+                       decode_attention(q, k, v, lens_t))
+
+
 def test_decode_attention_kernel_raises_on_what_it_cannot_take(cuda):
     q = torch.zeros(1, 1, 4, 96, dtype=torch.bfloat16, device=cuda)
     k = torch.zeros(1, 16, 2, 96, dtype=torch.bfloat16, device=cuda)
@@ -142,3 +218,29 @@ def test_generate_goes_through_the_kernels(cuda, weights):
     plain = decode.generate(model, prompt, cfg, 4, plain=True)
     assert out.shape == (2, 13)
     assert torch.equal(out[:, :10], plain[:, :10])
+
+
+def test_paged_engine_kernel_path_matches_plain_path(cuda):
+    # The same requests through the paged engine on the kernel path and
+    # on the plain path, at page 16 so decode crosses pages: the same
+    # greedy tokens.
+    cfg = llama_tiny()
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    reqs = [([1, 2, 3], 20), (list(range(40, 77)), 12), ([9] * 20, 16)]
+    answers = {}
+    for plain in (False, True):
+        eng = serve.PagedContinuousEngine(model, cfg, max_slots=2,
+                                          max_len=128, page=16,
+                                          prefill_chunk=16, plain=plain)
+        try:
+            kernels.reset_launches()
+            futs = [eng.submit(list(t), n, 0.0) for t, n in reqs]
+            answers[plain] = [f.result(timeout=300) for f in futs]
+            launches = kernels.launches["paged_decode_attention"]
+        finally:
+            eng.stop()
+            eng.thread.join(timeout=60)
+        assert (launches > 0) == (not plain)
+        assert eng.pages_in_use == eng.prefix_index.pages_held()
+    assert answers[False] == answers[True]
