@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch/CUDA port's serving path on one GPU.
+"""chip_smoke — drive the PyTorch/CUDA port's serving and training paths
+on one GPU.
 
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
@@ -29,7 +30,23 @@ Phases, one JSON line each:
   paged_preempt  a second paged engine with a pool of 8 usable pages and
            3 requests that need 12: requests are preempted and requeued;
   continuous  ContinuousEngine (slot cache, K1 with per-slot lengths)
-           behind make_server on a burst of short and streamed requests.
+           behind make_server on a burst of short and streamed requests;
+  k4_*, k5_*, k6_*  kernels/flash_attention.cu (forward, dq, dk/dv)
+           against flash_fwd_plain, flash_bwd_dq_plain and
+           flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
+           heads, 8 KV heads, D 128; causal, segmented and non-causal),
+           timed beside the plain versions and SDPA's forward and
+           backward (timing only);
+  train    llama3_8b at full width and 8 of its 32 layers, random f32
+           masters from a seed, trained for 6 steps at batch 4 x 2048 by
+           fit (synthetic data, make_optimizer, 'dots' remat): step ms,
+           tokens/s, MFU, peak memory, losses, launches per step, and a
+           torch.profiler breakdown of one more step;
+  train_parity  llama3_8b widths at 2 layers, batch 1 x 512: one
+           make_train_step on the kernel path and on the plain path from
+           the same weights, and the kernel path under 'none', 'dots' and
+           'full' remat, which must give identical gradients;
+  train_cli  cli.train --preset tiny --steps 3 on the card.
 Then each phase's seconds, the kernels line (launches on the main path,
 errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before that line. Without CUDA, or outside a
@@ -44,7 +61,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +83,12 @@ K3_SOURCE = K1_SOURCE
 K1_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:282"
 K2_REPLACES = "container_engine_accelerators_tpu/ops/quant.py:214"
 K3_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:391"
+FLASH_SOURCE = "container_engine_accelerators_tpu_torch/kernels/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "container_engine_accelerators_tpu/ops/flash_attention.py:231",
+    "flash_bwd_dq": "container_engine_accelerators_tpu/ops/flash_attention.py:475",
+    "flash_bwd_dkv": "container_engine_accelerators_tpu/ops/flash_attention.py:523",
+}
 # K1, per output row: bf16 output, f32 math on both sides, so a
 # different summation order moves an element by at most one bf16 ulp,
 # 2^-7 of the row's largest |o|. Held per row, since a long cache
@@ -70,6 +96,31 @@ K3_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:391"
 K1_ROW_RTOL, K1_ROW_ATOL = 2 ** -7, 1e-6
 K2_TOL = {"bf16": 2 ** -8, "f32": 1e-4}   # relative to max |y|
 LOGITS_RTOL = 5e-2   # kernel path vs plain path, relative to max |logit|
+# K4-K6 hold outputs and gradients per row of D values: K4's output as
+# K1's (one bf16 ulp, 2^-7 of the row's max), the gradients within 2^-6,
+# since they round twice (ds to bf16 before its product, then the sum),
+# and both plus an absolute 2^-14 of the tensor's largest |x|: ds =
+# p * (dp - delta) cancels where dp is close to delta (always, in a
+# causal row's first query), and the two versions' f32 dp differ by
+# ~1e-6 of |do||v|. lse (f32, m + log l) within 1e-4.
+FLASH_GRAD_ROW_RTOL, FLASH_TENSOR_ATOL, LSE_ATOL = 2 ** -6, 2 ** -14, 1e-4
+# Train step, kernel path vs plain path (bf16 activations, 2 layers): the
+# two part by bf16 ulps in the attention outputs and gradients, so the
+# loss within 1e-2 relative and each weight's gradient within 5e-2 of
+# its norm.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 5e-2
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 16, "flash_bwd_dq": 8,
+                           "flash_bwd_dkv": 8}   # 8 layers, 'dots' remat
+# The train step's device time by kind of kernel, from the kernel names
+# torch.profiler reports (cuBLAS's are nvjet_* or *gemm*).
+STEP_KERNEL_KINDS = {"matmul": ("nvjet", "gemm", "cutlass"),
+                     "flash_attention": ("flash_",),
+                     "copy": ("Memcpy", "Memset"),
+                     "reduction": ("reduce_kernel",),
+                     "elementwise": ("elementwise_kernel",),
+                     "softmax_cross_entropy": ("softmax", "SoftMax",
+                                               "nll_loss"),
+                     "embedding": ("embedding",)}
 
 
 class SmokeFailure(Exception):
@@ -118,15 +169,17 @@ def bound_ms(n_bytes: float, flops: float, kind: str) -> tuple[float, str]:
     return t_ops * 1e3, "operations"
 
 
-def _row_errors(got, want, d: int, what: str) -> tuple[float, float]:
-    """(max |diff|, worst row's max |diff| / max |o|). Fails unless each
-    output row is within K1_ROW_RTOL of its own max |o| (+ K1_ROW_ATOL)."""
+def _row_errors(got, want, d: int, what: str, rtol: float = K1_ROW_RTOL,
+                atol: float = K1_ROW_ATOL) -> tuple[float, float]:
+    """(max |diff|, worst row's max |diff| / (max |o| + atol / rtol)).
+    Fails unless each output row is within `rtol` of its own max |o|
+    plus `atol`."""
     row_err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
     row_scale = want.float().abs().reshape(-1, d).amax(-1)
-    rel = (row_err / row_scale).max().item()
-    require(bool((row_err <= K1_ROW_RTOL * row_scale + K1_ROW_ATOL).all()),
-            f"{what}: a row's max|diff| exceeds {K1_ROW_RTOL} of its "
-            f"max|o| (worst {rel})")
+    rel = (row_err / (row_scale + atol / rtol)).max().item()
+    require(bool((row_err <= rtol * row_scale + atol).all()),
+            f"{what}: a row's max|diff| exceeds {rtol} of its "
+            f"max|o| + {atol} (worst {rel})")
     return row_err.max().item(), rel
 
 
@@ -415,10 +468,13 @@ def step_times_ms(torch, generate, model, prompt, cfg) -> tuple[float, float]:
     return short * 1e3, (long - short) / 32 * 1e3
 
 
-def profile_steps(torch, step, steps: int = 4) -> dict:
+def profile_steps(torch, step, steps: int = 4, top: int = 6) -> dict:
     """Device time of `steps` calls of step() by kernel, from
-    torch.profiler: the busy time per step and the kernels that take
-    most of it. None where the profiler saw no device activity."""
+    torch.profiler: the busy time per step, the `top` kernels that take
+    most of it, and the device-side spans of record_function ranges
+    (the optimizer's step, for one), which cover kernels counted on
+    their own and so are kept out of the busy time. None where the
+    profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,15 +484,26 @@ def profile_steps(torch, step, steps: int = 4) -> dict:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if not busy_us:
-        return {"busy_ms_per_step": None, "top": None}
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {"busy_ms_per_step": busy_us / steps / 1e3,
-            "top": {e.key[:60]: e.self_device_time_total / steps / 1e3
-                    for e in kernels[:6]}}
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    spans = [e for e in device if getattr(e, "is_user_annotation", False)]
+    kernels = {}
+    for e in device:
+        if e not in spans:
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / steps / 1e3)
+    if not sum(kernels.values()):
+        return {"busy_ms_per_step": None, "top": None, "spans": None,
+                "kernels": None}
+    # Names cut to 60 characters, summed: many kernels share a prefix.
+    short: dict = {}
+    for name, ms in kernels.items():
+        short[name[:60]] = short.get(name[:60], 0.0) + ms
+    return {"busy_ms_per_step": sum(kernels.values()),
+            "top": dict(sorted(short.items(), key=lambda kv: -kv[1])[:top]),
+            "spans": {e.key[:60]: e.device_time_total / steps / 1e3
+                      for e in spans},
+            "kernels": kernels}
 
 
 def profile_decode(torch, dev, decode, model, cfg, batch,
@@ -863,6 +930,314 @@ def continuous_phase(torch, dev, np, model, cfg) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- K4-K6
+
+def _flash_work(torch, seg, b, s, hq, hkv, d, causal) -> dict:
+    """Bytes each kernel must move and operations it must do on these
+    inputs: each input read once, each output written once; 4, 6 and 8
+    flops per (visible query-key pair, head dim) for K4, K5 and K6 (the
+    forward's two products; dq's three; dk/dv's four)."""
+    if seg is None:
+        pairs = b * (s * (s + 1) // 2 if causal else s * s)
+    else:
+        vis = seg[:, :, None] == seg[:, None, :]
+        if causal:
+            vis &= torch.ones(s, s, dtype=torch.bool,
+                              device=seg.device).tril()
+        pairs = int(vis.sum().item())
+    qb, kvb = 2 * b * s * hq * d, 2 * b * s * hkv * d
+    stat, segb = 4 * b * hq * s, 0 if seg is None else 4 * b * s
+    per_pair = d * hq * pairs
+    return {"flash_fwd": (2 * qb + 2 * kvb + stat + segb, 4 * per_pair),
+            "flash_bwd_dq": (3 * qb + 2 * kvb + 2 * stat + segb,
+                             6 * per_pair),
+            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * stat + segb,
+                              8 * per_pair),
+            "visible_pairs": pairs}
+
+
+def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
+                hkv: int = 8) -> dict:
+    """K4, K5 and K6 against their plain versions at the train phase's
+    attention shapes; the backward kernels take the plain forward's out
+    and lse, so each is held alone. Returns {kernel: {case: result}}."""
+    import torch.nn.functional as F
+
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    d = 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    pos = torch.arange(s, device=dev)
+    packed = ((pos >= s // 3).float() + (pos >= 3 * s // 4).float()).expand(
+        b, s).contiguous()    # three packed sequences per row
+    cases = [("main", True, None), ("segmented", True, packed),
+             ("noncausal", False, None)]
+    results = {name: {} for name in FLASH_REPLACES}
+    for case, causal, seg in cases:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+        q = fa._prescale(rnd(b, s, hq, d))
+        k, v, do = rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        work = _flash_work(torch, seg, b, s, hq, hkv, d, causal)
+        out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
+        torch.cuda.synchronize()
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, causal)
+        delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, seg, do, lse_p, delta.contiguous(), causal)
+        dq = fa.flash_bwd_dq_cuda(*args)
+        dk, dv = fa.flash_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        dq_p = fa.flash_bwd_dq_plain(*args)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(*args)
+        lse_err = (lse - lse_p).abs().max().item()
+        require(lse_err <= LSE_ATOL, f"K4 {case}: lse off by {lse_err}")
+        def held(got, want, what, rtol=FLASH_GRAD_ROW_RTOL):
+            atol = FLASH_TENSOR_ATOL * want.float().abs().max().item()
+            return _row_errors(got, want, d, what, rtol=rtol, atol=atol)
+
+        errs = {"flash_fwd": [held(out, out_p, f"K4 {case}", K1_ROW_RTOL)],
+                "flash_bwd_dq": [held(dq, dq_p, f"K5 {case}")],
+                "flash_bwd_dkv": [held(dk, dk_p, f"K6 {case} dk"),
+                                  held(dv, dv_p, f"K6 {case} dv")]}
+        del out, out_p, dq, dq_p, dk, dk_p, dv, dv_p
+        timed = {
+            "flash_fwd": (lambda: fa.flash_fwd_cuda(q, k, v, seg, causal),
+                          lambda: fa.flash_fwd_plain(q, k, v, seg, causal)),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq_cuda(*args),
+                             lambda: fa.flash_bwd_dq_plain(*args)),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_cuda(*args),
+                              lambda: fa.flash_bwd_dkv_plain(*args)),
+        }
+        library = {name: None for name in FLASH_REPLACES}
+        if seg is None:
+            # One PyTorch call for the same attention (timing only; the
+            # port never calls it): SDPA's forward for K4, and its
+            # backward, dq, dk and dv in one call, for K6.
+            qt, kt, vt = (x.transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            sdpa = functools.partial(F.scaled_dot_product_attention,
+                                     is_causal=causal, scale=1.0,
+                                     enable_gqa=True)
+            library["flash_fwd"] = device_ms(torch, lambda: sdpa(
+                qt.detach(), kt.detach(), vt.detach()), iters=10)
+            o = sdpa(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            library["flash_bwd_dkv"] = device_ms(
+                torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                   retain_graph=True),
+                iters=10)
+            del o, qt, kt, vt
+        prefix = {"flash_fwd": "k4", "flash_bwd_dq": "k5",
+                  "flash_bwd_dkv": "k6"}
+        for name, (kernel, plain) in timed.items():
+            n_bytes, flops = work[name]
+            bms, by = bound_ms(n_bytes, flops, "bf16")
+            res = {"max_abs_err": max(e[0] for e in errs[name]),
+                   "max_row_rel_err": max(e[1] for e in errs[name]),
+                   "ms": device_ms(torch, kernel),
+                   "plain_ms": device_ms(torch, plain, iters=3),
+                   "library_ms": library[name],
+                   "bound_ms": bms, "bound_by": by}
+            if name == "flash_bwd_dkv" and library[name] is not None:
+                res["library"] = "SDPA backward: dq, dk and dv in one call"
+            results[name][case] = res
+            emit({"phase": f"{prefix[name]}_{case}", "B": b, "S": s,
+                  "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
+                  "visible_pairs": work["visible_pairs"],
+                  "row_rtol": (K1_ROW_RTOL if name == "flash_fwd"
+                               else FLASH_GRAD_ROW_RTOL),
+                  "tensor_atol_share": FLASH_TENSOR_ATOL,
+                  "lse_max_abs_err": lse_err, **res})
+        del q, k, v, do, lse, lse_p, delta, args, timed
+    return results
+
+
+# ---------------------------------------------------------------- train
+
+def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
+                seq: int = 2048, steps: int = 6) -> dict:
+    """fit() on llama3_8b widths at `n_layers` layers from seed 0 for
+    `steps` steps, logging every step: the loss fetch at each log is a
+    device fence, so the gaps between logs are device-synchronised step
+    times, and the launch counts between logs are one step's."""
+    import re
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama3_8b,
+    )
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+        make_train_step,
+        to_device,
+    )
+
+    cfg = llama3_8b(n_layers=n_layers)
+    batches = synthetic_batches(cfg.vocab_size, batch, seq, seed=SEED)
+    logs = []
+
+    def log_fn(msg):
+        logs.append((time.perf_counter(), msg, dict(kernels.launches)))
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, _ = fit(cfg, make_optimizer(), batches, device=dev,
+                   max_steps=steps, seed=SEED, log_every=1, log_fn=log_fn)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launches)
+    require(state.step == steps and len(logs) == steps,
+            f"fit ran {state.step} steps, logged {len(logs)}")
+    losses = [float(re.search(r"loss (\S+)", m).group(1))
+              for _, m, _ in logs]
+    gnorms = [float(re.search(r"grad_norm (\S+)", m).group(1))
+              for _, m, _ in logs]
+    require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+            f"train: non-finite loss or grad norm {losses} {gnorms}")
+    per_step, prev = [], {}
+    for _, _, counts in logs:
+        per_step.append({name: counts.get(name, 0) - prev.get(name, 0)
+                         for name in TRAIN_LAUNCHES_PER_STEP})
+        prev = counts
+    want = TRAIN_LAUNCHES_PER_STEP if n_layers == 8 else {
+        name: n * n_layers // 8 for name, n in
+        TRAIN_LAUNCHES_PER_STEP.items()}
+    require(all(step == want for step in per_step),
+            f"train: launches per step {per_step}, want {want}")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(logs, logs[1:])]
+    median_ms = float(np.median(step_ms))
+    tokens_per_s = batch * seq / (median_ms / 1e3)
+    flops_per_token = cfg.train_flops_per_token(seq)
+
+    step_fn = make_train_step(cfg, state.optimizer)
+    extra = to_device(next(batches), dev)
+    profile = profile_steps(torch, lambda: step_fn(state.model, extra),
+                            steps=1, top=12)
+    busy = profile["busy_ms_per_step"]
+    by_kind: dict = {}
+    for name, ms in (profile["kernels"] or {}).items():
+        kind = next((k for k, marks in STEP_KERNEL_KINDS.items()
+                     if any(m in name for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    del state, step_fn, extra
+    result = {
+        "phase": "train", "model": "llama3_8b", "n_layers": n_layers,
+        "params": cfg.num_params(), "batch": batch, "seq": seq,
+        "steps": steps, "remat_policy": cfg.remat_policy,
+        "fit_s": fit_s, "step_ms_after_first": step_ms,
+        "median_step_ms": median_ms, "tokens_per_s": tokens_per_s,
+        "train_flops_per_token": flops_per_token,
+        "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS["bf16"],
+        "device_busy_ms_per_step": busy,
+        "device_busy_share": None if busy is None else busy / median_ms,
+        "device_ms_per_step_by_kind": by_kind,
+        "top_kernels_ms_per_step": profile["top"],
+        "spans_ms_per_step": profile["spans"],
+        "max_memory_allocated_bytes": peak,
+        "losses": losses, "grad_norms": gnorms,
+        "launches_per_step": per_step[0], "launches": launches,
+    }
+    emit(result)
+    return result
+
+
+def train_parity_phase(torch, dev, np, n_layers: int = 2, seq: int = 512
+                       ) -> dict:
+    """One make_train_step from the same weights and batch: the kernel
+    path against the plain path, and the kernel path under three remat
+    policies, which must give identical bits."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        init_train_params,
+        llama3_8b,
+    )
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        make_optimizer,
+        make_train_step,
+        to_device,
+    )
+
+    cfg = llama3_8b(n_layers=n_layers)
+    model = init_train_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 9), dev)
+    params = list(model.parameters())
+    start = [p.detach().clone() for p in params]
+    batch = to_device(next(synthetic_batches(cfg.vocab_size, 1, seq,
+                                             seed=SEED + 9)), dev)
+
+    def run(plain, policy):
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        kernels.reset_launches()
+        metrics = make_train_step(c, make_optimizer()(params),
+                                  plain=plain)(model, batch)
+        loss = metrics["loss"].item()
+        return loss, [p.grad.detach().clone() for p in params], dict(
+            kernels.launches)
+
+    loss_k, grads_k, launches_k = run(False, "dots")
+    loss_p, grads_p, launches_p = run(True, "dots")
+    require(not launches_p, f"plain path launched {launches_p}")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = max(((gk.float() - gp.float()).norm()
+                    / gp.float().norm()).item()
+                   for gk, gp in zip(grads_k, grads_p))
+    del grads_p
+    require(np.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_RTOL,
+            f"train_parity: loss {loss_k} vs plain {loss_p}")
+    require(grad_rel <= TRAIN_GRAD_RTOL,
+            f"train_parity: a gradient is {grad_rel} of its norm off plain")
+    identical, remat_launches = {}, {"dots": launches_k}
+    for policy in ("none", "full"):
+        loss, grads, remat_launches[policy] = run(False, policy)
+        identical[policy] = loss == loss_k and all(
+            torch.equal(a, b) for a, b in zip(grads, grads_k))
+        del grads
+    del model, params, start, grads_k
+    require(all(identical.values()),
+            f"train_parity: remat policies gave other gradients {identical}")
+    result = {"phase": "train_parity", "model": "llama3_8b",
+              "n_layers": n_layers, "batch": 1, "seq": seq,
+              "loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel_diff": loss_rel, "max_grad_rel_diff": grad_rel,
+              "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+              "remat_identical_to_dots": identical,
+              "launches_by_remat": remat_launches}
+    emit(result)
+    return result
+
+
+def train_cli_phase() -> dict:
+    import io
+
+    from container_engine_accelerators_tpu_torch.cli import train
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--preset", "tiny", "--steps", "3"])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    require(rc == 0 and line["final_step"] == 3 and
+            math.isfinite(line["loss"]), f"train cli: {rc} {line}")
+    result = {"phase": "train_cli", **line}
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -914,6 +1289,17 @@ def main() -> int:
                         np, model, cfg)
         cont = timed("continuous", continuous_phase, torch, dev, np, model,
                      cfg)
+        del model   # the training phases need the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash = timed("flash", flash_phase, torch, dev)
+        train = timed("train", train_phase, torch, dev, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity = timed("train_parity", train_parity_phase, torch, dev, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_cli = timed("train_cli", train_cli_phase)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -945,7 +1331,21 @@ def main() -> int:
          **{key: k3_main[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "k1_contiguous_ms", "library")}},
+        *({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+           "replaces": FLASH_REPLACES[name],
+           "launches": train["launches"].get(name, 0),
+           "max_abs_err": max(r["max_abs_err"] for r in flash[name].values()),
+           "max_row_rel_err": max(r["max_row_rel_err"]
+                                  for r in flash[name].values()),
+           **flash[name]["main"]} for name in FLASH_REPLACES),
     ]})
+    emit({"train_summary": {
+        "median_step_ms": train["median_step_ms"],
+        "tokens_per_s": train["tokens_per_s"], "mfu": train["mfu"],
+        "device_busy_share": train["device_busy_share"],
+        "max_memory_allocated_bytes": train["max_memory_allocated_bytes"],
+        "parity_max_grad_rel_diff": parity["max_grad_rel_diff"],
+        "cli_tokens_per_sec": train_cli["tokens_per_sec"]}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the serving path, for an NVIDIA H100.
+"""PyTorch/CUDA port of the serving and training paths, for an NVIDIA
+H100.
 
 Mirrors the module names of `container_engine_accelerators_tpu` so each
 counterpart is easy to find, but shares no code with it: this package

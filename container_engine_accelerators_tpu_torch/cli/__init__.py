@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (serve, generate)."""
+"""Command-line entry points of the port (serve, generate, train)."""

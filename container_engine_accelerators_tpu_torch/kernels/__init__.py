@@ -50,6 +50,13 @@ _SIGNATURES = {
     # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
     #  stream)
     "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (q, k, v, seg, out, lse, B, S, Hq, Hkv, D, causal, stream)
+    "flash_fwd_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    # (q, k, v, seg, do, lse, delta, dq, B, S, Hq, Hkv, D, causal, stream)
+    "flash_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    # (q, k, v, seg, do, lse, delta, dk, dv, B, S, Hq, Hkv, D, causal,
+    #  stream)
+    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 

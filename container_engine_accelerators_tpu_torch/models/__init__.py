@@ -1,1 +1,2 @@
-"""Models of the port: the Llama config and weights, and the decode path."""
+"""Models of the port: the Llama config, weights and training forward,
+and the decode path."""

@@ -14,14 +14,26 @@ from container_engine_accelerators_tpu_torch.cli import serve
 from container_engine_accelerators_tpu_torch.models import decode
 from container_engine_accelerators_tpu_torch.models.llama import (
     init_params,
+    init_train_params,
     llama_tiny,
 )
+from container_engine_accelerators_tpu_torch.ops import flash_attention as fa
 from container_engine_accelerators_tpu_torch.ops import quant
 from container_engine_accelerators_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
+)
+from container_engine_accelerators_tpu_torch.training.data import (
+    synthetic_batches,
+)
+from container_engine_accelerators_tpu_torch.training.fused_adamw import (
+    FusedAdamW,
+)
+from container_engine_accelerators_tpu_torch.training.train import (
+    make_train_step,
+    to_device,
 )
 
 pytestmark = pytest.mark.cuda
@@ -244,3 +256,143 @@ def test_paged_engine_kernel_path_matches_plain_path(cuda):
         assert (launches > 0) == (not plain)
         assert eng.pages_in_use == eng.prefix_index.pages_held()
     assert answers[False] == answers[True]
+
+
+# ---------------------------------------------------------- K4, K5, K6
+
+# Flash attention, bf16 in both: the output rounds to bf16 after f32
+# sums taken in another order, so an element may move by one bf16 ulp,
+# at most 2^-7 of the largest |x| of its row (D values); the gradients
+# round twice (ds to bf16 before its product, then the sum), so 2^-6.
+# dk/dv sum the GQA group in f32 in both versions. The gradients also
+# carry an absolute error: ds = p * (dp - delta) cancels where dp is
+# close to delta (always, in a causal row's first query), and the two
+# versions' f32 dp differ by ~1e-6 of |do||v|; so each element may also
+# be off by 2^-14 of the tensor's largest |x|.
+FLASH_ROW_RTOL, FLASH_GRAD_ROW_RTOL = 2 ** -7, 2 ** -6
+FLASH_TENSOR_ATOL = 2 ** -14
+
+
+def _flash_inputs(cuda, seed, b, s, hq, hkv, segmented):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+
+    q = fa._prescale(rnd(b, s, hq, 128))
+    k, v, do = rnd(b, s, hkv, 128), rnd(b, s, hkv, 128), rnd(b, s, hq, 128)
+    seg = None
+    if segmented:   # three packed sequences of unequal length per row
+        pos = torch.arange(s, device=cuda)
+        seg = ((pos >= s // 3).float() + (pos >= s // 2).float()).expand(
+            b, s).contiguous()
+    return q, k, v, do, seg
+
+
+def _rows_close(got, want, what, rtol=FLASH_GRAD_ROW_RTOL):
+    err = (got.float() - want.float()).abs().reshape(-1, 128).amax(-1)
+    scale = want.float().abs().reshape(-1, 128).amax(-1)
+    atol = FLASH_TENSOR_ATOL * scale.max()
+    assert bool((err <= rtol * scale + atol).all()), (
+        what, (err / (scale + atol / rtol)).max().item())
+
+
+@pytest.mark.parametrize("s", [256, 512, 2048])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 1), (8, 2), (32, 8)])
+@pytest.mark.parametrize("causal,segmented", [(True, False), (False, False),
+                                              (True, True)])
+def test_flash_kernels_match_plain(cuda, s, hq, hkv, causal, segmented):
+    b = 1 if s == 2048 else 2
+    q, k, v, do, seg = _flash_inputs(cuda, s + hq, b, s, hq, hkv,
+                                         segmented)
+    kernels.reset_launches()
+    out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, causal)
+    _rows_close(out, out_p, "out", FLASH_ROW_RTOL)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+    # The backward kernels on the plain forward's out and lse, so each
+    # is held alone.
+    delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, seg, do, lse_p, delta, causal)
+    _rows_close(fa.flash_bwd_dq_cuda(*args), fa.flash_bwd_dq_plain(*args),
+                "dq")
+    for got, want, what in zip(fa.flash_bwd_dkv_cuda(*args),
+                               fa.flash_bwd_dkv_plain(*args), ("dk", "dv")):
+        _rows_close(got, want, what)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                      "flash_bwd_dkv": 1}
+
+
+def test_flash_kernels_are_deterministic(cuda):
+    q, k, v, do, seg = _flash_inputs(cuda, 1, 2, 1024, 32, 8, False)
+    outs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd_cuda(q, k, v, seg, True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, seg, do, lse, delta.contiguous(), True)
+        outs.append([out, lse, fa.flash_bwd_dq_cuda(*args),
+                     *fa.flash_bwd_dkv_cuda(*args)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_goes_through_the_kernels(cuda):
+    q, k, v, do, _ = _flash_inputs(cuda, 2, 1, 512, 8, 2, False)
+    grads = {}
+    for plain in (False, True):
+        args = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        kernels.reset_launches()
+        out = fa.flash_attention(*args, plain=plain)
+        out.backward(do)
+        torch.cuda.synchronize()
+        expect = {} if plain else {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                   "flash_bwd_dkv": 1}
+        assert dict(kernels.launches) == expect
+        grads[plain] = [out] + [a.grad for a in args]
+    _rows_close(grads[False][0], grads[True][0], "out", FLASH_ROW_RTOL)
+    for got, want, what in zip(grads[False][1:], grads[True][1:], "qkv"):
+        _rows_close(got, want, f"d{what}")
+
+
+def test_flash_kernels_raise_on_what_they_cannot_take(cuda):
+    q, k, v, do, _ = _flash_inputs(cuda, 3, 1, 256, 4, 2, False)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_cuda(q.float(), k, v, None, True)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_cuda(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                          v[..., :64].contiguous(), None, True)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_cuda(q.transpose(1, 2), k, v, None, True)
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda):
+    # head_dim 128 and S 256, so the flash kernels engage.
+    cfg = llama_tiny(d_model=256, n_heads=2, n_kv_heads=1,
+                     remat_policy="dots")
+    batch = to_device(next(synthetic_batches(cfg.vocab_size, 2, 256)), cuda)
+    runs = {}
+    for plain in (False, True):
+        model = init_train_params(cfg, torch.Generator(
+            device=cuda).manual_seed(0), cuda)
+        step = make_train_step(cfg, FusedAdamW(model.parameters(), lr=1e-3),
+                               plain=plain)
+        kernels.reset_launches()
+        metrics = step(model, batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        runs[plain] = (metrics["loss"].item(),
+                       [p.grad.float() for p in model.parameters()])
+        if plain:
+            assert launches == {}
+        else:   # the forward, and its replay under 'dots' remat
+            assert launches == {"flash_fwd": 2 * cfg.n_layers,
+                                "flash_bwd_dq": cfg.n_layers,
+                                "flash_bwd_dkv": cfg.n_layers}
+    loss_k, grads_k = runs[False]
+    loss_p, grads_p = runs[True]
+    # bf16 activations over two layers: the kernels and their plain
+    # versions part by bf16 ulps in the attention outputs.
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    for gk, gp in zip(grads_k, grads_p):
+        assert (gk - gp).norm() <= 5e-2 * gp.norm()

@@ -78,6 +78,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--tiny", "--port", "0"])
 
 
+def test_train_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from container_engine_accelerators_tpu_torch.cli import train
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama_tiny,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--preset", "tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(llama_tiny(), make_optimizer(), iter([]))
+
+
 def test_generate_cli_runs_on_the_cpu_when_asked(capsys):
     from container_engine_accelerators_tpu_torch.cli import generate
 
