@@ -16,6 +16,10 @@ Phases, one JSON line each:
            paged_decode_attention_plain at 8B widths and page 128, timed
            beside the plain version, K1 on a contiguous copy of the same
            keys, and SDPA on that copy (timing only);
+  k1_int8_*, k1_int4_*, k3_int8_*, k3_int4_*  K1 and K3 on int8 and int4
+           caches (the k1_* and k3_* cases) against their plain quantized
+           versions, timed beside the plain version, the bf16 kernel on
+           the same keys dequantized, and dequantize + SDPA (timing only);
   serve    llama3_8b at full width and depth, random bf16 weights from a
            seed, behind BatchingEngine + make_server on an ephemeral
            port: concurrent requests in two buckets plus one streamed;
@@ -31,6 +35,13 @@ Phases, one JSON line each:
            3 requests that need 12: requests are preempted and requeued;
   continuous  ContinuousEngine (slot cache, K1 with per-slot lengths)
            behind make_server on a burst of short and streamed requests;
+  kv_quant the same weights on int8 and int4 KV caches: bytes per cached
+           token of each layout; the paged phase's burst behind
+           make_server (leak check, tokens/s, stream TTFT); the paged
+           decode tick at 8 slots; one decode step's logits on the kernel
+           path against the plain path on the same quantized cache, and
+           the drift from bf16; paged_preempt's load on pools of the
+           bf16 pool's bytes; a continuous-engine burst in each mode;
   k4_*, k5_*, k6_*  kernels/flash_attention.cu (forward, dq, dk/dv)
            against flash_fwd_plain, flash_bwd_dq_plain and
            flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
@@ -83,6 +94,14 @@ K3_SOURCE = K1_SOURCE
 K1_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:282"
 K2_REPLACES = "container_engine_accelerators_tpu/ops/quant.py:214"
 K3_REPLACES = "container_engine_accelerators_tpu/ops/decode_attention.py:391"
+KV_MODES = ("int8", "int4")
+# Cache bytes of one token at llama3_8b widths (32 layers, 8 KV heads,
+# head_dim 128, K and V): bf16 2 bytes a value; int8 1 byte plus a 4-byte
+# scale per (layer, head); int4 half a byte plus the same scales.
+KV_BYTES_PER_TOKEN = {"bf16": 131072, "int8": 67584, "int4": 34816}
+# paged_preempt's pool of 9 pages (8 usable), and pools of the same
+# bytes in the quantized layouts (rounded down).
+PREEMPT_POOL_PAGES = {"bf16": 9, "int8": 17, "int4": 33}
 FLASH_SOURCE = "container_engine_accelerators_tpu_torch/kernels/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "container_engine_accelerators_tpu/ops/flash_attention.py:231",
@@ -183,11 +202,19 @@ def _row_errors(got, want, d: int, what: str, rtol: float = K1_ROW_RTOL,
     return row_err.max().item(), rel
 
 
+def _kv_row_bytes(d: int, mode: str) -> int:
+    """Bytes of one cached (token, KV head) row of K or V: the payload,
+    plus its f32 scale in the quantized modes."""
+    return {"bf16": 2 * d, "int8": d + 4, "int4": d // 2 + 4}[mode]
+
+
 def _attention_work(torch, lens_b, t: int, max_len: int, b: int, hq: int,
-                    hkv: int, d: int) -> tuple[float, float, object]:
+                    hkv: int, d: int, mode: str = "bf16"
+                    ) -> tuple[float, float, object]:
     """(bytes, flops, mask) of attention these inputs need: q and out
-    once, the live K/V rows once, 4*D flops per (query row, visible key);
-    and the SDPA mask [B, 1, T, max_len] of the same function."""
+    once, the live K/V rows (and scales) once, 4*D flops per (query row,
+    visible key); and the SDPA mask [B, 1, T, max_len] of the same
+    function."""
     key_pos = torch.arange(max_len, device=lens_b.device)
     t_idx = torch.arange(t, device=lens_b.device)
     live = (lens_b + t).clamp(max=max_len)
@@ -197,7 +224,8 @@ def _attention_work(torch, lens_b, t: int, max_len: int, b: int, hq: int,
     n_live = live.sum().item()
     visible = torch.minimum(lens_b[:, None] + t_idx[None, :] + 1,
                             live[:, None]).sum().item()
-    n_bytes = 2 * (2 * b * t * hq * d) + 2 * (2 * n_live * hkv * d)
+    n_bytes = 2 * (2 * b * t * hq * d) + 2 * n_live * hkv * _kv_row_bytes(
+        d, mode)
     return n_bytes, 4 * d * hq * visible, mask[:, None]
 
 
@@ -213,6 +241,15 @@ def _sdpa(F, q, k, v, mask):
 
 # ---------------------------------------------------------------- K1
 
+K1_SHAPE = (32, 8, 128, 2048)     # Hq, Hkv, D, max_len
+K1_CASES = [                      # (name, T, B, cache lengths)
+    ("decode_slots", 1, 8, [0, 1, 127, 128, 129, 2047, 1000, 513]),
+    ("decode_scalar", 1, 8, 1500),
+    ("prefill_128", 128, 8, 0),
+    ("prefill_512", 512, 2, [0, 1024]),
+]
+
+
 def k1_phase(torch, dev) -> dict:
     import torch.nn.functional as F
 
@@ -221,17 +258,10 @@ def k1_phase(torch, dev) -> dict:
         decode_attention_plain,
     )
 
-    hq, hkv, d, max_len = 32, 8, 128, 2048
-    cases = [
-        ("decode_slots", 1, 8,
-         [0, 1, 127, 128, 129, 2047, 1000, 513]),
-        ("decode_scalar", 1, 8, 1500),
-        ("prefill_128", 128, 8, 0),
-        ("prefill_512", 512, 2, [0, 1024]),
-    ]
+    hq, hkv, d, max_len = K1_SHAPE
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
-    for name, t, b, lens in cases:
+    for name, t, b, lens in K1_CASES:
         q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, max_len, hkv, d, generator=gen,
                         device=dev).bfloat16()
@@ -308,6 +338,14 @@ def k2_phase(torch, dev) -> dict:
 
 # ---------------------------------------------------------------- K3
 
+K3_SHAPE = (32, 8, 128, 128, 16)  # Hq, Hkv, D, page, max_pages
+K3_CASES = [                      # (name, T, cache lengths)
+    ("decode", 1, [0, 1, 127, 128, 129, 2047, 1000, 513]),
+    ("prefill_chunk_512", 512, [512]),
+    ("prefix_suffix_128", 128, [256]),
+]
+
+
 def _page_pool(torch, dev, gen, lens, t, page, max_pages, hkv, d):
     """(k_pool, v_pool, tables): each slot's live pages at permuted pool
     rows, and table entries past them 0 or out-of-range garbage."""
@@ -336,16 +374,11 @@ def k3_phase(torch, dev) -> dict:
         paged_decode_attention_plain,
     )
 
-    hq, hkv, d, page, max_pages = 32, 8, 128, 128, 16
+    hq, hkv, d, page, max_pages = K3_SHAPE
     max_len = page * max_pages
-    cases = [
-        ("decode", 1, [0, 1, 127, 128, 129, 2047, 1000, 513]),
-        ("prefill_chunk_512", 512, [512]),
-        ("prefix_suffix_128", 128, [256]),
-    ]
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     results = {}
-    for name, t, lens in cases:
+    for name, t, lens in K3_CASES:
         b = len(lens)
         k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
                                             max_pages, hkv, d)
@@ -385,6 +418,148 @@ def k3_phase(torch, dev) -> dict:
               "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL,
               **results[name]})
         del q, k, v, k_pool, v_pool, got, want, mask
+    return results
+
+
+# ------------------------------------------------- K1, K3 on int8/int4 KV
+
+def _quantized(torch, x, mode: str):
+    """(payload, contiguous head-major scales) of a cache, as the port's
+    decode step writes it."""
+    from container_engine_accelerators_tpu_torch.ops import quant
+
+    fn = quant.quantize_kv_int4 if mode == "int4" else quant.quantize_kv
+    payload, scales = fn(x)
+    return payload, scales.contiguous()
+
+
+def _dequantized(torch, payload, scales, mode: str):
+    """The same cache dequantized to bf16 (the inputs of the bf16 kernel
+    and of SDPA, for timing)."""
+    from container_engine_accelerators_tpu_torch.ops import quant
+
+    fn = quant.dequantize_kv_int4 if mode == "int4" else quant.dequantize_kv
+    return fn(payload, scales, torch.bfloat16)
+
+
+def _quant_case_result(torch, got, want, d, what, kernel, plain, bf16_kernel,
+                       library, n_bytes, flops) -> dict:
+    err, rel = _row_errors(got, want, d, what)
+    bms, by = bound_ms(n_bytes, flops, "bf16")
+    return {"max_abs_err": err, "max_row_rel_err": rel,
+            "ms": device_ms(torch, kernel),
+            "plain_ms": device_ms(torch, plain, iters=5),
+            "bf16_kernel_ms": device_ms(torch, bf16_kernel),
+            "library_ms": device_ms(torch, library, iters=5),
+            "library": "dequantize to bf16 + SDPA",
+            "bound_ms": bms, "bound_by": by}
+
+
+def k1_quant_phase(torch, dev, mode: str) -> dict:
+    """K1's cases on an int8 or int4 cache."""
+    import torch.nn.functional as F
+
+    from container_engine_accelerators_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+    )
+
+    hq, hkv, d, max_len = K1_SHAPE
+    int4 = mode == "int4"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    results = {}
+    for name, t, b, lens in K1_CASES:
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
+        k, ks = _quantized(torch, torch.randn(b, max_len, hkv, d,
+                                              generator=gen, device=dev), mode)
+        v, vs = _quantized(torch, torch.randn(b, max_len, hkv, d,
+                                              generator=gen, device=dev), mode)
+        cache_len = (torch.tensor(lens, dtype=torch.int32, device=dev)
+                     if isinstance(lens, list) else lens)
+        args = (q, k, v, cache_len, ks, vs, int4)
+        got = decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(*args)
+        lens_b = (torch.as_tensor(lens, device=dev).reshape(-1)
+                  .expand(b).long())
+        n_bytes, flops, mask = _attention_work(torch, lens_b, t, max_len, b,
+                                               hq, hkv, d, mode)
+        k_bf = _dequantized(torch, k, ks, mode)
+        v_bf = _dequantized(torch, v, vs, mode)
+        sdpa = _sdpa(F, q, k_bf, v_bf, mask)
+        res = _quant_case_result(
+            torch, got, want, d, f"K1 {mode} {name}",
+            lambda: decode_attention_cuda(*args),
+            lambda: decode_attention_plain(*args),
+            lambda: decode_attention_cuda(q, k_bf, v_bf, cache_len),
+            lambda: (_dequantized(torch, k, ks, mode),
+                     _dequantized(torch, v, vs, mode), sdpa()),
+            n_bytes, flops)
+        results[name] = res
+        emit({"phase": f"k1_{mode}_{name}", "T": t, "B": b, "Hq": hq,
+              "Hkv": hkv, "D": d, "max_len": max_len, "lengths": lens,
+              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res})
+        del q, k, v, ks, vs, k_bf, v_bf, got, want, mask, sdpa, args
+    return results
+
+
+def k3_quant_phase(torch, dev, mode: str) -> dict:
+    """K3's cases on an int8 or int4 page pool (the k3_* pools,
+    quantized); the library yardstick runs on a contiguous copy."""
+    import torch.nn.functional as F
+
+    from container_engine_accelerators_tpu_torch.ops.decode_attention import (
+        paged_decode_attention_cuda,
+        paged_decode_attention_plain,
+    )
+
+    hq, hkv, d, page, max_pages = K3_SHAPE
+    max_len = page * max_pages
+    int4 = mode == "int4"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    results = {}
+    for name, t, lens in K3_CASES:
+        b = len(lens)
+        k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
+                                            max_pages, hkv, d)
+        kp, ksp = _quantized(torch, k_pool.float(), mode)
+        vp, vsp = _quantized(torch, v_pool.float(), mode)
+        del k_pool, v_pool
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kp, vp, lens_t, tables, ksp, vsp, int4)
+        got = paged_decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_plain(*args)
+        kp_bf = _dequantized(torch, kp, ksp, mode)
+        vp_bf = _dequantized(torch, vp, vsp, mode)
+        rows = tables.long().clamp(0, kp.shape[0] - 1)
+        k = kp[rows].reshape(b, max_len, hkv, -1).contiguous()
+        v = vp[rows].reshape(b, max_len, hkv, -1).contiguous()
+        ks = ksp[rows].transpose(1, 2).reshape(b, hkv, max_len).contiguous()
+        vs = vsp[rows].transpose(1, 2).reshape(b, hkv, max_len).contiguous()
+        n_bytes, flops, mask = _attention_work(torch, lens_t.long(), t,
+                                               max_len, b, hq, hkv, d, mode)
+        n_bytes += tables.numel() * 4 + lens_t.numel() * 4
+        sdpa = _sdpa(F, q, _dequantized(torch, k, ks, mode),
+                     _dequantized(torch, v, vs, mode), mask)
+        res = _quant_case_result(
+            torch, got, want, d, f"K3 {mode} {name}",
+            lambda: paged_decode_attention_cuda(*args),
+            lambda: paged_decode_attention_plain(*args),
+            lambda: paged_decode_attention_cuda(q, kp_bf, vp_bf, lens_t,
+                                                tables),
+            lambda: (_dequantized(torch, k, ks, mode),
+                     _dequantized(torch, v, vs, mode), sdpa()),
+            n_bytes, flops)
+        res["library"] = "dequantize to bf16 + SDPA, on a contiguous copy"
+        results[name] = res
+        emit({"phase": f"k3_{mode}_{name}", "T": t, "slots": b, "Hq": hq,
+              "Hkv": hkv, "D": d, "page": page, "max_pages": max_pages,
+              "n_pages": kp.shape[0], "lengths": lens,
+              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res})
+        del q, kp, vp, ksp, vsp, kp_bf, vp_bf, k, v, ks, vs, got, want
+        del mask, sdpa, args
     return results
 
 
@@ -715,7 +890,9 @@ def paged_tick(torch, dev, np, model, cfg, ticks: int = 16) -> dict:
     """The paged decode tick at 8 active slots (page 128, the default
     pool of 65 pages): each slot prefilled with 128 tokens, then ticks
     of decode_step_paged + argmax. Wall ms per tick, device-synchronised
-    around `ticks` ticks, and the torch.profiler breakdown of 4 more."""
+    around `ticks` ticks, the kernel launches per tick, and the
+    torch.profiler breakdown of 4 more."""
+    from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.models import decode
 
     slots, page, max_pages, n_pages = 8, 128, 16, 65
@@ -740,42 +917,94 @@ def paged_tick(torch, dev, np, model, cfg, ticks: int = 16) -> dict:
     for _ in range(4):
         tick()
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for _ in range(ticks):
         tick()
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+    per_tick = {name: n / ticks for name, n in kernels.launches.items()}
     profile = profile_steps(torch, tick)
     busy = profile["busy_ms_per_step"]
     return {"paged_decode_tick_ms_8_slots": tick_ms,
+            "launches_per_tick": per_tick,
             "tick_cache_lengths": [128 + 4, 128 + 4 + ticks + 4],
             "device_busy_ms_per_tick": busy,
             "device_idle_share": None if busy is None else 1 - busy / tick_ms,
             "top_kernels_ms_per_tick": profile["top"]}
 
 
-def paged_phase(torch, dev, np, model, cfg) -> dict:
-    from container_engine_accelerators_tpu_torch import kernels
-    from container_engine_accelerators_tpu_torch.cli.serve import (
-        PagedContinuousEngine,
-    )
-    from container_engine_accelerators_tpu_torch.models import decode
-
+def _paged_requests(np, cfg) -> tuple[dict, list, list]:
+    """(warm-up, prefix hits, burst) of the paged phase: the warm-up
+    leaves a 256-token prefix in the prefix cache, the burst holds 8
+    short requests, 3 that share the prefix, 2 streamed and, last (so
+    the slots they join are decoding), 2 of 1024 tokens."""
     prompt = _prompts(np, cfg, SEED + 3)
     prefix = prompt(256)
     warm = {"tokens": prefix + prompt(128), "max_new_tokens": 16}
     hits = [{"tokens": prefix + prompt(128), "max_new_tokens": 16}
             for _ in range(3)]
-    # The long prompts go last, so the slots they join are decoding.
     requests = ([{"tokens": prompt(128), "max_new_tokens": 32}
                  for _ in range(8)] + hits
                 + [{"tokens": prompt(64), "max_new_tokens": 16,
                     "stream": True} for _ in range(2)]
                 + [{"tokens": prompt(1024), "max_new_tokens": 16}
                    for _ in range(2)])
-    engine = PagedContinuousEngine(model, cfg, max_slots=8, max_len=2048,
-                                   page=128, prefix_cap=256,
-                                   prefill_chunk=512, engine_core="async")
+    return warm, hits, requests
+
+
+def paged_engine(model, cfg):
+    """The paged phase's engine: 8 slots, max_len 2048, page 128, the
+    default pool of 65 pages, prefix cap 256, chunk 512."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+
+    return PagedContinuousEngine(model, cfg, max_slots=8, max_len=2048,
+                                 page=128, prefix_cap=256, prefill_chunk=512,
+                                 engine_core="async")
+
+
+def paged_burst(torch, np, engine, cfg, what: str) -> tuple[dict, list]:
+    """The paged phase's warm-up and burst behind make_server on
+    `engine`: answers checked, no page leaked. (result, burst answers)."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    warm, _, requests = _paged_requests(np, cfg)
+    with serving(engine) as url:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        first = _post(url, warm)
+        answers, t_start, t_end = burst(url, requests)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        health = healthz(url)
+    _check_answer(_answer_tokens(warm, first[0]), warm["tokens"], 16,
+                  cfg.vocab_size, f"{what} warm-up")
+    generated = _check_burst(requests, answers, cfg.vocab_size, what)
+    require(health["requests"] == 1 + len(requests) and
+            health["worker_alive"], f"{what}: healthz {health}")
+    require(engine.pages_in_use == engine.prefix_index.pages_held(),
+            f"{what}: leaked pages: {engine.pages_in_use} in use, "
+            f"{engine.prefix_index.pages_held()} held by the prefix index")
+    return {"model": "llama3_8b", "max_slots": 8, "max_len": 2048,
+            "page": 128, "pool_pages": engine.pool_pages,
+            "prefill_chunk": 512, "requests": 1 + len(requests),
+            "burst_requests": len(requests), "burst_s": t_end - t_start,
+            "generated_tokens_per_s": generated / (t_end - t_start),
+            "stream_ttft_s": _stream_ttft_s(requests, answers),
+            "decode_steps": health["batches"],
+            "no_page_leaked": True,
+            "max_memory_allocated_bytes": peak,
+            "launches": launches}, answers
+
+
+def paged_phase(torch, dev, np, model, cfg) -> dict:
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    _, hits, _ = _paged_requests(np, cfg)
+    engine = paged_engine(model, cfg)
     # Every prefill chunk as (request id, start, new_len, steps_run).
     chunks = []
     run_chunk = engine._run_chunk
@@ -786,21 +1015,7 @@ def paged_phase(torch, dev, np, model, cfg) -> dict:
         return run_chunk(slot, tokens, start, new_len)
 
     engine._run_chunk = logged_chunk
-    with serving(engine) as url:
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        first = _post(url, warm)
-        answers, t_start, t_end = burst(url, requests)
-        torch.cuda.synchronize()
-        launches = dict(kernels.launches)
-        peak = torch.cuda.max_memory_allocated()
-        health = healthz(url)
-
-    _check_answer(_answer_tokens(warm, first[0]), warm["tokens"], 16,
-                  cfg.vocab_size, "paged warm-up")
-    generated = _check_burst(requests, answers, cfg.vocab_size, "paged")
-    require(health["requests"] == 1 + len(requests) and
-            health["worker_alive"], f"healthz {health}")
+    served, answers = paged_burst(torch, np, engine, cfg, "paged")
     require(engine.prefix_pages_reused >= 6,
             f"prefix pages reused {engine.prefix_pages_reused} < 6")
     require([c[3] for c in chunks] == engine.prefill_chunk_trace,
@@ -814,10 +1029,7 @@ def paged_phase(torch, dev, np, model, cfg) -> dict:
         for cs in split),
         f"1024-token prompts: want two chunks with decode steps between, "
         f"got {split}")
-    require(engine.pages_in_use == engine.prefix_index.pages_held(),
-            f"leaked pages: {engine.pages_in_use} in use, "
-            f"{engine.prefix_index.pages_held()} held by the prefix index")
-    require(launches.get("paged_decode_attention", 0) > 0,
+    require(served["launches"].get("paged_decode_attention", 0) > 0,
             "paged path launched no paged_decode_attention kernel")
     # Not gated: with random 8B weights, near-ties let bf16 paths part.
     matches = []
@@ -832,16 +1044,8 @@ def paged_phase(torch, dev, np, model, cfg) -> dict:
         "prefill_tokens_run", "preemptions")}
     del engine, chunks
     result = {
-        "phase": "paged", "model": "llama3_8b", "max_slots": 8,
-        "max_len": 2048, "page": 128, "pool_pages": 65,
-        "prefill_chunk": 512, "requests": 1 + len(requests),
-        "burst_requests": len(requests), "burst_s": t_end - t_start,
-        "generated_tokens_per_s": generated / (t_end - t_start),
-        "stream_ttft_s": _stream_ttft_s(requests, answers),
-        "decode_steps": health["batches"],
-        **counters,
+        "phase": "paged", **served, **counters,
         "long_prompt_chunks": split,
-        "max_memory_allocated_bytes": peak, "launches": launches,
         "prefix_hit_tokens_matching_generate": [f"{m}/16" for m in matches],
         **paged_tick(torch, dev, np, model, cfg),
     }
@@ -849,7 +1053,10 @@ def paged_phase(torch, dev, np, model, cfg) -> dict:
     return result
 
 
-def paged_preempt_phase(torch, dev, np, model, cfg) -> dict:
+def preempt_run(torch, np, model, cfg, pool_pages: int) -> dict:
+    """paged_preempt's load, 3 slots and 3 x 200 / 250 tokens, on a pool
+    of `pool_pages` pages (the trash row included): answers checked, no
+    page leaked, and the preemptions it took."""
     from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.cli.serve import (
         PagedContinuousEngine,
@@ -858,9 +1065,8 @@ def paged_preempt_phase(torch, dev, np, model, cfg) -> dict:
     prompt = _prompts(np, cfg, SEED + 6)
     n_new = 250
     prompts = [prompt(200) for _ in range(3)]
-    # 8 usable pages; each request grows to 450 tokens, 4 pages: 12.
     engine = PagedContinuousEngine(model, cfg, max_slots=3, max_len=2048,
-                                   page=128, pool_pages=9,
+                                   page=128, pool_pages=pool_pages,
                                    prefill_chunk=512, engine_core="async")
     try:
         kernels.reset_launches()
@@ -876,23 +1082,30 @@ def paged_preempt_phase(torch, dev, np, model, cfg) -> dict:
     require(not engine.thread.is_alive(), "engine worker did not stop")
     for p, out in zip(prompts, outs):
         _check_answer(out, p, n_new, cfg.vocab_size, "paged_preempt")
-    require(engine.preemptions > 0, "no request was preempted")
     require(engine.requests_served == 3, "not every request finished")
     require(engine.pages_in_use == engine.prefix_index.pages_held(),
             "leaked pages after preemption")
-    require(launches.get("paged_decode_attention", 0) > 0,
+    return {"max_slots": 3, "pool_pages": pool_pages, "prompt": 200,
+            "new_tokens": n_new, "preemptions": engine.preemptions,
+            "prefills_run": engine.prefills_run, "seconds": seconds,
+            "generated_tokens_per_s": 3 * n_new / seconds,
+            "launches": launches}
+
+
+def paged_preempt_phase(torch, dev, np, model, cfg) -> dict:
+    # 8 usable pages; each request grows to 450 tokens, 4 pages: 12.
+    result = {"phase": "paged_preempt",
+              **preempt_run(torch, np, model, cfg, PREEMPT_POOL_PAGES["bf16"])}
+    require(result["preemptions"] > 0, "no request was preempted")
+    require(result["launches"].get("paged_decode_attention", 0) > 0,
             "preempt path launched no paged_decode_attention kernel")
-    result = {"phase": "paged_preempt", "max_slots": 3, "pool_pages": 9,
-              "prompt": 200, "new_tokens": n_new,
-              "preemptions": engine.preemptions,
-              "prefills_run": engine.prefills_run, "seconds": seconds,
-              "generated_tokens_per_s": 3 * n_new / seconds,
-              "launches": launches}
     emit(result)
     return result
 
 
-def continuous_phase(torch, dev, np, model, cfg) -> dict:
+def continuous_burst(torch, np, model, cfg) -> dict:
+    """ContinuousEngine (8 slots, max_len 2048, chunk 512) behind
+    make_server on 8 x 128 / 32 and 2 streamed 64 / 16: answers checked."""
     from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.cli.serve import (
         ContinuousEngine,
@@ -917,15 +1130,128 @@ def continuous_phase(torch, dev, np, model, cfg) -> dict:
                              "continuous")
     require(health["requests"] == len(requests) and health["worker_alive"],
             f"healthz {health}")
-    require(launches.get("decode_attention", 0) > 0,
+    return {"model": "llama3_8b", "max_slots": 8, "max_len": 2048,
+            "requests": len(requests), "burst_s": t_end - t_start,
+            "generated_tokens_per_s": generated / (t_end - t_start),
+            "stream_ttft_s": _stream_ttft_s(requests, answers),
+            "decode_steps": health["batches"],
+            "max_memory_allocated_bytes": peak, "launches": launches}
+
+
+def continuous_phase(torch, dev, np, model, cfg) -> dict:
+    result = {"phase": "continuous",
+              **continuous_burst(torch, np, model, cfg)}
+    require(result["launches"].get("decode_attention", 0) > 0,
             "continuous path launched no decode_attention kernel")
-    result = {"phase": "continuous", "model": "llama3_8b", "max_slots": 8,
-              "max_len": 2048, "requests": len(requests),
-              "burst_s": t_end - t_start,
-              "generated_tokens_per_s": generated / (t_end - t_start),
-              "stream_ttft_s": _stream_ttft_s(requests, answers),
-              "decode_steps": health["batches"],
-              "max_memory_allocated_bytes": peak, "launches": launches}
+    emit(result)
+    return result
+
+
+def _cache_bytes_per_token(torch, dev, cfg) -> float:
+    """Bytes of the tensors init_paged_cache allocates in cfg's layout,
+    over the tokens they hold."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    n_pages, page = 2, 128
+    cache = decode.init_paged_cache(cfg, 1, n_pages, page, 1, dev)
+    tensors = (cache.k_pool, cache.v_pool, cache.k_scales, cache.v_scales)
+    return sum(x.numel() * x.element_size() for x in tensors
+               if x is not None) / (n_pages * page)
+
+
+def _quant_logits(torch, dev, np, model, cfgs) -> dict:
+    """Per mode: one decode step after a 128-token prefill, on the kernel
+    path and on the plain path over two copies of the same quantized
+    cache (held within LOGITS_RTOL); and the prefill logits' drift from
+    the bf16 cache's (reported, not held: random weights set no
+    contract)."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    rs = np.random.RandomState(SEED + 12)
+    prompt = torch.tensor(
+        [rs.randint(0, cfgs["bf16"].vocab_size, size=128).tolist()],
+        device=dev)
+    prefill, out = {}, {}
+    for mode, cfg in cfgs.items():
+        cache = decode.init_cache(cfg, 1, 160, dev)
+        prefill[mode], cache = decode.decode_step(model, cache, prompt, cfg)
+        if mode == "bf16":
+            continue
+        twin = dataclasses.replace(
+            cache, **{name: getattr(cache, name).clone()
+                      for name in ("k", "v", "k_scales", "v_scales")})
+        tok = prefill[mode][:, -1:].argmax(-1)
+        kern, _ = decode.decode_step(model, cache, tok, cfg)
+        plain, _ = decode.decode_step(model, twin, tok, cfg, plain=True)
+        diff = (kern - plain).abs().max().item()
+        scale = plain.abs().max().item()
+        require(diff <= LOGITS_RTOL * scale,
+                f"kv_quant {mode}: decode logits kernel vs plain {diff} > "
+                f"{LOGITS_RTOL} * {scale}")
+        ref = prefill["bf16"]
+        out[mode] = {
+            "decode_logits_max_abs_diff_kernel_vs_plain": diff,
+            "decode_logits_max_abs": scale,
+            "prefill_logits_max_abs_diff_vs_bf16":
+                (prefill[mode] - ref).abs().max().item(),
+            "prefill_logits_rel_mse_vs_bf16":
+                ((prefill[mode] - ref) ** 2).mean().item()
+                / (ref ** 2).mean().item(),
+            "last_token_argmax_equals_bf16": bool(
+                prefill[mode][0, -1].argmax() == ref[0, -1].argmax())}
+        del cache, twin, kern, plain
+    return out
+
+
+def kv_quant_phase(torch, dev, np, model, cfg, preempt_bf16) -> dict:
+    """The serving engines on int8 and int4 KV caches (see the module
+    docstring). Main-path launches: the paged bursts, the preemption
+    runs and the continuous bursts."""
+    import dataclasses
+
+    cfgs = {mode: dataclasses.replace(cfg, kv_cache_dtype=mode)
+            for mode in ("bf16",) + KV_MODES}
+    per_token = {mode: _cache_bytes_per_token(torch, dev, c)
+                 for mode, c in cfgs.items()}
+    require(per_token == KV_BYTES_PER_TOKEN,
+            f"cache bytes per token {per_token}, want {KV_BYTES_PER_TOKEN}")
+    pool_bytes = {mode: PREEMPT_POOL_PAGES[mode] * 128 * per_token[mode]
+                  for mode in cfgs}
+    result = {"phase": "kv_quant", "model": "llama3_8b",
+              "cache_bytes_per_token": per_token,
+              "preempt_pool_pages": PREEMPT_POOL_PAGES,
+              "preempt_pool_bytes": pool_bytes,
+              "logits": _quant_logits(torch, dev, np, model, cfgs)}
+    launches: dict = {}
+    preemptions = {"bf16": preempt_bf16["preemptions"]}
+    for mode in KV_MODES:
+        c = cfgs[mode]
+        require(pool_bytes[mode] <= pool_bytes["bf16"],
+                f"{mode} pool larger than bf16's")
+        paged, _ = paged_burst(torch, np, paged_engine(model, c), c,
+                               f"kv_quant {mode} paged")
+        tick = paged_tick(torch, dev, np, model, c)
+        per_tick = tick["launches_per_tick"].get(
+            f"paged_decode_attention_{mode}")
+        require(per_tick == c.n_layers,
+                f"{mode} paged tick: {per_tick} K3 launches, want "
+                f"{c.n_layers}")
+        preempt = preempt_run(torch, np, model, c, PREEMPT_POOL_PAGES[mode])
+        preemptions[mode] = preempt["preemptions"]
+        cont = continuous_burst(torch, np, model, c)
+        for run, name in ((paged, f"paged_decode_attention_{mode}"),
+                          (preempt, f"paged_decode_attention_{mode}"),
+                          (cont, f"decode_attention_{mode}")):
+            require(run["launches"].get(name, 0) > 0,
+                    f"kv_quant {mode}: a run launched no {name}")
+            for key, n in run["launches"].items():
+                launches[key] = launches.get(key, 0) + n
+        result[mode] = {"paged": {**paged, **tick}, "preempt": preempt,
+                        "continuous": cont}
+    result["preemptions_same_pool_bytes"] = preemptions
+    result["launches"] = launches
     emit(result)
     return result
 
@@ -1282,6 +1608,10 @@ def main() -> int:
         k1 = timed("k1", k1_phase, torch, dev)
         k2 = timed("k2", k2_phase, torch, dev)
         k3 = timed("k3", k3_phase, torch, dev)
+        k1q = {mode: timed(f"k1_{mode}", k1_quant_phase, torch, dev, mode)
+               for mode in KV_MODES}
+        k3q = {mode: timed(f"k3_{mode}", k3_quant_phase, torch, dev, mode)
+               for mode in KV_MODES}
         serve, model, cfg = timed("serve", serve_phase, torch, dev, np)
         int8 = timed("int8", int8_phase, torch, dev, np, model, cfg)
         paged = timed("paged", paged_phase, torch, dev, np, model, cfg)
@@ -1289,6 +1619,8 @@ def main() -> int:
                         np, model, cfg)
         cont = timed("continuous", continuous_phase, torch, dev, np, model,
                      cfg)
+        kvq = timed("kv_quant", kv_quant_phase, torch, dev, np, model, cfg,
+                    preempt)
         del model   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
@@ -1307,7 +1639,19 @@ def main() -> int:
 
     def launches(name):
         return sum(phase["launches"].get(name, 0)
-                   for phase in (serve, int8, paged, preempt, cont))
+                   for phase in (serve, int8, paged, preempt, cont, kvq))
+
+    def quant_entries(base, source, replaces, results, main_case):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bf16_kernel_ms", "library")
+        return [{"name": f"{base}_{mode}", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches(f"{base}_{mode}"),
+                 "max_abs_err": max(r["max_abs_err"]
+                                    for r in results[mode].values()),
+                 "max_row_rel_err": max(r["max_row_rel_err"]
+                                        for r in results[mode].values()),
+                 **{key: results[mode][main_case][key] for key in keys}}
+                for mode in KV_MODES]
 
     k1_main, k2_main, k3_main = (k1["decode_slots"], k2["w_gate_bf16"],
                                  k3["decode"])
@@ -1338,6 +1682,10 @@ def main() -> int:
            "max_row_rel_err": max(r["max_row_rel_err"]
                                   for r in flash[name].values()),
            **flash[name]["main"]} for name in FLASH_REPLACES),
+        *quant_entries("decode_attention", K1_SOURCE, K1_REPLACES, k1q,
+                       "decode_slots"),
+        *quant_entries("paged_decode_attention", K3_SOURCE, K3_REPLACES, k3q,
+                       "decode"),
     ]})
     emit({"train_summary": {
         "median_step_ms": train["median_step_ms"],

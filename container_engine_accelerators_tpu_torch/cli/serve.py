@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import dataclasses
 import itertools
 import json
 import logging
@@ -1024,6 +1025,14 @@ def main(argv=None) -> int:
                    default="bf16",
                    help="int8: per-output-channel int8 weight storage, "
                         "dequantized inside the matmul kernel")
+    p.add_argument("--kv-dtype", choices=("bf16", "int8", "int4"),
+                   default="bf16",
+                   help="KV-cache storage for every engine: int8 keeps K/V "
+                        "as int8 with one f32 scale per (token, KV head), "
+                        "dequantized inside the attention kernels (about "
+                        "half the bytes of bf16 a token); int4 packs two "
+                        "4-bit values a byte (about a quarter; lossier). "
+                        "Independent of --weight-dtype")
     p.add_argument("--engine-core", choices=("async", "sync"),
                    default="async",
                    help="async = dispatch batch (window) or tick "
@@ -1044,6 +1053,11 @@ def main(argv=None) -> int:
     )
 
     model, cfg = load_model(device=args.device)
+    if args.kv_dtype != "bf16":
+        # One cfg field carries the mode to every engine's cache
+        # allocation (init_cache, init_slot_cache, init_paged_cache).
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
+        log.info("serving an %s KV cache", args.kv_dtype)
     if args.weight_dtype == "int8":
         model = quantize_llama_params(model)
         log.info("serving int8-quantized weights")

@@ -47,6 +47,14 @@ _SIGNATURES = {
     #  max_pages, n_pages, scale, stream)
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, ctypes.c_float, _P],
+    # (q, k, v, k_scales, v_scales, lens, out, B, T, Hq, Hkv, D, max_len,
+    #  scale, stream)
+    **{f"decode_attention_{mode}": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+       for mode in ("int8", "int4")},
+    # (q, k_pool, v_pool, k_scales, v_scales, lens, tables, out, B, T, Hq,
+    #  Hkv, D, page, max_pages, n_pages, scale, stream)
+    **{f"paged_decode_attention_{mode}": [_P] * 8 + [_I] * 8
+       + [ctypes.c_float, _P] for mode in ("int8", "int4")},
     # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
     #  stream)
     "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -9,6 +9,13 @@ here the update is a slice or index assignment), and the step functions
 below update tables and lengths in place too, returning the cache they
 were given.
 
+cfg.kv_cache_dtype picks the storage: 'bf16' keeps K/V in cfg.dtype;
+'int8' stores int8 with one f32 scale per (token, KV head) in scale
+planes [L, B, Hkv, max_len] (paged: [L, n_pages, Hkv, page], indexed by
+the same tables); 'int4' stores int8 at head_dim / 2, two nibbles a
+byte, with the same scales. The step functions read the mode off the
+cache they are given, as the JAX package does.
+
 `decode_step` runs T new tokens through embed, per layer RMSNorm, q/k/v
 projections, RoPE at absolute positions, the cache write, cached
 attention, wo plus residual, RMSNorm, SwiGLU plus residual, then the
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from container_engine_accelerators_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
+    check_kv_cache_dtype,
 )
 from container_engine_accelerators_tpu_torch.ops import (
     apply_rope,
@@ -49,17 +57,23 @@ from container_engine_accelerators_tpu_torch.ops.quant import (
     QuantWeight,
     int8_matmul,
     int8_matmul_plain,
+    quantize_kv,
+    quantize_kv_int4,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class KVCache:
-    k: torch.Tensor        # [L, B, max_len, Hkv, D]
+    k: torch.Tensor        # [L, B, max_len, Hkv, D] (int4: D / 2)
     v: torch.Tensor        # [L, B, max_len, Hkv, D]
     # Tokens already cached: an int shared by every row (the batched
     # path; host-known, so writes are plain slices), or a [B] int32
     # tensor on the device (per-slot lengths).
     length: int | torch.Tensor
+    # int8/int4 caches: f32 dequantization scales per (token, KV head),
+    # head-major (ops/quant.quantize_kv); None for a bf16 cache.
+    k_scales: torch.Tensor | None = None   # [L, B, Hkv, max_len]
+    v_scales: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,54 +84,94 @@ class PagedKVCache:
     request) and backs table entries past a slot's pages. Memory scales
     with the pool, not with slots x max_len: the serving engine keeps the
     live pages of all slots within n_pages - 1."""
-    k_pool: torch.Tensor   # [L, n_pages, page, Hkv, D]
+    k_pool: torch.Tensor   # [L, n_pages, page, Hkv, D] (int4: D / 2)
     v_pool: torch.Tensor   # [L, n_pages, page, Hkv, D]
     tables: torch.Tensor   # [slots, max_pages] int32 pool row per page
     length: torch.Tensor   # [slots] int32 live length per slot
+    # int8/int4 pools: scale pools indexed by the same tables.
+    k_scales: torch.Tensor | None = None   # [L, n_pages, Hkv, page] f32
+    v_scales: torch.Tensor | None = None
 
     @property
     def page(self) -> int:
         return self.k_pool.shape[2]
 
 
-def _check_kv_dtype(cfg: LlamaConfig):
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported yet; "
-            "this slice stores the cache in cfg.dtype ('bf16')")
+def _kv_dtype(cfg: LlamaConfig) -> torch.dtype:
+    """The cache storage dtype cfg asks for: int8 for 'int8' and 'int4'
+    (two nibbles a byte), else cfg.dtype."""
+    check_kv_cache_dtype(cfg)
+    return torch.int8 if cfg.kv_cache_dtype != "bf16" else cfg.dtype
+
+
+def _storage_token(arr: torch.Tensor, cfg: LlamaConfig):
+    """How a cache K/V tensor stores its payload: 'int4' for int8 at
+    head_dim / 2 (the shape is the mode), else its dtype. Passed as
+    init_cache's `dtype`, it makes a temporary prefill cache of the
+    layout of the cache it is copied into."""
+    if arr.dtype == torch.int8 and arr.shape[-1] == cfg.head_dim // 2:
+        return "int4"
+    return arr.dtype
+
+
+def _storage_layout(cfg: LlamaConfig, dtype) -> tuple[torch.dtype, int]:
+    """(storage dtype, payload width) of a cache allocation: `dtype` None
+    follows cfg.kv_cache_dtype; 'int4' (a _storage_token) is the nibble
+    layout; any other dtype is taken as it is, at head_dim."""
+    if dtype is None:
+        dtype = _kv_dtype(cfg)
+        return dtype, (cfg.head_dim // 2 if cfg.kv_cache_dtype == "int4"
+                       else cfg.head_dim)
+    if dtype == "int4":
+        return torch.int8, cfg.head_dim // 2
+    return dtype, cfg.head_dim
+
+
+def _scale_planes(dtype: torch.dtype, shape: tuple, device) -> dict:
+    """Zeroed f32 k_scales/v_scales of `shape` for an int8 payload."""
+    if dtype != torch.int8:
+        return {}
+    return {name: torch.zeros(shape, dtype=torch.float32, device=device)
+            for name in ("k_scales", "v_scales")}
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device: str | torch.device) -> KVCache:
-    """Zeroed cache in cfg.dtype."""
-    _check_kv_dtype(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   length=0)
+               device: str | torch.device, dtype=None) -> KVCache:
+    """Zeroed cache in the layout cfg.kv_cache_dtype asks for, or `dtype`
+    (a torch dtype, or 'int4'); an int8 layout gets zeroed scale planes
+    [L, batch, Hkv, max_len] f32."""
+    dtype, d_store = _storage_layout(cfg, dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, d_store)
+    scales = (cfg.n_layers, batch, cfg.n_kv_heads, max_len)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=0, **_scale_planes(dtype, scales, device))
 
 
 def init_slot_cache(cfg: LlamaConfig, slots: int, max_len: int,
-                    device: str | torch.device) -> KVCache:
+                    device: str | torch.device, dtype=None) -> KVCache:
     """KVCache with per-slot lengths ([slots] int32, all zero)."""
-    cache = init_cache(cfg, slots, max_len, device)
+    cache = init_cache(cfg, slots, max_len, device, dtype=dtype)
     return dataclasses.replace(
         cache, length=torch.zeros(slots, dtype=torch.int32, device=device))
 
 
 def init_paged_cache(cfg: LlamaConfig, slots: int, n_pages: int, page: int,
-                     max_pages: int, device: str | torch.device
-                     ) -> PagedKVCache:
+                     max_pages: int, device: str | torch.device,
+                     dtype=None) -> PagedKVCache:
     """n_pages zeroed pool pages (row 0 is the trash page) shared by
-    `slots` slots of logical capacity max_pages * page tokens each."""
-    _check_kv_dtype(cfg)
-    shape = (cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.head_dim)
+    `slots` slots of logical capacity max_pages * page tokens each; an
+    int8 layout gets zeroed scale pools [L, n_pages, Hkv, page] f32."""
+    dtype, d_store = _storage_layout(cfg, dtype)
+    shape = (cfg.n_layers, n_pages, page, cfg.n_kv_heads, d_store)
+    scales = (cfg.n_layers, n_pages, cfg.n_kv_heads, page)
     return PagedKVCache(
-        k_pool=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v_pool=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k_pool=torch.zeros(shape, dtype=dtype, device=device),
+        v_pool=torch.zeros(shape, dtype=dtype, device=device),
         tables=torch.zeros(slots, max_pages, dtype=torch.int32,
                            device=device),
-        length=torch.zeros(slots, dtype=torch.int32, device=device))
+        length=torch.zeros(slots, dtype=torch.int32, device=device),
+        **_scale_planes(dtype, scales, device))
 
 
 def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
@@ -141,12 +195,15 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
     min(length[b], max_len - T) and `active` ([B] bool) gates which rows'
     lengths advance; inactive rows still compute. On a slot cache they
     write where the next prefill overwrites; on a paged cache their
-    writes go to the trash row 0, since their table rows may already
-    belong to another request. The pages a write lands in must already
-    be in the table. `plain=True` runs the kernels' plain PyTorch
-    versions on any device (the on-card reference for the kernel
-    path)."""
-    _check_kv_dtype(cfg)
+    writes, scales included, go to the trash row 0, since their table
+    rows may already belong to another request. The pages a write lands
+    in must already be in the table.
+
+    The KV mode is the cache's, not cfg's: an int8 cache holds int8 K/V
+    (int4 at head_dim / 2), and the new tokens are quantized after RoPE
+    and written with their scales through the same indices. `plain=True`
+    runs the kernels' plain PyTorch versions on any device (the on-card
+    reference for the kernel path)."""
     b, t = tokens.shape
     dev = tokens.device
     paged = isinstance(cache, PagedKVCache)
@@ -157,6 +214,9 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
     else:
         max_len = cache.k.shape[2]
         k_all, v_all = cache.k, cache.v
+    quantized = k_all.dtype == torch.int8
+    int4 = _storage_token(k_all, cfg) == "int4"
+    quantize = quantize_kv_int4 if int4 else quantize_kv
     per_slot = isinstance(cache.length, torch.Tensor)
     hd, dt = cfg.head_dim, cfg.dtype
     cos, sin = rope_frequencies(hd, max_len, cfg.rope_theta, device=dev)
@@ -186,10 +246,29 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
         paged_attn = (paged_decode_attention_plain if plain
                       else paged_decode_attention)
 
-        def attention(q, k_pool, v_pool, lens):
-            return paged_attn(q, k_pool, v_pool, lens, cache.tables)
+        def attention(q, k_pool, v_pool, lens, ks, vs):
+            return paged_attn(q, k_pool, v_pool, lens, cache.tables, ks, vs,
+                              int4)
+
+        def write(pool, new, spool=None, new_scales=None):
+            pool[w_rows, w_offs] = new
+            if spool is not None:   # scales [B, Hkv, T] at [row, :, off]
+                spool[w_rows, :, w_offs] = new_scales.transpose(1, 2)
     else:
-        attention = decode_attention_plain if plain else decode_attention
+        attn_fn = decode_attention_plain if plain else decode_attention
+
+        def attention(q, k_cache, v_cache, lens, ks, vs):
+            return attn_fn(q, k_cache, v_cache, lens, ks, vs, int4)
+
+        def write(c, new, sc=None, new_scales=None):
+            if per_slot:
+                c[rows, positions] = new
+                if sc is not None:
+                    sc[rows, :, positions] = new_scales.transpose(1, 2)
+            else:
+                c[:, cache.length:cache.length + t] = new
+                if sc is not None:
+                    sc[:, :, cache.length:cache.length + t] = new_scales
 
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
@@ -200,16 +279,18 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         k_cache, v_cache = k_all[li], v_all[li]
-        if paged:
-            k_cache[w_rows, w_offs] = k.to(k_cache.dtype)
-            v_cache[w_rows, w_offs] = v.to(v_cache.dtype)
-        elif per_slot:
-            k_cache[rows, positions] = k.to(k_cache.dtype)
-            v_cache[rows, positions] = v.to(v_cache.dtype)
+        ks = vs = None
+        if quantized:
+            ks, vs = cache.k_scales[li], cache.v_scales[li]
+            # One call for K and V (scales are per token and head, so
+            # stacking changes no value): half the eager ops on the host.
+            kv_q, kv_s = quantize(torch.stack([k, v]))
+            write(k_cache, kv_q[0], ks, kv_s[0])
+            write(v_cache, kv_q[1], vs, kv_s[1])
         else:
-            k_cache[:, cache.length:cache.length + t] = k.to(k_cache.dtype)
-            v_cache[:, cache.length:cache.length + t] = v.to(v_cache.dtype)
-        attn = attention(q.to(dt), k_cache, v_cache, att_len)
+            write(k_cache, k.to(k_cache.dtype))
+            write(v_cache, v.to(v_cache.dtype))
+        attn = attention(q.to(dt), k_cache, v_cache, att_len, ks, vs)
         x = x + _proj(attn.reshape(b, t, -1), layer.wo, plain)
         h2 = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
         gate = F.silu(_proj(h2, layer.w_gate, plain))
@@ -250,6 +331,34 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None
     return (probs / noise).argmax(dim=-1)
 
 
+def _slot_view(planes: torch.Tensor | None, slot: int):
+    """Slot `slot` of [L, slots, ...] cache planes, as an [L, 1, ...] view
+    (None stays None)."""
+    return None if planes is None else planes[:, slot:slot + 1]
+
+
+def prefill_slot(model: Llama, cache: KVCache, slot: int,
+                 tokens: torch.Tensor, true_len: int, cfg: LlamaConfig,
+                 plain: bool = False) -> tuple[torch.Tensor, KVCache]:
+    """Prefill one request into slot `slot` of a slot cache: `tokens`
+    [Tp] (the prompt padded to a bucket; the padding's K/V sits past
+    true_len) runs through a temporary cache of the slot cache's layout,
+    which is then copied, scales included, into the slot's first Tp
+    positions. Sets length[slot] = true_len in place. Returns (logits of
+    the last live token [vocab] f32, cache)."""
+    tp = tokens.shape[0]
+    tmp = init_cache(cfg, 1, tp, cache.k.device,
+                     dtype=_storage_token(cache.k, cfg))
+    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain)
+    cache.k[:, slot, :tp] = tmp.k[:, 0]
+    cache.v[:, slot, :tp] = tmp.v[:, 0]
+    if cache.k_scales is not None:   # [L, slots, Hkv, max_len]
+        cache.k_scales[:, slot, :, :tp] = tmp.k_scales[:, 0]
+        cache.v_scales[:, slot, :, :tp] = tmp.v_scales[:, 0]
+    cache.length[slot] = true_len
+    return logits[0, true_len - 1], cache
+
+
 def prefill_suffix_slot(model: Llama, cache: KVCache, slot: int,
                         suffix_tokens: torch.Tensor, start: int,
                         new_len: int, cfg: LlamaConfig, plain: bool = False
@@ -261,7 +370,8 @@ def prefill_suffix_slot(model: Llama, cache: KVCache, slot: int,
     chunk. Writes the slot's cache and sets length[slot] in place.
     Returns (logits of the last live token [vocab] f32, meaningful on
     the final chunk, and the cache)."""
-    sub = KVCache(k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1],
+    sub = KVCache(**{name: _slot_view(getattr(cache, name), slot)
+                     for name in ("k", "v", "k_scales", "v_scales")},
                   length=torch.full((1,), start, dtype=torch.int32,
                                     device=cache.length.device))
     logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
@@ -281,6 +391,39 @@ def decode_step_paged(model: Llama, cache: PagedKVCache,
     logits, cache = decode_step(model, cache, tokens[:, None], cfg,
                                 active=active, plain=plain)
     return logits[:, 0], cache
+
+
+def prefill_slot_paged(model: Llama, cache: PagedKVCache, slot: int,
+                       rows: torch.Tensor, tokens: torch.Tensor,
+                       true_len: int, cfg: LlamaConfig, plain: bool = False
+                       ) -> tuple[torch.Tensor, PagedKVCache]:
+    """Prefill one request into the paged cache: `tokens` [Tp] (the
+    prompt padded to a page multiple) runs through a temporary contiguous
+    cache of the pools' layout, whose pages, and scale pages, are then
+    scattered to pool rows `rows` [Tp // page]; the slot's first table
+    entries point at them and length[slot] = true_len, in place. Returns
+    (logits of the last live token [vocab] f32, cache)."""
+    tp = tokens.shape[0]
+    n_layers, _, page, hkv, d_store = cache.k_pool.shape
+    if tp % page or rows.shape != (tp // page,):
+        raise ValueError(f"{tp} tokens need {tp} // {page} page rows and a "
+                         f"page multiple, got rows {tuple(rows.shape)}")
+    n_pg = tp // page
+    tmp = init_cache(cfg, 1, tp, cache.k_pool.device,
+                     dtype=_storage_token(cache.k_pool, cfg))
+    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain)
+    rows = rows.long()
+    cache.k_pool[:, rows] = tmp.k.reshape(n_layers, n_pg, page, hkv, d_store)
+    cache.v_pool[:, rows] = tmp.v.reshape(n_layers, n_pg, page, hkv, d_store)
+    if cache.k_scales is not None:
+        # [L, 1, Hkv, Tp] -> per page [L, n_pg, Hkv, page]
+        for pool, planes in ((cache.k_scales, tmp.k_scales),
+                             (cache.v_scales, tmp.v_scales)):
+            pool[:, rows] = planes.reshape(n_layers, hkv, n_pg,
+                                           page).transpose(1, 2)
+    cache.tables[slot, :n_pg] = rows.to(torch.int32)
+    cache.length[slot] = true_len
+    return logits[0, true_len - 1], cache
 
 
 def set_slot_pages(cache: PagedKVCache, slot: int, rows: torch.Tensor,
@@ -305,8 +448,8 @@ def prefill_suffix_paged(model: Llama, cache: PagedKVCache, slot: int,
     place. Returns (logits of the last live token [vocab] f32, cache).
     The start is read on the device, so nothing waits for it."""
     start = cache.length[slot:slot + 1].clone()
-    sub = PagedKVCache(k_pool=cache.k_pool, v_pool=cache.v_pool,
-                       tables=cache.tables[slot:slot + 1], length=start)
+    sub = dataclasses.replace(cache, tables=cache.tables[slot:slot + 1],
+                              length=start)
     logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
                             plain=plain)
     cache.length[slot] = true_len

@@ -48,7 +48,9 @@ class LlamaConfig:
     remat_policy: str = "dots"
     use_flash: bool | None = None                # None: flash on CUDA
     flash_causal_grid: str = "rect"              # 'rect' | 'tri'
-    kv_cache_dtype: str = "bf16"                 # only bf16 is ported
+    # Serving KV cache: 'bf16' (cfg.dtype), 'int8' or 'int4' (int8 storage
+    # at head_dim / 2, two nibbles a byte), with per-(token, head) scales.
+    kv_cache_dtype: str = "bf16"
 
     @property
     def head_dim(self) -> int:
@@ -263,6 +265,20 @@ _SAVED_OPS = {
 REMAT_POLICIES = ("none", "dots", "dots_all", "full")
 
 
+KV_CACHE_DTYPES = ("bf16", "int8", "int4")
+
+
+def check_kv_cache_dtype(cfg: LlamaConfig) -> None:
+    """The JAX package's validation of cfg.kv_cache_dtype."""
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype must be 'bf16', 'int8' or 'int4', "
+                         f"got {cfg.kv_cache_dtype!r}")
+    if cfg.kv_cache_dtype == "int4" and cfg.head_dim % 2:
+        raise ValueError(
+            f"kv_cache_dtype='int4' packs two nibbles per byte over "
+            f"head_dim; head_dim={cfg.head_dim} must be even")
+
+
 def _check_train_config(cfg: LlamaConfig) -> None:
     if cfg.remat_policy == "dots_save_attn":
         raise NotImplementedError(
@@ -273,6 +289,7 @@ def _check_train_config(cfg: LlamaConfig) -> None:
     if cfg.flash_causal_grid not in ("rect", "tri"):
         raise ValueError(f"flash_causal_grid must be 'rect' or 'tri', got "
                          f"{cfg.flash_causal_grid!r}")
+    check_kv_cache_dtype(cfg)
 
 
 def _layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,

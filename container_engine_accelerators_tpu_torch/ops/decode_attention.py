@@ -1,24 +1,31 @@
 """GQA attention over the KV cache for the decode path: a contiguous
 cache (`decode_attention`, K1) or a page pool (`paged_decode_attention`,
-K3).
+K3), each over a bf16, int8 or int4 cache.
 
 Each dispatches on the tensors' device: CUDA launches the hand-written
 kernel (kernels/decode_attention.cu), CPU runs the `*_plain` version, the
 same function in plain PyTorch. There is no other route: a shape or
 dtype the kernel cannot take raises.
 
-The function is the bf16-cache mode of the JAX package's pallas kernel:
-q [B, T, Hq, D] holds T new queries at absolute positions
-[cache_len, cache_len + T); the caches [B, max_len, Hkv, D] already hold
-the new tokens. Query t sees key positions p < cache_len + T with
-p <= cache_len + t. Scores, softmax and p.v are f32; the output is
-q.dtype. cache_len is an int, a 0-d tensor or a [B] tensor.
+The function is the JAX package's pallas kernel's: q [B, T, Hq, D] holds
+T new queries at absolute positions [cache_len, cache_len + T); the
+caches [B, max_len, Hkv, D] already hold the new tokens. Query t sees
+key positions p < cache_len + T with p <= cache_len + t. Scores, softmax
+and p.v are f32; the output is q.dtype. cache_len is an int, a 0-d
+tensor or a [B] tensor.
+
+k_scales/v_scales ([B, Hkv, max_len] f32, ops/quant.quantize_kv's
+head-major layout) mark an int8 cache: key p of head h is
+float(k[b, p, h]) * k_scales[b, h, p], dequantized in f32 as the pallas
+body does. `int4` marks an int8 cache of width D/2 holding two nibbles a
+byte (quantize_kv_int4's split-half layout), with the same scales.
 
 The paged form reads the same logical cache through a block table:
 pools [n_pages, page, Hkv, D], tables [B, max_pages] int32, so logical
 position p of row b is pool row tables[b, p // page] (clamped to
 [0, n_pages - 1]), offset p % page, and max_len = max_pages * page.
-Table entries past a row's live pages may be garbage.
+Scale pools [n_pages, Hkv, page] go through the same tables. Table
+entries past a row's live pages may be garbage.
 
 The TPU kernel's VMEM gate that sent long prefills elsewhere does not
 carry over: the CUDA kernel serves every prefill length.
@@ -29,6 +36,10 @@ from __future__ import annotations
 import torch
 
 from container_engine_accelerators_tpu_torch import kernels
+from container_engine_accelerators_tpu_torch.ops.quant import (
+    dequantize_kv,
+    dequantize_kv_int4,
+)
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
@@ -46,24 +57,64 @@ def _lengths(cache_len, b: int, device: torch.device) -> torch.Tensor:
     return lens.contiguous()
 
 
-def _check_shapes(q, k_cache, v_cache):
+def _mode(k_scales, int4: bool) -> str:
+    """'bf16', 'int8' or 'int4': the cache mode, which names the kernel
+    entry and its launch count."""
+    if k_scales is None:
+        return "bf16"
+    return "int4" if int4 else "int8"
+
+
+def _count_name(base: str, mode: str) -> str:
+    return base if mode == "bf16" else f"{base}_{mode}"
+
+
+def _check_scales(k_scales, v_scales, int4: bool, want: tuple) -> None:
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if k_scales is None:
+        if int4:
+            raise ValueError("an int4 cache needs its k/v scales")
+        return
+    for arg, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{arg} must be {list(want)}, got "
+                             f"{list(x.shape)}")
+
+
+def _check_shapes(q, k_cache, v_cache, k_scales=None, v_scales=None,
+                  int4: bool = False):
     if q.ndim != 4 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(
             f"want q [B,T,Hq,D] and k/v [B,max_len,Hkv,D], got "
             f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
             f"{tuple(v_cache.shape)}")
     b, t, hq, d = q.shape
-    if (k_cache.shape[0] != b or k_cache.shape[3] != d
+    d_store = d // 2 if int4 else d
+    if (k_cache.shape[0] != b or k_cache.shape[3] != d_store
             or hq % k_cache.shape[2]):
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
-                         f"{tuple(k_cache.shape)}")
+                         f"{tuple(k_cache.shape)}"
+                         + (" (int4: D/2 bytes a row)" if int4 else ""))
+    _check_scales(k_scales, v_scales, int4,
+                  (b, k_cache.shape[2], k_cache.shape[1]))
+
+
+def _dequantized(cache: torch.Tensor, scales, int4: bool) -> torch.Tensor:
+    """The cache in f32: a bf16 cache cast, an int8 or int4 one times
+    its head-major scales."""
+    if scales is None:
+        return cache.float()
+    return (dequantize_kv_int4 if int4 else dequantize_kv)(cache, scales)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                           v_cache: torch.Tensor, cache_len,
+                           k_scales=None, v_scales=None,
+                           int4: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the CPU path, and the
     reference the kernel is held against on the card)."""
-    _check_shapes(q, k_cache, v_cache)
+    _check_shapes(q, k_cache, v_cache, k_scales, v_scales, int4)
     b, t, hq, d = q.shape
     max_len, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -76,9 +127,12 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                 <= lens[:, None, None] + t_idx[None, :, None]))  # [B,T,S]
     dead = key_pos[None, :] >= live[:, None]                      # [B,S]
     # Dead positions are zeroed: their probabilities are 0, but 0 * NaN
-    # is NaN and a reused cache makes no promise about them.
-    k = k_cache.float().masked_fill(dead[:, :, None, None], 0.0)
-    v = v_cache.float().masked_fill(dead[:, :, None, None], 0.0)
+    # is NaN and a reused cache makes no promise about them (nor about
+    # their scales).
+    k = _dequantized(k_cache, k_scales, int4).masked_fill(
+        dead[:, :, None, None], 0.0)
+    v = _dequantized(v_cache, v_scales, int4).masked_fill(
+        dead[:, :, None, None], 0.0)
     qg = q.float().reshape(b, t, hkv, g, d)
     s = torch.einsum("btkgd,bskd->bkgts", qg, k) * d ** -0.5
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
@@ -87,54 +141,85 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, t, hq, d).to(q.dtype)
 
 
-def _check_kernel_inputs(name: str, q, k_cache, v_cache) -> torch.Tensor:
+def _check_kernel_inputs(name: str, q, k_cache, v_cache, k_scales,
+                         v_scales) -> torch.Tensor:
     """Raise on what the kernel cannot take; returns q contiguous."""
     d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    for arg, x in (("q", q), ("k", k_cache), ("v", v_cache)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes bf16 {arg}, got {x.dtype}")
+    payload = torch.bfloat16 if k_scales is None else torch.int8
+    for arg, x, dtype in (("q", q, torch.bfloat16), ("k", k_cache, payload),
+                          ("v", v_cache, payload)):
+        if x.dtype != dtype:
+            raise TypeError(f"{name} kernel takes {dtype} {arg}, got "
+                            f"{x.dtype}")
+    tensors = [k_cache, v_cache]
+    if k_scales is not None:
+        for arg, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if x.dtype != torch.float32:
+                raise TypeError(f"{name} kernel takes f32 {arg}, got "
+                                f"{x.dtype}")
+        tensors += [k_scales, v_scales]
+    for x in tensors:
         if x.device != q.device:
-            raise ValueError(f"{arg} on {x.device}, q on {q.device}")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError(f"{name} kernel takes contiguous caches")
+            raise ValueError(f"a cache tensor on {x.device}, q on "
+                             f"{q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous caches and "
+                             "scales")
     q = q.contiguous()
+    # Payload rows (D bf16, D int8 or D/2 int4 bytes: a multiple of 16 at
+    # every head dim taken) come in with 16-byte loads.
     if any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
         raise ValueError(f"{name} kernel takes 16-byte aligned tensors")
     return q
 
 
+def _scale_ptrs(k_scales, v_scales) -> tuple:
+    if k_scales is None:
+        return ()
+    return k_scales.data_ptr(), v_scales.data_ptr()
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, cache_len) -> torch.Tensor:
-    """Launch kernels/decode_attention.cu on CUDA tensors."""
-    _check_shapes(q, k_cache, v_cache)
+                          v_cache: torch.Tensor, cache_len,
+                          k_scales=None, v_scales=None,
+                          int4: bool = False) -> torch.Tensor:
+    """Launch kernels/decode_attention.cu on CUDA tensors: the bf16,
+    int8 or int4 entry, as the cache is."""
+    _check_shapes(q, k_cache, v_cache, k_scales, v_scales, int4)
     b, t, hq, d = q.shape
     max_len, hkv = k_cache.shape[1], k_cache.shape[2]
-    q = _check_kernel_inputs("decode_attention", q, k_cache, v_cache)
+    q = _check_kernel_inputs("decode_attention", q, k_cache, v_cache,
+                             k_scales, v_scales)
+    mode = _mode(k_scales, int4)
     lens = _lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
-    lib = kernels.load()
-    err = lib.decode_attention_bf16(
+    entry = getattr(kernels.load(), f"decode_attention_{mode}")
+    err = entry(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, max_len,
-        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check("decode_attention", err)
+        *_scale_ptrs(k_scales, v_scales), lens.data_ptr(), out.data_ptr(),
+        b, t, hq, hkv, d, max_len, d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(_count_name("decode_attention", mode), err)
     return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len, k_scales=None,
+                     v_scales=None, int4: bool = False) -> torch.Tensor:
     """[B, T, Hq, D] attention output; see the module docstring."""
+    args = (q, k_cache, v_cache, cache_len, k_scales, v_scales, int4)
     if q.device.type == "cuda":
-        return decode_attention_cuda(q, k_cache, v_cache, cache_len)
+        return decode_attention_cuda(*args)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+        return decode_attention_plain(*args)
     raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
 
 
-def _check_paged_shapes(q, k_pool, v_pool, tables):
+def _check_paged_shapes(q, k_pool, v_pool, tables, k_scales=None,
+                        v_scales=None, int4: bool = False):
     if (q.ndim != 4 or k_pool.ndim != 4 or k_pool.shape != v_pool.shape
             or tables.ndim != 2):
         raise ValueError(
@@ -142,62 +227,78 @@ def _check_paged_shapes(q, k_pool, v_pool, tables):
             f"[B,max_pages], got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
             f"{tuple(v_pool.shape)}, {tuple(tables.shape)}")
     b, t, hq, d = q.shape
-    if (tables.shape[0] != b or k_pool.shape[3] != d
-            or hq % k_pool.shape[2]):
+    n_pages, page, hkv, d_store = k_pool.shape
+    if (tables.shape[0] != b or d_store != (d // 2 if int4 else d)
+            or hq % hkv):
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pool.shape)} and tables "
-                         f"{tuple(tables.shape)}")
+                         f"{tuple(tables.shape)}"
+                         + (" (int4: D/2 bytes a row)" if int4 else ""))
+    _check_scales(k_scales, v_scales, int4, (n_pages, hkv, page))
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor, cache_len,
-                                 tables: torch.Tensor) -> torch.Tensor:
+                                 tables: torch.Tensor, k_scales=None,
+                                 v_scales=None,
+                                 int4: bool = False) -> torch.Tensor:
     """The paged kernel's function in plain PyTorch: gather each row's
-    pages through its table into a contiguous cache, then
-    `decode_attention_plain` (the JAX package's off-TPU path)."""
-    _check_paged_shapes(q, k_pool, v_pool, tables)
+    pages, and their scale pages, through its clamped table into a
+    contiguous cache, then `decode_attention_plain` (the JAX package's
+    off-TPU path)."""
+    _check_paged_shapes(q, k_pool, v_pool, tables, k_scales, v_scales, int4)
     b, max_pages = tables.shape
-    n_pages, page, hkv, d = k_pool.shape
+    n_pages, page, hkv, d_store = k_pool.shape
     rows = tables.long().clamp(0, n_pages - 1)
-    k = k_pool[rows].reshape(b, max_pages * page, hkv, d)
-    v = v_pool[rows].reshape(b, max_pages * page, hkv, d)
-    return decode_attention_plain(q, k, v, cache_len)
+    k = k_pool[rows].reshape(b, max_pages * page, hkv, d_store)
+    v = v_pool[rows].reshape(b, max_pages * page, hkv, d_store)
+    ks = vs = None
+    if k_scales is not None:
+        ks = k_scales[rows].transpose(1, 2).reshape(b, hkv, max_pages * page)
+        vs = v_scales[rows].transpose(1, 2).reshape(b, hkv, max_pages * page)
+    return decode_attention_plain(q, k, v, cache_len, ks, vs, int4)
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, cache_len,
-                                tables: torch.Tensor) -> torch.Tensor:
-    """Launch the paged entry of kernels/decode_attention.cu on CUDA
-    tensors."""
-    _check_paged_shapes(q, k_pool, v_pool, tables)
+                                tables: torch.Tensor, k_scales=None,
+                                v_scales=None,
+                                int4: bool = False) -> torch.Tensor:
+    """Launch the paged entry of kernels/decode_attention.cu (bf16, int8
+    or int4, as the pools are) on CUDA tensors."""
+    _check_paged_shapes(q, k_pool, v_pool, tables, k_scales, v_scales, int4)
     b, t, hq, d = q.shape
     n_pages, page, hkv, _ = k_pool.shape
     max_pages = tables.shape[1]
-    q = _check_kernel_inputs("paged_decode_attention", q, k_pool, v_pool)
+    q = _check_kernel_inputs("paged_decode_attention", q, k_pool, v_pool,
+                             k_scales, v_scales)
     if tables.device != q.device:
         raise ValueError(f"tables on {tables.device}, q on {q.device}")
+    mode = _mode(k_scales, int4)
     tables = tables.to(torch.int32).contiguous()
     lens = _lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
-    lib = kernels.load()
-    err = lib.paged_decode_attention_bf16(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), lens.data_ptr(),
-        tables.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, page, max_pages,
-        n_pages, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check("paged_decode_attention", err)
+    entry = getattr(kernels.load(), f"paged_decode_attention_{mode}")
+    err = entry(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *_scale_ptrs(k_scales, v_scales), lens.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, page,
+        max_pages, n_pages, d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(_count_name("paged_decode_attention", mode), err)
     return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, cache_len,
-                           tables: torch.Tensor) -> torch.Tensor:
+                           tables: torch.Tensor, k_scales=None,
+                           v_scales=None, int4: bool = False) -> torch.Tensor:
     """[B, T, Hq, D] attention output over a page pool; see the module
     docstring."""
+    args = (q, k_pool, v_pool, cache_len, tables, k_scales, v_scales, int4)
     if q.device.type == "cuda":
-        return paged_decode_attention_cuda(q, k_pool, v_pool, cache_len,
-                                           tables)
+        return paged_decode_attention_cuda(*args)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, cache_len,
-                                            tables)
+        return paged_decode_attention_plain(*args)
     raise ValueError(f"paged_decode_attention runs on cuda or cpu, not "
                      f"{q.device}")

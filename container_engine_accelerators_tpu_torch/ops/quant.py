@@ -1,16 +1,25 @@
-"""Int8 weight quantization for the decode path.
+"""Int8 quantization for the decode path: weights and the KV cache.
 
+Weights, symmetric per output channel (scale = absmax / 127 over the
+contraction dim):
   qw = quantize_weights(w)              # [..., D, F] -> int8 + f32 [..., F]
   y = int8_matmul(x, qw)                # [T, D] @ [D, F] -> [T, F] x.dtype
   qmodel = quantize_llama_params(model) # every projection and the lm_head
+Decoding at small batch streams every weight once per step, so int8
+storage halves the bytes of the bf16 weight stream; `int8_matmul`
+dispatches on the device: CUDA launches kernels/int8_matmul.cu (dequant
+in registers), CPU runs `int8_matmul_plain`.
 
-Symmetric per-output-channel int8 (scale = absmax / 127 over the
-contraction dim), bit-identical to the JAX package's quantizer. Decoding
-at small batch streams every weight once per step, so int8 storage
-halves the bytes of the bf16 weight stream; `int8_matmul` dispatches on
-the device: CUDA launches kernels/int8_matmul.cu (dequant in registers),
-CPU runs `int8_matmul_plain`. The KV-cache quantizers come with the
-int8/int4 KV modes in a later slice.
+KV cache, symmetric per (token, KV head), scales head-major:
+  q, s = quantize_kv(kv)        # [..., T, Hkv, D] -> int8, f32 [..., Hkv, T]
+  kv = dequantize_kv(q, s)
+  p, s = quantize_kv_int4(kv)   # int8 [..., D/2]: two nibbles a byte
+  kv = dequantize_kv_int4(p, s)
+Int8 stores a cached token in about half the bytes of bf16, int4 in about
+a quarter; ops/decode_attention dequantizes inside its kernels. These
+are plain tensor code, as in the JAX package (XLA there, no Pallas), and
+every function here is bit-identical to the JAX package's on the same
+inputs: both round half to even and divide in IEEE f32.
 """
 
 from __future__ import annotations
@@ -55,6 +64,63 @@ def quantize_weights(w: torch.Tensor) -> QuantWeight:
 def dequantize(qw: QuantWeight, dtype: torch.dtype = torch.bfloat16
                ) -> torch.Tensor:
     return (qw.values.float() * qw.scales[..., None, :]).to(dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., T, Hkv, D] -> (int8 [..., T, Hkv, D], f32 scales
+    [..., Hkv, T]): scale = absmax / 127 over D, one per token and KV
+    head, so an appended token never rescales its neighbours."""
+    x_f = x.float()
+    scales = x_f.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(x_f / scales[..., None]), -127, 127)
+    return q.to(torch.int8), scales.transpose(-1, -2)
+
+
+def dequantize_kv(q: torch.Tensor, scales: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of quantize_kv: int8 [..., T, Hkv, D] and head-major
+    scales [..., Hkv, T] -> [..., T, Hkv, D] in `dtype`, the product
+    taken in f32."""
+    return (q.float() * scales.transpose(-1, -2)[..., None]).to(dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Integers in [-8, 7] [..., D] -> int8 [..., D/2], split-half: byte j
+    holds element j in its low nibble and element j + D/2 in its high
+    nibble. The byte is formed in int32 and mapped to [-128, 127] before
+    the cast, so no wraparound of the cast is relied on."""
+    d = q.shape[-1]
+    if d % 2:
+        raise ValueError(f"pack_int4 needs an even last dim, got {d}")
+    qi = q.to(torch.int32)
+    byte = (qi[..., :d // 2] & 0xF) | ((qi[..., d // 2:] & 0xF) << 4)
+    return torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: int8 [..., D/2] -> int32 [..., D], each
+    nibble sign-extended. (n ^ 8) - 8 is the JAX package's
+    (b << 28) >> 28 for the low nibble without a shift into the sign bit;
+    the high nibble is an arithmetic shift of the sign-extended byte."""
+    b = packed.to(torch.int32)
+    return torch.cat([((b & 0xF) ^ 8) - 8, b >> 4], dim=-1)
+
+
+def quantize_kv_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., T, Hkv, D] -> (packed int8 [..., T, Hkv, D/2], f32 scales
+    [..., Hkv, T]): quantize_kv's layout at scale = absmax / 7."""
+    x_f = x.float()
+    scales = x_f.abs().amax(dim=-1).clamp_min(1e-8) / 7.0
+    q = torch.clamp(torch.round(x_f / scales[..., None]), -7, 7)
+    return pack_int4(q), scales.transpose(-1, -2)
+
+
+def dequantize_kv_int4(packed: torch.Tensor, scales: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of quantize_kv_int4: packed [..., T, Hkv, D/2] and scales
+    [..., Hkv, T] -> [..., T, Hkv, D] in `dtype`."""
+    return (unpack_int4(packed).float()
+            * scales.transpose(-1, -2)[..., None]).to(dtype)
 
 
 def _check(x: torch.Tensor, qw: QuantWeight):

@@ -149,9 +149,12 @@ def test_pick_tokens_greedy_rows_take_the_argmax():
 
 
 def test_unported_kv_modes_raise():
-    cfg = tllama.llama_tiny(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        decode.init_cache(cfg, 1, 16, "cpu")
+    # bf16, int8 and int4 are the KV modes there are (the JAX package's
+    # set); any other, or int4 over an odd head_dim, raises as it does.
+    for cfg in (tllama.llama_tiny(kv_cache_dtype="fp8"),
+                tllama.llama_tiny(kv_cache_dtype="int4", d_model=132)):
+        with pytest.raises(ValueError):
+            decode.init_cache(cfg, 1, 16, "cpu")
 
 
 def test_scalar_cache_overflow_raises():

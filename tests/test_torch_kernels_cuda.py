@@ -180,6 +180,188 @@ def test_decode_attention_kernel_raises_on_what_it_cannot_take(cuda):
                          k[..., :64].float(), 0)
 
 
+# ------------------------------------------------ K1, K3 on int8/int4 KV
+
+def _quantized(x, mode):
+    """(payload, contiguous head-major scales) of an f32 cache."""
+    fn = quant.quantize_kv_int4 if mode == "int4" else quant.quantize_kv
+    payload, scales = fn(x)
+    return payload, scales.contiguous()
+
+
+def _poison_past_live(k, v, ks, vs, live):
+    """Copies of a contiguous quantized cache whose positions at or past
+    each row's `live` hold extreme integers and NaN scales."""
+    k, v, ks, vs = (x.clone() for x in (k, v, ks, vs))
+    for row, n in enumerate(live):
+        k[row, n:], v[row, n:] = 127, -128
+        ks[row, :, n:], vs[row, :, n:] = float("nan"), float("nan")
+    return k, v, ks, vs
+
+
+def _assert_rows_close(got, want, d):
+    err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
+    scale = want.float().abs().reshape(-1, d).amax(-1)
+    assert bool((err <= ROW_RTOL * scale + ROW_ATOL).all()), (
+        (err / scale).max().item())
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("d,hq,hkv", [(32, 4, 2), (64, 32, 8),
+                                      (128, 32, 8)])
+@pytest.mark.parametrize("t", [1, 7, 128])
+def test_quantized_decode_attention_kernel_matches_plain(cuda, mode, d, hq,
+                                                         hkv, t):
+    # K1's rule, per output row, on an int8 or int4 cache; the kernel
+    # reads neither payload nor scales at or past `live`, so poisoning
+    # them changes no bit of its output.
+    b, max_len = 3, 512
+    gen = torch.Generator(device=cuda).manual_seed(d + t + len(mode))
+    q = torch.randn(b, t, hq, d, generator=gen, device=cuda).bfloat16()
+    k, ks = _quantized(torch.randn(b, max_len, hkv, d, generator=gen,
+                                   device=cuda), mode)
+    v, vs = _quantized(torch.randn(b, max_len, hkv, d, generator=gen,
+                                   device=cuda), mode)
+    int4 = mode == "int4"
+    lens = torch.tensor([0, 129, max_len - t], dtype=torch.int32,
+                        device=cuda)
+    for cache_len in (lens, 64):
+        live = (torch.as_tensor(cache_len).expand(b) + t).tolist()
+        clean = decode_attention(q, k, v, cache_len, ks, vs, int4)
+        poisoned = _poison_past_live(k, v, ks, vs, live)
+        kernels.reset_launches()
+        got = decode_attention(q, *poisoned[:2], cache_len, *poisoned[2:],
+                               int4)
+        torch.cuda.synchronize()
+        assert dict(kernels.launches) == {f"decode_attention_{mode}": 1}
+        assert torch.equal(got, clean)
+        want = decode_attention_plain(q, *poisoned[:2], cache_len,
+                                      *poisoned[2:], int4)
+        assert torch.isfinite(want).all()
+        _assert_rows_close(got, want, d)
+
+
+def _quantized_paged_case(cuda, seed, lens, t, page, hq, hkv, d, max_pages,
+                          mode):
+    """_paged_case for an int8 or int4 pool: each slot's live pages at
+    permuted rows; unreferenced rows, and positions at or past `live`,
+    hold extreme integers and NaN scales; table entries past the live
+    pages point at such rows, out of range, or 0."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    live_pages = [-(-(n + t) // page) for n in lens]
+    n_pages = sum(live_pages) + 4
+    perm = torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1
+    k_pool, ks_pool = _quantized(torch.randn(
+        n_pages, page, hkv, d, generator=gen, device=cuda), mode)
+    v_pool, vs_pool = _quantized(torch.randn(
+        n_pages, page, hkv, d, generator=gen, device=cuda), mode)
+    live_at = torch.zeros(n_pages, dtype=torch.long)   # live keys per row
+    unused = perm[sum(live_pages):].tolist()
+    tables = torch.zeros(len(lens), max_pages, dtype=torch.int32,
+                         device=cuda)
+    used = 0
+    for i, (n, pages) in enumerate(zip(lens, live_pages)):
+        rows = perm[used:used + pages]
+        used += pages
+        tables[i, :pages] = rows.int()
+        for j in range(pages, max_pages):
+            tables[i, j] = (unused[j % len(unused)], -7, n_pages + 3, 0)[j % 4]
+        for j, row in enumerate(rows.tolist()):
+            live_at[row] = min(page, n + t - j * page)
+    for row in range(n_pages):
+        n = int(live_at[row])
+        k_pool[row, n:], v_pool[row, n:] = 127, -128
+        ks_pool[row, :, n:] = float("nan")
+        vs_pool[row, :, n:] = float("nan")
+    q = torch.randn(len(lens), t, hq, d, generator=gen,
+                    device=cuda).bfloat16()
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k_pool, v_pool, ks_pool, vs_pool, lens, tables
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("page", [16, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 5, 128])
+def test_quantized_paged_kernel_matches_plain_and_k1(cuda, mode, page, d, t):
+    # K3 per output row against its plain version, with every key tile of
+    # 64 straddling pages at page 16; and bit for bit against K1 on a
+    # contiguous copy of the same keys and scales.
+    hq, hkv = 32, 8
+    max_pages = -(-(600 + t) // page) + 1
+    lens = [max(n, 0) for n in (0, 1, page - 1, page, 600,
+                                3 * page + 5 - t)]
+    q, kp, vp, ksp, vsp, lens_t, tables = _quantized_paged_case(
+        cuda, page + d + t + len(mode), lens, t, page, hq, hkv, d, max_pages,
+        mode)
+    int4 = mode == "int4"
+    kernels.reset_launches()
+    got = paged_decode_attention(q, kp, vp, lens_t, tables, ksp, vsp, int4)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {f"paged_decode_attention_{mode}": 1}
+    want = paged_decode_attention_plain(q, kp, vp, lens_t, tables, ksp, vsp,
+                                        int4)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    _assert_rows_close(got, want, d)
+    b, max_len = len(lens), max_pages * page
+    rows = tables.long().clamp(0, kp.shape[0] - 1)
+    k = kp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    v = vp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    ks = ksp[rows].transpose(1, 2).reshape(b, hkv, max_len).contiguous()
+    vs = vsp[rows].transpose(1, 2).reshape(b, hkv, max_len).contiguous()
+    assert torch.equal(got, decode_attention(q, k, v, lens_t, ks, vs, int4))
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_generate_on_a_quantized_cache_goes_through_the_kernel(cuda, mode):
+    cfg = llama_tiny(kv_cache_dtype=mode)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(1))
+    kernels.reset_launches()
+    out = decode.generate(model, prompt, cfg, 4)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {
+        f"decode_attention_{mode}": 4 * cfg.n_layers}
+    plain = decode.generate(model, prompt, cfg, 4, plain=True)
+    assert out.shape == (2, 13)
+    assert torch.equal(out[:, :10], plain[:, :10])
+
+
+@pytest.mark.parametrize("kind", ["continuous", "paged"])
+def test_int8_kv_engines_kernel_path_matches_plain_path(cuda, kind):
+    # The slot cache reaches K1 with per-slot lengths, the paged one K3;
+    # at page 16 decode crosses pages.
+    cfg = llama_tiny(kv_cache_dtype="int8")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    reqs = [([1, 2, 3], 20), (list(range(40, 77)), 12), ([9] * 20, 16)]
+    name = {"continuous": "decode_attention_int8",
+            "paged": "paged_decode_attention_int8"}[kind]
+    answers = {}
+    for plain in (False, True):
+        if kind == "paged":
+            eng = serve.PagedContinuousEngine(model, cfg, max_slots=2,
+                                              max_len=128, page=16,
+                                              prefill_chunk=16, plain=plain)
+        else:
+            eng = serve.ContinuousEngine(model, cfg, max_slots=2, max_len=128,
+                                         prompt_bucket=16, prefill_chunk=16,
+                                         plain=plain)
+        try:
+            kernels.reset_launches()
+            futs = [eng.submit(list(t), n, 0.0) for t, n in reqs]
+            answers[plain] = [f.result(timeout=300) for f in futs]
+            launches = kernels.launches[name]
+        finally:
+            eng.stop()
+            eng.thread.join(timeout=60)
+        assert (launches > 0) == (not plain)
+    assert answers[False] == answers[True]
+
+
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,d,f", [(1, 256, 1032), (8, 4096, 1024),
                                    (37, 1000, 520)])

@@ -1,0 +1,591 @@
+"""Port of the int8 and int4 KV-cache modes on the CPU: the quantizers
+bit for bit against the JAX package's, the plain quantized attention (K1
+and K3) against its pallas kernel in interpret mode, decode_step and the
+prefill functions on quantized caches against their JAX originals on
+weights carried across with interop.params_from_jax, and the engines'
+greedy tokens on an int8 cache against a bf16 one.
+
+Where the JAX side reaches attention it runs its pallas kernel
+(use_flash=True at head_dim 128), which dequantizes in f32 as the port
+does; its XLA fallback dequantizes to q.dtype, which in bf16 would add a
+rounding gap that is not the port's."""
+
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from container_engine_accelerators_tpu.models import decode as jdecode
+from container_engine_accelerators_tpu.models import llama as jllama
+from container_engine_accelerators_tpu.ops import quant as jquant
+from container_engine_accelerators_tpu.ops.decode_attention import (
+    decode_attention as j_decode_attention,
+    paged_decode_attention as j_paged_decode_attention,
+)
+from container_engine_accelerators_tpu_torch import interop, kernels
+from container_engine_accelerators_tpu_torch.cli import serve
+from container_engine_accelerators_tpu_torch.models import decode
+from container_engine_accelerators_tpu_torch.models import llama as tllama
+from container_engine_accelerators_tpu_torch.models.convert import load_model
+from container_engine_accelerators_tpu_torch.ops import quant
+from container_engine_accelerators_tpu_torch.ops.decode_attention import (
+    decode_attention_cuda,
+    decode_attention_plain,
+    paged_decode_attention_cuda,
+    paged_decode_attention_plain,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+MODES = ["int8", "int4"]
+# f32 inputs, f32 math on both sides, sums in another order (the JAX
+# package's own fused-dequant tolerance).
+ATTN_TOL = 2e-5
+LOGITS_TOL = 1e-4
+# The two sides' K/V differ by f32 rounding, so their scales (absmax /
+# 127 or / 7) do too; an integer would move one step only where a value
+# sits on a rounding half. Over long prefills through two layers that
+# happens (the attention outputs feeding layer 2 differ by ~1e-6), and
+# one step of int8 moves the logits by ~1e-3. So the step tests write
+# few tokens at a time, the written integers are checked to be equal,
+# and the logits are held at LOGITS_TOL.
+SCALE_RTOL = 1e-5
+# head_dim 128, so the JAX side runs its pallas decode kernel.
+WIDE = dict(d_model=512, n_heads=4, n_kv_heads=2, vocab_size=128)
+
+
+def _jquantize(mode):
+    return jquant.quantize_kv_int4 if mode == "int4" else jquant.quantize_kv
+
+
+def _t(x) -> torch.Tensor:
+    return interop.to_torch(np.asarray(x))
+
+
+# ---------------------------------------------------------------- quantizers
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quantizers_are_bit_exact_against_jax(mode):
+    rs = np.random.RandomState(0)
+    x = (rs.randn(2, 3, 19, 4, 64)
+         * rs.exponential(3.0, size=(2, 3, 19, 4, 1))).astype(np.float32)
+    x[0, 0, 0] = 0.0                 # an all-zero (token, head): clamp
+    x[1, 2, 5, 1, 7] = 1e4           # one outlier in its row
+    q_t, s_t = (quant.quantize_kv_int4 if mode == "int4"
+                else quant.quantize_kv)(torch.from_numpy(x))
+    q_j, s_j = _jquantize(mode)(jnp.asarray(x))
+    assert q_t.dtype == torch.int8 and s_t.dtype == torch.float32
+    assert q_t.shape == (2, 3, 19, 4, 32 if mode == "int4" else 64)
+    assert s_t.shape == (2, 3, 4, 19)      # head-major
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    deq_t = (quant.dequantize_kv_int4 if mode == "int4"
+             else quant.dequantize_kv)(q_t, s_t)
+    deq_j = (jquant.dequantize_kv_int4 if mode == "int4"
+             else jquant.dequantize_kv)(q_j, s_j)
+    np.testing.assert_array_equal(deq_t.numpy(), np.asarray(deq_j))
+
+
+def test_pack_int4_every_nibble_pair_and_unpack_every_byte():
+    lo, hi = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8), indexing="ij")
+    vals = np.stack([lo.ravel(), hi.ravel()], axis=-1).astype(np.int32)
+    packed = quant.pack_int4(torch.from_numpy(vals))
+    assert packed.dtype == torch.int8 and packed.shape == (256, 1)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jquant.pack_int4(vals)))
+    assert sorted(packed.flatten().tolist()) == list(range(-128, 128))
+    np.testing.assert_array_equal(quant.unpack_int4(packed).numpy(), vals)
+    every = np.arange(-128, 128, dtype=np.int8).reshape(32, 8)
+    np.testing.assert_array_equal(
+        quant.unpack_int4(torch.from_numpy(every)).numpy(),
+        np.asarray(jquant.unpack_int4(jnp.asarray(every))))
+    with pytest.raises(ValueError):
+        quant.pack_int4(torch.zeros(3, 5, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- K1, K3
+
+def _quantized_cache(rs, mode, shape):
+    """A random f32 cache of `shape` [..., S, Hkv, D] through the JAX
+    quantizer: (payload, scales [..., Hkv, S]) as numpy."""
+    q, s = _jquantize(mode)(jnp.asarray(rs.randn(*shape).astype(np.float32)))
+    return np.array(q), np.array(s)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t,lens", [(1, 0), (1, 100), (5, 249),
+                                    (1, [0, 255]), (5, [3, 128])])
+def test_plain_quantized_attention_matches_pallas(mode, t, lens):
+    b, hq, hkv, d, max_len = 2, 8, 2, 128, 256
+    rs = np.random.RandomState(t + 7 * len(np.atleast_1d(lens)))
+    q = rs.randn(b, t, hq, d).astype(np.float32)
+    k, ks = _quantized_cache(rs, mode, (b, max_len, hkv, d))
+    v, vs = _quantized_cache(rs, mode, (b, max_len, hkv, d))
+    live = np.broadcast_to(np.asarray(lens) + t, (b,))
+    for row, n in enumerate(live):   # stale scales past `live`
+        ks[row, :, n:] = 1e6
+        vs[row, :, n:] = -1e6
+    int4 = mode == "int4"
+    want = j_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lens, jnp.int32), interpret=True,
+                              k_scales=jnp.asarray(ks),
+                              v_scales=jnp.asarray(vs), int4=int4)
+    cache_len = lens if isinstance(lens, int) else torch.tensor(lens)
+    got = decode_attention_plain(_t(q), _t(k), _t(v), cache_len, _t(ks),
+                                 _t(vs), int4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t", [1, 5])
+def test_plain_quantized_paged_attention_matches_pallas(mode, t):
+    slots, hq, hkv, d = 2, 8, 2, 128
+    page, n_pages, max_pages = 128, 9, 4
+    rs = np.random.RandomState(20 + t)
+    q = rs.randn(slots, t, hq, d).astype(np.float32)
+    # Every pool row random; the live pages at shuffled rows, table
+    # entries past them stale (row 7), scales of row 7 huge.
+    k_pool, ks_pool = _quantized_cache(rs, mode, (n_pages, page, hkv, d))
+    v_pool, vs_pool = _quantized_cache(rs, mode, (n_pages, page, hkv, d))
+    ks_pool[7] = 1e6
+    lens = np.array([130, 250 - t], np.int32)
+    tables = np.full((slots, max_pages), 7, np.int32)
+    free = list(rs.permutation(np.arange(1, 7)))
+    for s in range(slots):
+        for p in range(-(-int(lens[s] + t) // page)):
+            tables[s, p] = free.pop()
+    int4 = mode == "int4"
+    want = j_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(lens), jnp.asarray(tables), interpret=True,
+        k_scales=jnp.asarray(ks_pool), v_scales=jnp.asarray(vs_pool),
+        int4=int4)
+    got = paged_decode_attention_plain(
+        _t(q), _t(k_pool), _t(v_pool), _t(lens), _t(tables), _t(ks_pool),
+        _t(vs_pool), int4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+def _z(*shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+_I8 = torch.int8
+_F32 = torch.float32
+
+
+@pytest.mark.parametrize("args,error", [
+    # bf16 payload with scales
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64), _z(1, 16, 2, 64), 0,
+      _z(1, 2, 16, dtype=_F32), _z(1, 2, 16, dtype=_F32)), TypeError),
+    # bf16 scales
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64, dtype=_I8),
+      _z(1, 16, 2, 64, dtype=_I8), 0, _z(1, 2, 16), _z(1, 2, 16)),
+     TypeError),
+    # scales token-major, not head-major
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64, dtype=_I8),
+      _z(1, 16, 2, 64, dtype=_I8), 0, _z(1, 16, 2, dtype=_F32),
+      _z(1, 16, 2, dtype=_F32)), ValueError),
+    # one scale plane without the other
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64, dtype=_I8),
+      _z(1, 16, 2, 64, dtype=_I8), 0, _z(1, 2, 16, dtype=_F32), None),
+     ValueError),
+    # int4 at payload width D, and int4 without scales
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64, dtype=_I8),
+      _z(1, 16, 2, 64, dtype=_I8), 0, _z(1, 2, 16, dtype=_F32),
+      _z(1, 2, 16, dtype=_F32), True), ValueError),
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 32, dtype=_I8),
+      _z(1, 16, 2, 32, dtype=_I8), 0, None, None, True), ValueError),
+    # strided scales
+    ((_z(1, 1, 4, 64), _z(1, 16, 2, 64, dtype=_I8),
+      _z(1, 16, 2, 64, dtype=_I8), 0,
+      _z(1, 16, 2, dtype=_F32).transpose(1, 2), _z(1, 2, 16, dtype=_F32)),
+     ValueError),
+])
+def test_quantized_kernel_wrapper_refuses_before_launch(args, error):
+    kernels.reset_launches()
+    with pytest.raises(error):
+        decode_attention_cuda(*args)
+    assert not kernels.launches
+
+
+def test_quantized_paged_wrapper_refuses_before_launch():
+    q = _z(2, 1, 4, 64)
+    pool = _z(5, 16, 2, 32, dtype=_I8)
+    tables = torch.zeros(2, 3, dtype=torch.int32)
+    scales = _z(5, 2, 16, dtype=_F32)
+    with pytest.raises(ValueError):    # int8 pools at width D/2
+        paged_decode_attention_cuda(q, pool, pool, 0, tables, scales, scales)
+    with pytest.raises(ValueError):    # scale pool of another page size
+        paged_decode_attention_cuda(q, pool, pool, 0, tables, scales[..., :8],
+                                    scales[..., :8], True)
+    assert not kernels.launches
+
+
+# ---------------------------------------------------------------- steps
+
+@pytest.fixture(scope="module")
+def wide():
+    """(JAX params, {mode: JAX cfg}, port model, {mode: port cfg}) at
+    head_dim 128, f32; JAX runs its pallas kernel."""
+    jcfg = jllama.llama_tiny(dtype=jnp.float32, use_flash=True, **WIDE)
+    tcfg = tllama.llama_tiny(dtype=torch.float32, **WIDE)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    model = interop.params_from_jax(jax.device_get(params), tcfg)
+    modes = ["bf16"] + MODES
+    return (params,
+            {m: dataclasses.replace(jcfg, kv_cache_dtype=m) for m in modes},
+            model,
+            {m: dataclasses.replace(tcfg, kv_cache_dtype=m) for m in modes})
+
+
+def _assert_close(got, want, tol=LOGITS_TOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+def _ints(payload, int4):
+    p = payload if isinstance(payload, torch.Tensor) else _t(payload)
+    return quant.unpack_int4(p) if int4 else p.to(torch.int32)
+
+
+def _assert_planes_close(payload, scales, j_payload, j_scales, int4):
+    """The scales within f32 rounding, the integers equal."""
+    np.testing.assert_allclose(scales.numpy(), np.asarray(j_scales),
+                               rtol=SCALE_RTOL, atol=0)
+    np.testing.assert_array_equal(_ints(payload, int4).numpy(),
+                                  _ints(j_payload, int4).numpy())
+
+
+def _assert_cache_close(cache, jcache, int4):
+    names = ((("k_pool", "k_scales"), ("v_pool", "v_scales"))
+             if isinstance(cache, decode.PagedKVCache)
+             else (("k", "k_scales"), ("v", "v_scales")))
+    for payload, scales in names:
+        _assert_planes_close(getattr(cache, payload), getattr(cache, scales),
+                             getattr(jcache, payload),
+                             getattr(jcache, scales), int4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_decode_step_scalar_length_matches_jax(wide, mode):
+    params, jcfgs, model, tcfgs = wide
+    b, max_len, length = 2, 256, 9
+    cache = decode.init_cache(tcfgs[mode], b, max_len, "cpu")
+    d_store = 64 if mode == "int4" else 128
+    assert cache.k.dtype == torch.int8 and cache.k.shape[-1] == d_store
+    assert cache.k_scales.shape == (2, b, 2, max_len)
+    # The first `length` positions hold the same quantized tokens.
+    rs = np.random.RandomState(1)
+    k, ks = _quantized_cache(rs, mode, (2, b, max_len, 2, 128))
+    v, vs = _quantized_cache(rs, mode, (2, b, max_len, 2, 128))
+    jcache = jdecode.init_cache(jcfgs[mode], b, max_len)._replace(
+        k=jnp.asarray(k), v=jnp.asarray(v), k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), length=jnp.int32(length))
+    cache = dataclasses.replace(cache, k=_t(k), v=_t(v), k_scales=_t(ks),
+                                v_scales=_t(vs), length=length)
+    step = jdecode._jitted_decode_step(jcfgs[mode])
+    toks = rs.randint(0, 128, size=(b, 4))
+    for chunk in (toks[:, :3], toks[:, 3:]):
+        jl, jcache = step(params, jcache, jnp.asarray(chunk, jnp.int32))
+        tl, cache = decode.decode_step(model, cache, torch.from_numpy(chunk),
+                                       tcfgs[mode])
+        _assert_close(tl, jl)
+    assert cache.length == int(jcache.length) == 13
+    _assert_cache_close(cache, jcache, mode == "int4")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_decode_step_per_slot_lengths_matches_jax(wide, mode):
+    params, jcfgs, model, tcfgs = wide
+    max_len, slots = 256, 4
+    rs = np.random.RandomState(2)
+    shape = (2, slots, max_len, 2, 128)
+    k, ks = _quantized_cache(rs, mode, shape)
+    v, vs = _quantized_cache(rs, mode, shape)
+    lengths = np.array([0, 5, 129, max_len], np.int32)
+    active = np.array([True, False, True, True])
+    jcache = jdecode.init_slot_cache(jcfgs[mode], slots, max_len)._replace(
+        k=jnp.asarray(k), v=jnp.asarray(v), k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), length=jnp.asarray(lengths))
+    cache = dataclasses.replace(
+        decode.init_slot_cache(tcfgs[mode], slots, max_len, "cpu"),
+        k=_t(k), v=_t(v), k_scales=_t(ks), v_scales=_t(vs),
+        length=_t(lengths))
+    step = jdecode._jitted_decode_step_slots(jcfgs[mode])
+    for i in range(2):
+        toks = rs.randint(0, 128, size=slots)
+        jl, jcache = step(params, jcache, jnp.asarray(toks, jnp.int32),
+                          jnp.asarray(active))
+        tl, cache = decode.decode_step_slots(
+            model, cache, torch.from_numpy(toks), torch.from_numpy(active),
+            tcfgs[mode])
+        _assert_close(tl, jl)
+    assert cache.length.tolist() == [2, 5, 131, max_len]
+    _assert_cache_close(cache, jcache, mode == "int4")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_decode_step_paged_across_a_page_with_an_inactive_slot(wide, mode):
+    # Slot 0 writes the last position of its first page, then the first
+    # of its second; slot 1 is inactive, so its values and scales must
+    # land in trash row 0 only, never in its own page row 2.
+    params, jcfgs, model, tcfgs = wide
+    slots, page, max_pages, n_pages = 3, 128, 3, 8
+    rs = np.random.RandomState(3)
+    shape = (2, n_pages, page, 2, 128)
+    k, ks = _quantized_cache(rs, mode, shape)
+    v, vs = _quantized_cache(rs, mode, shape)
+    for planes in (k, v, ks, vs):
+        planes[:, 0] = 0     # the trash row starts clean
+    tables = np.array([[3, 5, 0], [2, 0, 0], [4, 6, 0]], np.int32)
+    lengths = np.array([127, 60, 128], np.int32)
+    active = np.array([True, False, True])
+    jcache = jdecode.init_paged_cache(jcfgs[mode], slots, n_pages, page,
+                                      max_pages)._replace(
+        k_pool=jnp.asarray(k), v_pool=jnp.asarray(v),
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
+        tables=jnp.asarray(tables), length=jnp.asarray(lengths))
+    cache = dataclasses.replace(
+        decode.init_paged_cache(tcfgs[mode], slots, n_pages, page, max_pages,
+                                "cpu"),
+        k_pool=_t(k), v_pool=_t(v), k_scales=_t(ks), v_scales=_t(vs),
+        tables=_t(tables), length=_t(lengths))
+    step = jdecode._jitted_decode_step_paged(jcfgs[mode])
+    toks = np.array([5, 9, 12], np.int32)
+    for _ in range(2):
+        jl, jcache = step(params, jcache, jnp.asarray(toks),
+                          jnp.asarray(active))
+        tl, cache = decode.decode_step_paged(
+            model, cache, torch.from_numpy(toks), torch.from_numpy(active),
+            tcfgs[mode])
+        _assert_close(tl, jl)
+        toks = np.array(jnp.argmax(jl, axis=-1), np.int32)
+    assert cache.length.tolist() == [129, 60, 130]
+    _assert_cache_close(cache, jcache, mode == "int4")
+    for got, start in ((cache.k_pool, k), (cache.v_pool, v),
+                       (cache.k_scales, ks), (cache.v_scales, vs)):
+        changed = (got != _t(start)).flatten(2).any(-1)   # [L, n_pages]
+        assert changed.any(0).nonzero().flatten().tolist() == [0, 3, 5, 6]
+    assert (cache.k_scales[:, 0, :, 60] > 0).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_slot_prefills_match_jax(wide, mode):
+    params, jcfgs, model, tcfgs = wide
+    jcfg, tcfg = jcfgs[mode], tcfgs[mode]
+    slots, max_len = 2, 256
+    jcache = jdecode.init_slot_cache(jcfg, slots, max_len)
+    cache = decode.init_slot_cache(tcfg, slots, max_len, "cpu")
+    prompt = np.random.RandomState(4).randint(0, 128, size=12).tolist()
+    # Slot 0: prefill_slot, 7 tokens padded to 8.
+    padded = prompt[:7] + [0]
+    jl, jcache = jdecode._jitted_prefill_slot(jcfg)(
+        params, jcache, jnp.int32(0), jnp.asarray(padded, jnp.int32),
+        jnp.int32(7))
+    tl, cache = decode.prefill_slot(model, cache, 0, torch.tensor(padded), 7,
+                                    tcfg)
+    _assert_close(tl, jl)
+    # Slot 1: prefill_suffix_slot in two chunks, 8 tokens and 4 padded.
+    jchunk = jdecode._jitted_prefill_suffix_slot(jcfg)
+    for start, chunk in ((0, prompt[:8]), (8, prompt[8:])):
+        padded = chunk + [0] * (8 - len(chunk))
+        new_len = start + len(chunk)
+        jl, jcache = jchunk(params, jcache, jnp.int32(1),
+                            jnp.asarray(padded, jnp.int32), jnp.int32(start),
+                            jnp.int32(new_len))
+        tl, cache = decode.prefill_suffix_slot(
+            model, cache, 1, torch.tensor(padded), start, new_len, tcfg)
+        _assert_close(tl, jl)
+    assert cache.length.tolist() == np.asarray(jcache.length).tolist() == [
+        7, 12]
+    _assert_cache_close(cache, jcache, mode == "int4")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_paged_prefills_match_jax(wide, mode):
+    # Page 16, so the chunks stay short (see SCALE_RTOL); below page 128
+    # the JAX side gathers the pages and runs its XLA path, which in f32
+    # dequantizes in f32 like its kernel.
+    params, jcfgs, model, tcfgs = wide
+    jcfg, tcfg = jcfgs[mode], tcfgs[mode]
+    slots, page, max_pages, n_pages = 2, 16, 3, 8
+    jcache = jdecode.init_paged_cache(jcfg, slots, n_pages, page, max_pages)
+    cache = decode.init_paged_cache(tcfg, slots, n_pages, page, max_pages,
+                                    "cpu")
+    rs = np.random.RandomState(5)
+    # Slot 0: prefill_slot_paged, 11 tokens padded to a page at row 3.
+    padded = rs.randint(0, 128, size=11).tolist() + [0] * 5
+    jl, jcache = jdecode._jitted_prefill_slot_paged(jcfg)(
+        params, jcache, jnp.int32(0), jnp.asarray([3], jnp.int32),
+        jnp.asarray(padded, jnp.int32), jnp.int32(11))
+    tl, cache = decode.prefill_slot_paged(
+        model, cache, 0, torch.tensor([3]), torch.tensor(padded), 11, tcfg)
+    _assert_close(tl, jl)
+    # Slot 1 shares slot 0's page through its table and prefills the
+    # suffix, 20 tokens, over rows 4 and 1.
+    row = [3, 4, 1]
+    jcache = jdecode._jitted_set_slot_pages()(
+        jcache, jnp.int32(1), jnp.asarray(row, jnp.int32), jnp.int32(16))
+    decode.set_slot_pages(cache, 1, torch.tensor(row, dtype=torch.int32), 16)
+    padded = rs.randint(0, 128, size=20).tolist() + [0] * 12
+    jl, jcache = jdecode._jitted_prefill_suffix_paged(jcfg)(
+        params, jcache, jnp.int32(1), jnp.asarray(padded, jnp.int32),
+        jnp.int32(36))
+    tl, cache = decode.prefill_suffix_paged(model, cache, 1,
+                                            torch.tensor(padded), 36, tcfg)
+    _assert_close(tl, jl)
+    np.testing.assert_array_equal(cache.tables.numpy(),
+                                  np.asarray(jcache.tables))
+    assert cache.length.tolist() == [11, 36]
+    _assert_cache_close(cache, jcache, mode == "int4")
+
+
+# ---------------------------------------------------------------- engines
+
+@pytest.fixture(scope="module")
+def tiny():
+    """llama_tiny in f32, 2 layers (the JAX package's KV-quant model):
+    (JAX params, {mode: JAX cfg}, port model, {mode: port cfg})."""
+    jcfg = jllama.llama_tiny(dtype=jnp.float32, n_layers=2)
+    tcfg = tllama.llama_tiny(dtype=torch.float32, n_layers=2)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    model = interop.params_from_jax(jax.device_get(params), tcfg)
+    modes = ["bf16"] + MODES
+    return (params,
+            {m: dataclasses.replace(jcfg, kv_cache_dtype=m) for m in modes},
+            model,
+            {m: dataclasses.replace(tcfg, kv_cache_dtype=m) for m in modes})
+
+
+def _greedy(model, cfg, prompt, n_new, engine):
+    """Greedy tokens of `engine` ('generate', 'slot' or 'paged'), driven
+    through the step functions as the JAX package's KV-quant tests do."""
+    if engine == "generate":
+        out = decode.generate(model, torch.tensor([prompt]), cfg, n_new)
+        return out[0, len(prompt):].tolist()
+    if engine == "slot":
+        cache = decode.init_slot_cache(cfg, 2, 64, "cpu")
+        padded = torch.tensor(prompt + [0] * (8 - len(prompt)))
+        last, cache = decode.prefill_slot(model, cache, 0, padded,
+                                          len(prompt), cfg)
+        step = decode.decode_step_slots
+    else:
+        cache = decode.init_paged_cache(cfg, 2, 8, 128, 2, "cpu")
+        padded = torch.tensor(prompt + [0] * (128 - len(prompt)))
+        last, cache = decode.prefill_slot_paged(
+            model, cache, 0, torch.tensor([1]), padded, len(prompt), cfg)
+        step = decode.decode_step_paged
+    toks = [int(last.argmax())]
+    active = torch.tensor([True, False])
+    for _ in range(n_new - 1):
+        logits, cache = step(model, cache, torch.tensor([toks[-1], 0]),
+                             active, cfg)
+        toks.append(int(logits[0].argmax()))
+    return toks
+
+
+@pytest.mark.parametrize("engine", ["generate", "slot", "paged"])
+def test_greedy_tokens_on_an_int8_cache_equal_bf16(tiny, engine):
+    params, jcfgs, model, tcfgs = tiny
+    prompt = [1, 2, 3]
+    int8 = _greedy(model, tcfgs["int8"], prompt, 6, engine)
+    assert int8 == _greedy(model, tcfgs["bf16"], prompt, 6, engine)
+    want = jdecode.generate(params, jnp.asarray([prompt], jnp.int32),
+                            jcfgs["int8"], max_new_tokens=6)
+    assert int8 == np.asarray(want)[0, 3:].tolist()
+
+
+@pytest.mark.parametrize("kind", ["continuous", "paged"])
+def test_serving_engines_on_an_int8_cache(tiny, kind):
+    _, _, model, tcfgs = tiny
+    reqs = [([1, 2, 3], 6), ([7, 8, 9, 10, 11], 4)]
+    want = [[*p] + _greedy(model, tcfgs["bf16"], list(p), n, "generate")
+            for p, n in reqs]
+    cfg = tcfgs["int8"]
+    if kind == "paged":
+        eng = serve.PagedContinuousEngine(model, cfg, max_slots=2,
+                                          max_len=64, page=16)
+    else:
+        eng = serve.ContinuousEngine(model, cfg, max_slots=2, max_len=64,
+                                     prompt_bucket=16)
+    try:
+        futs = [eng.submit(list(p), n, 0.0) for p, n in reqs]
+        got = [f.result(timeout=120) for f in futs]
+        assert eng._cache.k_scales is not None
+    finally:
+        eng.stop()
+        eng.thread.join(timeout=30)
+    assert got == want
+
+
+def test_int4_logit_drift_is_bounded_and_matches_jax(tiny):
+    # The JAX package's contract for int4 KV: a relative logit error two
+    # orders looser than int8's. Its model is head_dim 32, so its XLA
+    # path runs, which in f32 dequantizes in f32 as the port does.
+    params, jcfgs, model, tcfgs = tiny
+    prompt = np.random.RandomState(6).randint(0, 512, size=(1, 96))
+    logits = {}
+    for mode in ("bf16", "int4"):
+        logits[mode], _ = decode.decode_step(
+            model, decode.init_cache(tcfgs[mode], 1, 128, "cpu"),
+            torch.from_numpy(prompt), tcfgs[mode])
+    mse = float(((logits["bf16"] - logits["int4"]) ** 2).mean())
+    ref = float((logits["bf16"] ** 2).mean())
+    assert mse < 1e-1 * max(ref, 1.0), (mse, ref)
+    want, _ = jdecode.decode_step(params,
+                                  jdecode.init_cache(jcfgs["int4"], 1, 128),
+                                  jnp.asarray(prompt, jnp.int32),
+                                  jcfgs["int4"])
+    _assert_close(logits["int4"], want)
+
+
+# ---------------------------------------------------------------- CLI
+
+def test_serve_cli_answers_from_an_int8_cache_on_the_cpu():
+    # --kv-dtype with --weight-dtype int8: both quantizations at once.
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "container_engine_accelerators_tpu_torch.cli."
+         "serve", "--tiny", "--kv-dtype", "int8", "--weight-dtype", "int8",
+         "--device", "cpu",
+         "--port", str(port)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    url = f"http://localhost:{port}"
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            try:
+                urllib.request.urlopen(url + "/healthz", timeout=5).read()
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stderr.read()
+                assert time.monotonic() < deadline, "server did not start"
+                time.sleep(0.3)
+        body = json.dumps({"tokens": [1, 5, 42], "max_new_tokens": 4})
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/generate", data=body.encode()), timeout=60) as resp:
+            answer = json.loads(resp.read())["tokens"]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    model, cfg = load_model(device="cpu")
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    want = decode.generate(quant.quantize_llama_params(model),
+                           torch.tensor([[1, 5, 42]]), cfg, 4)
+    assert answer == want[0].tolist()
