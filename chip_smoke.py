@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch/CUDA port's serving and training paths
-on one GPU.
+"""chip_smoke — drive the PyTorch/CUDA port's serving, training and node
+health paths on one GPU.
 
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
@@ -57,7 +57,17 @@ Phases, one JSON line each:
            make_train_step on the kernel path and on the plain path from
            the same weights, and the kernel path under 'none', 'dots' and
            'full' remat, which must give identical gradients;
-  train_cli  cli.train --preset tiny --steps 3 on the card.
+  train_cli  cli.train --preset tiny --steps 3 on the card;
+  health   the node health path: K7 (kernels/scale_demo.cu) as the
+           node's workload; then K7 built with the whole [4096, 4096]
+           array as one shared-memory tile (refused by ptxas), an
+           allocation larger than the card and a benign bf16 matmul, each
+           in a process of its own, their stderr the runtime log that a
+           TPUHealthChecker over a TPUManager of the host's /dev scrapes
+           (VMEM_OOM and HBM_OOM, every device still Healthy); then
+           cli.inject_fault's HBM_ECC_UNCORRECTABLE for card 0 (nvidia0
+           Unhealthy, one Warning Event, the node condition); K7 against
+           x * 2.0 (exact), timed beside it.
 Then each phase's seconds, the kernels line (launches on the main path,
 errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before that line. Without CUDA, or outside a
@@ -79,6 +89,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -102,6 +113,8 @@ KV_BYTES_PER_TOKEN = {"bf16": 131072, "int8": 67584, "int4": 34816}
 # paged_preempt's pool of 9 pages (8 usable), and pools of the same
 # bytes in the quantized layouts (rounded down).
 PREEMPT_POOL_PAGES = {"bf16": 9, "int8": 17, "int4": 33}
+K7_SOURCE = "container_engine_accelerators_tpu_torch/kernels/scale_demo.cu"
+K7_REPLACES = "demo/tpu-error/real-fault/provoke_vmem_oom.py:24"
 FLASH_SOURCE = "container_engine_accelerators_tpu_torch/kernels/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "container_engine_accelerators_tpu/ops/flash_attention.py:231",
@@ -1564,6 +1577,171 @@ def train_cli_phase() -> dict:
     return result
 
 
+class RecordingK8s:
+    """The health checker's duck-typed Kubernetes client, recording what
+    it is asked to write."""
+
+    def __init__(self, node_name: str):
+        self.events: list = []
+        self.nodes = {node_name: {"metadata": {"name": node_name},
+                                  "status": {"conditions": []}}}
+
+    def create_event(self, namespace: str, body: dict) -> None:
+        self.events.append(body)
+
+    def set_node_condition(self, node_name: str, cond: dict) -> None:
+        conds = self.nodes[node_name]["status"]["conditions"]
+        conds[:] = [c for c in conds if c["type"] != cond["type"]] + [cond]
+
+    def get_node(self, node_name: str) -> dict:
+        return self.nodes[node_name]
+
+
+def provoke_all() -> dict:
+    """The real-fault runs of demo/real_fault/capture.py, each in a
+    process of its own and all at once: name -> (exit code, stderr)."""
+    from container_engine_accelerators_tpu_torch.demo.real_fault import (
+        capture,
+    )
+
+    with concurrent.futures.ThreadPoolExecutor(len(capture.RUNS)) as pool:
+        futs = {name: pool.submit(capture.provoke, name, 300)
+                for name in capture.RUNS}
+        return {name: fut.result() for name, fut in futs.items()}
+
+
+def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
+    """The node health path on the card. The healthy K7 runs as the
+    node's workload (the one launch counted); then K7 built with the
+    whole array as one shared-memory tile, an allocation larger than the
+    card and a benign bf16 matmul run as processes of their own, their
+    stderr is the runtime log, and a TPUHealthChecker over a TPUManager
+    of the host's real /dev scrapes it: VMEM_OOM and HBM_OOM counted,
+    every device still Healthy. Then cli.inject_fault appends
+    HBM_ECC_UNCORRECTABLE for card 0 to the checker's JSONL feed: nvidia0
+    turns Unhealthy, with one Warning Event and the node condition. Last,
+    K7 against its plain version x * 2.0 (exact) and timed."""
+    import io
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli import inject_fault
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        HEALTHY,
+        UNHEALTHY,
+        SysfsDeviceInfo,
+        TPUConfig,
+        TPUManager,
+    )
+    from container_engine_accelerators_tpu_torch.healthcheck import (
+        TPUHealthChecker,
+    )
+    from container_engine_accelerators_tpu_torch.healthcheck.health_checker import (
+        NODE_CONDITION_TYPE,
+    )
+    from container_engine_accelerators_tpu_torch.ops.scale_demo import (
+        scale_demo,
+        scale_demo_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(shape, generator=g, device=dev)
+    runtime_log = os.path.join(tmp_dir, "runtime.log")
+    feed = os.path.join(tmp_dir, "errors.jsonl")
+    open(feed, "w").close()
+
+    kernels.reset_launches()
+    y = scale_demo(x)
+    torch.cuda.synchronize()
+    runs = provoke_all()
+    with open(runtime_log, "w") as f:
+        for name in ("smem_oom", "hbm_oom", "benign_success"):
+            f.write(runs[name][1])
+    cfg = TPUConfig(runtime_log_path=runtime_log)
+    cfg.validate()
+    manager = TPUManager(cfg, SysfsDeviceInfo())
+    manager.discover()
+    devices = {d.ID: d.health for d in manager.snapshot()}
+    k8s = RecordingK8s("smoke-node")
+    checker = TPUHealthChecker(manager, cfg, k8s=k8s,
+                               node_name="smoke-node",
+                               error_log_path=feed)
+    checker.maybe_reset_condition()
+    checker.poll_once()
+    summary = checker.error_summary()
+    health_after_faults = {d.ID: d.health for d in manager.snapshot()}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = inject_fault.main(["--chip", "0",
+                                "--error-class", "HBM_ECC_UNCORRECTABLE",
+                                "--error-log", feed])
+    checker.poll_once()
+    launches = dict(kernels.launches)
+    health_after_ecc = {d.ID: d.health for d in manager.snapshot()}
+    conds = k8s.nodes["smoke-node"]["status"]["conditions"]
+    cond = next((c for c in conds if c["type"] == NODE_CONDITION_TYPE), {})
+
+    for name, (code, text) in runs.items():
+        require((code != 0) == (name != "benign_success"),
+                f"health: {name} exited {code}: {text[-2000:]}")
+    require("uses too much shared data" in runs["smem_oom"][1],
+            f"health: smem_oom said {runs['smem_oom'][1][-2000:]}")
+    require("CUDA out of memory" in runs["hbm_oom"][1],
+            f"health: hbm_oom said {runs['hbm_oom'][1][-2000:]}")
+    require(len(devices) >= 1, f"health: discovery found {devices}")
+    counts = summary["counts"]
+    require(counts.get("VMEM_OOM", 0) >= 1 and counts.get("HBM_OOM", 0) >= 1
+            and set(counts) == {"VMEM_OOM", "HBM_OOM"}
+            and not summary["critical_seen"],
+            f"health: the real faults classified as {summary}")
+    require(set(health_after_faults.values()) == {HEALTHY},
+            f"health: devices after the real faults {health_after_faults}")
+    require(rc == 0, f"health: inject_fault exited {rc}")
+    backed = {d for d in devices if d == "nvidia0"
+              or d.startswith("nvidia0/")}
+    require(bool(backed) and all(
+        (h == UNHEALTHY) == (d in backed)
+        for d, h in health_after_ecc.items()),
+        f"health: devices after HBM_ECC_UNCORRECTABLE on card 0 "
+        f"{health_after_ecc}")
+    warnings = [e for e in k8s.events if e["type"] == "Warning"]
+    require(len(warnings) == 1
+            and warnings[0]["reason"] == "HBM_ECC_UNCORRECTABLE",
+            f"health: events {k8s.events}")
+    payload = json.loads(cond.get("message", "{}"))
+    require(cond.get("status") == "True"
+            and payload.get("errors", {}).get("HBM_ECC_UNCORRECTABLE") == 1
+            and payload.get("bootID") == checker.boot_id(),
+            f"health: node condition {cond}")
+    require(launches.get("scale_demo", 0) >= 1,
+            f"health: K7 launches {launches}")
+
+    want = scale_demo_plain(x)
+    err = (y - want).abs().max().item()
+    require(err == 0.0, f"health: K7 differs from x * 2.0 by {err}")
+    n_bytes = 2 * x.numel() * x.element_size()
+    bound, bound_by = bound_ms(n_bytes, x.numel(), "f32")
+    result = {
+        "phase": "health", "shape": list(shape),
+        "ms": device_ms(torch, lambda: scale_demo(x)),
+        "plain_ms": device_ms(torch, lambda: scale_demo_plain(x)),
+        "library_ms": device_ms(torch, lambda: torch.mul(x, 2.0)),
+        "library": "torch.mul(x, 2.0), which is also the plain version",
+        "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+        "launches": launches,
+        "provocations": {name: {"rc": code, "stderr_tail": text[-300:]}
+                         for name, (code, text) in runs.items()},
+        "discovered": devices,
+        "torch_device_count": torch.cuda.device_count(),
+        "chip_generation": manager.device_info.chip_generation(),
+        "error_summary": summary, "health_after_ecc": health_after_ecc,
+        "events": [(e["type"], e["reason"]) for e in k8s.events],
+        "condition": {key: cond.get(key) for key in ("status", "reason",
+                                                     "message")},
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -1632,6 +1810,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_cli = timed("train_cli", train_cli_phase)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            health = timed("health", health_phase, torch, dev, tmp_dir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1686,6 +1868,12 @@ def main() -> int:
                        "decode_slots"),
         *quant_entries("paged_decode_attention", K3_SOURCE, K3_REPLACES, k3q,
                        "decode"),
+        {"name": "scale_demo", "route": "cuda", "source": K7_SOURCE,
+         "replaces": K7_REPLACES,
+         "launches": health["launches"].get("scale_demo", 0),
+         **{key: health[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "library")}},
     ]})
     emit({"train_summary": {
         "median_step_ms": train["median_step_ms"],

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (serve, generate, train)."""
+"""Command-line entry points of the port (serve, generate, train,
+inject_fault)."""

@@ -65,6 +65,8 @@ _SIGNATURES = {
     # (q, k, v, seg, do, lse, delta, dk, dv, B, S, Hq, Hkv, D, causal,
     #  stream)
     "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    # (x, out, n, stream)
+    "scale_demo_f32": [_P, _P, ctypes.c_longlong, _P],
 }
 
 

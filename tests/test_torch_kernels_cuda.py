@@ -6,6 +6,8 @@ on a GPU machine without it:
   python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import re
+
 import pytest
 import torch
 
@@ -578,3 +580,39 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
     for gk, gp in zip(grads_k, grads_p):
         assert (gk - gp).norm() <= 5e-2 * gp.norm()
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (1023, 4097), (3,)])
+def test_scale_demo_kernel_matches_plain(cuda, shape):
+    # f32 times 2 is exact: the kernel must equal x * 2.0 bit for bit,
+    # on the demo's shape, on a ragged one (the last tile partial, n not
+    # a multiple of 4) and on fewer values than one 16-byte load.
+    from container_engine_accelerators_tpu_torch.ops.scale_demo import (
+        scale_demo,
+        scale_demo_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda)
+    kernels.reset_launches()
+    got = scale_demo(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["scale_demo"] == 1
+    assert torch.equal(got, scale_demo_plain(x))
+    with pytest.raises(TypeError):
+        scale_demo(x.half())
+
+
+def test_oversized_scale_demo_tile_is_refused_at_compile(cuda):
+    from container_engine_accelerators_tpu_torch.demo.real_fault import (
+        provoke_smem_oom,
+    )
+    from container_engine_accelerators_tpu_torch.healthcheck import (
+        health_checker,
+    )
+
+    proc = provoke_smem_oom.compile_oversized()
+    assert proc.returncode != 0
+    rules = {cls: pat for pat, cls in health_checker.DEFAULT_SCRAPE_RULES}
+    assert re.search(rules["VMEM_OOM"], proc.stdout, re.IGNORECASE), (
+        proc.stdout)

@@ -11,6 +11,7 @@ does; its XLA fallback dequantizes to q.dtype, which in bf16 would add a
 rounding gap that is not the port's."""
 
 import dataclasses
+import functools
 import json
 import os
 import socket
@@ -53,13 +54,25 @@ MODES = ["int8", "int4"]
 ATTN_TOL = 2e-5
 LOGITS_TOL = 1e-4
 # The two sides' K/V differ by f32 rounding, so their scales (absmax /
-# 127 or / 7) do too; an integer would move one step only where a value
-# sits on a rounding half. Over long prefills through two layers that
-# happens (the attention outputs feeding layer 2 differ by ~1e-6), and
-# one step of int8 moves the logits by ~1e-3. So the step tests write
-# few tokens at a time, the written integers are checked to be equal,
-# and the logits are held at LOGITS_TOL.
+# 127 or / 7) do too, and XLA compiles JAX's quantizer with reciprocal
+# products where the port divides; an integer moves one step only where
+# a value sits on a rounding half. One such step of int8 moves the next
+# layer's K/V by ~1e-4 relative (more integers then move) and the logits
+# by ~1e-3, and whether it happens depends on the BLAS threading. So
+# each step (_step_matches_jax) first compares the written integers.
+# Equal, the logits are held at LOGITS_TOL. Not equal, every integer may
+# differ by one step, in at most MAX_CASCADE entries; the step then runs
+# again on the port with the JAX side's integers wherever the port's own
+# differ, each of which must have sat, on the JAX side's own
+# pre-quantization K/V and scales, within HALF_RTOL of a half (f32
+# rounding of |x / scale| <= 127 after a 512-long f32 dot product), at
+# most MAX_FLIPS of them a step; that run's logits are held at
+# LOGITS_TOL and its integers must equal JAX's, so the next step starts
+# from the same cache.
 SCALE_RTOL = 1e-5
+HALF_RTOL = 1e-5
+MAX_FLIPS = 4
+MAX_CASCADE = 64
 # head_dim 128, so the JAX side runs its pallas decode kernel.
 WIDE = dict(d_model=512, n_heads=4, n_kv_heads=2, vocab_size=128)
 
@@ -279,6 +292,114 @@ def _assert_cache_close(cache, jcache, int4):
                              getattr(jcache, scales), int4)
 
 
+_JAX_STEPS: dict = {}
+
+
+def _jax_step(jfn, jcfg, *args):
+    """The JAX package's `jfn` (a step or prefill function) jitted for
+    `jcfg`, with its K/V quantizer also handing its input and outputs to
+    the host: (outputs, [(x, payload, scales) of each quantizer call: K,
+    then V, of each layer])."""
+    if (jfn, jcfg) not in _JAX_STEPS:
+        seen = []
+
+        def recording(real):
+            def quantize(x):
+                q, scales = real(x)
+                jax.debug.callback(
+                    lambda *a: seen.append(tuple(map(np.array, a))),
+                    x, q, scales, ordered=True)
+                return q, scales
+            return quantize
+
+        _JAX_STEPS[jfn, jcfg] = (
+            jax.jit(functools.partial(jfn, cfg=jcfg)), seen,
+            {name: recording(getattr(jquant, name))
+             for name in ("quantize_kv", "quantize_kv_int4")})
+    fn, seen, patches = _JAX_STEPS[jfn, jcfg]
+    seen.clear()
+    with pytest.MonkeyPatch.context() as mp:   # read while tracing
+        for name, patched in patches.items():
+            mp.setattr(jdecode, name, patched)
+        out = jax.block_until_ready(fn(*args))
+    jax.effects_barrier()
+    return out, list(seen)
+
+
+def _clone(cache):
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).clone()
+        for f in dataclasses.fields(cache)
+        if isinstance(getattr(cache, f.name), torch.Tensor)})
+
+
+def _payloads(cache):
+    if isinstance(cache, (decode.PagedKVCache, jdecode.PagedKVCache)):
+        return cache.k_pool, cache.v_pool
+    return cache.k, cache.v
+
+
+def _moved(cache, jcache, int4):
+    """Port integers minus JAX's, per payload plane."""
+    return [_ints(p, int4) - _ints(pj, int4)
+            for p, pj in zip(_payloads(cache), _payloads(jcache))]
+
+
+def _aligned_quantizer(real, calls, int4, flips):
+    """The port's quantizer (called once a layer on stack([k, v])) giving
+    the JAX side's integers (`calls`, from _jax_step) where the port's
+    differ, after checking that each such entry sat within f32 rounding
+    of a half in the JAX side's own pre-quantization K/V and scales;
+    appends them to `flips`."""
+    layers = iter(range(len(calls) // 2))
+
+    def quantize(x):
+        li = next(layers)
+        x_j, q_j, s_j = (torch.from_numpy(np.stack(planes)) for planes in
+                         zip(*calls[2 * li:2 * li + 2]))
+        assert x_j.shape == x.shape
+        q, s = real(x)
+        assert q_j.shape == q.shape and q_j.dtype == q.dtype
+        moved = _ints(q, int4) != _ints(q_j, int4)
+        if moved.any():
+            step = (_ints(q, int4) - _ints(q_j, int4))[moved]
+            ratio = (x_j.double()
+                     / s_j.double().transpose(-1, -2)[..., None]).abs()
+            ratio = ratio[moved]
+            off_half = (ratio - ratio.floor() - 0.5).abs()
+            assert step.abs().max() == 1
+            assert bool((off_half <= HALF_RTOL * ratio).all()), (
+                li, ratio.tolist(), off_half.tolist())
+            flips.extend((li, *idx) for idx in moved.nonzero().tolist())
+        return q_j, s
+    return quantize
+
+
+def _step_matches_jax(jfn, jcfg, jargs, tstep, cache, int4):
+    """One step from equal caches: the JAX package's `jfn` on `jargs`,
+    the port's `tstep(cache)`. The written integers equal, or moved as
+    the comment at LOGITS_TOL says; the logits within LOGITS_TOL.
+    Returns (JAX logits, JAX cache, port cache)."""
+    (jl, jcache), calls = _jax_step(jfn, jcfg, *jargs)
+    start = _clone(cache)
+    tl, cache = tstep(cache)
+    moved = _moved(cache, jcache, int4)
+    n_moved = sum(int((m != 0).sum()) for m in moved)
+    if n_moved:
+        assert max(int(m.abs().max()) for m in moved) == 1
+        assert n_moved <= MAX_CASCADE, n_moved
+        flips = []
+        with pytest.MonkeyPatch.context() as mp:
+            for name in ("quantize_kv", "quantize_kv_int4"):
+                mp.setattr(decode, name, _aligned_quantizer(
+                    getattr(quant, name), calls, int4, flips))
+            tl, cache = tstep(start)
+        assert 1 <= len(flips) <= MAX_FLIPS, flips
+        assert not any(m.any() for m in _moved(cache, jcache, int4))
+    _assert_close(tl, jl)
+    return jl, jcache, cache
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_decode_step_scalar_length_matches_jax(wide, mode):
     params, jcfgs, model, tcfgs = wide
@@ -296,13 +417,14 @@ def test_decode_step_scalar_length_matches_jax(wide, mode):
         v_scales=jnp.asarray(vs), length=jnp.int32(length))
     cache = dataclasses.replace(cache, k=_t(k), v=_t(v), k_scales=_t(ks),
                                 v_scales=_t(vs), length=length)
-    step = jdecode._jitted_decode_step(jcfgs[mode])
     toks = rs.randint(0, 128, size=(b, 4))
     for chunk in (toks[:, :3], toks[:, 3:]):
-        jl, jcache = step(params, jcache, jnp.asarray(chunk, jnp.int32))
-        tl, cache = decode.decode_step(model, cache, torch.from_numpy(chunk),
-                                       tcfgs[mode])
-        _assert_close(tl, jl)
+        _, jcache, cache = _step_matches_jax(
+            jdecode.decode_step, jcfgs[mode],
+            (params, jcache, jnp.asarray(chunk, jnp.int32)),
+            lambda c: decode.decode_step(model, c, torch.from_numpy(chunk),
+                                         tcfgs[mode]),
+            cache, mode == "int4")
     assert cache.length == int(jcache.length) == 13
     _assert_cache_close(cache, jcache, mode == "int4")
 
@@ -324,15 +446,16 @@ def test_decode_step_per_slot_lengths_matches_jax(wide, mode):
         decode.init_slot_cache(tcfgs[mode], slots, max_len, "cpu"),
         k=_t(k), v=_t(v), k_scales=_t(ks), v_scales=_t(vs),
         length=_t(lengths))
-    step = jdecode._jitted_decode_step_slots(jcfgs[mode])
     for i in range(2):
         toks = rs.randint(0, 128, size=slots)
-        jl, jcache = step(params, jcache, jnp.asarray(toks, jnp.int32),
-                          jnp.asarray(active))
-        tl, cache = decode.decode_step_slots(
-            model, cache, torch.from_numpy(toks), torch.from_numpy(active),
-            tcfgs[mode])
-        _assert_close(tl, jl)
+        _, jcache, cache = _step_matches_jax(
+            jdecode.decode_step_slots, jcfgs[mode],
+            (params, jcache, jnp.asarray(toks, jnp.int32),
+             jnp.asarray(active)),
+            lambda c: decode.decode_step_slots(
+                model, c, torch.from_numpy(toks), torch.from_numpy(active),
+                tcfgs[mode]),
+            cache, mode == "int4")
     assert cache.length.tolist() == [2, 5, 131, max_len]
     _assert_cache_close(cache, jcache, mode == "int4")
 
@@ -363,15 +486,15 @@ def test_decode_step_paged_across_a_page_with_an_inactive_slot(wide, mode):
                                 "cpu"),
         k_pool=_t(k), v_pool=_t(v), k_scales=_t(ks), v_scales=_t(vs),
         tables=_t(tables), length=_t(lengths))
-    step = jdecode._jitted_decode_step_paged(jcfgs[mode])
     toks = np.array([5, 9, 12], np.int32)
     for _ in range(2):
-        jl, jcache = step(params, jcache, jnp.asarray(toks),
-                          jnp.asarray(active))
-        tl, cache = decode.decode_step_paged(
-            model, cache, torch.from_numpy(toks), torch.from_numpy(active),
-            tcfgs[mode])
-        _assert_close(tl, jl)
+        jl, jcache, cache = _step_matches_jax(
+            jdecode.decode_step_paged, jcfgs[mode],
+            (params, jcache, jnp.asarray(toks), jnp.asarray(active)),
+            lambda c: decode.decode_step_paged(
+                model, c, torch.from_numpy(toks), torch.from_numpy(active),
+                tcfgs[mode]),
+            cache, mode == "int4")
         toks = np.array(jnp.argmax(jl, axis=-1), np.int32)
     assert cache.length.tolist() == [129, 60, 130]
     _assert_cache_close(cache, jcache, mode == "int4")
@@ -391,24 +514,26 @@ def test_slot_prefills_match_jax(wide, mode):
     cache = decode.init_slot_cache(tcfg, slots, max_len, "cpu")
     prompt = np.random.RandomState(4).randint(0, 128, size=12).tolist()
     # Slot 0: prefill_slot, 7 tokens padded to 8.
+    int4 = mode == "int4"
     padded = prompt[:7] + [0]
-    jl, jcache = jdecode._jitted_prefill_slot(jcfg)(
-        params, jcache, jnp.int32(0), jnp.asarray(padded, jnp.int32),
-        jnp.int32(7))
-    tl, cache = decode.prefill_slot(model, cache, 0, torch.tensor(padded), 7,
-                                    tcfg)
-    _assert_close(tl, jl)
+    _, jcache, cache = _step_matches_jax(
+        jdecode.prefill_slot, jcfg,
+        (params, jcache, jnp.int32(0), jnp.asarray(padded, jnp.int32),
+         jnp.int32(7)),
+        lambda c: decode.prefill_slot(model, c, 0, torch.tensor(padded), 7,
+                                      tcfg),
+        cache, int4)
     # Slot 1: prefill_suffix_slot in two chunks, 8 tokens and 4 padded.
-    jchunk = jdecode._jitted_prefill_suffix_slot(jcfg)
     for start, chunk in ((0, prompt[:8]), (8, prompt[8:])):
         padded = chunk + [0] * (8 - len(chunk))
         new_len = start + len(chunk)
-        jl, jcache = jchunk(params, jcache, jnp.int32(1),
-                            jnp.asarray(padded, jnp.int32), jnp.int32(start),
-                            jnp.int32(new_len))
-        tl, cache = decode.prefill_suffix_slot(
-            model, cache, 1, torch.tensor(padded), start, new_len, tcfg)
-        _assert_close(tl, jl)
+        _, jcache, cache = _step_matches_jax(
+            jdecode.prefill_suffix_slot, jcfg,
+            (params, jcache, jnp.int32(1), jnp.asarray(padded, jnp.int32),
+             jnp.int32(start), jnp.int32(new_len)),
+            lambda c: decode.prefill_suffix_slot(
+                model, c, 1, torch.tensor(padded), start, new_len, tcfg),
+            cache, int4)
     assert cache.length.tolist() == np.asarray(jcache.length).tolist() == [
         7, 12]
     _assert_cache_close(cache, jcache, mode == "int4")
@@ -427,13 +552,15 @@ def test_paged_prefills_match_jax(wide, mode):
                                     "cpu")
     rs = np.random.RandomState(5)
     # Slot 0: prefill_slot_paged, 11 tokens padded to a page at row 3.
+    int4 = mode == "int4"
     padded = rs.randint(0, 128, size=11).tolist() + [0] * 5
-    jl, jcache = jdecode._jitted_prefill_slot_paged(jcfg)(
-        params, jcache, jnp.int32(0), jnp.asarray([3], jnp.int32),
-        jnp.asarray(padded, jnp.int32), jnp.int32(11))
-    tl, cache = decode.prefill_slot_paged(
-        model, cache, 0, torch.tensor([3]), torch.tensor(padded), 11, tcfg)
-    _assert_close(tl, jl)
+    _, jcache, cache = _step_matches_jax(
+        jdecode.prefill_slot_paged, jcfg,
+        (params, jcache, jnp.int32(0), jnp.asarray([3], jnp.int32),
+         jnp.asarray(padded, jnp.int32), jnp.int32(11)),
+        lambda c: decode.prefill_slot_paged(
+            model, c, 0, torch.tensor([3]), torch.tensor(padded), 11, tcfg),
+        cache, int4)
     # Slot 1 shares slot 0's page through its table and prefills the
     # suffix, 20 tokens, over rows 4 and 1.
     row = [3, 4, 1]
@@ -441,12 +568,13 @@ def test_paged_prefills_match_jax(wide, mode):
         jcache, jnp.int32(1), jnp.asarray(row, jnp.int32), jnp.int32(16))
     decode.set_slot_pages(cache, 1, torch.tensor(row, dtype=torch.int32), 16)
     padded = rs.randint(0, 128, size=20).tolist() + [0] * 12
-    jl, jcache = jdecode._jitted_prefill_suffix_paged(jcfg)(
-        params, jcache, jnp.int32(1), jnp.asarray(padded, jnp.int32),
-        jnp.int32(36))
-    tl, cache = decode.prefill_suffix_paged(model, cache, 1,
-                                            torch.tensor(padded), 36, tcfg)
-    _assert_close(tl, jl)
+    _, jcache, cache = _step_matches_jax(
+        jdecode.prefill_suffix_paged, jcfg,
+        (params, jcache, jnp.int32(1), jnp.asarray(padded, jnp.int32),
+         jnp.int32(36)),
+        lambda c: decode.prefill_suffix_paged(model, c, 1,
+                                              torch.tensor(padded), 36, tcfg),
+        cache, int4)
     np.testing.assert_array_equal(cache.tables.numpy(),
                                   np.asarray(jcache.tables))
     assert cache.length.tolist() == [11, 36]
