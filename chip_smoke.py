@@ -4,6 +4,15 @@ health paths on one GPU.
 
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
+  python3 chip_smoke.py k4 [--batch B] [--seq S] [ROOT ...]
+
+times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S 2048
+unless asked otherwise, one JSON line. Each ROOT, a checkout such as a
+`git archive` of a parent unpacked under checkout_proof/, is timed in a
+process of its own that imports the port from there, in the order given
+(parent, change, change, parent), so that two versions compare within
+one call on one card.
+
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
   build    compile the port's CUDA kernels from this checkout;
@@ -47,7 +56,10 @@ Phases, one JSON line each:
            flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
            heads, 8 KV heads, D 128; causal, segmented and non-causal),
            timed beside the plain versions and SDPA's forward and
-           backward (timing only);
+           backward (timing only; the segmented case with the
+           segment-and-causal boolean mask), naming SDPA's backend;
+           each kernel's registers and spill bytes from ptxas's report
+           on the library loaded (K4 must not spill);
   train    llama3_8b at full width and 8 of its 32 layers, random f32
            masters from a seed, trained for 6 steps at batch 4 x 2048 by
            fit (synthetic data, make_optimizer, 'dots' remat): step ms,
@@ -87,6 +99,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1271,6 +1284,49 @@ def kv_quant_phase(torch, dev, np, model, cfg, preempt_bf16) -> dict:
 
 # ---------------------------------------------------------------- K4-K6
 
+def ptxas_report(kernel: str) -> dict:
+    """Registers and spill bytes of a kernel function, from ptxas's -v
+    report in the build log of the library that kernels.load() loaded
+    (the launch's register count: a warp-specialised kernel moves
+    registers between its warpgroups with setmaxnreg from there)."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    path = kernels.build_log()
+    require(path.exists(), f"no build log {path.name} beside the library")
+    log = path.read_text()
+    for block in log.split("Compiling entry function")[1:]:
+        name = block.split("'")[1]
+        if kernel not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        require(regs is not None and spill is not None,
+                f"no ptxas report for {kernel} in {path.name}")
+        # ptxas names the function on a line of its own where it had to
+        # serialize wgmma products (C7514, C7520).
+        serialized = any("serialized" in line and kernel in line
+                         for line in log.splitlines())
+        return {"registers": int(regs.group(1)),
+                "spill_bytes": int(spill.group(1)) + int(spill.group(2)),
+                "ptxas_serialized_wgmma": serialized}
+    raise SmokeFailure(f"{kernel} is not in {path.name}")
+
+
+def _sdpa_backend(torch, q, k, v, kw: dict) -> str:
+    """The backend SDPA's dispatcher picks for these inputs and keywords
+    (torch._fused_sdp_choice, a private call; "unknown" without it)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, kw.get("attn_mask"), 0.0, kw.get("is_causal", False),
+            scale=kw.get("scale"), enable_gqa=kw.get("enable_gqa", False))
+        ).name
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        return "unknown"
+
+
 def _flash_work(torch, seg, b, s, hq, hkv, d, causal) -> dict:
     """Bytes each kernel must move and operations it must do on these
     inputs: each input read once, each output written once; 4, 6 and 8
@@ -1295,31 +1351,70 @@ def _flash_work(torch, seg, b, s, hq, hkv, d, causal) -> dict:
             "visible_pairs": pairs}
 
 
+def _flash_cases(torch, dev, b: int, s: int, hq: int = 32, hkv: int = 8):
+    """flash_phase's cases, (case, causal, seg, q, k, v, do) each, on
+    inputs from a seed: q pre-scaled, head_dim 128, bf16."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    pos = torch.arange(s, device=dev)
+    packed = ((pos >= s // 3).float() + (pos >= 3 * s // 4).float()).expand(
+        b, s).contiguous()    # three packed sequences per row
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    for case, causal, seg in [("main", True, None),
+                              ("segmented", True, packed),
+                              ("noncausal", False, None)]:
+        q = fa._prescale(rnd(b, s, hq, 128))
+        k, v = rnd(b, s, hkv, 128), rnd(b, s, hkv, 128)
+        do = rnd(b, s, hq, 128)
+        yield case, causal, seg, q, k, v, do
+
+
+def _flash_sdpa(torch, q, k, v, seg, causal):
+    """One PyTorch call for the flash kernels' attention (timing only;
+    the port never calls it): (SDPA with its keywords, q, k and v in its
+    layout, requiring grad). Segmented, SDPA takes the segment-and-causal boolean
+    mask, and the KV heads are repeated, so that a backend that takes a
+    mask but not GQA may run."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+    if seg is None:
+        return (functools.partial(F.scaled_dot_product_attention,
+                                  is_causal=causal, scale=1.0,
+                                  enable_gqa=True), qt, kt, vt)
+    n_rep, s = q.shape[2] // k.shape[2], q.shape[1]
+    kt, vt = (x.detach().repeat_interleave(n_rep, dim=1).requires_grad_()
+              for x in (kt, vt))
+    vis = (seg[:, :, None] == seg[:, None, :])[:, None]
+    if causal:
+        vis = vis & torch.ones(s, s, dtype=torch.bool,
+                               device=q.device).tril()
+    return (functools.partial(F.scaled_dot_product_attention,
+                              attn_mask=vis, scale=1.0), qt, kt, vt)
+
+
 def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                 hkv: int = 8) -> dict:
     """K4, K5 and K6 against their plain versions at the train phase's
     attention shapes; the backward kernels take the plain forward's out
     and lse, so each is held alone. Returns {kernel: {case: result}}."""
-    import torch.nn.functional as F
-
     from container_engine_accelerators_tpu_torch.ops import (
         flash_attention as fa,
     )
 
     d = 128
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    pos = torch.arange(s, device=dev)
-    packed = ((pos >= s // 3).float() + (pos >= 3 * s // 4).float()).expand(
-        b, s).contiguous()    # three packed sequences per row
-    cases = [("main", True, None), ("segmented", True, packed),
-             ("noncausal", False, None)]
     results = {name: {} for name in FLASH_REPLACES}
-    for case, causal, seg in cases:
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device=dev).bfloat16()
-
-        q = fa._prescale(rnd(b, s, hq, d))
-        k, v, do = rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+    ptxas = {name: ptxas_report(f"{name}_kernel") for name in FLASH_REPLACES}
+    require(ptxas["flash_fwd"]["spill_bytes"] == 0,
+            f"K4 spills: {ptxas['flash_fwd']}")
+    for case, causal, seg, q, k, v, do in _flash_cases(torch, dev, b, s, hq,
+                                                       hkv):
         work = _flash_work(torch, seg, b, s, hq, hkv, d, causal)
         out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
         torch.cuda.synchronize()
@@ -1350,25 +1445,22 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
             "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_cuda(*args),
                               lambda: fa.flash_bwd_dkv_plain(*args)),
         }
-        library = {name: None for name in FLASH_REPLACES}
-        if seg is None:
-            # One PyTorch call for the same attention (timing only; the
-            # port never calls it): SDPA's forward for K4, and its
-            # backward, dq, dk and dv in one call, for K6.
-            qt, kt, vt = (x.transpose(1, 2).requires_grad_()
-                          for x in (q, k, v))
-            sdpa = functools.partial(F.scaled_dot_product_attention,
-                                     is_causal=causal, scale=1.0,
-                                     enable_gqa=True)
-            library["flash_fwd"] = device_ms(torch, lambda: sdpa(
-                qt.detach(), kt.detach(), vt.detach()), iters=10)
-            o = sdpa(qt, kt, vt)
-            dot = do.transpose(1, 2)
-            library["flash_bwd_dkv"] = device_ms(
-                torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                   retain_graph=True),
-                iters=10)
-            del o, qt, kt, vt
+        # SDPA's forward for K4, and its backward, dq, dk and dv in one
+        # call, for K6.
+        sdpa, qt, kt, vt = _flash_sdpa(torch, q, k, v, seg, causal)
+        fwd = functools.partial(sdpa, qt.detach(), kt.detach(), vt.detach())
+        o = sdpa(qt, kt, vt)
+        dot = do.transpose(1, 2)
+
+        def bwd():
+            return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        library = {"flash_fwd": device_ms(torch, fwd, iters=10),
+                   "flash_bwd_dq": None,
+                   "flash_bwd_dkv": device_ms(torch, bwd, iters=10)}
+        backend = _sdpa_backend(torch, qt, kt, vt, sdpa.keywords)
+        del o, qt, kt, vt, fwd
         prefix = {"flash_fwd": "k4", "flash_bwd_dq": "k5",
                   "flash_bwd_dkv": "k6"}
         for name, (kernel, plain) in timed.items():
@@ -1379,9 +1471,14 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                    "ms": device_ms(torch, kernel),
                    "plain_ms": device_ms(torch, plain, iters=3),
                    "library_ms": library[name],
-                   "bound_ms": bms, "bound_by": by}
-            if name == "flash_bwd_dkv" and library[name] is not None:
-                res["library"] = "SDPA backward: dq, dk and dv in one call"
+                   "bound_ms": bms, "bound_by": by, **ptxas[name]}
+            if library[name] is not None:
+                res["library"] = (
+                    ("SDPA forward" if name == "flash_fwd" else
+                     "SDPA backward: dq, dk and dv in one call")
+                    + ("" if seg is None else
+                       ", boolean mask, KV heads repeated")
+                    + f", {backend} backend")
             results[name][case] = res
             emit({"phase": f"{prefix[name]}_{case}", "B": b, "S": s,
                   "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
@@ -1390,7 +1487,7 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                                else FLASH_GRAD_ROW_RTOL),
                   "tensor_atol_share": FLASH_TENSOR_ATOL,
                   "lse_max_abs_err": lse_err, **res})
-        del q, k, v, do, lse, lse_p, delta, args, timed
+        del q, k, v, do, lse, lse_p, delta, args, timed, bwd
     return results
 
 
@@ -1742,6 +1839,56 @@ def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
     return result
 
 
+def k4_timing(torch, dev, b: int, s: int) -> dict:
+    """K4's ms beside SDPA's forward (timing only) in each k4_* case, on
+    flash_phase's inputs at B x S."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    res = {"B": b, "S": s}
+    for case, causal, seg, q, k, v, _ in _flash_cases(torch, dev, b, s):
+        res[case] = device_ms(
+            torch, lambda: fa.flash_fwd_cuda(q, k, v, seg, causal))
+        sdpa, qt, kt, vt = _flash_sdpa(torch, q, k, v, seg, causal)
+        res[f"{case}_sdpa"] = device_ms(
+            torch, functools.partial(sdpa, qt.detach(), kt.detach(),
+                                     vt.detach()), iters=10)
+    return res
+
+
+def k4_main(torch, argv: list[str]) -> int:
+    """`chip_smoke.py k4`: see the module's docstring."""
+    import argparse
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py k4")
+    ap.add_argument("roots", nargs="*", metavar="ROOT",
+                    help="a checkout to time in a process of its own")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
+    args = ap.parse_args(argv)
+    if not args.roots:
+        kernels.load()
+        emit({"phase": "k4_timing", "nvidia_smi": nvidia_smi_line(),
+              "kernels": os.path.dirname(kernels.__file__),
+              **k4_timing(torch, torch.device("cuda", 0), args.batch,
+                          args.seq)})
+        return 0
+    for root in args.roots:
+        # -P: the port comes from PYTHONPATH, the checkout timed, not
+        # from this file's directory.
+        rc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "k4",
+             "--batch", str(args.batch), "--seq", str(args.seq)],
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
+            timeout=600).returncode
+        if rc:
+            return rc
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1760,6 +1907,8 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["k4"]:
+        return k4_main(torch, sys.argv[2:])
 
     try:
         dev = torch.device("cuda", 0)

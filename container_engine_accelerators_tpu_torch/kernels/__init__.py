@@ -8,7 +8,8 @@ with ctypes. Sources without PyTorch's headers build in seconds, where a
 `torch.utils.cpp_extension` build takes minutes. The library lands in
 `.torch_kernels_build/` at the repository root (listed in .gitignore),
 named by a hash of the sources and flags, so a checkout builds once and
-an edited source rebuilds. A failed build raises.
+an edited source rebuilds; the compiler's report lies beside it under the
+same name (`build_log()`). A failed build raises.
 
 Every wrapper calls `count(name)` right after it launches its kernel and
 nowhere else, so a run can show that its main path went through the
@@ -36,6 +37,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 launches: collections.Counter = collections.Counter()
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_path: Path | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,7 +108,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the sources (in parallel) and link them into one shared
     library; returns its path. The compiler's output, register and
-    shared-memory reports included, goes to `build.log` beside it."""
+    shared-memory reports included, goes to a `.log` of the same name
+    beside it."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in srcs:
@@ -131,7 +134,7 @@ def build() -> Path:
         logs.append(f"== {src.name} (rc {proc.returncode})\n{out}")
         if proc.returncode:
             failed.append(src.name)
-    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    lib_path.with_suffix(".log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
                            + "\n".join(logs))
@@ -150,10 +153,11 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            _lib_path = build()
+            lib = ctypes.CDLL(str(_lib_path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -162,6 +166,12 @@ def load() -> ctypes.CDLL:
             lib.port_kernels_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def build_log() -> Path:
+    """The compiler's output for the library that `load()` loaded."""
+    load()
+    return _lib_path.with_suffix(".log")
 
 
 def check(name: str, err: int) -> None:

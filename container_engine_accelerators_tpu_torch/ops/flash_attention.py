@@ -13,12 +13,13 @@ Masked scores are NEG_INF = -1e30, not -inf (see the CUDA source).
 
 Each kernel has a plain PyTorch version beside it (`flash_fwd_plain`,
 `flash_bwd_dq_plain`, `flash_bwd_dkv_plain`) with the same blockwise
-arithmetic: 64-key tiles online in the forward, f32 accumulators, p and
-ds rounded to the operand dtype before their products. CPU tensors take
-the plain versions; CUDA tensors take the kernels
-(kernels/flash_attention.cu), which take bf16 and head_dim 128 and raise
-on anything else. `plain=True` runs the plain versions on the card, as
-the kernels' reference.
+arithmetic: 128-key tiles online in the forward (K4's tile), f32
+accumulators, p and ds rounded to the operand dtype before their
+products. CPU tensors take the plain versions; CUDA tensors take the
+kernels (kernels/flash_attention.cu), which take bf16, head_dim 128 and
+S a multiple of 128 (K4) or 64 (K5, K6), and raise on anything else.
+`plain=True` runs the plain versions on the card, as the kernels'
+reference.
 
 `causal_grid` 'rect' and 'tri' are both accepted and compute the same
 thing: on the TPU they are two schedules of the causal grid (tri skips
@@ -35,7 +36,8 @@ import torch
 from container_engine_accelerators_tpu_torch import kernels
 
 NEG_INF = -1e30
-KEY_TILE = 64       # the kernels' key tile: K4 and K5 step over keys by it
+FWD_KEY_TILE = 128  # K4 steps over keys by it (and takes q rows by it)
+KEY_TILE = 64       # K5 steps over keys by it
 Q_TILE = 32         # K6 steps over queries by it
 KERNEL_HEAD_DIM = 128
 
@@ -73,7 +75,7 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seg: torch.Tensor | None, causal: bool
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's function: (out [B, S, Hq, D] in qs.dtype, lse [B, Hq, S] f32)
-    from pre-scaled qs, by the online softmax over 64-key tiles."""
+    from pre-scaled qs, by the online softmax over 128-key tiles."""
     b, s, hq, d = qs.shape
     n_rep = hq // k.shape[2]
     qh, kh, vh = _heads(qs), _heads(k, n_rep), _heads(v, n_rep)
@@ -81,9 +83,9 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, hq, s, 1), device=qs.device)
     acc = torch.zeros((b, hq, s, d), device=qs.device)
     rows = torch.arange(s, device=qs.device)
-    for k0 in range(0, s, KEY_TILE):
-        cols = rows[k0:k0 + KEY_TILE]
-        sc = qh @ kh[:, :, k0:k0 + KEY_TILE].transpose(-1, -2)
+    for k0 in range(0, s, FWD_KEY_TILE):
+        cols = rows[k0:k0 + FWD_KEY_TILE]
+        sc = qh @ kh[:, :, k0:k0 + FWD_KEY_TILE].transpose(-1, -2)
         mask = _mask(rows, cols, causal, seg)
         if mask is not None:
             sc = sc.masked_fill(~mask, NEG_INF)
@@ -92,7 +94,7 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(sc - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
         acc = acc * alpha + (p.to(v.dtype).float()
-                             @ vh[:, :, k0:k0 + KEY_TILE])
+                             @ vh[:, :, k0:k0 + FWD_KEY_TILE])
         m = m_new
     l = l.clamp(min=1e-30)
     out = (acc / l).to(qs.dtype).permute(0, 2, 1, 3).contiguous()
@@ -154,14 +156,15 @@ def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool
     return per_kv_head(dk), per_kv_head(dv)
 
 
-def _check_kernel_inputs(name: str, *tensors) -> None:
+def _check_kernel_inputs(name: str, *tensors, seq_tile: int = KEY_TILE
+                         ) -> None:
     """Raise on what the kernels cannot take."""
     q = tensors[0]
     if q.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"{name} kernel takes head_dim {KERNEL_HEAD_DIM}, "
                          f"got {q.shape[-1]}")
-    if q.shape[1] % KEY_TILE:
-        raise ValueError(f"{name} kernel takes S a multiple of {KEY_TILE}, "
+    if q.shape[1] % seq_tile:
+        raise ValueError(f"{name} kernel takes S a multiple of {seq_tile}, "
                          f"got {q.shape[1]}")
     for x in tensors:
         if x.dtype != torch.bfloat16:
@@ -186,10 +189,12 @@ def _check_stats(q: torch.Tensor, *stats) -> None:
 def _seg_ptr(seg: torch.Tensor | None, q: torch.Tensor):
     if seg is None:
         return None
+    # K4 reads the ids 16 bytes at a time.
     if seg.dtype != torch.float32 or seg.device != q.device or \
-            seg.shape != q.shape[:2] or not seg.is_contiguous():
-        raise ValueError("segment ids must be a contiguous f32 [B, S] "
-                         "tensor on the device of q")
+            seg.shape != q.shape[:2] or not seg.is_contiguous() or \
+            seg.data_ptr() % 16:
+        raise ValueError("segment ids must be a contiguous, 16-byte aligned "
+                         "f32 [B, S] tensor on the device of q")
     return seg.data_ptr()
 
 
@@ -199,7 +204,7 @@ def _stream(x: torch.Tensor):
 
 def flash_fwd_cuda(qs, k, v, seg, causal: bool):
     """Launch K4 on CUDA tensors."""
-    _check_kernel_inputs("flash_fwd", qs, k, v)
+    _check_kernel_inputs("flash_fwd", qs, k, v, seq_tile=FWD_KEY_TILE)
     b, s, hq, d = qs.shape
     out = torch.empty_like(qs)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=qs.device)

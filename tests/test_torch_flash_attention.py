@@ -18,9 +18,9 @@ from container_engine_accelerators_tpu_torch.ops import attention as tattn
 from container_engine_accelerators_tpu_torch.ops import flash_attention as tfa
 
 B, S, HQ, HKV, D = 1, 256, 4, 2, 128
-# f32: the same arithmetic in another tile order (64-key tiles against
-# the JAX run's 128): 1e-5 of the largest |o|, gradients 1e-4 of the
-# largest |grad|.
+# f32: the same arithmetic in another tile order (the backward's 64-key
+# and 32-query tiles against the JAX run's 128): 1e-5 of the largest
+# |o|, gradients 1e-4 of the largest |grad|.
 F32_OUT_TOL, F32_GRAD_TOL = 1e-5, 1e-4
 # bf16: p is rounded to bf16 against a running max taken over other
 # tiles, so an output element may round one bf16 ulp apart: per row, at

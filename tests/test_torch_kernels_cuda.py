@@ -455,9 +455,15 @@ def test_paged_engine_kernel_path_matches_plain_path(cuda):
 # be off by 2^-14 of the tensor's largest |x|.
 FLASH_ROW_RTOL, FLASH_GRAD_ROW_RTOL = 2 ** -7, 2 ** -6
 FLASH_TENSOR_ATOL = 2 ** -14
+# Where each packed sequence after the first starts, as shares of S: none
+# (no segment ids); three of unequal length; seven of equal length, every
+# boundary inside a 128-key tile, so that K4 skips whole key tiles before
+# and after a q tile's live keys and masks the tiles that hold one.
+SEGMENT_STARTS = {1: None, 3: (1 / 3, 1 / 2),
+                  7: tuple(i / 7 for i in range(1, 7))}
 
 
-def _flash_inputs(cuda, seed, b, s, hq, hkv, segmented):
+def _flash_inputs(cuda, seed, b, s, hq, hkv, starts=None):
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape):
@@ -466,9 +472,9 @@ def _flash_inputs(cuda, seed, b, s, hq, hkv, segmented):
     q = fa._prescale(rnd(b, s, hq, 128))
     k, v, do = rnd(b, s, hkv, 128), rnd(b, s, hkv, 128), rnd(b, s, hq, 128)
     seg = None
-    if segmented:   # three packed sequences of unequal length per row
+    if starts is not None:
         pos = torch.arange(s, device=cuda)
-        seg = ((pos >= s // 3).float() + (pos >= s // 2).float()).expand(
+        seg = sum((pos >= int(f * s)).float() for f in starts).expand(
             b, s).contiguous()
     return q, k, v, do, seg
 
@@ -483,12 +489,15 @@ def _rows_close(got, want, what, rtol=FLASH_GRAD_ROW_RTOL):
 
 @pytest.mark.parametrize("s", [256, 512, 2048])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 1), (8, 2), (32, 8)])
-@pytest.mark.parametrize("causal,segmented", [(True, False), (False, False),
-                                              (True, True)])
-def test_flash_kernels_match_plain(cuda, s, hq, hkv, causal, segmented):
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_segments", [1, 3, 7])
+def test_flash_kernels_match_plain(cuda, s, hq, hkv, causal, n_segments):
     b = 1 if s == 2048 else 2
     q, k, v, do, seg = _flash_inputs(cuda, s + hq, b, s, hq, hkv,
-                                         segmented)
+                                     SEGMENT_STARTS[n_segments])
+    if n_segments == 7:
+        ends = (torch.diff(seg[0]) != 0).nonzero()
+        assert len(ends) == 6 and not bool((ends % 128 == 127).any())
     kernels.reset_launches()
     out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, causal)
@@ -509,7 +518,7 @@ def test_flash_kernels_match_plain(cuda, s, hq, hkv, causal, segmented):
 
 
 def test_flash_kernels_are_deterministic(cuda):
-    q, k, v, do, seg = _flash_inputs(cuda, 1, 2, 1024, 32, 8, False)
+    q, k, v, do, seg = _flash_inputs(cuda, 1, 2, 1024, 32, 8)
     outs = []
     for _ in range(2):
         out, lse = fa.flash_fwd_cuda(q, k, v, seg, True)
@@ -522,7 +531,7 @@ def test_flash_kernels_are_deterministic(cuda):
 
 
 def test_flash_autograd_goes_through_the_kernels(cuda):
-    q, k, v, do, _ = _flash_inputs(cuda, 2, 1, 512, 8, 2, False)
+    q, k, v, do, _ = _flash_inputs(cuda, 2, 1, 512, 8, 2)
     grads = {}
     for plain in (False, True):
         args = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -540,7 +549,7 @@ def test_flash_autograd_goes_through_the_kernels(cuda):
 
 
 def test_flash_kernels_raise_on_what_they_cannot_take(cuda):
-    q, k, v, do, _ = _flash_inputs(cuda, 3, 1, 256, 4, 2, False)
+    q, k, v, do, _ = _flash_inputs(cuda, 3, 1, 256, 4, 2)
     with pytest.raises(TypeError):
         fa.flash_fwd_cuda(q.float(), k, v, None, True)
     with pytest.raises(ValueError):
@@ -548,6 +557,16 @@ def test_flash_kernels_raise_on_what_they_cannot_take(cuda):
                           v[..., :64].contiguous(), None, True)
     with pytest.raises(ValueError):
         fa.flash_fwd_cuda(q.transpose(1, 2), k, v, None, True)
+    # K4 takes S a multiple of 128 (K5 and K6 one of 64).
+    q, k, v, _, _ = _flash_inputs(cuda, 3, 1, 192, 4, 2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_fwd_cuda(q, k, v, None, True)
+    # Segment ids at an address K4 cannot read 16 bytes at a time.
+    q, k, v, _, _ = _flash_inputs(cuda, 3, 1, 256, 4, 2)
+    seg = torch.zeros(257, device=cuda)[1:].view(1, 256)
+    assert seg.is_contiguous() and seg.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd_cuda(q, k, v, seg, True)
 
 
 def test_train_step_kernel_path_matches_plain_path(cuda):
