@@ -5,13 +5,17 @@ health paths on one GPU.
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
   python3 chip_smoke.py k4 [--batch B] [--seq S] [ROOT ...]
+  python3 chip_smoke.py decode [--tick] [ROOT ...]
 
-times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S 2048
-unless asked otherwise, one JSON line. Each ROOT, a checkout such as a
-`git archive` of a parent unpacked under checkout_proof/, is timed in a
-process of its own that imports the port from there, in the order given
-(parent, change, change, parent), so that two versions compare within
-one call on one card.
+`k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
+2048 unless asked otherwise, one JSON line. `decode` times K1 and K3 in
+every k1_* and k3_* case on bf16, int8 and int4 caches, one JSON line;
+with --tick also the paged decode tick on llama3_8b (wall and
+device-busy ms). Each ROOT, a checkout such as a `git archive` of a
+parent unpacked under checkout_proof/, is timed in a process of its own
+that imports the port from there, in the order given (parent, change,
+change, parent), so that two versions compare within one call on one
+card.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -19,6 +23,10 @@ Phases, one JSON line each:
   k1_*     kernels/decode_attention.cu (contiguous) against
            decode_attention_plain at Llama-3-8B widths, timed beside the
            plain version and F.scaled_dot_product_attention (timing only);
+           every k1_* and k3_* line (all KV modes) names the body that ran
+           (decode_split_kernel, or decode_attention_kernel for prefill),
+           its key-range splits, and its registers and spill bytes from
+           ptxas's report;
   k2_*     kernels/int8_matmul.cu against int8_matmul_plain, timed beside
            torch.matmul on the dequantized weight (timing only);
   k3_*     the paged entry of kernels/decode_attention.cu against
@@ -265,15 +273,55 @@ def _sdpa(F, q, k, v, mask):
                                                   enable_gqa=True)
 
 
+def decode_kernel_info(torch, dev, payload: str, keys: str, t: int, b: int,
+                       hq: int, hkv: int, max_len: int) -> dict:
+    """Which body of kernels/decode_attention.cu a K1/K3 call takes at
+    head_dim 128, its key-range splits (ops/decode_attention.split_plan
+    on this card's SM count) and its registers and spill bytes from
+    ptxas's report."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.ops import (
+        decode_attention as da,
+    )
+
+    n_rows = t * (hq // hkv)
+    kernel = ("decode_split_kernel" if n_rows <= da.DECODE_ROWS
+              else "decode_attention_kernel")
+    report = ptxas_report(kernel, f"{payload}Payload", "Li128E",
+                          f"{keys}Keys")
+    return {"kernel": kernel, "splits": da.split_plan(
+        b, hkv, n_rows, max_len, kernels.sm_count(dev)),
+        "registers": report["registers"],
+        "spill_bytes": report["spill_bytes"]}
+
+
 # ---------------------------------------------------------------- K1
 
 K1_SHAPE = (32, 8, 128, 2048)     # Hq, Hkv, D, max_len
+# The paged tick's short rows: 8 slots of 128-160 cached keys.
+TICK_LENGTHS = [128, 132, 136, 140, 145, 150, 155, 160]
 K1_CASES = [                      # (name, T, B, cache lengths)
     ("decode_slots", 1, 8, [0, 1, 127, 128, 129, 2047, 1000, 513]),
     ("decode_scalar", 1, 8, 1500),
+    ("decode_tick", 1, 8, TICK_LENGTHS),
     ("prefill_128", 128, 8, 0),
     ("prefill_512", 512, 2, [0, 1024]),
 ]
+
+
+def _k1_args(torch, dev, gen, t: int, b: int, lens, mode: str) -> tuple:
+    """decode_attention_cuda's arguments in a k1_* case: a cache of
+    max_len 2048 from `gen`, bf16 or quantized."""
+    hq, hkv, d, max_len = K1_SHAPE
+    q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, max_len, hkv, d, generator=gen, device=dev)
+            for _ in range(2))
+    cache_len = (torch.tensor(lens, dtype=torch.int32, device=dev)
+                 if isinstance(lens, list) else lens)
+    if mode == "bf16":
+        return q, k.bfloat16(), v.bfloat16(), cache_len
+    (k, ks), (v, vs) = _quantized(torch, k, mode), _quantized(torch, v, mode)
+    return q, k, v, cache_len, ks, vs, mode == "int4"
 
 
 def k1_phase(torch, dev) -> dict:
@@ -288,13 +336,7 @@ def k1_phase(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
     for name, t, b, lens in K1_CASES:
-        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
-        k = torch.randn(b, max_len, hkv, d, generator=gen,
-                        device=dev).bfloat16()
-        v = torch.randn(b, max_len, hkv, d, generator=gen,
-                        device=dev).bfloat16()
-        cache_len = (torch.tensor(lens, dtype=torch.int32, device=dev)
-                     if isinstance(lens, list) else lens)
+        q, k, v, cache_len = _k1_args(torch, dev, gen, t, b, lens, "bf16")
         got = decode_attention_cuda(q, k, v, cache_len)
         torch.cuda.synchronize()
         want = decode_attention_plain(q, k, v, cache_len)
@@ -316,7 +358,9 @@ def k1_phase(torch, dev) -> dict:
         emit({"phase": f"k1_{name}", "T": t, "B": b, "Hq": hq, "Hkv": hkv,
               "D": d, "max_len": max_len, "lengths": lens,
               "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL,
-              **results[name]})
+              **results[name],
+              **decode_kernel_info(torch, dev, "Bf16", "Contiguous", t, b,
+                                   hq, hkv, max_len)})
         del q, k, v, got, want, mask
     return results
 
@@ -367,6 +411,7 @@ def k2_phase(torch, dev) -> dict:
 K3_SHAPE = (32, 8, 128, 128, 16)  # Hq, Hkv, D, page, max_pages
 K3_CASES = [                      # (name, T, cache lengths)
     ("decode", 1, [0, 1, 127, 128, 129, 2047, 1000, 513]),
+    ("decode_tick", 1, TICK_LENGTHS),
     ("prefill_chunk_512", 512, [512]),
     ("prefix_suffix_128", 128, [256]),
 ]
@@ -391,6 +436,21 @@ def _page_pool(torch, dev, gen, lens, t, page, max_pages, hkv, d):
     return k_pool, v_pool, tables
 
 
+def _k3_args(torch, dev, gen, t: int, lens: list, mode: str) -> tuple:
+    """paged_decode_attention_cuda's arguments in a k3_* case."""
+    hq, hkv, d, page, max_pages = K3_SHAPE
+    k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
+                                        max_pages, hkv, d)
+    q = torch.randn(len(lens), t, hq, d, generator=gen,
+                    device=dev).bfloat16()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if mode == "bf16":
+        return q, k_pool, v_pool, lens_t, tables
+    (kp, ksp), (vp, vsp) = (_quantized(torch, x.float(), mode)
+                            for x in (k_pool, v_pool))
+    return q, kp, vp, lens_t, tables, ksp, vsp, mode == "int4"
+
+
 def k3_phase(torch, dev) -> dict:
     import torch.nn.functional as F
 
@@ -406,10 +466,8 @@ def k3_phase(torch, dev) -> dict:
     results = {}
     for name, t, lens in K3_CASES:
         b = len(lens)
-        k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
-                                            max_pages, hkv, d)
-        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q, k_pool, v_pool, lens_t, tables = _k3_args(torch, dev, gen, t,
+                                                     lens, "bf16")
         got = paged_decode_attention_cuda(q, k_pool, v_pool, lens_t, tables)
         torch.cuda.synchronize()
         want = paged_decode_attention_plain(q, k_pool, v_pool, lens_t,
@@ -442,7 +500,9 @@ def k3_phase(torch, dev) -> dict:
               "Hkv": hkv, "D": d, "page": page, "max_pages": max_pages,
               "n_pages": k_pool.shape[0], "lengths": lens,
               "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL,
-              **results[name]})
+              **results[name],
+              **decode_kernel_info(torch, dev, "Bf16", "Paged", t, b, hq,
+                                   hkv, max_len)})
         del q, k, v, k_pool, v_pool, got, want, mask
     return results
 
@@ -491,18 +551,11 @@ def k1_quant_phase(torch, dev, mode: str) -> dict:
     )
 
     hq, hkv, d, max_len = K1_SHAPE
-    int4 = mode == "int4"
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     results = {}
     for name, t, b, lens in K1_CASES:
-        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
-        k, ks = _quantized(torch, torch.randn(b, max_len, hkv, d,
-                                              generator=gen, device=dev), mode)
-        v, vs = _quantized(torch, torch.randn(b, max_len, hkv, d,
-                                              generator=gen, device=dev), mode)
-        cache_len = (torch.tensor(lens, dtype=torch.int32, device=dev)
-                     if isinstance(lens, list) else lens)
-        args = (q, k, v, cache_len, ks, vs, int4)
+        args = _k1_args(torch, dev, gen, t, b, lens, mode)
+        q, k, v, cache_len, ks, vs, _ = args
         got = decode_attention_cuda(*args)
         torch.cuda.synchronize()
         want = decode_attention_plain(*args)
@@ -524,7 +577,9 @@ def k1_quant_phase(torch, dev, mode: str) -> dict:
         results[name] = res
         emit({"phase": f"k1_{mode}_{name}", "T": t, "B": b, "Hq": hq,
               "Hkv": hkv, "D": d, "max_len": max_len, "lengths": lens,
-              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res})
+              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res,
+              **decode_kernel_info(torch, dev, mode.capitalize(),
+                                   "Contiguous", t, b, hq, hkv, max_len)})
         del q, k, v, ks, vs, k_bf, v_bf, got, want, mask, sdpa, args
     return results
 
@@ -541,19 +596,12 @@ def k3_quant_phase(torch, dev, mode: str) -> dict:
 
     hq, hkv, d, page, max_pages = K3_SHAPE
     max_len = page * max_pages
-    int4 = mode == "int4"
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     results = {}
     for name, t, lens in K3_CASES:
         b = len(lens)
-        k_pool, v_pool, tables = _page_pool(torch, dev, gen, lens, t, page,
-                                            max_pages, hkv, d)
-        kp, ksp = _quantized(torch, k_pool.float(), mode)
-        vp, vsp = _quantized(torch, v_pool.float(), mode)
-        del k_pool, v_pool
-        q = torch.randn(b, t, hq, d, generator=gen, device=dev).bfloat16()
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        args = (q, kp, vp, lens_t, tables, ksp, vsp, int4)
+        args = _k3_args(torch, dev, gen, t, lens, mode)
+        q, kp, vp, lens_t, tables, ksp, vsp, _ = args
         got = paged_decode_attention_cuda(*args)
         torch.cuda.synchronize()
         want = paged_decode_attention_plain(*args)
@@ -583,7 +631,9 @@ def k3_quant_phase(torch, dev, mode: str) -> dict:
         emit({"phase": f"k3_{mode}_{name}", "T": t, "slots": b, "Hq": hq,
               "Hkv": hkv, "D": d, "page": page, "max_pages": max_pages,
               "n_pages": kp.shape[0], "lengths": lens,
-              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res})
+              "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL, **res,
+              **decode_kernel_info(torch, dev, mode.capitalize(), "Paged", t,
+                                   b, hq, hkv, max_len)})
         del q, kp, vp, ksp, vsp, kp_bf, vp_bf, k, v, ks, vs, got, want
         del mask, sdpa, args
     return results
@@ -1284,9 +1334,10 @@ def kv_quant_phase(torch, dev, np, model, cfg, preempt_bf16) -> dict:
 
 # ---------------------------------------------------------------- K4-K6
 
-def ptxas_report(kernel: str) -> dict:
-    """Registers and spill bytes of a kernel function, from ptxas's -v
-    report in the build log of the library that kernels.load() loaded
+def ptxas_report(kernel: str, *parts: str) -> dict:
+    """Registers and spill bytes of a kernel function (the first whose
+    mangled name holds `kernel` and every one of `parts`), from ptxas's
+    -v report in the build log of the library that kernels.load() loaded
     (the launch's register count: a warp-specialised kernel moves
     registers between its warpgroups with setmaxnreg from there)."""
     from container_engine_accelerators_tpu_torch import kernels
@@ -1296,7 +1347,7 @@ def ptxas_report(kernel: str) -> dict:
     log = path.read_text()
     for block in log.split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if kernel not in name:
+        if not all(part in name for part in (kernel, *parts)):
             continue
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1310,7 +1361,7 @@ def ptxas_report(kernel: str) -> dict:
         return {"registers": int(regs.group(1)),
                 "spill_bytes": int(spill.group(1)) + int(spill.group(2)),
                 "ptxas_serialized_wgmma": serialized}
-    raise SmokeFailure(f"{kernel} is not in {path.name}")
+    raise SmokeFailure(f"{kernel} {parts} is not in {path.name}")
 
 
 def _sdpa_backend(torch, q, k, v, kw: dict) -> str:
@@ -1889,6 +1940,81 @@ def k4_main(torch, argv: list[str]) -> int:
     return 0
 
 
+def decode_timing(torch, dev) -> dict:
+    """K1's and K3's device ms in every k1_* and k3_* case and KV mode,
+    on inputs from a seed (timing only: the full smoke checks them)."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        decode_attention as da,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    res = {}
+    for mode in ("bf16", *KV_MODES):
+        for name, t, b, lens in K1_CASES:
+            args = _k1_args(torch, dev, gen, t, b, lens, mode)
+            res[f"k1_{mode}_{name}"] = device_ms(
+                torch, lambda: da.decode_attention_cuda(*args))
+        for name, t, lens in K3_CASES:
+            args = _k3_args(torch, dev, gen, t, lens, mode)
+            res[f"k3_{mode}_{name}"] = device_ms(
+                torch, lambda: da.paged_decode_attention_cuda(*args))
+        del args
+    return res
+
+
+def tick_timing(torch, dev, np) -> dict:
+    """paged_tick on llama3_8b at full width and depth, random weights
+    from the seed: wall and device-busy ms per tick."""
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        init_params,
+        llama3_8b,
+    )
+
+    cfg = llama3_8b()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    tick = paged_tick(torch, dev, np, model, cfg)
+    return {key: tick[key] for key in (
+        "paged_decode_tick_ms_8_slots", "device_busy_ms_per_tick",
+        "device_idle_share", "launches_per_tick", "top_kernels_ms_per_tick")}
+
+
+def decode_main(torch, argv: list[str]) -> int:
+    """`chip_smoke.py decode`: see the module's docstring."""
+    import argparse
+
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py decode")
+    ap.add_argument("roots", nargs="*", metavar="ROOT",
+                    help="a checkout to time in a process of its own")
+    ap.add_argument("--tick", action="store_true",
+                    help="also the paged tick on llama3_8b")
+    args = ap.parse_args(argv)
+    if not args.roots:
+        dev = torch.device("cuda", 0)
+        kernels.load()
+        res = {"phase": "decode_timing", "nvidia_smi": nvidia_smi_line(),
+               "kernels": os.path.dirname(kernels.__file__),
+               **decode_timing(torch, dev)}
+        if args.tick:
+            res["tick"] = tick_timing(torch, dev, np)
+        emit(res)
+        return 0
+    for root in args.roots:
+        # -P: the port comes from PYTHONPATH, the checkout timed.
+        rc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "decode",
+             *(["--tick"] if args.tick else [])],
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
+            timeout=600).returncode
+        if rc:
+            return rc
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1909,6 +2035,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["k4"]:
         return k4_main(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["decode"]:
+        return decode_main(torch, sys.argv[2:])
 
     try:
         dev = torch.device("cuda", 0)

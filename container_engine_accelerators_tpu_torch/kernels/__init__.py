@@ -41,22 +41,23 @@ _lib_path: Path | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_DECODE_TAIL = [ctypes.c_float, _I, _P, _P, _P]
 _SIGNATURES = {
-    # (q, k, v, lens, out, B, T, Hq, Hkv, D, max_len, scale, stream)
-    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _P],
+    # Decode attention: each entry ends in (scale, splits, part, tickets,
+    # stream); see ops/decode_attention.py.
+    # (q, k, v, lens, out, B, T, Hq, Hkv, D, max_len, ...)
+    "decode_attention_bf16": [_P] * 5 + [_I] * 6 + _DECODE_TAIL,
     # (q, k_pool, v_pool, lens, tables, out, B, T, Hq, Hkv, D, page,
-    #  max_pages, n_pages, scale, stream)
-    "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, ctypes.c_float, _P],
+    #  max_pages, n_pages, ...)
+    "paged_decode_attention_bf16": [_P] * 6 + [_I] * 8 + _DECODE_TAIL,
     # (q, k, v, k_scales, v_scales, lens, out, B, T, Hq, Hkv, D, max_len,
-    #  scale, stream)
-    **{f"decode_attention_{mode}": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+    #  ...)
+    **{f"decode_attention_{mode}": [_P] * 7 + [_I] * 6 + _DECODE_TAIL
        for mode in ("int8", "int4")},
     # (q, k_pool, v_pool, k_scales, v_scales, lens, tables, out, B, T, Hq,
-    #  Hkv, D, page, max_pages, n_pages, scale, stream)
-    **{f"paged_decode_attention_{mode}": [_P] * 8 + [_I] * 8
-       + [ctypes.c_float, _P] for mode in ("int8", "int4")},
+    #  Hkv, D, page, max_pages, n_pages, ...)
+    **{f"paged_decode_attention_{mode}": [_P] * 8 + [_I] * 8 + _DECODE_TAIL
+       for mode in ("int8", "int4")},
     # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
     #  stream)
     "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -85,7 +86,8 @@ def reset_launches() -> None:
 @functools.cache
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device (132 on an H100 SXM,
-    114 on the PCIe card); sizes int8_matmul's contraction split."""
+    114 on the PCIe card); sizes int8_matmul's contraction split and
+    decode attention's key-range split."""
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count

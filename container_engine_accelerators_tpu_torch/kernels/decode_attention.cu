@@ -22,10 +22,10 @@
 //         split-half layout of ops/quant.pack_int4 (byte j: element j in
 //         the low nibble, element j + D/2 in the high one), same scales.
 // The dequantization is f32, as in the Pallas body, never a bf16 tile:
-// the kernel stages the integer payload and the tile's scales in shared
-// memory and computes s = scale * k_scale[j] * sum_d q_d * k_int[j, d]
+// the kernels stage the integer payload and the tile's scales in shared
+// memory and compute s = scale * k_scale[j] * sum_d q_d * k_int[j, d]
 // and acc += (p_j * v_scale[j]) * v_int[j, :], the same function up to
-// f32 reassociation.
+// f32 reassociation (decode: see its P.V below).
 //
 // K3 replaces ...::paged_decode_attention (paged_kernel, pl.pallas_call
 // at line 391), in all three modes. It computes K1's function in logical
@@ -37,34 +37,67 @@
 // r = clamp(tables[b, pos / page], 0, n_pages - 1), offset pos % page, its
 // scale at [r, h, pos % page], with max_len = max_pages * page. As in the
 // Pallas version, the body is K1's: the kernel is a template over how a
-// key's row and scale are addressed and how its row is stored. The page
-// is looked up per key, not per tile, so a 64-key tile may straddle
-// pages and any page size works.
+// key's row and scale are addressed and how its row is stored. Any page
+// size works.
 //
 // What bounds it on an H100: bytes. Every step streams the live part of
 // the cache once (HBM, 3.35 TB/s on the SXM part); the arithmetic is
-// ~2 flops per cache element per query row. The design, the simple first
-// version:
-//   - one CTA per (query block, KV head, batch row): its rows are queries
-//     of one GQA group (G = Hq/Hkv), so the G heads sharing a KV head
-//     read each K/V tile once. Each CTA walks its keys in order, as one
-//     TPU core did. A decode step has only B*Hkv CTAs, too few for 132
-//     SMs; splitting the key range across CTAs waits for a later version;
-//   - the key loop stops at cache_len + (last query of the block) + 1:
-//     positions at or past `live` are never read (nor their scales, nor,
-//     paged, their table entries), so a reused cache holding NaN or stale
-//     scales there, or a stale table entry, cannot reach the accumulator;
-//   - K/V tiles of 64 keys come in with 16-byte loads and sit in shared
-//     memory with an odd row stride in 32-bit words (D/2 + 1 for bf16,
-//     D/4 + 1 for int8, D/8 + 1 for int4), so a lane per key reads its
-//     row without bank conflicts; one warp reduction per tile gives the
-//     tile max and sum;
-//   - in p.v a lane owns output dims (2p, 2p+1) whatever the payload: a
-//     bf16 word, an int8 halfword, or for int4 the low (p < D/4) or high
-//     nibbles of halfword p mod D/4, each nibble sign-extended;
-//   - decode (T*G <= 4 rows) runs one row per warp; prefill four, so a
-//     CTA's 16 rows share each tile it loads.
-// No TMA and no wgmma yet.
+// ~2 flops per cache element per query row. At decode (B 8, 8 KV heads,
+// lengths up to 2047) that is ~16 MB, 5 us at the byte bound, so what
+// costs is latency and how few SMs a walk over one row's keys can use.
+// Two kernels share the payloads and the addressing:
+//
+// Decode (T*G <= 4 query rows per GQA group), decode_split_kernel:
+//   - the key range of a (KV head, batch row) is split across CTAs: the
+//     grid is (split, KV head, batch row), the split count a function of
+//     the shapes and the SM count only (ops/decode_attention.split_plan),
+//     never of the lengths, so one call is one launch that reads no
+//     length on the host and a CUDA graph can hold it. A CTA takes chunk
+//     `split` of [0, live), ceil(live / splits) keys rounded up to a
+//     tile, so short rows spread over several SMs too; a CTA past the
+//     row's last chunk leaves at once;
+//   - each CTA writes its partial (m, l and the f32 accumulator of its
+//     rows) to a workspace, takes a ticket with one atomic per (KV head,
+//     batch row), and the last of the row's busy CTAs to arrive merges
+//     their partials in split order, writes the output and resets the
+//     ticket. The order is fixed, so the output is the same bits from run
+//     to run, and K3 the same bits as K1 on the same keys. A row whose
+//     keys fit one chunk is written by its CTA directly;
+//   - tiles of 64 keys stream through a ring of 3 shared-memory stages
+//     filled with cp.async (16 bytes a thread, zero-filled past the
+//     chunk), so two tiles are in flight while one is computed. TMA buys
+//     nothing at these tile sizes: cp.async costs each thread a few
+//     instructions a tile, and a paged tile needs no tensor map;
+//   - the products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 out), where CUDA cores need ~900 instructions a warp a tile
+//     and leave the body latency-bound: each warp takes 16 keys of every
+//     tile and keeps its own online softmax over them. S = Q.K^T puts
+//     the group's rows (at most 4) in rows 0-3 of the 16-row A operand,
+//     so each K value read from shared memory feeds every row. O += P.V
+//     takes P (times V's scales) as two bf16 terms, its bf16 and the
+//     bf16 of what that left out, so p keeps 16 significant bits, with
+//     f32 sums; the row sum l adds the f32 p. Scores are in log2 units
+//     and exponentials are ex2.approx. Quantized K and V integers become
+//     bf16 exactly as their fragments are read. Rows in shared memory sit
+//     16 bytes apart beyond their length, so a fragment's 8 rows use
+//     distinct banks; bf16 V comes in by ldmatrix.trans. Warps merge
+//     through shared memory once per CTA;
+//   - paged (K3), a tile's pool row is read from the table one tile
+//     ahead of its loads, once per tile, where a tile lies in one page
+//     (page a multiple of 64, as in every engine); smaller pages resolve
+//     each key's row.
+// Prefill (more rows), decode_attention_kernel: one CTA per (block of 16
+// query rows, KV head, batch row), four rows a warp, so a CTA's rows share
+// each tile it loads; it walks its keys in order with synchronous
+// 16-byte loads into tiles of 64 keys with an odd row stride in 32-bit
+// words (conflict-free, a lane per key), one warp reduction per tile. In
+// p.v a lane owns output dims (2p, 2p+1) whatever the payload. Prefill
+// fills the card with (row block, KV head, batch row) CTAs already.
+// Both stop at `live`: positions at or past it are never read (nor their
+// scales, nor, paged, their table entries), so a reused cache holding
+// NaN or stale scales there, or a stale table entry, cannot reach the
+// accumulator. No wgmma: decode has at most 4 rows a KV head, and
+// prefill on tensor cores is a later version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,8 +107,37 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockK = 64;          // keys per shared-memory tile
+constexpr int kRowsPerWarp = 4;      // prefill
+constexpr int kDecodeRows = 4;       // query rows (T*G) of a decode CTA
+constexpr int kStages = 3;           // decode: tiles in the ring
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
+
+// cp.async of `bytes` (4 or 16) from global to shared memory; with `ok`
+// false nothing is read and the destination is zero-filled.
+template <int bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = ok ? bytes : 0;
+  if constexpr (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -115,7 +177,64 @@ struct Bf16Payload {
   __device__ static float2 v_pair(const uint32_t* row, int p) {
     return bf16x2(row[p]);
   }
+  // Decode, on the tensor cores: `qk_b`, the B fragment of S = Q.K^T
+  // for the key row `row` in shared memory at k-step ks (dims 16 ks + 2t,
+  // +1 and 16 ks + 2t + 8, +9); `pv_b`, the B fragments of P.V for the
+  // warp's 16 value rows at `v` (row stride S) and dims 16 np .. 16 np +
+  // 15: b[0..1] dims 16 np + g, b[2..3] dims 16 np + 8 + g, each holding
+  // keys 2t, 2t+1 and 2t + 8, 2t + 9.
+  template <int D>
+  __device__ static void qk_b(const uint8_t* row, int ks, int t,
+                              uint32_t (&b)[2]) {
+    b[0] = *reinterpret_cast<const uint32_t*>(row + 32 * ks + 4 * t);
+    b[1] = *reinterpret_cast<const uint32_t*>(row + 32 * ks + 16 + 4 * t);
+  }
+  template <int D, int S>
+  __device__ static void pv_b(const uint8_t* v, int np, int lane,
+                              uint32_t (&b)[4]) {
+    // ldmatrix.trans: lanes 8m .. 8m + 7 address matrix m's rows (keys
+    // 8 (m & 1) .., dims 16 np + 8 (m >> 1) ..).
+    const int mtx = lane / 8, r = lane % 8;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+        v + (8 * (mtx & 1) + r) * S + (16 * np + 8 * (mtx >> 1)) * 2));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+        : "r"(addr));
+  }
 };
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The quantized payloads' decode fragments (see Bf16Payload), element by
+// element from the integers staged in shared memory.
+template <class P, int D>
+__device__ __forceinline__ void quant_qk_b(const uint8_t* row, int ks, int t,
+                                           uint32_t (&b)[2]) {
+  const int d = 16 * ks + 2 * t;
+  b[0] = bf16_pair(P::template elem<D>(row, d),
+                   P::template elem<D>(row, d + 1));
+  b[1] = bf16_pair(P::template elem<D>(row, d + 8),
+                   P::template elem<D>(row, d + 9));
+}
+
+template <class P, int D, int S>
+__device__ __forceinline__ void quant_pv_b(const uint8_t* v, int np,
+                                           int lane, uint32_t (&b)[4]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int d = 16 * np + 8 * h + g;
+    b[2 * h] = bf16_pair(P::template elem<D>(v + 2 * t * S, d),
+                         P::template elem<D>(v + (2 * t + 1) * S, d));
+    b[2 * h + 1] = bf16_pair(P::template elem<D>(v + (2 * t + 8) * S, d),
+                             P::template elem<D>(v + (2 * t + 9) * S, d));
+  }
+}
 
 // One signed byte an element: word p holds elements 4p .. 4p + 3.
 struct Int8Payload {
@@ -133,6 +252,21 @@ struct Int8Payload {
   __device__ static float2 v_pair(const uint32_t* row, int p) {
     const uint32_t h = reinterpret_cast<const uint16_t*>(row)[p];
     return make_float2(sbits<0, 8>(h), sbits<8, 8>(h));
+  }
+  // Decode: as Bf16Payload's, each integer made a bf16 (exact).
+  template <int D>
+  __device__ static float elem(const uint8_t* row, int d) {
+    return static_cast<float>(static_cast<int8_t>(row[d]));
+  }
+  template <int D>
+  __device__ static void qk_b(const uint8_t* row, int ks, int t,
+                              uint32_t (&b)[2]) {
+    quant_qk_b<Int8Payload, D>(row, ks, t, b);
+  }
+  template <int D, int S>
+  __device__ static void pv_b(const uint8_t* v, int np, int lane,
+                              uint32_t (&b)[4]) {
+    quant_pv_b<Int8Payload, D, S>(v, np, lane, b);
   }
 };
 
@@ -162,10 +296,33 @@ struct Int4Payload {
     if (high) h >>= 4;
     return make_float2(sbits<0, 4>(h), sbits<8, 4>(h));
   }
+  // Decode: as Int8Payload's; element d is the low nibble of byte d
+  // for d < D/2, else the high nibble of byte d - D/2.
+  template <int D>
+  __device__ static float elem(const uint8_t* row, int d) {
+    return d < D / 2 ? sbits<0, 4>(row[d]) : sbits<4, 4>(row[d - D / 2]);
+  }
+  template <int D>
+  __device__ static void qk_b(const uint8_t* row, int ks, int t,
+                              uint32_t (&b)[2]) {
+    quant_qk_b<Int4Payload, D>(row, ks, t, b);
+  }
+  template <int D, int S>
+  __device__ static void pv_b(const uint8_t* v, int np, int lane,
+                              uint32_t (&b)[4]) {
+    quant_pv_b<Int4Payload, D, S>(v, np, lane, b);
+  }
 };
 
 // Row of key `pos` of batch row b, in units of Hkv rows of one token, and
-// the index of its scale for KV head h.
+// the index of its scale for KV head h. Decode resolves a tile's rows at
+// once: `tile` gives the row and scale index of the tile's first key,
+// and key k0 + j sits j after them, unless `per_key` (a page smaller
+// than a tile, or not a multiple of it).
+struct Tile {
+  size_t row0, scale0;
+};
+
 struct ContiguousKeys {
   int max_len;
   __device__ __forceinline__ size_t row(int b, int pos) const {
@@ -174,6 +331,10 @@ struct ContiguousKeys {
   __device__ __forceinline__ size_t scale(int b, int h, int Hkv,
                                           int pos) const {
     return ((size_t)b * Hkv + h) * max_len + pos;
+  }
+  __device__ __forceinline__ bool per_key() const { return false; }
+  __device__ __forceinline__ Tile tile(int b, int h, int Hkv, int k0) const {
+    return {row(b, k0), scale(b, h, Hkv, k0)};
   }
 };
 
@@ -191,9 +352,18 @@ struct PagedKeys {
                                           int pos) const {
     return ((size_t)pool_row(b, pos) * Hkv + h) * page + pos % page;
   }
+  __device__ __forceinline__ bool per_key() const {
+    return page % kBlockK != 0;
+  }
+  // One table entry for the whole tile (k0 is a multiple of kBlockK).
+  __device__ __forceinline__ Tile tile(int b, int h, int Hkv, int k0) const {
+    const size_t r = pool_row(b, k0);
+    const int off = k0 % page;
+    return {r * page + off, (r * Hkv + h) * page + off};
+  }
 };
 
-template <class P, int D, int RPW, class Keys>
+template <class P, int D, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const void* __restrict__ k,
@@ -207,6 +377,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kWords = P::template words<D>();  // payload words per row
   constexpr int kStride = kWords + 1;              // odd: conflict-free
   constexpr int kPairsPerLane = (kPairs + 31) / 32;
+  constexpr int RPW = kRowsPerWarp;
   constexpr int kRows = kWarps * RPW;
   constexpr int kVec = 4;                          // words per 16-B load
   constexpr int kScaled = P::kQuant ? kBlockK : 1;
@@ -358,20 +529,356 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// 2^x in one MUFU instruction (decode keeps its scores in log2 units).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Decode: the shapes of one instantiation. K/V rows sit in shared memory
+// 16 bytes apart more than their length, so the 8 rows that one
+// fragment load touches fall in different banks.
+template <class P, int D>
+struct DecodeLayout {
+  static constexpr int kRowBytes = 4 * P::template words<D>();
+  static constexpr int kStride = kRowBytes + 16;
+  static constexpr int kChunks = kRowBytes / 16;        // 16-B loads a row
+  static constexpr int kPayloadBytes = kBlockK * kStride;
+  static constexpr int kStageBytes =
+      2 * kPayloadBytes + (P::kQuant ? 2 * kBlockK * 4 : 0);
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kMergeBytes = kWarps * kDecodeRows * (D + 2) * 4;
+  static constexpr int kSmemBytes =
+      kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+  static_assert(kBlockK == 16 * kWarps && kThreads == 2 * kBlockK, "");
+};
+
+// Partial of split s for (KV head, batch row) bh and query row r, in the
+// workspace `part`: D accumulator values, then m and l (f32).
+__device__ __forceinline__ size_t part_index(int bh, int splits, int s,
+                                             int r, int D) {
+  return (((size_t)bh * splits + s) * kDecodeRows + r) * (D + 2);
+}
+
+// c += A B on the tensor cores (m16n8k16, bf16 in, f32 out), with A's
+// rows 8-15 zero: a0 holds A[g][2t, 2t+1], a2 A[g][2t+8, 2t+9].
+__device__ __forceinline__ void mma_rows8(float (&c)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+template <class P, int D, class Keys>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                    const void* __restrict__ k, const void* __restrict__ v,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
+                    const int* __restrict__ lens,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                    int* __restrict__ tickets, int T, int Hq, int Hkv,
+                    int max_len, int splits, float scale, Keys keys) {
+  using L = DecodeLayout<P, D>;
+  constexpr int R = kDecodeRows;
+  constexpr int S = L::kStride;
+  constexpr int kSteps = D / 16;    // k-steps of Q.K^T, dim pairs of P.V
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ __align__(16) __nv_bfloat16 q_s[R][D];
+  __shared__ int is_last;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int bh = b * Hkv + kvh;
+  const int G = Hq / Hkv;
+  const int n_rows = T * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
+  const int cache_len = lens[b];
+  // Scores, and every m below, in log2 units: exp(x) = 2^(x log2 e).
+  const float scale2 = scale * 1.4426950408889634f;
+  // Every row's last visible key is below live = cache_len + T.
+  const int k_end = min(cache_len + T, max_len);
+  const int per_split = (k_end + splits - 1) / splits;
+  const int chunk = (per_split + kBlockK - 1) / kBlockK * kBlockK;
+  // Splits past the row's last key have nothing to do: they leave at
+  // once, and the row's `active` splits alone take tickets.
+  const int active = (k_end + chunk - 1) / chunk;
+  if (split >= active) return;
+  const int begin = split * chunk;
+  const int end = min(begin + chunk, k_end);
+  const int n_tiles = (end - begin + kBlockK - 1) / kBlockK;
+
+  // The group's query rows (rows past T*G are zero and see no key),
+  // staged with 16-byte loads.
+  for (int c = threadIdx.x; c < R * D / 8; c += kThreads) {
+    const int r = c / (D / 8), off = c % (D / 8) * 8;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r < n_rows) {
+      const int tq = r / G, h = kvh * G + r % G;
+      w = *reinterpret_cast<const uint4*>(
+          q + ((size_t)(b * T + tq) * Hq + h) * D + off);
+    }
+    *reinterpret_cast<uint4*>(&q_s[r][off]) = w;
+  }
+
+  // Loads of tile n into stage n % kStages: K and V rows, 16 bytes a
+  // thread, zero-filled past the chunk; the quantized modes' scales, 4
+  // bytes a thread (threads below kBlockK K's, the rest V's).
+  const uint8_t* kg = static_cast<const uint8_t*>(k);
+  const uint8_t* vg = static_cast<const uint8_t*>(v);
+  auto load_tile = [&](int n, Tile tile) {
+    uint8_t* st = smem + (n % kStages) * L::kStageBytes;
+    const int k0 = begin + n * kBlockK;
+    for (int id = threadIdx.x; id < kBlockK * L::kChunks; id += kThreads) {
+      const int j = id / L::kChunks, c = id % L::kChunks;
+      const bool ok = k0 + j < end;   // never read at or past `live`
+      size_t off = 0;
+      if (ok) {
+        const size_t row = keys.per_key() ? keys.row(b, k0 + j)
+                                          : tile.row0 + j;
+        off = (row * Hkv + kvh) * L::kRowBytes + c * 16;
+      }
+      const int dst = j * S + c * 16;
+      cp_async<16>(st + dst, kg + off, ok);
+      cp_async<16>(st + L::kPayloadBytes + dst, vg + off, ok);
+    }
+    if constexpr (P::kQuant) {
+      const int j = threadIdx.x % kBlockK;
+      const bool ok = k0 + j < end;   // nor a scale
+      size_t si = 0;
+      if (ok)
+        si = keys.per_key() ? keys.scale(b, kvh, Hkv, k0 + j)
+                            : tile.scale0 + j;
+      const bool is_k = threadIdx.x < kBlockK;
+      float* dst = reinterpret_cast<float*>(st + 2 * L::kPayloadBytes) +
+                   (is_k ? 0 : kBlockK) + j;
+      cp_async<4>(dst, (is_k ? k_scales : v_scales) + si, ok);
+    }
+  };
+  // Tile n + 1's table entry is read before tile n's loads go out, so
+  // its latency hides behind a tile of compute.
+  Tile next{};
+  if (!keys.per_key()) next = keys.tile(b, kvh, Hkv, begin);
+  auto load_next = [&](int n) {
+    const Tile tile = next;
+    if (n + 1 < n_tiles && !keys.per_key())
+      next = keys.tile(b, kvh, Hkv, begin + (n + 1) * kBlockK);
+    load_tile(n, tile);
+  };
+
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) {
+    if (n < n_tiles) load_next(n);
+    cp_async_commit();
+  }
+
+  // Q as the A operand of S = Q.K^T, rows 0-7 (rows g >= R are zero): a
+  // lane holds row g, dims 16 ks + 2t, +1 and 16 ks + 2t + 8, +9.
+  __syncthreads();
+  uint32_t qa[kSteps][2];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    qa[ks][0] = qa[ks][1] = 0u;
+    if (g < R) {
+      qa[ks][0] = *reinterpret_cast<const uint32_t*>(&q_s[g][16 * ks + 2 * t]);
+      qa[ks][1] =
+          *reinterpret_cast<const uint32_t*>(&q_s[g][16 * ks + 2 * t + 8]);
+    }
+  }
+  const int qpos = g < n_rows ? cache_len + g / G : -1;   // row g's query
+
+  // The warp's online softmax over its keys of every tile (16 of each:
+  // keys 16 warp .. 16 warp + 15), for row g; o holds O[g][8 nt + 2t, +1]
+  // in o[nt][0..1] (o[nt][2..3], rows g + 8, stay zero).
+  float m = kNegInf, l = 0.f;
+  float o[2 * kSteps][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * kSteps; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<kStages - 2>();   // this thread's loads of tile n
+    __syncthreads();                // everyone's; and tile n - 1 is done
+    if (n + kStages - 1 < n_tiles) load_next(n + kStages - 1);
+    cp_async_commit();
+
+    const uint8_t* st = smem + (n % kStages) * L::kStageBytes;
+    const uint8_t* kt = st + 16 * warp * S;               // the warp's keys
+    const uint8_t* vt = st + L::kPayloadBytes + 16 * warp * S;
+    const float* sc_s =
+        reinterpret_cast<const float*>(st + 2 * L::kPayloadBytes);
+    const int j0 = 16 * warp;                // first key of the warp, tile
+    const int k0 = begin + n * kBlockK + j0;
+
+    // S = Q.K^T for the warp's 16 keys: c[h] holds row g, keys
+    // 8h + 2t, +1.
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t kb[2];
+        P::template qk_b<D>(kt + (8 * h + g) * S, ks, t, kb);
+        mma_rows8(c[h], qa[ks][0], qa[ks][1], kb[0], kb[1]);
+      }
+
+    float s[4], p[4];
+    float m_tile = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int jl = 8 * (i / 2) + 2 * t + i % 2;   // key within the warp's
+      const int pos = k0 + jl;
+      float sc = scale2;
+      if constexpr (P::kQuant) sc *= sc_s[j0 + jl];
+      const bool ok = pos < end && pos <= qpos;
+      s[i] = ok ? c[i / 2][i % 2] * sc : kNegInf;
+      m_tile = fmaxf(m_tile, s[i]);
+    }
+    m_tile = fmaxf(m_tile, __shfl_xor_sync(kFull, m_tile, 1));
+    m_tile = fmaxf(m_tile, __shfl_xor_sync(kFull, m_tile, 2));
+    const float m_new = fmaxf(m, m_tile);
+    const float alpha = exp2_approx(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = s[i] > kNegInf ? exp2_approx(s[i] - m_new) : 0.f;
+      sum += p[i];
+    }
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    l = l * alpha + sum;
+    m = m_new;
+
+    // O += P.V on the tensor cores, in f32 to 2^-16: P (times V's scales)
+    // goes in as a bf16 term and the bf16 of what it left out.
+    uint32_t a_hi[2], a_lo[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        pv[e] = p[2 * h + e];
+        if constexpr (P::kQuant)
+          pv[e] *= sc_s[kBlockK + j0 + 8 * h + 2 * t + e];
+      }
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
+      const float2 hf = __bfloat1622float2(hi);
+      a_hi[h] = *reinterpret_cast<const uint32_t*>(&hi);
+      a_lo[h] = bf16_pair(pv[0] - hf.x, pv[1] - hf.y);
+    }
+#pragma unroll
+    for (int np = 0; np < kSteps; ++np) {
+      uint32_t vb[4];
+      P::template pv_b<D, S>(vt, np, lane, vb);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float (&on)[4] = o[2 * np + h];
+        on[0] *= alpha;
+        on[1] *= alpha;
+        mma_rows8(on, a_hi[0], a_hi[1], vb[2 * h], vb[2 * h + 1]);
+        mma_rows8(on, a_lo[0], a_lo[1], vb[2 * h], vb[2 * h + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free for the merge
+
+  // The warps' states, in order, through shared memory: [warp][row][D + 2].
+  float* red = reinterpret_cast<float*>(smem);
+  if (g < R) {
+    float* w = red + (warp * R + g) * (D + 2);
+#pragma unroll
+    for (int nt = 0; nt < 2 * kSteps; ++nt) {
+      w[8 * nt + 2 * t] = o[nt][0];
+      w[8 * nt + 2 * t + 1] = o[nt][1];
+    }
+    if (t == 0) {
+      w[D] = m;
+      w[D + 1] = l;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float m_cta = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      m_cta = fmaxf(m_cta, red[(w * R + r) * (D + 2) + D]);
+    float l_cta = 0.f, a_cta = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* x = red + (w * R + r) * (D + 2);
+      const float cw = exp2_approx(x[D] - m_cta);
+      l_cta += x[D + 1] * cw;
+      a_cta += x[d] * cw;
+    }
+    if (active == 1) {
+      if (r < n_rows) {
+        const int tq = r / G, h = kvh * G + r % G;
+        out[((size_t)(b * T + tq) * Hq + h) * D + d] =
+            __float2bfloat16_rn(a_cta * (1.f / fmaxf(l_cta, 1e-30f)));
+      }
+    } else {
+      float* pp = part + part_index(bh, splits, split, r, D);
+      pp[d] = a_cta;
+      if (d == 0) {
+        pp[D] = m_cta;
+        pp[D + 1] = l_cta;
+      }
+    }
+  }
+  if (active == 1) return;
+
+  // The last CTA of this (KV head, batch row) to arrive merges the
+  // partials in split order, then resets the ticket for the next call.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(tickets + bh, 1) == active - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int idx = threadIdx.x; idx < min(n_rows, R) * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float m_all = kNegInf;
+#pragma unroll 8
+    for (int sp = 0; sp < active; ++sp)
+      m_all = fmaxf(m_all,
+                    __ldcg(part + part_index(bh, splits, sp, r, D) + D));
+    float l_all = 0.f, a_all = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < active; ++sp) {
+      const float* pp = part + part_index(bh, splits, sp, r, D);
+      const float cw = exp2_approx(__ldcg(pp + D) - m_all);
+      l_all += __ldcg(pp + D + 1) * cw;
+      a_all += __ldcg(pp + d) * cw;
+    }
+    const int tq = r / G, h = kvh * G + r % G;
+    out[((size_t)(b * T + tq) * Hq + h) * D + d] =
+        __float2bfloat16_rn(a_all * (1.f / fmaxf(l_all, 1e-30f)));
+  }
+  if (threadIdx.x == 0) tickets[bh] = 0;
+}
+
 struct Args {
   const void *q, *k, *v, *k_scales, *v_scales, *lens;
   void* out;
   int B, T, Hq, Hkv, max_len;   // max_len: logical (max_pages * page)
   float scale;
+  int splits;                   // decode: key-range splits
+  void *part, *tickets;         // decode workspace, when splits > 1
   cudaStream_t stream;
 };
 
-template <class P, int D, int RPW, class Keys>
-void launch(const Args& a, Keys keys) {
-  constexpr int kRows = kWarps * RPW;
+template <class P, int D, class Keys>
+void launch_prefill(const Args& a, Keys keys) {
+  constexpr int kRows = kWarps * kRowsPerWarp;
   const int n_rows = a.T * (a.Hq / a.Hkv);
   const dim3 grid((n_rows + kRows - 1) / kRows, a.Hkv, a.B);
-  decode_attention_kernel<P, D, RPW, Keys><<<grid, kThreads, 0, a.stream>>>(
+  decode_attention_kernel<P, D, Keys><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), a.k, a.v,
       static_cast<const float*>(a.k_scales),
       static_cast<const float*>(a.v_scales),
@@ -379,36 +886,58 @@ void launch(const Args& a, Keys keys) {
       a.T, a.Hq, a.Hkv, a.max_len, a.scale, keys);
 }
 
-// Decode (at most 4 query rows per GQA group) runs one row per warp,
-// prefill four.
 template <class P, int D, class Keys>
-void launch_rows(const Args& a, Keys keys) {
-  if (a.T * (a.Hq / a.Hkv) <= kWarps)
-    launch<P, D, 1>(a, keys);
-  else
-    launch<P, D, 4>(a, keys);
+int launch_decode(const Args& a, Keys keys) {
+  constexpr int kSmem = DecodeLayout<P, D>::kSmemBytes;
+  // Once per instantiation: the ring may exceed the 48 KiB default.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split_kernel<P, D, Keys>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.splits < 1 || (a.splits > 1 && (!a.part || !a.tickets)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(a.splits, a.Hkv, a.B);
+  decode_split_kernel<P, D, Keys><<<grid, kThreads, kSmem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.k, a.v,
+      static_cast<const float*>(a.k_scales),
+      static_cast<const float*>(a.v_scales),
+      static_cast<const int*>(a.lens), static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.part), static_cast<int*>(a.tickets), a.T, a.Hq,
+      a.Hkv, a.max_len, a.splits, a.scale, keys);
+  return 0;
+}
+
+// Decode (at most kDecodeRows query rows per GQA group) splits the keys
+// across CTAs; prefill runs four rows a warp.
+template <class P, int D, class Keys>
+int launch_rows(const Args& a, Keys keys) {
+  if (a.T * (a.Hq / a.Hkv) <= kDecodeRows) return launch_decode<P, D>(a, keys);
+  launch_prefill<P, D>(a, keys);
+  return 0;
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched); a head dim
-// it does not take returns cudaErrorInvalidValue unlaunched.
+// or split count it does not take returns cudaErrorInvalidValue
+// unlaunched.
 template <class P, class Keys>
 int launch_head_dim(const Args& a, int D, Keys keys) {
+  int err;
   switch (D) {
-    case 32: launch_rows<P, 32>(a, keys); break;
-    case 64: launch_rows<P, 64>(a, keys); break;
-    case 128: launch_rows<P, 128>(a, keys); break;
+    case 32: err = launch_rows<P, 32>(a, keys); break;
+    case 64: err = launch_rows<P, 64>(a, keys); break;
+    case 128: err = launch_rows<P, 128>(a, keys); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 template <class P>
 int contiguous(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* lens, void* out, int B, int T,
-               int Hq, int Hkv, int D, int max_len, float scale,
-               void* stream) {
+               int Hq, int Hkv, int D, int max_len, float scale, int splits,
+               void* part, void* tickets, void* stream) {
   const Args a{q, k, v, ks, vs, lens, out, B, T, Hq, Hkv, max_len, scale,
-               static_cast<cudaStream_t>(stream)};
+               splits, part, tickets, static_cast<cudaStream_t>(stream)};
   return launch_head_dim<P>(a, D, ContiguousKeys{max_len});
 }
 
@@ -417,9 +946,10 @@ int paged(const void* q, const void* k_pool, const void* v_pool,
           const void* ks_pool, const void* vs_pool, const void* lens,
           const void* tables, void* out, int B, int T, int Hq, int Hkv,
           int D, int page, int max_pages, int n_pages, float scale,
-          void* stream) {
+          int splits, void* part, void* tickets, void* stream) {
   const Args a{q, k_pool, v_pool, ks_pool, vs_pool, lens, out, B, T, Hq, Hkv,
-               max_pages * page, scale, static_cast<cudaStream_t>(stream)};
+               max_pages * page, scale, splits, part, tickets,
+               static_cast<cudaStream_t>(stream)};
   return launch_head_dim<P>(
       a, D, PagedKeys{static_cast<const int*>(tables), page, max_pages,
                       n_pages});
@@ -427,13 +957,20 @@ int paged(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
+// Every entry ends in (splits, part, tickets, stream): the decode kernel's
+// key-range splits, its f32 workspace [B, Hkv, splits, 4, D + 2] and its
+// int32 tickets [B * Hkv], zero before the call and zero after it (both
+// unused with one split, and by prefill).
+
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lens,
                                      void* out, int B, int T, int Hq,
                                      int Hkv, int D, int max_len, float scale,
+                                     int splits, void* part, void* tickets,
                                      void* stream) {
   return contiguous<Bf16Payload>(q, k, v, nullptr, nullptr, lens, out, B, T,
-                                 Hq, Hkv, D, max_len, scale, stream);
+                                 Hq, Hkv, D, max_len, scale, splits, part,
+                                 tickets, stream);
 }
 
 extern "C" int decode_attention_int8(const void* q, const void* k,
@@ -441,9 +978,11 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
                                      const void* v_scales, const void* lens,
                                      void* out, int B, int T, int Hq,
                                      int Hkv, int D, int max_len, float scale,
+                                     int splits, void* part, void* tickets,
                                      void* stream) {
   return contiguous<Int8Payload>(q, k, v, k_scales, v_scales, lens, out, B,
-                                 T, Hq, Hkv, D, max_len, scale, stream);
+                                 T, Hq, Hkv, D, max_len, scale, splits, part,
+                                 tickets, stream);
 }
 
 extern "C" int decode_attention_int4(const void* q, const void* k,
@@ -451,36 +990,41 @@ extern "C" int decode_attention_int4(const void* q, const void* k,
                                      const void* v_scales, const void* lens,
                                      void* out, int B, int T, int Hq,
                                      int Hkv, int D, int max_len, float scale,
+                                     int splits, void* part, void* tickets,
                                      void* stream) {
   return contiguous<Int4Payload>(q, k, v, k_scales, v_scales, lens, out, B,
-                                 T, Hq, Hkv, D, max_len, scale, stream);
+                                 T, Hq, Hkv, D, max_len, scale, splits, part,
+                                 tickets, stream);
 }
 
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool, const void* lens,
     const void* tables, void* out, int B, int T, int Hq, int Hkv, int D,
-    int page, int max_pages, int n_pages, float scale, void* stream) {
+    int page, int max_pages, int n_pages, float scale, int splits,
+    void* part, void* tickets, void* stream) {
   return paged<Bf16Payload>(q, k_pool, v_pool, nullptr, nullptr, lens,
                             tables, out, B, T, Hq, Hkv, D, page, max_pages,
-                            n_pages, scale, stream);
+                            n_pages, scale, splits, part, tickets, stream);
 }
 
 extern "C" int paged_decode_attention_int8(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scales, const void* v_scales, const void* lens,
     const void* tables, void* out, int B, int T, int Hq, int Hkv, int D,
-    int page, int max_pages, int n_pages, float scale, void* stream) {
+    int page, int max_pages, int n_pages, float scale, int splits,
+    void* part, void* tickets, void* stream) {
   return paged<Int8Payload>(q, k_pool, v_pool, k_scales, v_scales, lens,
                             tables, out, B, T, Hq, Hkv, D, page, max_pages,
-                            n_pages, scale, stream);
+                            n_pages, scale, splits, part, tickets, stream);
 }
 
 extern "C" int paged_decode_attention_int4(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scales, const void* v_scales, const void* lens,
     const void* tables, void* out, int B, int T, int Hq, int Hkv, int D,
-    int page, int max_pages, int n_pages, float scale, void* stream) {
+    int page, int max_pages, int n_pages, float scale, int splits,
+    void* part, void* tickets, void* stream) {
   return paged<Int4Payload>(q, k_pool, v_pool, k_scales, v_scales, lens,
                             tables, out, B, T, Hq, Hkv, D, page, max_pages,
-                            n_pages, scale, stream);
+                            n_pages, scale, splits, part, tickets, stream);
 }

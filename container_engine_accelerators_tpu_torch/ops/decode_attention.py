@@ -29,9 +29,20 @@ entries past a row's live pages may be garbage.
 
 The TPU kernel's VMEM gate that sent long prefills elsewhere does not
 carry over: the CUDA kernel serves every prefill length.
+
+Decode (T * Hq/Hkv <= DECODE_ROWS query rows per KV head) splits each
+row's key range across CTAs (`split_plan`); each CTA takes one chunk,
+ceil(live / splits) keys rounded up to KEY_TILE, and the last to finish
+merges the partials in split order, so a call is still one launch,
+reads no length on the host, and gives the same bits every time. The
+wrapper allocates the partials' workspace per call and keeps one ticket
+counter per (row, KV head) per device, which the kernel leaves at zero:
+calls on one device must not run on two streams at once.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -42,6 +53,51 @@ from container_engine_accelerators_tpu_torch.ops.quant import (
 )
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
+DECODE_ROWS = 4        # query rows a decode CTA holds (kDecodeRows)
+KEY_TILE = 64          # keys per tile (kBlockK)
+MAX_SPLITS = 32
+SPLIT_CTAS_PER_SM = 4  # decode CTAs the split aims at, per SM
+
+# device -> int32 ticket counters, zero between calls (the kernel resets
+# them); persistent, so a captured CUDA graph keeps its pointer.
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def split_plan(b: int, hkv: int, n_rows: int, max_len: int,
+               sm_count: int) -> int:
+    """Key-range splits per (batch row, KV head): 1 for prefill (more
+    than DECODE_ROWS query rows per KV head, which fills the card with
+    row blocks); for decode, enough splits for SPLIT_CTAS_PER_SM CTAs a
+    SM, at most one per tile of max_len and MAX_SPLITS. A function of the
+    shapes and the SM count, never of the lengths."""
+    if n_rows > DECODE_ROWS:
+        return 1
+    want = -(-SPLIT_CTAS_PER_SM * sm_count // (b * hkv))
+    return max(1, min(want, MAX_SPLITS, -(-max_len // KEY_TILE)))
+
+
+def _workspace(device: torch.device, b: int, hkv: int, d: int,
+               splits: int) -> tuple:
+    """(partials, tickets) for the kernel, None for one split. The
+    partials are [B, Hkv, splits, DECODE_ROWS, D + 2] f32, fresh per call
+    (the caller holds them over the launch; the caching allocator reuses
+    them only after it, in stream order); the tickets persist per
+    device."""
+    if splits == 1:
+        return None, None
+    part = torch.empty(b * hkv * splits * DECODE_ROWS * (d + 2),
+                       dtype=torch.float32, device=device)
+    with _tickets_lock:
+        tickets = _tickets.get(device)
+        if tickets is None or tickets.numel() < b * hkv:
+            tickets = torch.zeros(b * hkv, dtype=torch.int32, device=device)
+            _tickets[device] = tickets
+    return part, tickets
+
+
+def _ptrs(*tensors) -> tuple:
+    return tuple(0 if x is None else x.data_ptr() for x in tensors)
 
 
 def _lengths(cache_len, b: int, device: torch.device) -> torch.Tensor:
@@ -196,11 +252,14 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     mode = _mode(k_scales, int4)
     lens = _lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
+    splits = split_plan(b, hkv, t * (hq // hkv), max_len,
+                        kernels.sm_count(q.device))
+    workspace = _workspace(q.device, b, hkv, d, splits)
     entry = getattr(kernels.load(), f"decode_attention_{mode}")
     err = entry(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         *_scale_ptrs(k_scales, v_scales), lens.data_ptr(), out.data_ptr(),
-        b, t, hq, hkv, d, max_len, d ** -0.5,
+        b, t, hq, hkv, d, max_len, d ** -0.5, splits, *_ptrs(*workspace),
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(_count_name("decode_attention", mode), err)
     return out
@@ -278,12 +337,15 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     tables = tables.to(torch.int32).contiguous()
     lens = _lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
+    splits = split_plan(b, hkv, t * (hq // hkv), max_pages * page,
+                        kernels.sm_count(q.device))
+    workspace = _workspace(q.device, b, hkv, d, splits)
     entry = getattr(kernels.load(), f"paged_decode_attention_{mode}")
     err = entry(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *_scale_ptrs(k_scales, v_scales), lens.data_ptr(),
         tables.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, page,
-        max_pages, n_pages, d ** -0.5,
+        max_pages, n_pages, d ** -0.5, splits, *_ptrs(*workspace),
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(_count_name("paged_decode_attention", mode), err)
     return out

@@ -314,6 +314,113 @@ def test_quantized_paged_kernel_matches_plain_and_k1(cuda, mode, page, d, t):
     assert torch.equal(got, decode_attention(q, k, v, lens_t, ks, vs, int4))
 
 
+# ------------------------------------------ K1, K3 decode: the key split
+
+# Lengths around the edges of the decode split at 8 rows and 8 KV heads
+# (9 splits on an H100 SXM, 8 on the PCIe card): 0 cached keys beside a
+# full row, one tile exactly and one key past it, nine chunks of 64
+# exactly and one key more (chunks of 128), nine chunks of 128 exactly,
+# four tiles.
+SPLIT_EDGE_LENS = [0, 2039, 63, 64, 575, 576, 1151, 255]
+
+
+def _split_case(cuda, seed, mode, page):
+    """(paged?, args of the call, args of K1 on a contiguous copy of the
+    same keys): contiguous at max_len 2040, no multiple of a chunk, or a
+    pool at `page` holding NaN (bf16) or extreme integers and NaN scales
+    wherever the kernel must not read."""
+    hq, hkv, d = 32, 8, 128
+    int4 = mode == "int4"
+    if page is None:
+        b, max_len = len(SPLIT_EDGE_LENS), 2040
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        q = torch.randn(b, 1, hq, d, generator=gen, device=cuda).bfloat16()
+        k, v = (torch.randn(b, max_len, hkv, d, generator=gen, device=cuda)
+                for _ in range(2))
+        lens = torch.tensor(SPLIT_EDGE_LENS, dtype=torch.int32, device=cuda)
+        if mode == "bf16":
+            args = (q, k.bfloat16(), v.bfloat16(), lens)
+        else:
+            (k, ks), (v, vs) = _quantized(k, mode), _quantized(v, mode)
+            args = (q, k, v, lens, ks, vs, int4)
+        return args, args
+    max_pages = -(-2040 // page)
+    if mode == "bf16":
+        q, kp, vp, lens, tables = _paged_case(
+            cuda, seed, SPLIT_EDGE_LENS, 1, page, hq, hkv, d, max_pages)
+        scales = ()
+    else:
+        q, kp, vp, ksp, vsp, lens, tables = _quantized_paged_case(
+            cuda, seed, SPLIT_EDGE_LENS, 1, page, hq, hkv, d, max_pages,
+            mode)
+        scales = (ksp, vsp, int4)
+    b, max_len = len(SPLIT_EDGE_LENS), max_pages * page
+    rows = tables.long().clamp(0, kp.shape[0] - 1)
+    k = kp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    v = vp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    flat = ()
+    if scales:
+        flat = tuple(x[rows].transpose(1, 2).reshape(b, hkv, max_len)
+                     .contiguous() for x in scales[:2]) + (int4,)
+    return (q, kp, vp, lens, tables, *scales), (q, k, v, lens, *flat)
+
+
+def _ops(page):
+    """(kernel op, plain version): K1 for a contiguous case, K3 paged."""
+    if page is None:
+        return decode_attention, decode_attention_plain
+    return paged_decode_attention, paged_decode_attention_plain
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("page", [None, 16, 64, 128])
+def test_decode_split_matches_plain_at_chunk_edges(cuda, mode, page):
+    # The split body against its plain version at the row tolerance,
+    # in every payload and both addressings (page 16: a tile spans
+    # pages, each key resolves its row); two calls give the same bits,
+    # and K3 the same bits as K1 on a contiguous copy of its keys.
+    args, flat = _split_case(cuda, 100 + (page or 0) + len(mode), mode,
+                             page)
+    op, plain = _ops(page)
+    name = ("paged_decode_attention" if page else "decode_attention") + (
+        "" if mode == "bf16" else f"_{mode}")
+    kernels.reset_launches()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {name: 1}
+    want = plain(*args)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    _assert_rows_close(got, want, 128)
+    assert torch.equal(op(*args), got)
+    if page:
+        assert torch.equal(decode_attention(*flat), got)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("page", [None, 128])
+def test_decode_split_replays_in_a_cuda_graph(cuda, mode, page):
+    # One call captured after an eager warm-up, replayed after the
+    # lengths change in place: the same bits as an eager call on the new
+    # lengths. The split plan reads no length on the host.
+    args, _ = _split_case(cuda, 7 + len(mode), mode, page)
+    op, plain = _ops(page)
+    lens = args[3]
+    op(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op(*args)
+    new = torch.tensor([2039, 0, 64, 63, 576, 575, 1, 1151],
+                       dtype=torch.int32, device=cuda)
+    if page:   # stay within the live pages _split_case wrote
+        new = torch.minimum(new, lens)
+    lens.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, op(*args))
+    _assert_rows_close(out, plain(*args), 128)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_generate_on_a_quantized_cache_goes_through_the_kernel(cuda, mode):
     cfg = llama_tiny(kv_cache_dtype=mode)
