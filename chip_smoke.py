@@ -5,13 +5,15 @@ health paths on one GPU.
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
   python3 chip_smoke.py k4 [--batch B] [--seq S] [ROOT ...]
-  python3 chip_smoke.py decode [--tick] [ROOT ...]
+  python3 chip_smoke.py decode [--tick] [--prefill] [ROOT ...]
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `decode` times K1 and K3 in
 every k1_* and k3_* case on bf16, int8 and int4 caches, one JSON line;
 with --tick also the paged decode tick on llama3_8b (wall and
-device-busy ms). Each ROOT, a checkout such as a `git archive` of a
+device-busy ms), with --prefill one llama3_8b prefill of 2 x 512 tokens
+through decode_step (wall and device-busy ms, K1's ms and share of the
+busy time). Each ROOT, a checkout such as a `git archive` of a
 parent unpacked under checkout_proof/, is timed in a process of its own
 that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
@@ -24,7 +26,7 @@ Phases, one JSON line each:
            decode_attention_plain at Llama-3-8B widths, timed beside the
            plain version and F.scaled_dot_product_attention (timing only);
            every k1_* and k3_* line (all KV modes) names the body that ran
-           (decode_split_kernel, or decode_attention_kernel for prefill),
+           (decode_split_kernel, or prefill_mma_kernel for prefill),
            its key-range splits, and its registers and spill bytes from
            ptxas's report;
   k2_*     kernels/int8_matmul.cu against int8_matmul_plain, timed beside
@@ -286,7 +288,7 @@ def decode_kernel_info(torch, dev, payload: str, keys: str, t: int, b: int,
 
     n_rows = t * (hq // hkv)
     kernel = ("decode_split_kernel" if n_rows <= da.DECODE_ROWS
-              else "decode_attention_kernel")
+              else "prefill_mma_kernel")
     report = ptxas_report(kernel, f"{payload}Payload", "Li128E",
                           f"{keys}Keys")
     return {"kernel": kernel, "splits": da.split_plan(
@@ -1962,21 +1964,57 @@ def decode_timing(torch, dev) -> dict:
     return res
 
 
-def tick_timing(torch, dev, np) -> dict:
-    """paged_tick on llama3_8b at full width and depth, random weights
-    from the seed: wall and device-busy ms per tick."""
-    from container_engine_accelerators_tpu_torch.models.llama import (
-        init_params,
-        llama3_8b,
-    )
-
-    cfg = llama3_8b()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                        dev)
+def tick_timing(torch, dev, np, model, cfg) -> dict:
+    """paged_tick on llama3_8b at full width and depth (random weights
+    from the seed): wall and device-busy ms per tick."""
     tick = paged_tick(torch, dev, np, model, cfg)
     return {key: tick[key] for key in (
         "paged_decode_tick_ms_8_slots", "device_busy_ms_per_tick",
         "device_idle_share", "launches_per_tick", "top_kernels_ms_per_tick")}
+
+
+# The bodies of kernels/decode_attention.cu as torch.profiler names them;
+# decode_attention_kernel is the prefill body before prefill_mma_kernel,
+# so that an older checkout's prefill reads the same.
+K1_BODIES = ("prefill_mma_kernel", "decode_split_kernel",
+             "decode_attention_kernel")
+
+
+def prefill_timing(torch, dev, np, model, cfg, runs: int = 8) -> dict:
+    """One llama3_8b prefill of 2 x 512 new tokens from an empty cache
+    through decode_step (the window engine's prefill): wall ms,
+    device-synchronised around `runs` prefills, and from torch.profiler
+    the device-busy ms, K1's ms and its share of the busy time."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    b, t = 2, 512
+    prompt = _prompts(np, cfg, SEED + 6)
+    tokens = torch.tensor([prompt(t) for _ in range(b)], device=dev)
+    cache = decode.init_cache(cfg, b, 2048, dev)
+
+    def prefill():
+        decode.decode_step(model, cache, tokens, cfg)
+
+    for _ in range(2):
+        prefill()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        prefill()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / runs * 1e3
+    launches = {name: n / runs for name, n in kernels.launches.items()}
+    profile = profile_steps(torch, prefill)
+    busy = profile["busy_ms_per_step"]
+    k1_ms = None if busy is None else sum(
+        ms for name, ms in profile["kernels"].items()
+        if any(body in name for body in K1_BODIES))
+    return {"prefill_2x512_ms": wall_ms, "device_busy_ms": busy,
+            "k1_ms": k1_ms, "k1_share": None if busy is None else k1_ms / busy,
+            "launches_per_prefill": launches,
+            "top_kernels_ms": profile["top"]}
 
 
 def decode_main(torch, argv: list[str]) -> int:
@@ -1992,22 +2030,37 @@ def decode_main(torch, argv: list[str]) -> int:
                     help="a checkout to time in a process of its own")
     ap.add_argument("--tick", action="store_true",
                     help="also the paged tick on llama3_8b")
+    ap.add_argument("--prefill", action="store_true",
+                    help="also a 2 x 512 prefill on llama3_8b")
     args = ap.parse_args(argv)
+    flags = [f"--{name}" for name in ("tick", "prefill")
+             if getattr(args, name)]
     if not args.roots:
         dev = torch.device("cuda", 0)
         kernels.load()
         res = {"phase": "decode_timing", "nvidia_smi": nvidia_smi_line(),
                "kernels": os.path.dirname(kernels.__file__),
                **decode_timing(torch, dev)}
-        if args.tick:
-            res["tick"] = tick_timing(torch, dev, np)
+        if flags:
+            from container_engine_accelerators_tpu_torch.models.llama import (
+                init_params,
+                llama3_8b,
+            )
+
+            cfg = llama3_8b()
+            model = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            if args.tick:
+                res["tick"] = tick_timing(torch, dev, np, model, cfg)
+            if args.prefill:
+                res["prefill"] = prefill_timing(torch, dev, np, model, cfg)
         emit(res)
         return 0
     for root in args.roots:
         # -P: the port comes from PYTHONPATH, the checkout timed.
         rc = subprocess.run(
             [sys.executable, "-P", os.path.abspath(__file__), "decode",
-             *(["--tick"] if args.tick else [])],
+             *flags],
             env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
             timeout=600).returncode
         if rc:
@@ -2100,7 +2153,13 @@ def main() -> int:
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq))
 
-    def quant_entries(base, source, replaces, results, main_case):
+    def prefill(case):
+        """The main prefill case of K1 or K3, beside decode's."""
+        return {"prefill_ms": case["ms"], "prefill_bound_ms": case["bound_ms"],
+                "prefill_library_ms": case["library_ms"]}
+
+    def quant_entries(base, source, replaces, results, main_case,
+                      prefill_case):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "bf16_kernel_ms", "library")
         return [{"name": f"{base}_{mode}", "route": "cuda", "source": source,
@@ -2109,7 +2168,8 @@ def main() -> int:
                                     for r in results[mode].values()),
                  "max_row_rel_err": max(r["max_row_rel_err"]
                                         for r in results[mode].values()),
-                 **{key: results[mode][main_case][key] for key in keys}}
+                 **{key: results[mode][main_case][key] for key in keys},
+                 **prefill(results[mode][prefill_case])}
                 for mode in KV_MODES]
 
     k1_main, k2_main, k3_main = (k1["decode_slots"], k2["w_gate_bf16"],
@@ -2120,7 +2180,8 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
          "max_row_rel_err": max(r["max_row_rel_err"] for r in k1.values()),
          **{key: k1_main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}},
+                                          "bound_by", "library_ms")},
+         **prefill(k1["prefill_512"])},
         {"name": "int8_matmul", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches("int8_matmul"),
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
@@ -2133,7 +2194,8 @@ def main() -> int:
          "max_row_rel_err": max(r["max_row_rel_err"] for r in k3.values()),
          **{key: k3_main[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "k1_contiguous_ms", "library")}},
+                                          "k1_contiguous_ms", "library")},
+         **prefill(k3["prefill_chunk_512"])},
         *({"name": name, "route": "cuda", "source": FLASH_SOURCE,
            "replaces": FLASH_REPLACES[name],
            "launches": train["launches"].get(name, 0),
@@ -2142,9 +2204,9 @@ def main() -> int:
                                   for r in flash[name].values()),
            **flash[name]["main"]} for name in FLASH_REPLACES),
         *quant_entries("decode_attention", K1_SOURCE, K1_REPLACES, k1q,
-                       "decode_slots"),
+                       "decode_slots", "prefill_512"),
         *quant_entries("paged_decode_attention", K3_SOURCE, K3_REPLACES, k3q,
-                       "decode"),
+                       "decode", "prefill_chunk_512"),
         {"name": "scale_demo", "route": "cuda", "source": K7_SOURCE,
          "replaces": K7_REPLACES,
          "launches": health["launches"].get("scale_demo", 0),

@@ -21,11 +21,12 @@
 //   int4  k, v [B, max_len, Hkv, D/2] int8, two nibbles a byte in the
 //         split-half layout of ops/quant.pack_int4 (byte j: element j in
 //         the low nibble, element j + D/2 in the high one), same scales.
-// The dequantization is f32, as in the Pallas body, never a bf16 tile:
-// the kernels stage the integer payload and the tile's scales in shared
-// memory and compute s = scale * k_scale[j] * sum_d q_d * k_int[j, d]
-// and acc += (p_j * v_scale[j]) * v_int[j, :], the same function up to
-// f32 reassociation (decode: see its P.V below).
+// The scales stay f32, as in the Pallas body, and never fold into a
+// bf16 tile: the integers become bf16 exactly (|x| <= 127 fits bf16's 8
+// significant bits), and the kernels compute
+// s = scale * k_scale[j] * sum_d q_d * k_int[j, d] and
+// acc += (p_j * v_scale[j]) * v_int[j, :], the same function up to f32
+// reassociation and p's split into two bf16 terms (see P.V below).
 //
 // K3 replaces ...::paged_decode_attention (paged_kernel, pl.pallas_call
 // at line 391), in all three modes. It computes K1's function in logical
@@ -36,16 +37,18 @@
 // and key `pos` of row b lives at pool row
 // r = clamp(tables[b, pos / page], 0, n_pages - 1), offset pos % page, its
 // scale at [r, h, pos % page], with max_len = max_pages * page. As in the
-// Pallas version, the body is K1's: the kernel is a template over how a
+// Pallas version, the body is K1's: the kernels are templates over how a
 // key's row and scale are addressed and how its row is stored. Any page
 // size works.
 //
-// What bounds it on an H100: bytes. Every step streams the live part of
-// the cache once (HBM, 3.35 TB/s on the SXM part); the arithmetic is
-// ~2 flops per cache element per query row. At decode (B 8, 8 KV heads,
-// lengths up to 2047) that is ~16 MB, 5 us at the byte bound, so what
-// costs is latency and how few SMs a walk over one row's keys can use.
-// Two kernels share the payloads and the addressing:
+// What bounds it on an H100: at decode, bytes. Every step streams the
+// live part of the cache once (HBM, 3.35 TB/s on the SXM part); the
+// arithmetic is ~2 flops per cache element per query row. At decode (B 8,
+// 8 KV heads, lengths up to 2047) that is ~16 MB, 5 us at the byte bound,
+// so what costs is latency and how few SMs a walk over one row's keys can
+// use. At prefill each key serves T x G query rows, and the tensor cores'
+// operations bound it. Two kernels share the payloads, the addressing,
+// the tile loader and the products' fragment layouts:
 //
 // Decode (T*G <= 4 query rows per GQA group), decode_split_kernel:
 //   - the key range of a (KV head, batch row) is split across CTAs: the
@@ -86,18 +89,38 @@
 //     ahead of its loads, once per tile, where a tile lies in one page
 //     (page a multiple of 64, as in every engine); smaller pages resolve
 //     each key's row.
-// Prefill (more rows), decode_attention_kernel: one CTA per (block of 16
-// query rows, KV head, batch row), four rows a warp, so a CTA's rows share
-// each tile it loads; it walks its keys in order with synchronous
-// 16-byte loads into tiles of 64 keys with an odd row stride in 32-bit
-// words (conflict-free, a lane per key), one warp reduction per tile. In
-// p.v a lane owns output dims (2p, 2p+1) whatever the payload. Prefill
-// fills the card with (row block, KV head, batch row) CTAs already.
+// Prefill (more rows), prefill_mma_kernel:
+//   - one CTA per (KV head, batch row, block of 64 query rows), the row
+//     block the grid's slowest dimension and taken from the last, so the
+//     blocks with the most keys start first and the causal tail fills in
+//     behind them. Each of the 4 warps holds 16 rows, one m16 A operand
+//     (16 tokens x 4 heads at Llama-3's G of 4), with its Q fragments in
+//     registers for the whole walk;
+//   - the decode body's loader streams 64-key tiles through a ring of
+//     kPrefillStages, the table entry one tile ahead;
+//   - S = Q.K^T and O += P.V on mma.sync, S kept in registers: the m16n8
+//     accumulator layout of two adjacent key columns is the m16n8k16 A
+//     layout of one 16-key step, so P's A fragments are S's registers
+//     and P never goes through shared memory. P (times V's scales) enters
+//     as two bf16 terms, l adds the f32 p, scores are in log2 units, and
+//     a thread's two rows reduce their max across its quad;
+//   - int8 and int4 tiles are unpacked once a tile, by the whole CTA,
+//     into a bf16 staging tile, so every payload takes the same fragment
+//     path (ldmatrix for K, ldmatrix.trans for V) and no query row
+//     repeats the unpack;
+//   - a tile wholly at or below a warp's first query position and before
+//     the block's last visible key runs unmasked; only the tiles that
+//     cross the diagonal or `live` mask each element, and a warp skips
+//     the tiles past its last query. One CTA walks all of a row block's
+//     keys: no atomics, so the output repeats its bits, and K3 gives K1's
+//     bits on the same keys.
 // Both stop at `live`: positions at or past it are never read (nor their
 // scales, nor, paged, their table entries), so a reused cache holding
 // NaN or stale scales there, or a stale table entry, cannot reach the
 // accumulator. No wgmma: decode has at most 4 rows a KV head, and
-// prefill on tensor cores is a later version's.
+// prefill shares one body across three payloads and two addressings,
+// where wgmma would need every tile in a swizzled layout that matches
+// its descriptors bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,9 +130,10 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockK = 64;          // keys per shared-memory tile
-constexpr int kRowsPerWarp = 4;      // prefill
 constexpr int kDecodeRows = 4;       // query rows (T*G) of a decode CTA
 constexpr int kStages = 3;           // decode: tiles in the ring
+constexpr int kPrefillRows = 16 * kWarps;   // query rows of a prefill CTA
+constexpr int kPrefillStages = 2;    // prefill: tiles in the ring
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -139,50 +163,51 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float2 bf16x2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
-}
-
 // Bits [lo, lo + n) of w as a signed integer, in f32.
 template <int lo, int n>
 __device__ __forceinline__ float sbits(uint32_t w) {
   return static_cast<float>(static_cast<int>(w << (32 - lo - n)) >> (32 - n));
 }
 
-// How a cache row of D values is stored. `words`: 32-bit words a row;
-// `dot`: q . k over word p of a key row (qr: the query row as bf16
-// pairs); `v_pair`: output dims (2p, 2p+1) of a value row.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The four 8x8 b16 matrices whose rows lanes 8m .. 8m + 7 address, into
+// r[m]: as stored (lane 4i + j holds row i, columns 2j, 2j + 1), or
+// transposed (column i, rows 2j, 2j + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// How a cache row of D values is stored: `words`, its 32-bit words.
+// Decode, on the tensor cores: `qk_b`, the B fragment of S = Q.K^T for
+// the key row `row` in shared memory at k-step ks (dims 16 ks + 2t, +1
+// and 16 ks + 2t + 8, +9); `pv_b`, the B fragments of P.V for the warp's
+// 16 value rows at `v` (row stride S) and dims 16 np .. 16 np + 15: b[0..1]
+// dims 16 np + g, b[2..3] dims 16 np + 8 + g, each holding keys 2t, 2t+1
+// and 2t + 8, 2t + 9. Prefill reads bf16 rows only: the quantized
+// payloads' `unpack` writes chunk c of a row (8 elements) there as bf16.
 struct Bf16Payload {
   static constexpr bool kQuant = false;
   template <int D>
   __host__ __device__ static constexpr int words() { return D / 2; }
-  template <int D>
-  __device__ static float dot(const __nv_bfloat162* qr, int p, uint32_t w) {
-    const float2 qq = __bfloat1622float2(qr[p]), kk = bf16x2(w);
-    return qq.x * kk.x + qq.y * kk.y;
-  }
-  template <int D>
-  __device__ static float2 v_pair(const uint32_t* row, int p) {
-    return bf16x2(row[p]);
-  }
-  // Decode, on the tensor cores: `qk_b`, the B fragment of S = Q.K^T
-  // for the key row `row` in shared memory at k-step ks (dims 16 ks + 2t,
-  // +1 and 16 ks + 2t + 8, +9); `pv_b`, the B fragments of P.V for the
-  // warp's 16 value rows at `v` (row stride S) and dims 16 np .. 16 np +
-  // 15: b[0..1] dims 16 np + g, b[2..3] dims 16 np + 8 + g, each holding
-  // keys 2t, 2t+1 and 2t + 8, 2t + 9.
   template <int D>
   __device__ static void qk_b(const uint8_t* row, int ks, int t,
                               uint32_t (&b)[2]) {
@@ -195,20 +220,10 @@ struct Bf16Payload {
     // ldmatrix.trans: lanes 8m .. 8m + 7 address matrix m's rows (keys
     // 8 (m & 1) .., dims 16 np + 8 (m >> 1) ..).
     const int mtx = lane / 8, r = lane % 8;
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
-        v + (8 * (mtx & 1) + r) * S + (16 * np + 8 * (mtx >> 1)) * 2));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-        : "r"(addr));
+    ldmatrix_x4_trans(
+        b, v + (8 * (mtx & 1) + r) * S + (16 * np + 8 * (mtx >> 1)) * 2);
   }
 };
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // The quantized payloads' decode fragments (see Bf16Payload), element by
 // element from the integers staged in shared memory.
@@ -236,23 +251,11 @@ __device__ __forceinline__ void quant_pv_b(const uint8_t* v, int np,
   }
 }
 
-// One signed byte an element: word p holds elements 4p .. 4p + 3.
+// One signed byte an element: element d is byte d.
 struct Int8Payload {
   static constexpr bool kQuant = true;
   template <int D>
   __host__ __device__ static constexpr int words() { return D / 4; }
-  template <int D>
-  __device__ static float dot(const __nv_bfloat162* qr, int p, uint32_t w) {
-    const float2 a = __bfloat1622float2(qr[2 * p]);
-    const float2 b = __bfloat1622float2(qr[2 * p + 1]);
-    return a.x * sbits<0, 8>(w) + a.y * sbits<8, 8>(w) +
-           b.x * sbits<16, 8>(w) + b.y * sbits<24, 8>(w);
-  }
-  template <int D>
-  __device__ static float2 v_pair(const uint32_t* row, int p) {
-    const uint32_t h = reinterpret_cast<const uint16_t*>(row)[p];
-    return make_float2(sbits<0, 8>(h), sbits<8, 8>(h));
-  }
   // Decode: as Bf16Payload's, each integer made a bf16 (exact).
   template <int D>
   __device__ static float elem(const uint8_t* row, int d) {
@@ -268,34 +271,24 @@ struct Int8Payload {
                               uint32_t (&b)[4]) {
     quant_pv_b<Int8Payload, D, S>(v, np, lane, b);
   }
+  // Prefill: bytes 8c .. 8c + 7 of `src`, as bf16 at `dst`.
+  template <int D>
+  __device__ static void unpack(const uint8_t* src, uint8_t* dst, int c) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src + 8 * c);
+    uint4 o;
+    o.x = bf16_pair(sbits<0, 8>(w.x), sbits<8, 8>(w.x));
+    o.y = bf16_pair(sbits<16, 8>(w.x), sbits<24, 8>(w.x));
+    o.z = bf16_pair(sbits<0, 8>(w.y), sbits<8, 8>(w.y));
+    o.w = bf16_pair(sbits<16, 8>(w.y), sbits<24, 8>(w.y));
+    *reinterpret_cast<uint4*>(dst + 16 * c) = o;
+  }
 };
 
-// Split-half nibbles: byte j holds element j (low) and j + D/2 (high), so
-// word p holds elements 4p .. 4p + 3 and D/2 + 4p .. D/2 + 4p + 3.
+// Split-half nibbles: byte j holds element j (low) and j + D/2 (high).
 struct Int4Payload {
   static constexpr bool kQuant = true;
   template <int D>
   __host__ __device__ static constexpr int words() { return D / 8; }
-  template <int D>
-  __device__ static float dot(const __nv_bfloat162* qr, int p, uint32_t w) {
-    const float2 a = __bfloat1622float2(qr[2 * p]);
-    const float2 b = __bfloat1622float2(qr[2 * p + 1]);
-    const float2 c = __bfloat1622float2(qr[D / 4 + 2 * p]);
-    const float2 d = __bfloat1622float2(qr[D / 4 + 2 * p + 1]);
-    return a.x * sbits<0, 4>(w) + a.y * sbits<8, 4>(w) +
-           b.x * sbits<16, 4>(w) + b.y * sbits<24, 4>(w) +
-           c.x * sbits<4, 4>(w) + c.y * sbits<12, 4>(w) +
-           d.x * sbits<20, 4>(w) + d.y * sbits<28, 4>(w);
-  }
-  // Dims (2p, 2p+1): the low nibbles of halfword p for p < D/4, else the
-  // high nibbles of halfword p - D/4.
-  template <int D>
-  __device__ static float2 v_pair(const uint32_t* row, int p) {
-    const bool high = p >= D / 4;
-    uint32_t h = reinterpret_cast<const uint16_t*>(row)[high ? p - D / 4 : p];
-    if (high) h >>= 4;
-    return make_float2(sbits<0, 4>(h), sbits<8, 4>(h));
-  }
   // Decode: as Int8Payload's; element d is the low nibble of byte d
   // for d < D/2, else the high nibble of byte d - D/2.
   template <int D>
@@ -312,8 +305,19 @@ struct Int4Payload {
                               uint32_t (&b)[4]) {
     quant_pv_b<Int4Payload, D, S>(v, np, lane, b);
   }
+  // Prefill: bytes 4c .. 4c + 3 of `src`, elements 4c .. 4c + 3 (low
+  // nibbles) and D/2 + 4c .. D/2 + 4c + 3 (high), as bf16 at `dst`.
+  template <int D>
+  __device__ static void unpack(const uint8_t* src, uint8_t* dst, int c) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(src + 4 * c);
+    const uint2 lo = make_uint2(bf16_pair(sbits<0, 4>(w), sbits<8, 4>(w)),
+                                bf16_pair(sbits<16, 4>(w), sbits<24, 4>(w)));
+    const uint2 hi = make_uint2(bf16_pair(sbits<4, 4>(w), sbits<12, 4>(w)),
+                                bf16_pair(sbits<20, 4>(w), sbits<28, 4>(w)));
+    *reinterpret_cast<uint2*>(dst + 8 * c) = lo;
+    *reinterpret_cast<uint2*>(dst + D + 8 * c) = hi;
+  }
 };
-
 // Row of key `pos` of batch row b, in units of Hkv rows of one token, and
 // the index of its scale for KV head h. Decode resolves a tile's rows at
 // once: `tile` gives the row and scale index of the tile's first key,
@@ -363,171 +367,6 @@ struct PagedKeys {
   }
 };
 
-template <class P, int D, class Keys>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                        const void* __restrict__ k,
-                        const void* __restrict__ v,
-                        const float* __restrict__ k_scales,
-                        const float* __restrict__ v_scales,
-                        const int* __restrict__ lens,
-                        __nv_bfloat16* __restrict__ out, int T, int Hq,
-                        int Hkv, int max_len, float scale, Keys keys) {
-  constexpr int kPairs = D / 2;                    // output dims / 2
-  constexpr int kWords = P::template words<D>();  // payload words per row
-  constexpr int kStride = kWords + 1;              // odd: conflict-free
-  constexpr int kPairsPerLane = (kPairs + 31) / 32;
-  constexpr int RPW = kRowsPerWarp;
-  constexpr int kRows = kWarps * RPW;
-  constexpr int kVec = 4;                          // words per 16-B load
-  constexpr int kScaled = P::kQuant ? kBlockK : 1;
-
-  __shared__ uint32_t k_w[kBlockK * kStride];
-  __shared__ uint32_t v_w[kBlockK * kStride];
-  __shared__ float ks_s[kScaled];
-  __shared__ float vs_s[kScaled];
-  __shared__ __nv_bfloat162 q_s[kRows][kPairs];
-
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int n_rows = T * G;
-  const int row0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int cache_len = lens[b];
-  const int live = min(cache_len + T, max_len);
-  const int t_last = min(row0 + kRows - 1, n_rows - 1) / G;
-  const int k_end = min(live, cache_len + t_last + 1);
-
-  // Stage this block's query rows (rows past T*G stay zero); bf16 here,
-  // f32 in the arithmetic, as the Pallas body casts q.
-  const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(q);
-  for (int i = threadIdx.x; i < kRows * kPairs; i += kThreads) {
-    const int r = i / kPairs, p = i % kPairs;
-    const int row = row0 + r;
-    __nv_bfloat162 val = __float2bfloat162_rn(0.f);
-    if (row < n_rows) {
-      const int t = row / G, h = kvh * G + row % G;
-      val = q2[((size_t)(b * T + t) * Hq + h) * kPairs + p];
-    }
-    q_s[r][p] = val;
-  }
-
-  float m[RPW], l[RPW];
-  int qpos[RPW];   // absolute position of the row's query, -1 for padding
-  float2 acc[RPW][kPairsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = row0 + warp * RPW + rr;
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-    qpos[rr] = row < n_rows ? cache_len + row / G : -1;
-#pragma unroll
-    for (int i = 0; i < kPairsPerLane; ++i) acc[rr][i] = make_float2(0.f, 0.f);
-  }
-
-  const uint4* k4 = static_cast<const uint4*>(k);
-  const uint4* v4 = static_cast<const uint4*>(v);
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();   // the previous tile is consumed; q_s is staged
-    constexpr int kChunks = kWords / kVec;         // 16-B loads per row
-    for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-      const int j = i / kChunks, c = i % kChunks;
-      const int pos = k0 + j;
-      uint4 kw = make_uint4(0, 0, 0, 0), vw = kw;
-      if (pos < k_end) {   // never read at or past `live`
-        const size_t off = (keys.row(b, pos) * Hkv + kvh) * kChunks + c;
-        kw = k4[off];
-        vw = v4[off];
-      }
-      uint32_t* kd = k_w + j * kStride + c * kVec;
-      uint32_t* vd = v_w + j * kStride + c * kVec;
-      kd[0] = kw.x; kd[1] = kw.y; kd[2] = kw.z; kd[3] = kw.w;
-      vd[0] = vw.x; vd[1] = vw.y; vd[2] = vw.z; vd[3] = vw.w;
-    }
-    if constexpr (P::kQuant) {
-      for (int j = threadIdx.x; j < kBlockK; j += kThreads) {
-        const int pos = k0 + j;
-        float ks = 0.f, vs = 0.f;
-        if (pos < k_end) {   // nor a scale at or past `live`
-          const size_t si = keys.scale(b, kvh, Hkv, pos);
-          ks = k_scales[si];
-          vs = v_scales[si];
-        }
-        ks_s[j] = ks;
-        vs_s[j] = vs;
-      }
-    }
-    __syncthreads();
-    const int tile_keys = min(kBlockK, k_end - k0);
-
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      if (qpos[rr] < k0) continue;   // padding, or no visible key here;
-                                     // uniform across the warp
-      const __nv_bfloat162* qr = q_s[warp * RPW + rr];
-      // Lane owns keys k0 + lane and k0 + lane + 32.
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < kWords; ++p) {
-        s0 += P::template dot<D>(qr, p, k_w[lane * kStride + p]);
-        s1 += P::template dot<D>(qr, p, k_w[(lane + 32) * kStride + p]);
-      }
-      float scale0 = scale, scale1 = scale;
-      if constexpr (P::kQuant) {
-        scale0 *= ks_s[lane];
-        scale1 *= ks_s[lane + 32];
-      }
-      const int pos0 = k0 + lane, pos1 = pos0 + 32;
-      const bool ok0 = pos0 < k_end && pos0 <= qpos[rr];
-      const bool ok1 = pos1 < k_end && pos1 <= qpos[rr];
-      s0 = ok0 ? s0 * scale0 : kNegInf;
-      s1 = ok1 ? s1 * scale1 : kNegInf;
-      const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m[rr] - m_new);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      l[rr] = l[rr] * alpha + warp_sum(p0 + p1);
-      m[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < kPairsPerLane; ++i) {
-        acc[rr][i].x *= alpha;
-        acc[rr][i].y *= alpha;
-      }
-      const int keys = min(tile_keys, qpos[rr] - k0 + 1);
-      for (int j = 0; j < keys; ++j) {
-        float pj = __shfl_sync(kFull, j < 32 ? p0 : p1, j & 31);
-        if constexpr (P::kQuant) pj *= vs_s[j];
-#pragma unroll
-        for (int i = 0; i < kPairsPerLane; ++i) {
-          const int p = lane + 32 * i;
-          if (p < kPairs) {
-            const float2 vv = P::template v_pair<D>(v_w + j * kStride, p);
-            acc[rr][i].x += pj * vv.x;
-            acc[rr][i].y += pj * vv.y;
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = row0 + warp * RPW + rr;
-    if (row >= n_rows) continue;
-    const int t = row / G, h = kvh * G + row % G;
-    const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-    __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-#pragma unroll
-    for (int i = 0; i < kPairsPerLane; ++i) {
-      const int p = lane + 32 * i;
-      if (p < kPairs)
-        out2[((size_t)(b * T + t) * Hq + h) * kPairs + p] =
-            __floats2bfloat162_rn(acc[rr][i].x * inv, acc[rr][i].y * inv);
-    }
-  }
-}
 
 // 2^x in one MUFU instruction (decode keeps its scores in log2 units).
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -571,6 +410,119 @@ __device__ __forceinline__ void mma_rows8(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Loads of the tiles of keys [begin, end), tile n into the ring stage
+// `st` it is given: K and V rows, 16 bytes a thread, zero-filled at or
+// past `end` (never read at or past `live`); the quantized modes'
+// scales, 4 bytes a thread (threads below kBlockK K's, the rest V's).
+// Paged, tile n + 1's table entry is read before tile n's loads go out,
+// so its latency hides behind a tile of compute.
+template <class P, int D, class Keys>
+struct TileLoader {
+  using L = DecodeLayout<P, D>;
+  const uint8_t *kg, *vg;
+  const float *k_scales, *v_scales;
+  Keys keys;
+  int b, kvh, Hkv, begin, end, n_tiles;
+  Tile next;
+
+  __device__ __forceinline__ TileLoader(const void* k, const void* v,
+                                        const float* ks, const float* vs,
+                                        Keys keys_, int b_, int kvh_,
+                                        int Hkv_, int begin_, int end_)
+      : kg(static_cast<const uint8_t*>(k)),
+        vg(static_cast<const uint8_t*>(v)), k_scales(ks), v_scales(vs),
+        keys(keys_), b(b_), kvh(kvh_), Hkv(Hkv_), begin(begin_), end(end_),
+        n_tiles((end_ - begin_ + kBlockK - 1) / kBlockK), next{} {
+    if (!keys.per_key()) next = keys.tile(b, kvh, Hkv, begin);
+  }
+
+  __device__ __forceinline__ void load(uint8_t* st, int n) {
+    const Tile tile = next;
+    if (n + 1 < n_tiles && !keys.per_key())
+      next = keys.tile(b, kvh, Hkv, begin + (n + 1) * kBlockK);
+    const int k0 = begin + n * kBlockK;
+    for (int id = threadIdx.x; id < kBlockK * L::kChunks; id += kThreads) {
+      const int j = id / L::kChunks, c = id % L::kChunks;
+      const bool ok = k0 + j < end;   // never read at or past `live`
+      size_t off = 0;
+      if (ok) {
+        const size_t row = keys.per_key() ? keys.row(b, k0 + j)
+                                          : tile.row0 + j;
+        off = (row * Hkv + kvh) * L::kRowBytes + c * 16;
+      }
+      const int dst = j * L::kStride + c * 16;
+      cp_async<16>(st + dst, kg + off, ok);
+      cp_async<16>(st + L::kPayloadBytes + dst, vg + off, ok);
+    }
+    if constexpr (P::kQuant) {
+      const int j = threadIdx.x % kBlockK;
+      const bool ok = k0 + j < end;   // nor a scale
+      size_t si = 0;
+      if (ok)
+        si = keys.per_key() ? keys.scale(b, kvh, Hkv, k0 + j)
+                            : tile.scale0 + j;
+      const bool is_k = threadIdx.x < kBlockK;
+      float* dst = reinterpret_cast<float*>(st + 2 * L::kPayloadBytes) +
+                   (is_k ? 0 : kBlockK) + j;
+      cp_async<4>(dst, (is_k ? k_scales : v_scales) + si, ok);
+    }
+  }
+};
+
+// c += A B on the tensor cores (m16n8k16, bf16 in, f32 out): a[0] holds
+// A[g][2t, 2t+1], a[1] A[g + 8][2t, 2t+1], a[2] A[g][2t+8, 2t+9], a[3]
+// A[g + 8][2t+8, 2t+9]; b0 B[2t, 2t+1][g], b1 B[2t+8, 2t+9][g]; c[0..1]
+// C[g][2t, 2t+1], c[2..3] C[g + 8][2t, 2t+1].
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Prefill: the shapes of one instantiation. The ring's stages are
+// decode's (payload rows padded 16 bytes, the scales after them); the
+// products read bf16 rows of D values, 16 bytes apart beyond their
+// length: bf16 K and V in the ring itself, quantized ones unpacked into
+// two staging tiles after the ring. Q is staged once, before the walk,
+// where nothing lies yet: in the staging tiles, or in the ring's last
+// stage, which the prologue leaves empty.
+template <class P, int D>
+struct PrefillLayout {
+  using L = DecodeLayout<P, D>;
+  static constexpr int kStride = 2 * D + 16;
+  static constexpr int kTileBytes = kBlockK * kStride;
+  static constexpr int kRingBytes = kPrefillStages * L::kStageBytes;
+  static constexpr int kSmemBytes =
+      kRingBytes + (P::kQuant ? 2 * kTileBytes : 0);
+  static constexpr int kQOffset =
+      P::kQuant ? kRingBytes : (kPrefillStages - 1) * L::kStageBytes;
+  static_assert(P::kQuant || L::kStride == kStride, "");
+  static_assert(kQOffset + kPrefillRows * kStride <= kSmemBytes, "");
+  static_assert(kPrefillStages >= 2 && D % 32 == 0, "");
+};
+
+// Prefill: the integers of ring stage `st` as bf16 in the staging tiles,
+// K's then V's, by the whole CTA; a row is D / 8 chunks of 8 elements.
+template <class P, int D>
+__device__ __forceinline__ void unpack_tile(const uint8_t* st,
+                                            uint8_t* staging) {
+  using L = DecodeLayout<P, D>;
+  using PL = PrefillLayout<P, D>;
+  constexpr int kChunks = D / 8;
+#pragma unroll 4
+  for (int id = threadIdx.x; id < 2 * kBlockK * kChunks; id += kThreads) {
+    const int kv = id / (kBlockK * kChunks);
+    const int j = id / kChunks % kBlockK, c = id % kChunks;
+    P::template unpack<D>(st + kv * L::kPayloadBytes + j * L::kStride,
+                          staging + kv * PL::kTileBytes + j * PL::kStride,
+                          c);
+  }
 }
 
 template <class P, int D, class Keys>
@@ -625,54 +577,12 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(&q_s[r][off]) = w;
   }
 
-  // Loads of tile n into stage n % kStages: K and V rows, 16 bytes a
-  // thread, zero-filled past the chunk; the quantized modes' scales, 4
-  // bytes a thread (threads below kBlockK K's, the rest V's).
-  const uint8_t* kg = static_cast<const uint8_t*>(k);
-  const uint8_t* vg = static_cast<const uint8_t*>(v);
-  auto load_tile = [&](int n, Tile tile) {
-    uint8_t* st = smem + (n % kStages) * L::kStageBytes;
-    const int k0 = begin + n * kBlockK;
-    for (int id = threadIdx.x; id < kBlockK * L::kChunks; id += kThreads) {
-      const int j = id / L::kChunks, c = id % L::kChunks;
-      const bool ok = k0 + j < end;   // never read at or past `live`
-      size_t off = 0;
-      if (ok) {
-        const size_t row = keys.per_key() ? keys.row(b, k0 + j)
-                                          : tile.row0 + j;
-        off = (row * Hkv + kvh) * L::kRowBytes + c * 16;
-      }
-      const int dst = j * S + c * 16;
-      cp_async<16>(st + dst, kg + off, ok);
-      cp_async<16>(st + L::kPayloadBytes + dst, vg + off, ok);
-    }
-    if constexpr (P::kQuant) {
-      const int j = threadIdx.x % kBlockK;
-      const bool ok = k0 + j < end;   // nor a scale
-      size_t si = 0;
-      if (ok)
-        si = keys.per_key() ? keys.scale(b, kvh, Hkv, k0 + j)
-                            : tile.scale0 + j;
-      const bool is_k = threadIdx.x < kBlockK;
-      float* dst = reinterpret_cast<float*>(st + 2 * L::kPayloadBytes) +
-                   (is_k ? 0 : kBlockK) + j;
-      cp_async<4>(dst, (is_k ? k_scales : v_scales) + si, ok);
-    }
-  };
-  // Tile n + 1's table entry is read before tile n's loads go out, so
-  // its latency hides behind a tile of compute.
-  Tile next{};
-  if (!keys.per_key()) next = keys.tile(b, kvh, Hkv, begin);
-  auto load_next = [&](int n) {
-    const Tile tile = next;
-    if (n + 1 < n_tiles && !keys.per_key())
-      next = keys.tile(b, kvh, Hkv, begin + (n + 1) * kBlockK);
-    load_tile(n, tile);
-  };
+  TileLoader<P, D, Keys> tiles(k, v, k_scales, v_scales, keys, b, kvh, Hkv,
+                               begin, end);
 
 #pragma unroll
   for (int n = 0; n < kStages - 1; ++n) {
-    if (n < n_tiles) load_next(n);
+    if (n < n_tiles) tiles.load(smem + n * L::kStageBytes, n);
     cp_async_commit();
   }
 
@@ -703,7 +613,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < n_tiles; ++n) {
     cp_async_wait<kStages - 2>();   // this thread's loads of tile n
     __syncthreads();                // everyone's; and tile n - 1 is done
-    if (n + kStages - 1 < n_tiles) load_next(n + kStages - 1);
+    if (n + kStages - 1 < n_tiles)
+      tiles.load(smem + (n + kStages - 1) % kStages * L::kStageBytes,
+                 n + kStages - 1);
     cp_async_commit();
 
     const uint8_t* st = smem + (n % kStages) * L::kStageBytes;
@@ -863,6 +775,224 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   if (threadIdx.x == 0) tickets[bh] = 0;
 }
 
+// Two CTAs a SM, the ring's target: without it ptxas caps the registers
+// of the small head dims for more and spills.
+template <class P, int D, class Keys>
+__global__ void __launch_bounds__(kThreads, 2)
+prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const void* __restrict__ k, const void* __restrict__ v,
+                   const float* __restrict__ k_scales,
+                   const float* __restrict__ v_scales,
+                   const int* __restrict__ lens,
+                   __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv,
+                   int max_len, float scale, Keys keys) {
+  using L = DecodeLayout<P, D>;
+  using PL = PrefillLayout<P, D>;
+  constexpr int S = PL::kStride;    // a bf16 row, as the products read it
+  constexpr int kSteps = D / 16;    // k-steps of Q.K^T, dim pairs of P.V
+  constexpr int kKeyTiles = kBlockK / 8;   // 8-key n-tiles of S
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * kPrefillRows;
+  const int G = Hq / Hkv;
+  const int n_rows = T * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
+  const int cache_len = lens[b];
+  // Scores, and every m below, in log2 units: exp(x) = 2^(x log2 e).
+  const float scale2 = scale * 1.4426950408889634f;
+  // The walk ends at the block's last visible key: below live =
+  // cache_len + T, and at or below its last row's query.
+  const int t_last = (min(row0 + kPrefillRows, n_rows) - 1) / G;
+  const int k_end = min(min(cache_len + T, max_len), cache_len + t_last + 1);
+
+  TileLoader<P, D, Keys> tiles(k, v, k_scales, v_scales, keys, b, kvh, Hkv,
+                               0, k_end);
+#pragma unroll
+  for (int n = 0; n < kPrefillStages - 1; ++n) {
+    if (n < tiles.n_tiles) tiles.load(smem + n * L::kStageBytes, n);
+    cp_async_commit();
+  }
+
+  // The block's query rows (rows past T*G are zero and never written),
+  // staged with 16-byte loads, then held as each warp's A operand for the
+  // whole walk: qa[ks] holds its rows g and g + 8, dims 16 ks + 2t, +1
+  // and 16 ks + 2t + 8, +9.
+  uint8_t* q_s = smem + PL::kQOffset;
+  for (int c = threadIdx.x; c < kPrefillRows * D / 8; c += kThreads) {
+    const int r = c / (D / 8), off = c % (D / 8) * 8;
+    const int row = row0 + r;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (row < n_rows)
+      w = *reinterpret_cast<const uint4*>(
+          q + ((size_t)(b * T + row / G) * Hq + kvh * G + row % G) * D + off);
+    *reinterpret_cast<uint4*>(q_s + r * S + off * 2) = w;
+  }
+  __syncthreads();
+  uint32_t qa[kSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+    ldmatrix_x4(qa[ks],
+                q_s + (16 * warp + lane % 16) * S + (16 * ks + 8 * (lane / 16)) * 2);
+
+  const int wrow = row0 + 16 * warp;          // the warp's first row
+  const bool busy = wrow < n_rows;
+  const int wq_lo = cache_len + wrow / G;     // its first query position
+  const int wq_hi = cache_len + (min(wrow + 15, n_rows - 1)) / G;
+  const int qpos[2] = {cache_len + (wrow + g) / G,
+                       cache_len + (wrow + g + 8) / G};
+  // Rows g and g + 8's online softmax: m in log2 units, l this thread's
+  // part of the row sum (its quad adds the parts at the end); o holds
+  // O[g][8 nt + 2t, +1] in o[nt][0..1] and row g + 8's in o[nt][2..3].
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[2 * kSteps][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * kSteps; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  const int mtx = lane / 8, r8 = lane % 8;    // ldmatrix addressing
+
+  for (int n = 0; n < tiles.n_tiles; ++n) {
+    cp_async_wait<kPrefillStages - 2>();   // this thread's loads of tile n
+    __syncthreads();                       // everyone's; tile n - 1 is done
+    if (n + kPrefillStages - 1 < tiles.n_tiles)
+      tiles.load(smem + (n + kPrefillStages - 1) % kPrefillStages *
+                            L::kStageBytes,
+                 n + kPrefillStages - 1);
+    cp_async_commit();
+
+    const uint8_t* st = smem + (n % kPrefillStages) * L::kStageBytes;
+    const uint8_t* kt = st;
+    const uint8_t* vt = st + L::kPayloadBytes;
+    if constexpr (P::kQuant) {
+      unpack_tile<P, D>(st, smem + PL::kRingBytes);
+      __syncthreads();
+      kt = smem + PL::kRingBytes;
+      vt = kt + PL::kTileBytes;
+    }
+    const float* sc_s =
+        reinterpret_cast<const float*>(st + 2 * L::kPayloadBytes);
+    const int k0 = n * kBlockK;
+    if (!busy || k0 > wq_hi) continue;   // no row of the warp sees a key
+    // Every key of the tile visible to every row of the warp?
+    const bool full = k0 + kBlockK <= k_end && k0 + kBlockK - 1 <= wq_lo;
+
+    // S = Q.K^T: s[nt] holds rows g, g + 8 and keys 8 nt + 2t, +1.
+    float s[kKeyTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < kSteps / 2; ++kp)
+#pragma unroll
+      for (int nt = 0; nt < kKeyTiles; ++nt) {
+        // Keys 8 nt .., dims 32 kp + 8 mtx ..: B of k-steps 2 kp, 2 kp + 1.
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (8 * nt + r8) * S + (32 * kp + 8 * mtx) * 2);
+        mma_16816(s[nt], qa[2 * kp], kb[0], kb[1]);
+        mma_16816(s[nt], qa[2 * kp + 1], kb[2], kb[3]);
+      }
+
+    float m_tile[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * nt + 2 * t + (e & 1);
+        float sc = scale2;
+        if constexpr (P::kQuant) sc *= sc_s[j];
+        float x = s[nt][e] * sc;
+        if (!full) {
+          const int pos = k0 + j;
+          x = pos < k_end && pos <= qpos[e / 2] ? x : kNegInf;
+        }
+        s[nt][e] = x;
+        m_tile[e / 2] = fmaxf(m_tile[e / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(kFull, m_tile[r], 1));
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(kFull, m_tile[r], 2));
+      const float m_new = fmaxf(m[r], m_tile[r]);
+      alpha[r] = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[nt][e];
+        const float p = full || x > kNegInf ? exp2_approx(x - m[e / 2]) : 0.f;
+        s[nt][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int nt = 0; nt < 2 * kSteps; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+    // O += P.V, 16 keys a step. S's n-tiles 2j and 2j + 1 are P's A
+    // operand for keys 16j .. 16j + 15; P (times V's scales) goes in as
+    // a bf16 term and the bf16 of what it left out.
+#pragma unroll
+    for (int j = 0; j < kBlockK / 16; ++j) {
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p0 = s[2 * j + h][2 * r], p1 = s[2 * j + h][2 * r + 1];
+          if constexpr (P::kQuant) {
+            const float* vsc = sc_s + kBlockK + 16 * j + 8 * h + 2 * t;
+            p0 *= vsc[0];
+            p1 *= vsc[1];
+          }
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          a_hi[2 * h + r] = *reinterpret_cast<const uint32_t*>(&hi);
+          a_lo[2 * h + r] = bf16_pair(p0 - hf.x, p1 - hf.y);
+        }
+#pragma unroll
+      for (int np = 0; np < kSteps; ++np) {
+        // Keys 16j + 8 (mtx & 1) .., dims 16 np + 8 (mtx >> 1) ..,
+        // transposed: b[0..1] dims 16 np + g, b[2..3] 16 np + 8 + g.
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (16 * j + 8 * (mtx & 1) + r8) * S +
+                                  (16 * np + 8 * (mtx >> 1)) * 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma_16816(o[2 * np + h], a_hi, vb[2 * h], vb[2 * h + 1]);
+          mma_16816(o[2 * np + h], a_lo, vb[2 * h], vb[2 * h + 1]);
+        }
+      }
+    }
+  }
+
+  if (!busy) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row >= n_rows) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst =
+        out + ((size_t)(b * T + row / G) * Hq + kvh * G + row % G) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 2 * kSteps; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt) =
+          __floats2bfloat162_rn(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *k_scales, *v_scales, *lens;
   void* out;
@@ -874,16 +1004,22 @@ struct Args {
 };
 
 template <class P, int D, class Keys>
-void launch_prefill(const Args& a, Keys keys) {
-  constexpr int kRows = kWarps * kRowsPerWarp;
+int launch_prefill(const Args& a, Keys keys) {
+  constexpr int kSmem = PrefillLayout<P, D>::kSmemBytes;
+  // Once per instantiation: the ring exceeds the 48 KiB default.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mma_kernel<P, D, Keys>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_rows = a.T * (a.Hq / a.Hkv);
-  const dim3 grid((n_rows + kRows - 1) / kRows, a.Hkv, a.B);
-  decode_attention_kernel<P, D, Keys><<<grid, kThreads, 0, a.stream>>>(
+  const dim3 grid(a.Hkv, a.B, (n_rows + kPrefillRows - 1) / kPrefillRows);
+  prefill_mma_kernel<P, D, Keys><<<grid, kThreads, kSmem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), a.k, a.v,
       static_cast<const float*>(a.k_scales),
       static_cast<const float*>(a.v_scales),
       static_cast<const int*>(a.lens), static_cast<__nv_bfloat16*>(a.out),
       a.T, a.Hq, a.Hkv, a.max_len, a.scale, keys);
+  return 0;
 }
 
 template <class P, int D, class Keys>
@@ -908,12 +1044,11 @@ int launch_decode(const Args& a, Keys keys) {
 }
 
 // Decode (at most kDecodeRows query rows per GQA group) splits the keys
-// across CTAs; prefill runs four rows a warp.
+// across CTAs; prefill takes 64 rows a CTA.
 template <class P, int D, class Keys>
 int launch_rows(const Args& a, Keys keys) {
   if (a.T * (a.Hq / a.Hkv) <= kDecodeRows) return launch_decode<P, D>(a, keys);
-  launch_prefill<P, D>(a, keys);
-  return 0;
+  return launch_prefill<P, D>(a, keys);
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched); a head dim

@@ -38,6 +38,14 @@ reads no length on the host, and gives the same bits every time. The
 wrapper allocates the partials' workspace per call and keeps one ticket
 counter per (row, KV head) per device, which the kernel leaves at zero:
 calls on one device must not run on two streams at once.
+
+Prefill (more rows) runs one CTA per block of PREFILL_ROWS query rows of
+a (KV head, batch row), the blocks with the most keys first; each walks
+its keys in KEY_TILE tiles up to its last visible key, with both
+products on the tensor cores and int8/int4 tiles unpacked to bf16 once a
+tile. Tiles wholly visible to a warp's rows run unmasked. No split, no
+workspace: the output repeats its bits, and the paged form gives the
+contiguous form's bits on the same keys.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from container_engine_accelerators_tpu_torch.ops.quant import (
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 DECODE_ROWS = 4        # query rows a decode CTA holds (kDecodeRows)
+PREFILL_ROWS = 64      # query rows a prefill CTA holds (kPrefillRows)
 KEY_TILE = 64          # keys per tile (kBlockK)
 MAX_SPLITS = 32
 SPLIT_CTAS_PER_SM = 4  # decode CTAs the split aims at, per SM

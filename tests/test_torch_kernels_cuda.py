@@ -421,6 +421,93 @@ def test_decode_split_replays_in_a_cuda_graph(cuda, mode, page):
     _assert_rows_close(out, plain(*args), 128)
 
 
+# ------------------------------------------ K1, K3 prefill: the row blocks
+
+# Cache lengths where a block's diagonal crosses a 64-key tile partway:
+# none cached, one key short of a tile, a tile, one key past, a long row.
+PREFILL_EDGE_LENS = [0, 63, 64, 65, 1023]
+
+
+def _prefill_case(cuda, seed, mode, page, t, hq, hkv, d):
+    """(args of the call, args of K1 on a contiguous copy of the same
+    keys) at PREFILL_EDGE_LENS: a contiguous cache, or a pool at `page`,
+    holding NaN (bf16) or extreme integers and NaN scales at and past
+    each row's `live` and wherever else the kernel must not read."""
+    int4 = mode == "int4"
+    lens = PREFILL_EDGE_LENS
+    b = len(lens)
+    live = [n + t for n in lens]
+    if page is None:
+        max_len = max(live) + 5
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        q = torch.randn(b, t, hq, d, generator=gen, device=cuda).bfloat16()
+        k, v = (torch.randn(b, max_len, hkv, d, generator=gen, device=cuda)
+                for _ in range(2))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        if mode == "bf16":
+            k, v = k.bfloat16(), v.bfloat16()
+            for row, n in enumerate(live):
+                k[row, n:], v[row, n:] = float("nan"), float("nan")
+            args = (q, k, v, lens_t)
+        else:
+            (k, ks), (v, vs) = _quantized(k, mode), _quantized(v, mode)
+            k, v, ks, vs = _poison_past_live(k, v, ks, vs, live)
+            args = (q, k, v, lens_t, ks, vs, int4)
+        return args, args
+    max_pages = -(-max(live) // page) + 1
+    if mode == "bf16":
+        q, kp, vp, lens_t, tables = _paged_case(cuda, seed, lens, t, page,
+                                                hq, hkv, d, max_pages)
+        scales = ()
+    else:
+        q, kp, vp, ksp, vsp, lens_t, tables = _quantized_paged_case(
+            cuda, seed, lens, t, page, hq, hkv, d, max_pages, mode)
+        scales = (ksp, vsp, int4)
+    max_len = max_pages * page
+    rows = tables.long().clamp(0, kp.shape[0] - 1)
+    k = kp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    v = vp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    flat = ()
+    if scales:
+        flat = tuple(x[rows].transpose(1, 2).reshape(b, hkv, max_len)
+                     .contiguous() for x in scales[:2]) + (int4,)
+    return (q, kp, vp, lens_t, tables, *scales), (q, k, v, lens_t, *flat)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("page", [None, 16, 128])
+@pytest.mark.parametrize("t,hq,hkv,d", [
+    (2, 32, 8, 128),    # T x G 8: just above decode's 4 rows
+    (17, 32, 8, 128),   # 68 rows: a second block of 4 rows
+    (5, 8, 1, 64),      # G 8, 40 rows: one block, warp 3 idle
+    (33, 4, 4, 32),     # G 1
+    (128, 32, 8, 128),  # the serving path's chunk width, 8 blocks
+])
+def test_prefill_matches_plain_at_tile_edges(cuda, mode, page, t, hq, hkv,
+                                             d):
+    # The prefill body against its plain version at the row tolerance, in
+    # every payload and both addressings (page 16: a tile spans four
+    # pages, each key resolves its row), with lengths that put the
+    # diagonal across a tile partway through a block and poison past
+    # `live`; two calls give the same bits, and K3 the same bits as K1
+    # on a contiguous copy of its keys.
+    args, flat = _prefill_case(cuda, 200 + t + (page or 0) + len(mode),
+                               mode, page, t, hq, hkv, d)
+    op, plain = _ops(page)
+    name = ("paged_decode_attention" if page else "decode_attention") + (
+        "" if mode == "bf16" else f"_{mode}")
+    kernels.reset_launches()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {name: 1}
+    want = plain(*args)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    _assert_rows_close(got, want, d)
+    assert torch.equal(op(*args), got)
+    if page:
+        assert torch.equal(decode_attention(*flat), got)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_generate_on_a_quantized_cache_goes_through_the_kernel(cuda, mode):
     cfg = llama_tiny(kv_cache_dtype=mode)
