@@ -5,10 +5,15 @@ health paths on one GPU.
   python3 chip_smoke.py          # from the root of a checkout, one H100
 
   python3 chip_smoke.py k4 [--batch B] [--seq S] [ROOT ...]
+  python3 chip_smoke.py bwd [--batch B] [--seq S] [--train] [ROOT ...]
   python3 chip_smoke.py decode [--tick] [--prefill] [ROOT ...]
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
-2048 unless asked otherwise, one JSON line. `decode` times K1 and K3 in
+2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
+K4) in the same cases beside SDPA's backward, whole and with only q
+requiring grad, one JSON line; with --train also the train phase's
+8-layer llama3_8b step (median ms, device-busy ms, the flash kernels'
+device ms a step from torch.profiler). `decode` times K1 and K3 in
 every k1_* and k3_* case on bf16, int8 and int4 caches, one JSON line;
 with --tick also the paged decode tick on llama3_8b (wall and
 device-busy ms), with --prefill one llama3_8b prefill of 2 x 512 tokens
@@ -66,10 +71,12 @@ Phases, one JSON line each:
            flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
            heads, 8 KV heads, D 128; causal, segmented and non-causal),
            timed beside the plain versions and SDPA's forward and
-           backward (timing only; the segmented case with the
+           backward (timing only; K5 beside the backward with only q
+           requiring grad; the segmented case with the
            segment-and-causal boolean mask), naming SDPA's backend;
            each kernel's registers and spill bytes from ptxas's report
-           on the library loaded (K4 must not spill);
+           on the library loaded (none may spill); k5_k6_* sets the
+           pair's ms beside SDPA's whole backward;
   train    llama3_8b at full width and 8 of its 32 layers, random f32
            masters from a seed, trained for 6 steps at batch 4 x 2048 by
            fit (synthetic data, make_optimizer, 'dots' remat): step ms,
@@ -1452,6 +1459,31 @@ def _flash_sdpa(torch, q, k, v, seg, causal):
                               attn_mask=vis, scale=1.0), qt, kt, vt)
 
 
+def _sdpa_times(torch, q, k, v, seg, causal, do) -> dict:
+    """SDPA's forward and its backward timed two ways (timing only): dq,
+    dk and dv in one call, and with only q requiring grad (K5's function:
+    whether the backend then computes dq alone shows in the ratio of the
+    two); and the backend SDPA's dispatcher picks."""
+    sdpa, qt, kt, vt = _flash_sdpa(torch, q, k, v, seg, causal)
+    dot = do.transpose(1, 2)
+    o = sdpa(qt, kt, vt)
+    o_q = sdpa(qt, kt.detach(), vt.detach())
+    res = {
+        "sdpa_backward_ms": device_ms(
+            torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                               retain_graph=True), iters=10),
+        "sdpa_backward_dq_only_ms": device_ms(
+            torch, lambda: torch.autograd.grad(o_q, (qt,), dot,
+                                               retain_graph=True), iters=10),
+        "sdpa_backend": _sdpa_backend(torch, qt, kt, vt, sdpa.keywords),
+        "sdpa_forward_ms": device_ms(
+            torch, functools.partial(sdpa, qt.detach(), kt.detach(),
+                                     vt.detach()), iters=10)}
+    res["sdpa_dq_only_share"] = (res["sdpa_backward_dq_only_ms"]
+                                 / res["sdpa_backward_ms"])
+    return res
+
+
 def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                 hkv: int = 8) -> dict:
     """K4, K5 and K6 against their plain versions at the train phase's
@@ -1464,8 +1496,8 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
     d = 128
     results = {name: {} for name in FLASH_REPLACES}
     ptxas = {name: ptxas_report(f"{name}_kernel") for name in FLASH_REPLACES}
-    require(ptxas["flash_fwd"]["spill_bytes"] == 0,
-            f"K4 spills: {ptxas['flash_fwd']}")
+    for name, report in ptxas.items():
+        require(report["spill_bytes"] == 0, f"{name} spills: {report}")
     for case, causal, seg, q, k, v, do in _flash_cases(torch, dev, b, s, hq,
                                                        hkv):
         work = _flash_work(torch, seg, b, s, hq, hkv, d, causal)
@@ -1498,22 +1530,15 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
             "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_cuda(*args),
                               lambda: fa.flash_bwd_dkv_plain(*args)),
         }
-        # SDPA's forward for K4, and its backward, dq, dk and dv in one
-        # call, for K6.
-        sdpa, qt, kt, vt = _flash_sdpa(torch, q, k, v, seg, causal)
-        fwd = functools.partial(sdpa, qt.detach(), kt.detach(), vt.detach())
-        o = sdpa(qt, kt, vt)
-        dot = do.transpose(1, 2)
-
-        def bwd():
-            return torch.autograd.grad(o, (qt, kt, vt), dot,
-                                       retain_graph=True)
-
-        library = {"flash_fwd": device_ms(torch, fwd, iters=10),
-                   "flash_bwd_dq": None,
-                   "flash_bwd_dkv": device_ms(torch, bwd, iters=10)}
-        backend = _sdpa_backend(torch, qt, kt, vt, sdpa.keywords)
-        del o, qt, kt, vt, fwd
+        # SDPA's forward for K4; its backward with only q requiring grad
+        # for K5, and dq, dk and dv in one call for K6.
+        sdpa = _sdpa_times(torch, q, k, v, seg, causal, do)
+        library = {"flash_fwd": sdpa["sdpa_forward_ms"],
+                   "flash_bwd_dq": sdpa["sdpa_backward_dq_only_ms"],
+                   "flash_bwd_dkv": sdpa["sdpa_backward_ms"]}
+        what = {"flash_fwd": "SDPA forward",
+                "flash_bwd_dq": "SDPA backward, only q requiring grad",
+                "flash_bwd_dkv": "SDPA backward: dq, dk and dv in one call"}
         prefix = {"flash_fwd": "k4", "flash_bwd_dq": "k5",
                   "flash_bwd_dkv": "k6"}
         for name, (kernel, plain) in timed.items():
@@ -1525,13 +1550,10 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                    "plain_ms": device_ms(torch, plain, iters=3),
                    "library_ms": library[name],
                    "bound_ms": bms, "bound_by": by, **ptxas[name]}
-            if library[name] is not None:
-                res["library"] = (
-                    ("SDPA forward" if name == "flash_fwd" else
-                     "SDPA backward: dq, dk and dv in one call")
-                    + ("" if seg is None else
-                       ", boolean mask, KV heads repeated")
-                    + f", {backend} backend")
+            res["library"] = (what[name]
+                              + ("" if seg is None else
+                                 ", boolean mask, KV heads repeated")
+                              + f", {sdpa['sdpa_backend']} backend")
             results[name][case] = res
             emit({"phase": f"{prefix[name]}_{case}", "B": b, "S": s,
                   "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
@@ -1540,7 +1562,18 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                                else FLASH_GRAD_ROW_RTOL),
                   "tensor_atol_share": FLASH_TENSOR_ATOL,
                   "lse_max_abs_err": lse_err, **res})
-        del q, k, v, do, lse, lse_p, delta, args, timed, bwd
+        # The backward pair against SDPA's whole backward: K5 and K6 do
+        # seven products where a fused backward does five, the price of
+        # summing dq without atomics.
+        pair = (results["flash_bwd_dq"][case]["ms"]
+                + results["flash_bwd_dkv"][case]["ms"])
+        emit({"phase": f"k5_k6_{case}", "pair_ms": pair,
+              "pair_bound_ms": (results["flash_bwd_dq"][case]["bound_ms"]
+                                + results["flash_bwd_dkv"][case]["bound_ms"]),
+              "sdpa_backward_ms": sdpa["sdpa_backward_ms"],
+              "pair_over_sdpa": pair / sdpa["sdpa_backward_ms"],
+              "sdpa_dq_only_share": sdpa["sdpa_dq_only_share"]})
+        del q, k, v, do, lse, lse_p, delta, args, timed
     return results
 
 
@@ -1628,6 +1661,10 @@ def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
         "device_busy_ms_per_step": busy,
         "device_busy_share": None if busy is None else busy / median_ms,
         "device_ms_per_step_by_kind": by_kind,
+        "flash_ms_per_step": {
+            name: sum(ms for kernel, ms in (profile["kernels"] or {}).items()
+                      if f"{name}_kernel" in kernel)
+            for name in FLASH_REPLACES},
         "top_kernels_ms_per_step": profile["top"],
         "spans_ms_per_step": profile["spans"],
         "max_memory_allocated_bytes": peak,
@@ -1892,6 +1929,22 @@ def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
     return result
 
 
+def time_roots(sub: str, flags: list[str], roots: list[str],
+               timeout: float) -> int:
+    """Run `chip_smoke.py SUB FLAGS` once for each ROOT, in order, each in
+    a process of its own that imports the port from that checkout (-P:
+    from PYTHONPATH, not from this file's directory); stop at the first
+    that fails."""
+    for root in roots:
+        rc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), sub, *flags],
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
+            timeout=timeout).returncode
+        if rc:
+            return rc
+    return 0
+
+
 def k4_timing(torch, dev, b: int, s: int) -> dict:
     """K4's ms beside SDPA's forward (timing only) in each k4_* case, on
     flash_phase's inputs at B x S."""
@@ -1929,17 +1982,73 @@ def k4_main(torch, argv: list[str]) -> int:
               **k4_timing(torch, torch.device("cuda", 0), args.batch,
                           args.seq)})
         return 0
-    for root in args.roots:
-        # -P: the port comes from PYTHONPATH, the checkout timed, not
-        # from this file's directory.
-        rc = subprocess.run(
-            [sys.executable, "-P", os.path.abspath(__file__), "k4",
-             "--batch", str(args.batch), "--seq", str(args.seq)],
-            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
-            timeout=600).returncode
-        if rc:
-            return rc
-    return 0
+    return time_roots("k4", ["--batch", str(args.batch), "--seq",
+                             str(args.seq)], args.roots, 600)
+
+
+def bwd_timing(torch, dev, b: int, s: int) -> dict:
+    """K5's and K6's ms in each k5_*/k6_* case beside SDPA's backward
+    (timing only; whole, and with only q requiring grad), and K4's, on
+    flash_phase's inputs at B x S; each kernel's backward inputs come from
+    K4."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    res = {"B": b, "S": s}
+    for case, causal, seg, q, k, v, do in _flash_cases(torch, dev, b, s):
+        out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, seg, do, lse, delta.contiguous(), causal)
+        ms = {"k4": device_ms(
+                  torch, lambda: fa.flash_fwd_cuda(q, k, v, seg, causal)),
+              "k5": device_ms(torch, lambda: fa.flash_bwd_dq_cuda(*args)),
+              "k6": device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*args))}
+        sdpa = _sdpa_times(torch, q, k, v, seg, causal, do)
+        res[case] = {**ms, "pair": ms["k5"] + ms["k6"], **sdpa,
+                     "pair_over_sdpa": ((ms["k5"] + ms["k6"])
+                                        / sdpa["sdpa_backward_ms"])}
+        del out, lse, delta, args
+    return res
+
+
+def bwd_main(torch, argv: list[str]) -> int:
+    """`chip_smoke.py bwd`: see the module's docstring."""
+    import argparse
+
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py bwd")
+    ap.add_argument("roots", nargs="*", metavar="ROOT",
+                    help="a checkout to time in a process of its own")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--train", action="store_true",
+                    help="also the 8-layer llama3_8b train step")
+    args = ap.parse_args(argv)
+    if not args.roots:
+        dev = torch.device("cuda", 0)
+        kernels.load()
+        res = {"phase": "bwd_timing", "nvidia_smi": nvidia_smi_line(),
+               "kernels": os.path.dirname(kernels.__file__),
+               **bwd_timing(torch, dev, args.batch, args.seq)}
+        if args.train:
+            gc.collect()
+            torch.cuda.empty_cache()
+            train = train_phase(torch, dev, np)
+            res["train"] = {key: train[key] for key in (
+                "median_step_ms", "step_ms_after_first",
+                "device_busy_ms_per_step", "flash_ms_per_step")}
+            res["train"]["flash_attention_ms_per_step"] = (
+                train["device_ms_per_step_by_kind"].get("flash_attention"))
+        emit(res)
+        return 0
+    return time_roots("bwd", ["--batch", str(args.batch), "--seq",
+                              str(args.seq),
+                              *(["--train"] if args.train else [])],
+                      args.roots, 900)
 
 
 def decode_timing(torch, dev) -> dict:
@@ -2056,16 +2165,7 @@ def decode_main(torch, argv: list[str]) -> int:
                 res["prefill"] = prefill_timing(torch, dev, np, model, cfg)
         emit(res)
         return 0
-    for root in args.roots:
-        # -P: the port comes from PYTHONPATH, the checkout timed.
-        rc = subprocess.run(
-            [sys.executable, "-P", os.path.abspath(__file__), "decode",
-             *flags],
-            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
-            timeout=600).returncode
-        if rc:
-            return rc
-    return 0
+    return time_roots("decode", flags, args.roots, 600)
 
 
 def main() -> int:
@@ -2088,6 +2188,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["k4"]:
         return k4_main(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["bwd"]:
+        return bwd_main(torch, sys.argv[2:])
     if sys.argv[1:2] == ["decode"]:
         return decode_main(torch, sys.argv[2:])
 

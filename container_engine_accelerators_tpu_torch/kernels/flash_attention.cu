@@ -24,10 +24,15 @@
 //
 // What bounds them on an H100: operations. At B 4, S 2048, 32 q heads,
 // D 128, causal, K4 does 137 GFLOP (0.139 ms at 989 TFLOP/s bf16), K5
-// 206 and K6 275, against ~0.05 ms of bytes each. So the products run on
-// the tensor cores and the softmax runs on the accumulators in registers
-// (FlashAttention-2's scheme). No blocks above the diagonal are visited,
-// so the TPU's 'rect' and 'tri' causal grids are one schedule here.
+// 206 (three products) and K6 275 (four), against ~0.05 ms of bytes
+// each. So the products run on the tensor cores and the softmax runs on
+// the accumulators in registers (FlashAttention-2's scheme). No blocks
+// above the diagonal are visited, so the TPU's 'rect' and 'tri' causal
+// grids are one schedule here. The backward stays two kernels, as on
+// the TPU: a fused one (five products, not seven) would sum dq across
+// CTAs by atomics, whose order changes from run to run, or through a
+// per-key-tile f32 buffer of ~4 GB at these shapes; the two extra
+// products are the price of a deterministic dq.
 //
 // K4 is built for Hopper (sm_90a): TMA, mbarriers, warp specialisation
 // and wgmma, the tensor-core path that reaches the full bf16 rate.
@@ -70,19 +75,42 @@
 //     alpha = 0, after it p = 0). A live tile's ids go to shared memory
 //     beside it, and a tile of one segment equal to the q tile's one is
 //     not masked at all.
-// K4 takes S a multiple of 128 (the JAX kernel's own gate).
 //
-// K5 and K6 use mma.sync m16n8k16 (bf16 in, f32 out) from 4 warps:
-//   - K5: one CTA per (q tile of 64, q head, batch row), a warp per 16
-//     query rows, looping over 64-key tiles up to the diagonal; Q and dO
-//     stay in shared memory, K/V tiles stream;
-//   - K6: one CTA per (k tile of 64, KV head, batch row), a warp per 16
-//     keys, looping over the Hq/Hkv q heads of its group and over 32-row
-//     q tiles from the diagonal on. dk and dv sum the whole group in f32
-//     and round once; no KV head is repeated in memory and no atomics
-//     are used, so every kernel is deterministic.
-// Their tiles come in with 16-byte loads and sit in shared memory with
-// rows padded by 16 bytes, so fragment reads are free of bank conflicts.
+// K5 and K6 run on K4's machinery: TMA boxes into a ring of mbarrier
+// stages, a producer warp, two consumer warpgroups on wgmma taking turns
+// on named barriers, ex2.approx with log2(e) folded into one FMA, and
+// segment-tile skipping. Each is deterministic: no atomics, every sum in
+// a fixed order inside one CTA.
+//   - K5 (dq): one CTA per (q tile of 128 rows, q head, batch row),
+//     heavy (late) q tiles first. Q and dO of the 128 rows come in once;
+//     64-key K and V tiles stream through a 4-stage ring. A consumer
+//     warpgroup takes 64 rows: S = Q.K^T and dP = dO.V^T are wgmma
+//     m64n64k16 with both operands K-major in shared memory (V is read
+//     K-major here), ds = p (dp - delta) with p = 2^(s log2e - lse log2e)
+//     runs on the accumulators, and dQ += dS.K takes dS packed to bf16
+//     from the accumulator as its A operand and the same K tile, read
+//     MN-major, as B (m64n128k16). dq is rounded to bf16 once.
+//   - K6 (dk, dv): one CTA per (key tile of 128, KV head, batch row),
+//     early key tiles first; K and V stay resident. The producer walks
+//     the group's q heads in order and each head's 64-row q tiles from
+//     the causal diagonal on, bringing Q, dO, the tile's lse and delta
+//     (bulk copies) and its ids through a 4-stage ring. A consumer
+//     warpgroup takes 64 keys: S^T = K.Q^T and dP^T = V.dO^T (m64n64k16),
+//     then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T from the
+//     accumulators as A and dO, Q read MN-major as B. The GQA group sums
+//     in the same f32 accumulators, head by head, and rounds once.
+//   - Softmax beside the tensor cores: the two consumer warpgroups take
+//     turns on named barriers, so one computes ds while the other's
+//     products run. A warpgroup issues its two steps of a tile (scores,
+//     then gradients) one after the other: in K6, dK and dV hold 128
+//     registers a thread and leave no room for the next tile's scores
+//     in flight; in K5 that overlap measured slower than none.
+//   - A tile that the causal rule or the segment ids mask whole is
+//     never loaded (the producer reads both tiles' id ranges, as in K4):
+//     its p would be exp(-1e30 - lse) = 0, so it adds exactly nothing;
+//     the backward needs no alpha. ops/flash_attention.py writes the two
+//     walks out (dq_key_tiles, dkv_q_tiles).
+// All three take S a multiple of 128 (the JAX kernel's own gate).
 #include <cuda.h>           // CUtensorMap and its enums; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,95 +119,14 @@
 namespace {
 
 constexpr int kD = 128;              // head_dim
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;            // q rows (K5) or keys (K6) a CTA
-constexpr int kKeyTile = 64;         // keys per step of K5
-constexpr int kQTile = 32;           // q rows per step of K6
-constexpr int kStride = kD + 8;      // smem row, in bf16: 272 bytes
+constexpr int kSeqTile = 128;        // S is a multiple of it
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's NEG_INF
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t word(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragments of mma.m16n8k16, lane = 4 * g + t. A is 16x16 (rows r0.., k
-// k0..) of a row-major smem tile X.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* X, int r0,
-                                       int k0, int g, int t) {
-  a[0] = word(X + (r0 + g) * kStride + k0 + 2 * t);
-  a[1] = word(X + (r0 + g + 8) * kStride + k0 + 2 * t);
-  a[2] = word(X + (r0 + g) * kStride + k0 + 8 + 2 * t);
-  a[3] = word(X + (r0 + g + 8) * kStride + k0 + 8 + 2 * t);
-}
-
-// B is 16x8 (k x n). load_b: the tile holds X[n][k] (B^T row-major, as K
-// for Q.K^T); load_b_t: it holds X[k][n] (as V for P.V).
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* X, int n0,
-                                       int k0, int g, int t) {
-  b[0] = word(X + (n0 + g) * kStride + k0 + 2 * t);
-  b[1] = word(X + (n0 + g) * kStride + k0 + 8 + 2 * t);
-}
-
-__device__ __forceinline__ void load_b_t(uint32_t b[2], const bf16* X,
-                                         int k0, int n0, int g, int t) {
-  const bf16* p = X + (k0 + 2 * t) * kStride + n0 + g;
-  b[0] = pack(p[0], p[kStride]);
-  b[1] = pack(p[8 * kStride], p[9 * kStride]);
-}
-
-// `rows` rows of D bf16 from global (row pitch `pitch` elements) into a
-// padded smem tile, 16 bytes per thread per step.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int rows, size_t pitch) {
-  constexpr int kChunks = kD / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * pitch + c * 8);
-  }
-}
-
-// The accumulator of an m16n8 product: c[0], c[1] are row g, columns
-// 2t, 2t+1; c[2], c[3] row g+8. Scores of a tile are masked in place.
-template <int NT>
-__device__ __forceinline__ void mask_scores(float (*s)[4], int row0,
-                                            int col0, bool causal_tile,
-                                            const float* seg_row,
-                                            const float* seg_col, int g,
-                                            int t, bool rows_are_q) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + (e >= 2 ? 8 : 0);
-      const int col = col0 + 8 * j + 2 * t + (e & 1);
-      const int qi = rows_are_q ? row : col, ki = rows_are_q ? col : row;
-      if (causal_tile && qi < ki) s[j][e] = kNegInf;
-      if (seg_row != nullptr && seg_row[row] != seg_col[col])
-        s[j][e] = kNegInf;
-    }
 }
 
 // ------------------------------------------------------------------ K4
@@ -197,6 +144,9 @@ constexpr int kMetaOff = kBarOff + 128;      // per stage: key tile, masked
 constexpr int kSegOff = kBarOff + 256;       // per stage: 128 key ids
 constexpr int kFwdSmem = kSegOff + kFwdStages * kFwdKeys * 4 +
                          1024;               // + the 1024-byte alignment
+// Registers a thread after setmaxnreg, in all three kernels: 128 x 40 +
+// 256 x 232 = 64512. K6's producer spilled at 24, and 32 + 240, the whole
+// file of 65536, was never granted (the kernel hung).
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(8 * (1 + 3 * kFwdStages) <= kMetaOff - kBarOff &&
                   8 * kFwdStages <= kSegOff - kMetaOff,
@@ -259,7 +209,8 @@ __device__ __forceinline__ int uniform(int x) {
 }
 
 // One TMA box of a [B, S, H, 128] tensor: 64 dims from d0, one head,
-// 128 rows from row0, one batch row; completion bytes go to `bar`.
+// the map's box of rows from row0, one batch row; completion bytes go to
+// `bar`.
 __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
                                         uint32_t bar, int d0, int head,
                                         int row0, int b) {
@@ -271,12 +222,14 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A 128 x 128 tile: the two boxes, dims 0-63 then 64-127.
+// A tile of Rows x 128: the two boxes, dims 0-63 then 64-127 (the map's
+// box has Rows rows).
+template <int Rows = 128>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int head, int row0,
                                          int b) {
   tma_box(dst, map, bar, 0, head, row0, b);
-  tma_box(dst + kBoxBytes, map, bar, 64, head, row0, b);
+  tma_box(dst + Rows * 128, map, bar, 64, head, row0, b);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle (layout type 1);
@@ -290,15 +243,18 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 
 // K-major operand (Q as A, K as B), step kk of 16 dims: box kk / 4, then
 // 32 bytes a step inside the 128-byte row (the hardware applies the
-// swizzle to the computed address); 8-row groups 1024 bytes apart.
+// swizzle to the computed address); 8-row groups 1024 bytes apart. Rows:
+// the rows of the tile's boxes, Rows x 128 bytes each.
+template <int Rows = 128>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return smem_desc(tile + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+  return smem_desc(tile + (kk / 4) * Rows * 128 + (kk % 4) * 32, 16, 1024);
 }
 
 // MN-major operand (V as B, N = dims), step kk of 16 keys: 16 rows of
 // 128 bytes; the two 64-dim boxes are LBO apart, 8-key groups SBO.
+template <int Rows = 128>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  return smem_desc(tile + kk * 16 * 128, kBoxBytes, 1024);
+  return smem_desc(tile + kk * 16 * 128, Rows * 128, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -334,6 +290,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define WG_D64                                                        \
   WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),     \
       WG_D8(48), WG_D8(56)
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_REGS32                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}"
 #define WG_REGS                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
@@ -352,6 +313,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : WG_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both K-major in shared memory;
+// d[4j + e] is row 16w + g + 8(e / 2), column 8j + 2t + e % 2 as above.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -393,6 +366,25 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// [min, max] over the warp of the segment ids each lane holds.
+__device__ __forceinline__ float2 warp_range(float2 x) {
+  return make_float2(warp_min(fminf(x.x, x.y)), warp_max(fmaxf(x.x, x.y)));
+}
+__device__ __forceinline__ float2 warp_range(float4 x) {
+  return warp_range(make_float2(fminf(fminf(x.x, x.y), fminf(x.z, x.w)),
+                                fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w))));
+}
+
+// A streamed tile of ids against the CTA's own: skip it when the two
+// [min, max] ranges are disjoint (no pair is equal); mask it unless both
+// are one segment, the same.
+__device__ __forceinline__ bool disjoint(float2 a, float2 b) {
+  return a.y < b.x || a.x > b.y;
+}
+__device__ __forceinline__ int needs_mask(float2 a, float2 b) {
+  return !(a.x == a.y && b.x == b.y && a.x == b.x);
+}
+
 // Warp 0 of WG0: Q once, then every live key tile through the ring, then
 // a sentinel stage (key tile -1). Lane l reads ids 4l..4l+3 of a tile.
 __device__ __forceinline__ void fwd_producer(
@@ -400,12 +392,10 @@ __device__ __forceinline__ void fwd_producer(
     uint32_t base, uint32_t bar, int* meta, float* seg_s, const float* segb,
     int q0, int h, int kvh, int b, int n_tiles) {
   const int lane = threadIdx.x;
-  float qmin = 0.f, qmax = 0.f;
-  if (segb != nullptr) {
-    const float4 x = reinterpret_cast<const float4*>(segb + q0)[lane];
-    qmin = warp_min(fminf(fminf(x.x, x.y), fminf(x.z, x.w)));
-    qmax = warp_max(fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
-  }
+  const float2 qr =
+      segb != nullptr
+          ? warp_range(reinterpret_cast<const float4*>(segb + q0)[lane])
+          : make_float2(0.f, 0.f);
   if (lane == 0) {
     mbar_expect_tx(q_full(bar), kTileBytes);
     tma_tile(base, tm_q, q_full(bar), h, q0, b);
@@ -417,12 +407,9 @@ __device__ __forceinline__ void fwd_producer(
     int masked = 0;
     if (segb != nullptr) {
       ids = reinterpret_cast<const float4*>(segb + kt * kFwdKeys)[lane];
-      const float kmin = warp_min(fminf(fminf(ids.x, ids.y),
-                                        fminf(ids.z, ids.w)));
-      const float kmax = warp_max(fmaxf(fmaxf(ids.x, ids.y),
-                                        fmaxf(ids.z, ids.w)));
-      if (kmax < qmin || kmin > qmax) continue;   // no equal pair: skip
-      masked = !(kmin == kmax && qmin == qmax && kmin == qmin);
+      const float2 kr = warp_range(ids);
+      if (disjoint(kr, qr)) continue;
+      masked = needs_mask(kr, qr);
     }
     mbar_wait(stage_empty(bar, stage), phase ^ 1);
     reinterpret_cast<float4*>(seg_s + stage * kFwdKeys)[lane] = ids;
@@ -680,247 +667,533 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-#undef WG_D8
-#undef WG_D64
-#undef WG_REGS
 
-// ------------------------------------------------------------------ K5
+// ---------------------------------------------------------------- K5, K6
 
-constexpr int kDqSmem = 4 * kTile * kStride * sizeof(bf16);
+constexpr int kBwdStages = 4;                 // depth of each ring
+constexpr int kHalfBytes = 64 * 128 * 2;      // a tile of 64 rows x 128 dims
+constexpr int kBwdStageBytes = 2 * kHalfBytes;   // K and V, or Q and dO
+constexpr int kBwdRingOff = 2 * kTileBytes;   // after the two 128-row tiles
+constexpr int kBwdBarOff = kBwdRingOff + kBwdStages * kBwdStageBytes;
+constexpr int kBwdMetaOff = kBwdBarOff + 128; // per stage: tile, masked
+constexpr int kBwdAuxOff = kBwdBarOff + 256;  // per stage: 64-value records
+constexpr int kDqSmem = kBwdAuxOff + kBwdStages * 64 * 4 + 1024;
+constexpr int kDkvSmem = kBwdAuxOff + kBwdStages * 3 * 64 * 4 + 1024;
+static_assert(8 * (1 + 2 * kBwdStages) <= kBwdMetaOff - kBwdBarOff &&
+                  8 * kBwdStages <= kBwdAuxOff - kBwdMetaOff,
+              "barriers and stage records overlap");
+static_assert(kDkvSmem <= 232448, "more shared memory than a block has");
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ seg,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int S, int Hq, int Hkv, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTile * kStride;
-  bf16* k_s = do_s + kTile * kStride;
-  bf16* v_s = k_s + kKeyTile * kStride;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = q_tile * kTile;
-  const int r0 = q0 + warp * 16;
-  const size_t q_pitch = (size_t)Hq * kD, kv_pitch = (size_t)Hkv * kD;
-  const size_t head = (size_t)b * S * Hq + h;
-  const bf16* kb = k + ((size_t)b * S * Hkv + kvh) * kD;
-  const bf16* vb = v + ((size_t)b * S * Hkv + kvh) * kD;
-  const float* segb = seg ? seg + (size_t)b * S : nullptr;
-  const float* lse_h = lse + ((size_t)b * Hq + h) * S;
-  const float* delta_h = delta + ((size_t)b * Hq + h) * S;
+// The mbarriers, at kBwdBarOff: the CTA's resident tiles (K5: Q and dO;
+// K6: K and V), then per stage full and empty.
+__device__ __forceinline__ uint32_t bwd_full(uint32_t bar, int s) {
+  return bar + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t bwd_empty(uint32_t bar, int s) {
+  return bar + 8 * (1 + kBwdStages + s);
+}
 
-  load_tile(q_s, q + head * kD + q0 * q_pitch, kTile, q_pitch);
-  load_tile(do_s, dout + head * kD + q0 * q_pitch, kTile, q_pitch);
-  const float row_lse[2] = {lse_h[r0 + g], lse_h[r0 + g + 8]};
-  const float row_delta[2] = {delta_h[r0 + g], delta_h[r0 + g + 8]};
+__device__ __forceinline__ void bwd_init(uint32_t bar) {
+  mbar_init(bar, 1);
+  for (int s = 0; s < kBwdStages; ++s) {
+    mbar_init(bwd_full(bar, s), 32);   // the producer warp's lanes
+    mbar_init(bwd_empty(bar, s), 8);   // the consumer warps
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  float acc[kD / 8][4];
+// `bytes` (a multiple of 16) from global to shared memory; completion
+// bytes go to `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// p (f32 in s) and ds (f32 in dp) to bf16 A fragments, as pack_p.
+__device__ __forceinline__ void pack32(const float (&x)[32],
+                                       uint32_t (&p)[16]) {
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < 16; ++i) p[i] = pack(x[2 * i], x[2 * i + 1]);
+}
 
-  const int n_tiles = causal ? (q0 + kTile) / kKeyTile : S / kKeyTile;
+// K5's producer, warp 0 of WG0: Q and dO once, then every live 64-key
+// tile (K, V and its ids) through the ring, then a sentinel (tile -1).
+__device__ __forceinline__ void dq_producer(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, uint32_t base,
+    uint32_t bar, int* meta, float* ids_s, const float* segb, int q0, int h,
+    int kvh, int b, int n_tiles) {
+  const int lane = threadIdx.x;
+  const float2 qr =
+      segb != nullptr
+          ? warp_range(reinterpret_cast<const float4*>(segb + q0)[lane])
+          : make_float2(0.f, 0.f);
+  if (lane == 0) {
+    mbar_expect_tx(bar, 2 * kTileBytes);
+    tma_tile(base, tm_q, bar, h, q0, b);
+    tma_tile(base + kTileBytes, tm_do, bar, h, q0, b);
+  }
+  int stage = 0;
+  uint32_t phase = 0;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kKeyTile;
-    __syncthreads();
-    load_tile(k_s, kb + k0 * kv_pitch, kKeyTile, kv_pitch);
-    load_tile(v_s, vb + k0 * kv_pitch, kKeyTile, kv_pitch);
-    __syncthreads();
-
-    float s[kKeyTile / 8][4], dp[kKeyTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, q_s, warp * 16, kk * 16, g, t);
-      load_a(ado, do_s, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < kKeyTile / 8; ++j) {
-        uint32_t bk[2], bv[2];
-        load_b(bk, k_s, j * 8, kk * 16, g, t);
-        load_b(bv, v_s, j * 8, kk * 16, g, t);
-        mma(s[j], aq, bk);
-        mma(dp[j], ado, bv);
-      }
+    float2 ids = make_float2(0.f, 0.f);
+    int masked = 0;
+    if (segb != nullptr) {
+      ids = reinterpret_cast<const float2*>(segb + kt * 64)[lane];
+      const float2 kr = warp_range(ids);
+      if (disjoint(kr, qr)) continue;
+      masked = needs_mask(kr, qr);
     }
-    mask_scores<kKeyTile / 8>(s, r0, k0,
-                              causal && k0 + kKeyTile - 1 > q0, segb, segb,
-                              g, t, true);
-    // ds = p * (dp - delta), p = exp(s - lse); kept in s.
-#pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        s[j][e] = expf(s[j][e] - row_lse[r]) * (dp[j][e] - row_delta[r]);
-      }
-    // acc += ds.bf16 @ K
-#pragma unroll
-    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                             pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        uint32_t bf[2];
-        load_b_t(bf, k_s, kk * 16, j * 8, g, t);
-        mma(acc[j], a, bf);
-      }
+    mbar_wait(bwd_empty(bar, stage), phase ^ 1);
+    reinterpret_cast<float2*>(ids_s + stage * 64)[lane] = ids;
+    if (lane == 0) {
+      meta[2 * stage] = kt;
+      meta[2 * stage + 1] = masked;
+      const uint32_t kv = base + kBwdRingOff + stage * kBwdStageBytes;
+      mbar_expect_tx(bwd_full(bar, stage), kBwdStageBytes);
+      tma_tile<64>(kv, tm_k, bwd_full(bar, stage), kvh, kt * 64, b);
+      tma_tile<64>(kv + kHalfBytes, tm_v, bwd_full(bar, stage), kvh,
+                   kt * 64, b);
+    } else {
+      mbar_arrive(bwd_full(bar, stage));   // releases this lane's ids
+    }
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  mbar_wait(bwd_empty(bar, stage), phase ^ 1);
+  if (lane == 0) meta[2 * stage] = -1;
+  mbar_arrive(bwd_full(bar, stage));
+}
+
+// K5's scores: s = Q.K^T and dp = dO.V^T of a 64-key tile on rows g
+// (r = 0) and g + 8 (r = 1) become ds = p (dp - delta) in s, p = 2^(s
+// log2e - lse log2e). A masked score is NEG_INF, whose p is exactly 0.
+// `off` is the thread's query row minus the tile's first key.
+__device__ __forceinline__ void dq_scores(float (&s)[32], const float (&dp)[32],
+                                          bool diag, bool masked,
+                                          const float* ids,
+                                          const float (&qseg)[2], int off,
+                                          const float (&lse2)[2],
+                                          const float (&delta)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 kid = masked ? *reinterpret_cast<const float2*>(ids + col)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2;
+      float x = s[4 * j + e];
+      if (diag && col + (e & 1) > off + 8 * r) x = kNegInf;
+      if (masked && qseg[r] != ((e & 1) ? kid.y : kid.x)) x = kNegInf;
+      const float p = ex2(fmaf(x, kLog2e, -lse2[r]));
+      s[4 * j + e] = p * (dp[4 * j + e] - delta[r]);
+    }
+  }
+}
+
+// S = Q.K^T and dP = dO.V^T of the tile in `kv` for one warpgroup's 64
+// rows (q and dO at row 64 cw of the CTA's tiles).
+__device__ __forceinline__ void dq_score_products(float (&s)[32],
+                                                  float (&dp)[32],
+                                                  uint32_t q, uint32_t d_o,
+                                                  uint32_t kv) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss64(s, kmajor_desc(q, kk), kmajor_desc<64>(kv, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss64(dp, kmajor_desc(d_o, kk),
+               kmajor_desc<64>(kv + kHalfBytes, kk), kk);
+}
+
+// dQ += dS.K, K of the tile in `kv` read MN-major.
+__device__ __forceinline__ void dq_product(float (&acc)[64],
+                                           const uint32_t (&ds)[16],
+                                           uint32_t kv) {
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(acc, ds + 4 * kk, mnmajor_desc<64>(kv, kk));
+}
+
+// K5's WG1 or WG2: 64 query rows over the key tiles the producer
+// delivers: S and dP, then ds, then dQ += dS.K, in turn with the other
+// warpgroup, so one computes ds while the other's products run.
+__device__ __forceinline__ void dq_consumer(
+    uint32_t base, uint32_t bar, const int* meta, const float* ids_s,
+    const float* segb, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int Hq,
+    int h, int b, int q0, int causal) {
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = cw * 64 + warp * 16 + g;   // in the q tile; and row + 8
+  const float* lse_h = lse + ((size_t)b * Hq + h) * S + q0;
+  const float* delta_h = delta + ((size_t)b * Hq + h) * S + q0;
+  const float lse2[2] = {lse_h[row] * kLog2e, lse_h[row + 8] * kLog2e};
+  const float dl[2] = {delta_h[row], delta_h[row + 8]};
+  float qseg[2] = {0.f, 0.f};
+  if (segb != nullptr) {
+    qseg[0] = segb[q0 + row];
+    qseg[1] = segb[q0 + row + 8];
+  }
+  float acc[64], s[32], dp[32];
+  uint32_t ds[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = base + cw * 64 * 128;   // row 64 cw of each box
+  const uint32_t do_addr = q_addr + kTileBytes;
+  auto kv_addr = [&](int stage) {
+    return base + kBwdRingOff + stage * kBwdStageBytes;
+  };
+  // The warpgroup's rows meet a key tile's diagonal from its first key
+  // q0 + 64 cw on.
+  auto diag = [&](int kt) { return causal && kt * 64 >= q0 + cw * 64; };
+
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(bar, 0);
+  // Turns as in fwd_consumer, two a tile; WG1 takes WG2's last pass
+  // after the loop, so every bar.arrive is matched.
+  if (cw == 1) turn_pass(cw);
+  for (;;) {
+    mbar_wait(bwd_full(bar, stage), phase);
+    const int kt = uniform(meta[2 * stage]);
+    if (kt < 0) break;   // the sentinel: no more tiles
+    turn_wait(cw);
+    wgmma_fence();
+    dq_score_products(s, dp, q_addr, do_addr, kv_addr(stage));
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dq_scores(s, dp, diag(kt), uniform(meta[2 * stage + 1]),
+              ids_s + stage * 64, qseg, q0 + row - kt * 64, lse2, dl, t);
+    pack32(s, ds);
+    turn_wait(cw);
+    wgmma_fence();
+    dq_product(acc, ds, kv_addr(stage));
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bwd_empty(bar, stage));
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (cw == 0) turn_wait(cw);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        dq + head * kD + (size_t)(r0 + g + 8 * r) * q_pitch);
+        dq + ((size_t)b * S + q0 + row + 8 * r) * Hq * kD + (size_t)h * kD);
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
-      dst[j * 4 + t] = __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+      dst[j * 4 + t] = __floats2bfloat162_rn(acc[4 * j + 2 * r],
+                                             acc[4 * j + 2 * r + 1]);
   }
 }
 
-// ------------------------------------------------------------------ K6
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const float* __restrict__ seg,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int S, int Hq, int Hkv, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem), bar = base + kBwdBarOff;
+  int* meta = reinterpret_cast<int*>(smem + kBwdMetaOff);
+  float* ids_s = reinterpret_cast<float*>(smem + kBwdAuxOff);
+  // Heavy (late) q tiles first, every head and batch row of a q tile
+  // together.
+  const int q_tile = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* segb = seg ? seg + (size_t)b * S : nullptr;
 
-constexpr int kDkvSmem = (2 * kTile + 2 * kQTile) * kStride * sizeof(bf16) +
-                         2 * kQTile * sizeof(float);
+  if (threadIdx.x == 0) bwd_init(bar);
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x < 32)
+      dq_producer(&tm_q, &tm_do, &tm_k, &tm_v, base, bar, meta, ids_s, segb,
+                  q_tile * kSeqTile, h, h / (Hq / Hkv), b,
+                  causal ? 2 * q_tile + 2 : S / 64);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    dq_consumer(base, bar, meta, ids_s, segb, lse, delta, dq, S, Hq, h, b,
+                q_tile * kSeqTile, causal);
+  }
+}
+
+// K6's producer, warp 0 of WG0: K and V once, then for each q head of
+// the group in order, every live 64-row q tile from the diagonal on (Q,
+// dO, its lse, delta and ids) through the ring, then a sentinel.
+__device__ __forceinline__ void dkv_producer(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, uint32_t base,
+    uint32_t bar, int* meta, float* aux, const float* segb,
+    const float* __restrict__ lse, const float* __restrict__ delta, int k0,
+    int kvh, int b, int S, int Hq, int n_rep, int causal) {
+  const int lane = threadIdx.x;
+  const float2 kr =
+      segb != nullptr
+          ? warp_range(reinterpret_cast<const float4*>(segb + k0)[lane])
+          : make_float2(0.f, 0.f);
+  if (lane == 0) {
+    mbar_expect_tx(bar, 2 * kTileBytes);
+    tma_tile(base, tm_k, bar, kvh, k0, b);
+    tma_tile(base + kTileBytes, tm_v, bar, kvh, k0, b);
+  }
+  const int q_first = causal ? k0 / 64 : 0;   // earlier rows see no key
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int h = kvh * n_rep; h < (kvh + 1) * n_rep; ++h) {
+    const size_t stats = ((size_t)b * Hq + h) * S;
+    for (int qt = q_first; qt < S / 64; ++qt) {
+      float2 ids = make_float2(0.f, 0.f);
+      int masked = 0;
+      if (segb != nullptr) {
+        ids = reinterpret_cast<const float2*>(segb + qt * 64)[lane];
+        const float2 qr = warp_range(ids);
+        if (disjoint(qr, kr)) continue;
+        masked = needs_mask(qr, kr);
+      }
+      mbar_wait(bwd_empty(bar, stage), phase ^ 1);
+      float* rec = aux + stage * 3 * 64;   // lse, delta, ids
+      reinterpret_cast<float2*>(rec + 128)[lane] = ids;
+      if (lane == 0) {
+        meta[2 * stage] = qt;
+        meta[2 * stage + 1] = masked;
+        const uint32_t full = bwd_full(bar, stage);
+        const uint32_t qd = base + kBwdRingOff + stage * kBwdStageBytes;
+        mbar_expect_tx(full, kBwdStageBytes + 2 * 64 * 4);
+        tma_tile<64>(qd, tm_q, full, h, qt * 64, b);
+        tma_tile<64>(qd + kHalfBytes, tm_do, full, h, qt * 64, b);
+        bulk_copy(smem_u32(rec), lse + stats + qt * 64, 64 * 4, full);
+        bulk_copy(smem_u32(rec + 64), delta + stats + qt * 64, 64 * 4, full);
+      } else {
+        mbar_arrive(bwd_full(bar, stage));   // releases this lane's ids
+      }
+      if (++stage == kBwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  mbar_wait(bwd_empty(bar, stage), phase ^ 1);
+  if (lane == 0) meta[2 * stage] = -1;
+  mbar_arrive(bwd_full(bar, stage));
+}
+
+// K6's scores: s = K.Q^T and dp = V.dO^T of a 64-row q tile, rows keys g
+// (r = 0) and g + 8 (r = 1), columns queries: p goes to s, ds = p (dp -
+// delta) to dp, with each column's lse and delta from the stage's
+// record. `off` is the thread's key minus the tile's first query; the
+// key's id is read only where the tile is masked (`kseg`: at the key).
+__device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32],
+                                           bool diag, bool masked,
+                                           const float* rec,
+                                           const float* kseg, int off,
+                                           int t) {
+  float kid[2] = {0.f, 0.f};
+  if (masked) {
+    kid[0] = kseg[0];
+    kid[1] = kseg[8];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(rec + col);
+    const float2 dl = *reinterpret_cast<const float2*>(rec + 64 + col);
+    const float2 qid = masked
+        ? *reinterpret_cast<const float2*>(rec + 128 + col)
+        : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2, c = e & 1;
+      float x = s[4 * j + e];
+      if (diag && col + c < off + 8 * r) x = kNegInf;
+      if (masked && kid[r] != (c ? qid.y : qid.x)) x = kNegInf;
+      const float p = ex2(fmaf(x, kLog2e, -(c ? l.y : l.x) * kLog2e));
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - (c ? dl.y : dl.x));
+    }
+  }
+}
+
+// S^T = K.Q^T and dP^T = V.dO^T for one warpgroup's 64 keys (k and v at
+// row 64 cw of the CTA's tiles) against the q tile in `qd`.
+__device__ __forceinline__ void dkv_score_products(float (&s)[32],
+                                                   float (&dp)[32],
+                                                   uint32_t k, uint32_t v,
+                                                   uint32_t qd) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss64(s, kmajor_desc(k, kk), kmajor_desc<64>(qd, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss64(dp, kmajor_desc(v, kk),
+               kmajor_desc<64>(qd + kHalfBytes, kk), kk);
+}
+
+// dV += P^T.dO and dK += dS^T.Q, dO and Q of the tile in `qd` MN-major.
+__device__ __forceinline__ void dkv_products(float (&dk)[64], float (&dv)[64],
+                                             const uint32_t (&p)[16],
+                                             const uint32_t (&ds)[16],
+                                             uint32_t qd) {
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(dv, p + 4 * kk, mnmajor_desc<64>(qd + kHalfBytes, kk));
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(dk, ds + 4 * kk, mnmajor_desc<64>(qd, kk));
+}
+
+// K6's WG1 or WG2: 64 keys over the q tiles the producer delivers. dK
+// and dV (128 registers a thread) leave no room for the next tile's
+// scores beside this tile's products, so a warpgroup issues its two
+// products of a tile one after the other, and the two warpgroups take
+// turns: one computes p and ds while the other's products run.
+__device__ __forceinline__ void dkv_consumer(
+    uint32_t base, uint32_t bar, const int* meta, const float* aux,
+    const float* segb, bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
+    int S, int Hkv, int kvh, int b, int k0, int causal) {
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + cw * 64 + warp * 16 + g;   // and key + 8
+  float dk[64], dv[64], s[32], dp[32];
+  uint32_t p[16], ds[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_addr = base + cw * 64 * 128;   // row 64 cw of each box
+
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(bar, 0);
+  // Turns as in fwd_consumer, two a tile; WG1 takes WG2's last pass
+  // after the loop, so every bar.arrive is matched.
+  if (cw == 1) turn_pass(cw);
+  for (;;) {
+    mbar_wait(bwd_full(bar, stage), phase);
+    const int qt = uniform(meta[2 * stage]);
+    if (qt < 0) break;   // the sentinel: no more tiles
+    const uint32_t qd = base + kBwdRingOff + stage * kBwdStageBytes;
+    turn_wait(cw);
+    wgmma_fence();
+    dkv_score_products(s, dp, k_addr, k_addr + kTileBytes, qd);
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // Some query of the tile comes before a key of the warpgroup's.
+    dkv_scores(s, dp, causal && qt * 64 < k0 + cw * 64 + 64,
+               uniform(meta[2 * stage + 1]), aux + stage * 3 * 64,
+               segb == nullptr ? nullptr : segb + key, key - qt * 64, t);
+    pack32(s, p);
+    pack32(dp, ds);
+    turn_wait(cw);
+    wgmma_fence();
+    dkv_products(dk, dv, p, ds, qd);
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(p);
+    fence_regs(ds);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bwd_empty(bar, stage));
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (cw == 0) turn_wait(cw);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t off = ((size_t)b * S + key + 8 * r) * Hkv * kD +
+                       (size_t)kvh * kD;
+    __nv_bfloat162* dk2 = reinterpret_cast<__nv_bfloat162*>(dk_out + off);
+    __nv_bfloat162* dv2 = reinterpret_cast<__nv_bfloat162*>(dv_out + off);
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      dk2[j * 4 + t] =
+          __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      dv2[j * 4 + t] =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ seg,
-                     const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, int Hq, int Hkv,
                      int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTile * kStride;
-  bf16* q_s = v_s + kTile * kStride;
-  bf16* do_s = q_s + kQTile * kStride;
-  float* lse_s = reinterpret_cast<float*>(do_s + kQTile * kStride);
-  float* delta_s = lse_s + kQTile;
-  const int k_tile = blockIdx.x;      // early key tiles see the most rows
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int n_rep = Hq / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = k_tile * kTile;
-  const int r0 = k0 + warp * 16;       // this warp's first key
-  const size_t q_pitch = (size_t)Hq * kD, kv_pitch = (size_t)Hkv * kD;
-  const size_t kv_head = (size_t)b * S * Hkv + kvh;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem), bar = base + kBwdBarOff;
+  int* meta = reinterpret_cast<int*>(smem + kBwdMetaOff);
+  float* aux = reinterpret_cast<float*>(smem + kBwdAuxOff);
+  // Early key tiles, which see the most rows under causal masking,
+  // first: every KV head and batch row of a key tile together.
+  const int k_tile = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
   const float* segb = seg ? seg + (size_t)b * S : nullptr;
 
-  load_tile(k_s, k + kv_head * kD + k0 * kv_pitch, kTile, kv_pitch);
-  load_tile(v_s, v + kv_head * kD + k0 * kv_pitch, kTile, kv_pitch);
+  if (threadIdx.x == 0) bwd_init(bar);
+  __syncthreads();
 
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  // Causal: q tiles before k0 see none of these keys.
-  const int q_first = causal ? k0 / kQTile : 0;
-  for (int h = kvh * n_rep; h < (kvh + 1) * n_rep; ++h) {
-    const size_t head = (size_t)b * S * Hq + h;
-    const float* lse_h = lse + ((size_t)b * Hq + h) * S;
-    const float* delta_h = delta + ((size_t)b * Hq + h) * S;
-    for (int qt = q_first; qt < S / kQTile; ++qt) {
-      const int q0 = qt * kQTile;
-      __syncthreads();
-      load_tile(q_s, q + head * kD + q0 * q_pitch, kQTile, q_pitch);
-      load_tile(do_s, dout + head * kD + q0 * q_pitch, kQTile, q_pitch);
-      if (threadIdx.x < kQTile) {
-        lse_s[threadIdx.x] = lse_h[q0 + threadIdx.x];
-        delta_s[threadIdx.x] = delta_h[q0 + threadIdx.x];
-      }
-      __syncthreads();
-
-      // s^T = K.q^T and dp^T = V.dO^T: rows are keys, columns queries.
-      float s[kQTile / 8][4], dp[kQTile / 8][4];
-#pragma unroll
-      for (int j = 0; j < kQTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, k_s, warp * 16, kk * 16, g, t);
-        load_a(av, v_s, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < kQTile / 8; ++j) {
-          uint32_t bq[2], bdo[2];
-          load_b(bq, q_s, j * 8, kk * 16, g, t);
-          load_b(bdo, do_s, j * 8, kk * 16, g, t);
-          mma(s[j], ak, bq);
-          mma(dp[j], av, bdo);
-        }
-      }
-      mask_scores<kQTile / 8>(s, r0, q0, causal && k0 + kTile - 1 > q0,
-                              segb, segb, g, t, false);
-      // p = exp(s - lse[q]) in s; ds = p * (dp - delta[q]) in dp.
-#pragma unroll
-      for (int j = 0; j < kQTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * t + (e & 1);
-          s[j][e] = expf(s[j][e] - lse_s[c]);
-          dp[j][e] = s[j][e] * (dp[j][e] - delta_s[c]);
-        }
-      // dv += p^T.bf16 @ dO and dk += ds^T.bf16 @ q.
-#pragma unroll
-      for (int kk = 0; kk < kQTile / 16; ++kk) {
-        const uint32_t ap[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                                pack(s[2 * kk][2], s[2 * kk][3]),
-                                pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t ads[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                                 pack(dp[2 * kk][2], dp[2 * kk][3]),
-                                 pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                 pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int j = 0; j < kD / 8; ++j) {
-          uint32_t bdo[2], bq[2];
-          load_b_t(bdo, do_s, kk * 16, j * 8, g, t);
-          load_b_t(bq, q_s, kk * 16, j * 8, g, t);
-          mma(dv_acc[j], ap, bdo);
-          mma(dk_acc[j], ads, bq);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const size_t off = kv_head * kD + (size_t)(r0 + g + 8 * r) * kv_pitch;
-    __nv_bfloat162* dk2 = reinterpret_cast<__nv_bfloat162*>(dk + off);
-    __nv_bfloat162* dv2 = reinterpret_cast<__nv_bfloat162*>(dv + off);
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      dk2[j * 4 + t] =
-          __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
-      dv2[j * 4 + t] =
-          __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x < 32)
+      dkv_producer(&tm_q, &tm_do, &tm_k, &tm_v, base, bar, meta, aux, segb,
+                   lse, delta, k_tile * kSeqTile, kvh, b, S, Hq, Hq / Hkv,
+                   causal);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    dkv_consumer(base, bar, meta, aux, segb, dk, dv, S, Hkv, kvh, b,
+                 k_tile * kSeqTile, causal);
   }
 }
 
-// The shapes every entry point takes: D 128, S a multiple of 64 (of 128
-// for K4), Hq a multiple of Hkv. Anything else returns
-// cudaErrorInvalidValue unlaunched (the Python wrappers check first).
+#undef WG_D8
+#undef WG_D32
+#undef WG_D64
+#undef WG_REGS32
+#undef WG_REGS
+
+// The shapes every entry point takes: D 128, S a multiple of 128, Hq a
+// multiple of Hkv. Anything else returns cudaErrorInvalidValue
+// unlaunched (the Python wrappers check first).
 bool bad_shape(int B, int S, int Hq, int Hkv, int D) {
-  return D != kD || B < 1 || S < kTile || S % kTile || Hkv < 1 ||
+  return D != kD || B < 1 || S < kSeqTile || S % kSeqTile || Hkv < 1 ||
          Hq % Hkv;
 }
 
@@ -952,9 +1225,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A [B, S, H, 128] bf16 tensor as 4-D (innermost first: D, H, S, B),
-// read in boxes of 64 dims x 1 head x 128 rows x 1 batch row with the
+// read in boxes of 64 dims x 1 head x `rows` rows x 1 batch row with the
 // 128-byte swizzle.
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                int rows = kSeqTile) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {kD, (cuuint64_t)H, (cuuint64_t)S,
@@ -962,7 +1236,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
   const cuuint64_t strides[3] = {kD * sizeof(bf16),
                                  (cuuint64_t)H * kD * sizeof(bf16),
                                  (cuuint64_t)S * H * kD * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, 1, kFwdKeys, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
@@ -978,7 +1252,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* seg, void* out, void* lse, int B,
                               int S, int Hq, int Hkv, int D, int causal,
                               void* stream) {
-  if (bad_shape(B, S, Hq, Hkv, D) || S % kFwdRows)
+  if (bad_shape(B, S, Hq, Hkv, D))
     return static_cast<int>(cudaErrorInvalidValue);
   // The tensor maps of this call's q, k and v, built on the host and
   // passed by value; an encoding the driver refuses is not launched.
@@ -998,25 +1272,36 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The four tensor maps of a backward call: q and do (Hq heads) in boxes
+// of `q_rows` rows, k and v (Hkv heads) in boxes of `kv_rows`.
+bool bwd_maps(CUtensorMap (&tm)[4], const void* q, const void* dout,
+              const void* k, const void* v, int B, int S, int Hq, int Hkv,
+              int q_rows, int kv_rows) {
+  return tensor_map(&tm[0], q, B, S, Hq, q_rows) &&
+         tensor_map(&tm[1], dout, B, S, Hq, q_rows) &&
+         tensor_map(&tm[2], k, B, S, Hkv, kv_rows) &&
+         tensor_map(&tm[3], v, B, S, Hkv, kv_rows);
+}
+
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* seg, const void* dout,
                                  const void* lse, const void* delta, void* dq,
                                  int B, int S, int Hq, int Hkv, int D,
                                  int causal, void* stream) {
-  if (bad_shape(B, S, Hq, Hkv, D))
+  CUtensorMap tm[4];
+  if (bad_shape(B, S, Hq, Hkv, D) ||
+      !bwd_maps(tm, q, dout, k, v, B, S, Hq, Hkv, kSeqTile, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(S / kTile, Hq, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem,
+  const dim3 grid(Hq, B, S / kSeqTile);
+  flash_bwd_dq_kernel<<<grid, kFwdThreads, kDqSmem,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(seg),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv,
-      causal);
+      tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(seg),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), S, Hq, Hkv, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1025,19 +1310,19 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int S, int Hq,
                                   int Hkv, int D, int causal, void* stream) {
-  if (bad_shape(B, S, Hq, Hkv, D))
+  CUtensorMap tm[4];
+  if (bad_shape(B, S, Hq, Hkv, D) ||
+      !bwd_maps(tm, q, dout, k, v, B, S, Hq, Hkv, 64, kSeqTile))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kDkvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(S / kTile, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
+  const dim3 grid(Hkv, B, S / kSeqTile);
+  flash_bwd_dkv_kernel<<<grid, kFwdThreads, kDkvSmem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(seg),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, Hq, Hkv, causal);
+      tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(seg),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv, causal);
   return static_cast<int>(cudaGetLastError());
 }

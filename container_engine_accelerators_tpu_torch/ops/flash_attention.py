@@ -13,13 +13,18 @@ Masked scores are NEG_INF = -1e30, not -inf (see the CUDA source).
 
 Each kernel has a plain PyTorch version beside it (`flash_fwd_plain`,
 `flash_bwd_dq_plain`, `flash_bwd_dkv_plain`) with the same blockwise
-arithmetic: 128-key tiles online in the forward (K4's tile), f32
+arithmetic: 128-key tiles online in the forward (K4's tile), 64-key
+tiles in dq (K5's) and 64-query tiles in dk/dv (K6's), f32
 accumulators, p and ds rounded to the operand dtype before their
 products. CPU tensors take the plain versions; CUDA tensors take the
 kernels (kernels/flash_attention.cu), which take bf16, head_dim 128 and
-S a multiple of 128 (K4) or 64 (K5, K6), and raise on anything else.
-`plain=True` runs the plain versions on the card, as the kernels'
-reference.
+S a multiple of 128, and raise on anything else. `plain=True` runs the
+plain versions on the card, as the kernels' reference.
+
+The backward kernels never load a tile that the causal rule or the
+segment ids mask whole (`dq_key_tiles`, `dkv_q_tiles` are their walks);
+such a tile's p is exp(-1e30 - lse) = 0, so skipping it changes no bit,
+which `skip=True` on the plain versions shows.
 
 `causal_grid` 'rect' and 'tri' are both accepted and compute the same
 thing: on the TPU they are two schedules of the causal grid (tri skips
@@ -38,7 +43,8 @@ from container_engine_accelerators_tpu_torch import kernels
 NEG_INF = -1e30
 FWD_KEY_TILE = 128  # K4 steps over keys by it (and takes q rows by it)
 KEY_TILE = 64       # K5 steps over keys by it
-Q_TILE = 32         # K6 steps over queries by it
+Q_TILE = 64         # K6 steps over queries by it
+SEQ_TILE = 128      # a K5 CTA's q rows, a K6 CTA's keys; S is a multiple
 KERNEL_HEAD_DIM = 128
 
 
@@ -101,16 +107,71 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_bwd_dq_plain(qs, k, v, seg, do, lse, delta, causal: bool
-                       ) -> torch.Tensor:
+def _seg_range(seg_row: torch.Tensor, lo: int, hi: int) -> tuple:
+    return seg_row[lo:hi].min().item(), seg_row[lo:hi].max().item()
+
+
+def _disjoint(a: tuple, b: tuple) -> bool:
+    return a[1] < b[0] or a[0] > b[1]
+
+
+def dq_key_tiles(seg_row: torch.Tensor | None, q_tile: int, s: int,
+                 causal: bool) -> list[int]:
+    """K5's walk: the KEY_TILE-key tiles, in order, that the CTA of
+    SEQ_TILE query rows `q_tile` loads. Causal: up to its diagonal.
+    Segment ids (`seg_row`, [S]): not a tile whose [min, max] misses the
+    q tile's, since no pair of them is visible."""
+    q0 = q_tile * SEQ_TILE
+    tiles = range((q0 + SEQ_TILE) // KEY_TILE if causal else s // KEY_TILE)
+    if seg_row is None:
+        return list(tiles)
+    qr = _seg_range(seg_row, q0, q0 + SEQ_TILE)
+    return [kt for kt in tiles if not _disjoint(
+        _seg_range(seg_row, kt * KEY_TILE, (kt + 1) * KEY_TILE), qr)]
+
+
+def dkv_q_tiles(seg_row: torch.Tensor | None, k_tile: int, s: int,
+                causal: bool) -> list[int]:
+    """K6's walk, for each q head of the group alike: the Q_TILE-row q
+    tiles, in order, that the CTA of SEQ_TILE keys `k_tile` loads.
+    Causal: from the first tile that reaches its first key on. Segment
+    ids: not a tile whose [min, max] misses the key tile's."""
+    k0 = k_tile * SEQ_TILE
+    tiles = range(k0 // Q_TILE if causal else 0, s // Q_TILE)
+    if seg_row is None:
+        return list(tiles)
+    kr = _seg_range(seg_row, k0, k0 + SEQ_TILE)
+    return [qt for qt in tiles if not _disjoint(
+        _seg_range(seg_row, qt * Q_TILE, (qt + 1) * Q_TILE), kr)]
+
+
+def _visited(walk, seg, b: int, s: int, step: int, causal: bool,
+             device) -> torch.Tensor:
+    """[S // step, B, S] bool: whether the CTA that holds each position
+    (SEQ_TILE of them a CTA) loads tile i of `step` under `walk`."""
+    live = torch.zeros((s // step, b, s), dtype=torch.bool)
+    for bi in range(b):
+        seg_row = None if seg is None else seg[bi].cpu()
+        for ct in range(s // SEQ_TILE):
+            for i in walk(seg_row, ct, s, causal):
+                live[i, bi, ct * SEQ_TILE:(ct + 1) * SEQ_TILE] = True
+    return live.to(device)
+
+
+def flash_bwd_dq_plain(qs, k, v, seg, do, lse, delta, causal: bool,
+                       skip: bool = False) -> torch.Tensor:
     """K5's function: dq [B, S, Hq, D] in qs.dtype, w.r.t. qs, summed
-    over 64-key tiles in f32."""
+    over 64-key tiles in f32. `skip=True` adds only the tiles K5 loads
+    (`dq_key_tiles`)."""
     b, s, hq, d = qs.shape
     n_rep = hq // k.shape[2]
     qh, kh, vh, doh = _heads(qs), _heads(k, n_rep), _heads(v, n_rep), \
         _heads(do)
     acc = torch.zeros((b, hq, s, d), device=qs.device)
     rows = torch.arange(s, device=qs.device)
+    if skip:
+        live = _visited(dq_key_tiles, seg, b, s, KEY_TILE, causal,
+                        qs.device)
     for k0 in range(0, s, KEY_TILE):
         kb = kh[:, :, k0:k0 + KEY_TILE]
         sc = qh @ kb.transpose(-1, -2)
@@ -120,14 +181,18 @@ def flash_bwd_dq_plain(qs, k, v, seg, do, lse, delta, causal: bool
         p = torch.exp(sc - lse[..., None])
         dp = doh @ vh[:, :, k0:k0 + KEY_TILE].transpose(-1, -2)
         ds = p * (dp - delta[..., None])
-        acc = acc + ds.to(k.dtype).float() @ kb
+        new = acc + ds.to(k.dtype).float() @ kb
+        acc = torch.where(live[k0 // KEY_TILE][:, None, :, None], new,
+                          acc) if skip else new
     return acc.to(qs.dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool
+def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool,
+                        skip: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6's function: (dk, dv) [B, S, Hkv, D] in k.dtype, summed over
-    32-query tiles and over each KV head's q heads in f32."""
+    64-query tiles and over each KV head's q heads in f32. `skip=True`
+    adds only the tiles K6 loads (`dkv_q_tiles`)."""
     b, s, hq, d = qs.shape
     hkv = k.shape[2]
     n_rep = hq // hkv
@@ -136,6 +201,8 @@ def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool
     dk = torch.zeros((b, hq, s, d), device=qs.device)
     dv = torch.zeros((b, hq, s, d), device=qs.device)
     keys = torch.arange(s, device=qs.device)
+    if skip:
+        live = _visited(dkv_q_tiles, seg, b, s, Q_TILE, causal, qs.device)
     for q0 in range(0, s, Q_TILE):
         qb, dob = qh[:, :, q0:q0 + Q_TILE], doh[:, :, q0:q0 + Q_TILE]
         # Transposed scores: rows are keys, columns queries.
@@ -144,10 +211,15 @@ def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool
         if mask is not None:
             sc = sc.masked_fill(~mask.transpose(-1, -2), NEG_INF)
         p = torch.exp(sc - lse[:, :, None, q0:q0 + Q_TILE])
-        dv = dv + p.to(do.dtype).float() @ dob
+        new_dv = dv + p.to(do.dtype).float() @ dob
         dp = vh @ dob.transpose(-1, -2)
         ds = p * (dp - delta[:, :, None, q0:q0 + Q_TILE])
-        dk = dk + ds.to(qs.dtype).float() @ qb
+        new_dk = dk + ds.to(qs.dtype).float() @ qb
+        if skip:
+            keep = live[q0 // Q_TILE][:, None, :, None]
+            new_dk = torch.where(keep, new_dk, dk)
+            new_dv = torch.where(keep, new_dv, dv)
+        dk, dv = new_dk, new_dv
 
     def per_kv_head(x):
         x = x.reshape(b, hkv, n_rep, s, d).sum(2)
@@ -156,15 +228,14 @@ def flash_bwd_dkv_plain(qs, k, v, seg, do, lse, delta, causal: bool
     return per_kv_head(dk), per_kv_head(dv)
 
 
-def _check_kernel_inputs(name: str, *tensors, seq_tile: int = KEY_TILE
-                         ) -> None:
+def _check_kernel_inputs(name: str, *tensors) -> None:
     """Raise on what the kernels cannot take."""
     q = tensors[0]
     if q.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"{name} kernel takes head_dim {KERNEL_HEAD_DIM}, "
                          f"got {q.shape[-1]}")
-    if q.shape[1] % seq_tile:
-        raise ValueError(f"{name} kernel takes S a multiple of {seq_tile}, "
+    if q.shape[1] % SEQ_TILE:
+        raise ValueError(f"{name} kernel takes S a multiple of {SEQ_TILE}, "
                          f"got {q.shape[1]}")
     for x in tensors:
         if x.dtype != torch.bfloat16:
@@ -177,19 +248,22 @@ def _check_kernel_inputs(name: str, *tensors, seq_tile: int = KEY_TILE
 
 
 def _check_stats(q: torch.Tensor, *stats) -> None:
-    """lse and delta: contiguous f32 [B, Hq, S] on q's device."""
+    """lse and delta: contiguous, 16-byte aligned f32 [B, Hq, S] on q's
+    device (K6 copies them 256 bytes at a time)."""
     b, s, hq, _ = q.shape
     for x in stats:
         if x.dtype != torch.float32 or x.shape != (b, hq, s) or \
-                x.device != q.device or not x.is_contiguous():
-            raise ValueError("lse and delta must be contiguous f32 "
-                             f"[{b}, {hq}, {s}] tensors on {q.device}")
+                x.device != q.device or not x.is_contiguous() or \
+                x.data_ptr() % 16:
+            raise ValueError("lse and delta must be contiguous, 16-byte "
+                             f"aligned f32 [{b}, {hq}, {s}] tensors on "
+                             f"{q.device}")
 
 
 def _seg_ptr(seg: torch.Tensor | None, q: torch.Tensor):
     if seg is None:
         return None
-    # K4 reads the ids 16 bytes at a time.
+    # The kernels read the ids 8 or 16 bytes at a time.
     if seg.dtype != torch.float32 or seg.device != q.device or \
             seg.shape != q.shape[:2] or not seg.is_contiguous() or \
             seg.data_ptr() % 16:
@@ -204,7 +278,7 @@ def _stream(x: torch.Tensor):
 
 def flash_fwd_cuda(qs, k, v, seg, causal: bool):
     """Launch K4 on CUDA tensors."""
-    _check_kernel_inputs("flash_fwd", qs, k, v, seq_tile=FWD_KEY_TILE)
+    _check_kernel_inputs("flash_fwd", qs, k, v)
     b, s, hq, d = qs.shape
     out = torch.empty_like(qs)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=qs.device)

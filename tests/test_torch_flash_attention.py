@@ -19,7 +19,7 @@ from container_engine_accelerators_tpu_torch.ops import flash_attention as tfa
 
 B, S, HQ, HKV, D = 1, 256, 4, 2, 128
 # f32: the same arithmetic in another tile order (the backward's 64-key
-# and 32-query tiles against the JAX run's 128): 1e-5 of the largest
+# and 64-query tiles against the JAX run's 128): 1e-5 of the largest
 # |o|, gradients 1e-4 of the largest |grad|.
 F32_OUT_TOL, F32_GRAD_TOL = 1e-5, 1e-4
 # bf16: p is rounded to bf16 against a running max taken over other
@@ -189,3 +189,90 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(bad):
                                   tfa.flash_fwd_cuda else ()) + (True,)
         with pytest.raises(err):
             fn(*args)
+
+
+# Segment ids for the skip-rule tests at S 512: three packed sequences of
+# unequal length; seven of equal length (boundaries inside tiles); and
+# boundaries exactly on 64-key and 128-key tile edges.
+SKIP_S = 512
+SKIP_SEGMENTS = {"three": (SKIP_S // 3, SKIP_S // 2),
+                 "seven": tuple(i * SKIP_S // 7 for i in range(1, 7)),
+                 "tile_edges": (64, 128, 320)}
+
+
+def _skip_case(segments, causal, seed=11, b=2, hq=4, hkv=2, d=64):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rs.randn(b, SKIP_S, h, d).astype(
+        np.float32)).bfloat16() for h in (hq, hkv, hkv, hq))
+    pos = np.arange(SKIP_S)
+    ids = sum((pos >= s0).astype(np.float32)
+              for s0 in SKIP_SEGMENTS[segments])
+    # The second row's sequences start one tile later.
+    seg = torch.from_numpy(np.stack([ids, np.roll(ids, 64)]))
+    seg[1, :64] = 0
+    qs = tfa._prescale(q)
+    out, lse = tfa.flash_fwd_plain(qs, k, v, seg, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return qs, k, v, seg, do, lse, delta
+
+
+@pytest.mark.parametrize("segments", sorted(SKIP_SEGMENTS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_tile_skipping_changes_no_bit(segments, causal):
+    args = _skip_case(segments, causal)
+    seg = args[3]
+    n_tiles = SKIP_S // tfa.SEQ_TILE
+    # The ids leave tiles to skip beyond the causal rule's.
+    assert any(len(tfa.dq_key_tiles(seg[0], t, SKIP_S, causal)) <
+               len(tfa.dq_key_tiles(None, t, SKIP_S, causal))
+               for t in range(n_tiles))
+    assert any(len(tfa.dkv_q_tiles(seg[0], t, SKIP_S, causal)) <
+               len(tfa.dkv_q_tiles(None, t, SKIP_S, causal))
+               for t in range(n_tiles))
+    assert torch.equal(tfa.flash_bwd_dq_plain(*args, causal, skip=True),
+                       tfa.flash_bwd_dq_plain(*args, causal))
+    for got, want in zip(tfa.flash_bwd_dkv_plain(*args, causal, skip=True),
+                         tfa.flash_bwd_dkv_plain(*args, causal)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("segments", sorted(SKIP_SEGMENTS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_skipped_tiles_have_p_exactly_zero(segments, causal):
+    qs, k, v, seg, _, lse, _ = _skip_case(segments, causal)
+    n_rep = qs.shape[2] // k.shape[2]
+    # p = exp(s - lse) over every (query, key) pair, as both versions
+    # take it: [B, Hq, S, S].
+    sc = tfa._heads(qs) @ tfa._heads(k, n_rep).transpose(-1, -2)
+    pos = torch.arange(SKIP_S)
+    sc = sc.masked_fill(~tfa._mask(pos, pos, causal, seg), tfa.NEG_INF)
+    p = torch.exp(sc - lse[..., None])
+    rows, keys = tfa.SEQ_TILE, tfa.KEY_TILE
+    skipped = 0
+    for bi in range(seg.shape[0]):
+        for t in range(SKIP_S // rows):
+            visit = tfa.dq_key_tiles(seg[bi], t, SKIP_S, causal)
+            for kt in set(range(SKIP_S // keys)) - set(visit):
+                block = p[bi, :, t * rows:(t + 1) * rows,
+                          kt * keys:(kt + 1) * keys]
+                assert bool((block == 0).all()), (bi, t, kt)
+                skipped += 1
+            visit = tfa.dkv_q_tiles(seg[bi], t, SKIP_S, causal)
+            for qt in set(range(SKIP_S // tfa.Q_TILE)) - set(visit):
+                block = p[bi, :, qt * tfa.Q_TILE:(qt + 1) * tfa.Q_TILE,
+                          t * rows:(t + 1) * rows]
+                assert bool((block == 0).all()), (bi, t, qt)
+                skipped += 1
+    assert skipped
+
+
+def test_backward_walks_follow_the_causal_rule():
+    # Without ids: K5's 128-row tile t loads key tiles 0 .. 2t + 1 (to its
+    # diagonal); K6's 128-key tile t loads q tiles 2t on.
+    s = 512
+    assert [tfa.dq_key_tiles(None, t, s, True) for t in range(4)] == [
+        list(range(2 * t + 2)) for t in range(4)]
+    assert [tfa.dkv_q_tiles(None, t, s, True) for t in range(4)] == [
+        list(range(2 * t, 8)) for t in range(4)]
+    assert tfa.dq_key_tiles(None, 1, s, False) == list(range(8))
+    assert tfa.dkv_q_tiles(None, 3, s, False) == list(range(8))

@@ -711,6 +711,61 @@ def test_flash_kernels_match_plain(cuda, s, hq, hkv, causal, n_segments):
                                       "flash_bwd_dkv": 1}
 
 
+# Segment starts for the backward's tile edges, in positions: on 64-key
+# edges that are not 128-key ones; on 128-key edges; and a long first
+# sequence, so that late q tiles skip whole early key tiles and early key
+# tiles skip whole late q tiles.
+EDGE_STARTS = {"on_64": (64, 192, 320, 960, 1600),
+               "on_128": (128, 384, 1024),
+               "skip_whole": (None, 64)}
+
+
+def _edge_seg(cuda, layout, b, s):
+    starts = [s // 2 + (x or 0) if layout == "skip_whole" else x
+              for x in EDGE_STARTS[layout]]
+    pos = torch.arange(s, device=cuda)
+    return sum(((pos >= x).float() for x in starts if x < s),
+               torch.zeros(s, device=cuda)).expand(b, s).contiguous()
+
+
+def _hold_backward(q, k, v, do, seg, causal):
+    out, lse = fa.flash_fwd_plain(q, k, v, seg, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, seg, do, lse, delta, causal)
+    kernels.reset_launches()
+    _rows_close(fa.flash_bwd_dq_cuda(*args), fa.flash_bwd_dq_plain(*args),
+                "dq")
+    for got, want, what in zip(fa.flash_bwd_dkv_cuda(*args),
+                               fa.flash_bwd_dkv_plain(*args), ("dk", "dv")):
+        _rows_close(got, want, what)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2), (8, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", sorted(EDGE_STARTS))
+def test_flash_backward_matches_plain_at_tile_edges(cuda, s, hq, hkv,
+                                                    causal, layout):
+    # n_rep 1, 4 and 8; K5's 128-row and K6's 128-key CTAs against 64-key
+    # and 64-row tiles, with segment boundaries on their edges.
+    q, k, v, do, _ = _flash_inputs(cuda, s + hq + hkv, 2, s, hq, hkv)
+    _hold_backward(q, k, v, do, _edge_seg(cuda, layout, 2, s), causal)
+
+
+@pytest.mark.parametrize("layout", ["on_64", "skip_whole"])
+def test_flash_backward_noncausal_segmented_full_length(cuda, layout):
+    q, k, v, do, _ = _flash_inputs(cuda, 5, 1, 2048, 32, 8)
+    seg = _edge_seg(cuda, layout, 1, 2048)
+    if layout == "skip_whole":   # the walks skip whole tiles here
+        assert fa.dq_key_tiles(seg[0].cpu(), 15, 2048, False) == list(
+            range(17, 32))
+        assert fa.dkv_q_tiles(seg[0].cpu(), 0, 2048, False) == list(
+            range(16))
+    _hold_backward(q, k, v, do, seg, False)
+
+
 def test_flash_kernels_are_deterministic(cuda):
     q, k, v, do, seg = _flash_inputs(cuda, 1, 2, 1024, 32, 8)
     outs = []
@@ -751,10 +806,14 @@ def test_flash_kernels_raise_on_what_they_cannot_take(cuda):
                           v[..., :64].contiguous(), None, True)
     with pytest.raises(ValueError):
         fa.flash_fwd_cuda(q.transpose(1, 2), k, v, None, True)
-    # K4 takes S a multiple of 128 (K5 and K6 one of 64).
-    q, k, v, _, _ = _flash_inputs(cuda, 3, 1, 192, 4, 2)
+    # Every flash kernel takes S a multiple of 128.
+    q, k, v, do, _ = _flash_inputs(cuda, 3, 1, 192, 4, 2)
     with pytest.raises(ValueError, match="multiple of 128"):
         fa.flash_fwd_cuda(q, k, v, None, True)
+    stats = torch.zeros((1, 4, 192), device=cuda)
+    for bwd in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            bwd(q, k, v, None, do, stats, stats, True)
     # Segment ids at an address K4 cannot read 16 bytes at a time.
     q, k, v, _, _ = _flash_inputs(cuda, 3, 1, 256, 4, 2)
     seg = torch.zeros(257, device=cuda)[1:].view(1, 256)
