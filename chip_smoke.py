@@ -7,6 +7,7 @@ health paths on one GPU.
   python3 chip_smoke.py k4 [--batch B] [--seq S] [ROOT ...]
   python3 chip_smoke.py bwd [--batch B] [--seq S] [--train] [ROOT ...]
   python3 chip_smoke.py decode [--tick] [--prefill] [ROOT ...]
+  python3 chip_smoke.py k2 [--int8] [ROOT ...]
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -18,7 +19,11 @@ every k1_* and k3_* case on bf16, int8 and int4 caches, one JSON line;
 with --tick also the paged decode tick on llama3_8b (wall and
 device-busy ms), with --prefill one llama3_8b prefill of 2 x 512 tokens
 through decode_step (wall and device-busy ms, K1's ms and share of the
-busy time). Each ROOT, a checkout such as a `git archive` of a
+busy time). `k2` times K2 in every k2_* case beside its library call,
+and K7 beside torch.mul in turns, one JSON line; with --int8 also
+llama3_8b's prefill of 8 x 128 and decode step at batch 8 on bf16
+weights and on their int8 copy (wall ms, device-busy ms, K2's ms and
+the top kernels of each). Each ROOT, a checkout such as a `git archive` of a
 parent unpacked under checkout_proof/, is timed in a process of its own
 that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
@@ -34,8 +39,13 @@ Phases, one JSON line each:
            (decode_split_kernel, or prefill_mma_kernel for prefill),
            its key-range splits, and its registers and spill bytes from
            ptxas's report;
-  k2_*     kernels/int8_matmul.cu against int8_matmul_plain, timed beside
-           torch.matmul on the dequantized weight (timing only);
+  k2_*     kernels/int8_matmul.cu against int8_matmul_plain (and its
+           bits repeated) at every call llama3_8b makes: the seven
+           projections and the f32 lm_head at T 8, and prefill at T 1024
+           and 512; timed cold (copies rotated past the L2) beside
+           torch.matmul on the dequantized weight (timing only); each
+           line names the body that ran, its token tile and splits of D,
+           and its registers and spill bytes (none may spill);
   k3_*     the paged entry of kernels/decode_attention.cu against
            paged_decode_attention_plain at 8B widths and page 128, timed
            beside the plain version, K1 on a contiguous copy of the same
@@ -49,7 +59,10 @@ Phases, one JSON line each:
            port: concurrent requests in two buckets plus one streamed;
            then decode ms per step at batch 8 and a torch.profiler
            breakdown of the device time of a decode step;
-  int8     the same weights through quantize_llama_params and generate;
+  int8     the same weights through quantize_llama_params and generate,
+           the prefill logits against the plain path; then the prefill
+           of 8 x 128 and the decode step at batch 8 on bf16 and int8
+           weights: wall ms, device-busy ms, K2's ms, top kernels;
   paged    the same weights behind PagedContinuousEngine + make_server:
            one request that leaves a 256-token prefix in the prefix
            cache, then a concurrent burst of short, prefix-sharing, long
@@ -96,7 +109,7 @@ Phases, one JSON line each:
            (VMEM_OOM and HBM_OOM, every device still Healthy); then
            cli.inject_fault's HBM_ECC_UNCORRECTABLE for card 0 (nvidia0
            Unhealthy, one Warning Event, the node condition); K7 against
-           x * 2.0 (exact), timed beside it.
+           x * 2.0 (exact), timed in turns with torch.mul (5 each).
 Then each phase's seconds, the kernels line (launches on the main path,
 errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before that line. Without CUDA, or outside a
@@ -376,42 +389,124 @@ def k1_phase(torch, dev) -> dict:
 
 # ---------------------------------------------------------------- K2
 
-def k2_phase(torch, dev) -> dict:
+# The calls K2 serves on llama3_8b (models/decode.py _proj): each of a
+# layer's seven projections and the f32 lm_head at decode (8 rows), and
+# prefill at 8 x 128 tokens (1024) and a 512-token paged chunk.
+K2_CASES = [                 # (name, T, D, F, x dtype)
+    ("wq_t8", 8, 4096, 4096, "bf16"), ("wk_t8", 8, 4096, 1024, "bf16"),
+    ("wv_t8", 8, 4096, 1024, "bf16"), ("wo_t8", 8, 4096, 4096, "bf16"),
+    ("w_gate_t8", 8, 4096, 14336, "bf16"),
+    ("w_up_t8", 8, 4096, 14336, "bf16"),
+    ("w_down_t8", 8, 14336, 4096, "bf16"),
+    ("lm_head_t8", 8, 4096, 128256, "f32"),
+    ("w_gate_t1024", 1024, 4096, 14336, "bf16"),
+    ("wk_t1024", 1024, 4096, 1024, "bf16"),
+    ("lm_head_t1024", 1024, 4096, 128256, "f32"),
+    ("w_gate_t512", 512, 4096, 14336, "bf16"),
+]
+# Weights are timed cold, as a decode step finds them: calls rotate over
+# copies that together exceed the 50 MB L2.
+K2_ROTATE_BYTES = 128 << 20
+
+
+def k2_kernel_info(dev, t: int, d: int, f: int, kind: str) -> dict:
+    """The body of kernels/int8_matmul.cu a K2 call runs, its token tile
+    and splits of D (ops/quant.plan on this card's SM count), and its
+    registers and spill bytes from ptxas's report."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.ops import quant
+
+    p = quant.plan(t, d, f, kernels.sm_count(dev), kind == "bf16")
+    xt = "13__nv_bfloat16" if kind == "bf16" else "f"
+    report = (ptxas_report(p.body) if p.body == "int8_wgmma_kernel"
+              else ptxas_report(p.body, f"ILi{p.tokens}E{xt}E"))
+    return {"kernel": p.body, "tokens": p.tokens, "splits": p.splits,
+            "registers": report["registers"],
+            "spill_bytes": report["spill_bytes"],
+            "ptxas_serialized_wgmma": report["ptxas_serialized_wgmma"]}
+
+
+def _k2_inputs(torch, dev, gen, t, d, f, kind) -> tuple:
+    """(x, QuantWeights): enough copies of a random [d, f] weight to
+    exceed K2_ROTATE_BYTES between two uses of one."""
     from container_engine_accelerators_tpu_torch.ops.quant import (
-        dequantize,
-        int8_matmul_cuda,
-        int8_matmul_plain,
+        QuantWeight,
         quantize_weights,
     )
 
-    cases = [("w_gate_bf16", 8, 4096, 14336, torch.bfloat16, "bf16"),
-             ("lm_head_f32", 8, 4096, 128256, torch.float32, "f32")]
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    qw = quantize_weights(
+        torch.randn(d, f, generator=gen, device=dev) * d ** -0.5)
+    copies = -(-K2_ROTATE_BYTES // (d * f))
+    return x, [qw] + [QuantWeight(qw.values.clone(), qw.scales.clone())
+                      for _ in range(copies - 1)]
+
+
+def _rotating(fn, items):
+    """A call of fn on the next of `items` each time."""
+    state = {"i": 0}
+
+    def call():
+        item = items[state["i"] % len(items)]
+        state["i"] += 1
+        return fn(item)
+    return call
+
+
+def k2_times(torch, dev, x, qws) -> dict:
+    """K2's device ms and torch.matmul's on the dequantized weight (the
+    library call, x's dtype), each over rotating cold copies."""
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        dequantize,
+        int8_matmul_cuda,
+    )
+
+    ms = device_ms(torch, _rotating(lambda qw: int8_matmul_cuda(x, qw), qws))
+    deq = [dequantize(qw, x.dtype) for qw in qws]
+    library_ms = device_ms(torch, _rotating(lambda w: torch.matmul(x, w),
+                                            deq))
+    del deq
+    return {"ms": ms, "library_ms": library_ms}
+
+
+def k2_phase(torch, dev) -> dict:
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        int8_matmul_cuda,
+        int8_matmul_plain,
+    )
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     results = {}
-    for name, t, d, f, dtype, kind in cases:
-        x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
-        qw = quantize_weights(
-            torch.randn(d, f, generator=gen, device=dev) * d ** -0.5)
+    for name, t, d, f, kind in K2_CASES:
+        x, qws = _k2_inputs(torch, dev, gen, t, d, f, kind)
+        qw = qws[0]
         got = int8_matmul_cuda(x, qw)
         torch.cuda.synchronize()
         want = int8_matmul_plain(x, qw)
         err = (got.float() - want.float()).abs().max().item()
         tol = K2_TOL[kind] * want.float().abs().max().item()
         require(err <= tol, f"K2 {name}: max|diff| {err} > {tol}")
-        w_deq = dequantize(qw, dtype)
-        ms = device_ms(torch, lambda: int8_matmul_cuda(x, qw))
+        again = int8_matmul_cuda(x, qw)
+        require(torch.equal(got, again), f"K2 {name}: bits changed")
+        del got, want, again
+        info = k2_kernel_info(dev, t, d, f, kind)
+        require(info["spill_bytes"] == 0, f"K2 {name} spills: {info}")
+        times = k2_times(torch, dev, x, qws)
         plain_ms = device_ms(torch, lambda: int8_matmul_plain(x, qw),
                              iters=5)
-        library_ms = device_ms(torch, lambda: torch.matmul(x, w_deq))
         item = x.element_size()
         n_bytes = t * d * item + d * f + 4 * f + t * f * item
-        bms, by = bound_ms(n_bytes, 2 * t * d * f, kind)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bms,
-                         "bound_by": by}
+        # One product at the bf16 tensor-core rate, f32 x too: the kernel
+        # runs f32 x as two bf16 products (its own floor is twice this).
+        bms, by = bound_ms(n_bytes, 2 * t * d * f, "bf16")
+        results[name] = {"max_abs_err": err, **times, "plain_ms": plain_ms,
+                         "bound_ms": bms, "bound_by": by}
         emit({"phase": f"k2_{name}", "T": t, "D": d, "F": f,
-              "x_dtype": kind, "tol": tol, **results[name]})
-        del x, qw, got, want, w_deq
+              "x_dtype": kind, "tol": tol, **results[name],
+              "share_of_bound": bms / times["ms"],
+              "over_library": times["ms"] / times["library_ms"], **info})
+        del x, qws, qw
     return results
 
 
@@ -920,6 +1015,63 @@ def serve_phase(torch, dev, np) -> tuple[dict, object, object]:
     return result, model, cfg
 
 
+# K2's kernels as torch.profiler names them: this checkout's two bodies
+# and an older checkout's int8_matmul_partial/_finish.
+K2_KERNELS = ("int8_mma_kernel", "int8_wgmma_kernel", "int8_matmul")
+
+
+def k2_ms(profile: dict) -> float | None:
+    """The device ms of K2's kernels in a profile_steps result."""
+    if profile["kernels"] is None:
+        return None
+    return sum(ms for name, ms in profile["kernels"].items()
+               if any(k in name for k in K2_KERNELS))
+
+
+def model_step_profile(torch, dev, decode, model, cfg, batch) -> dict:
+    """torch.profiler over a prefill of `batch` from an empty cache
+    (decode_step) and over decode steps after it (profile_decode): the
+    device-busy ms of each, their top kernels, and K2's ms of each."""
+    cache = decode.init_cache(cfg, batch.shape[0], batch.shape[1], dev)
+
+    def prefill():
+        decode.decode_step(model, cache, batch, cfg)
+
+    prefill()
+    pre = profile_steps(torch, prefill, steps=2)
+    dec = profile_decode(torch, dev, decode, model, cfg, batch)
+    return {"prefill_device_busy_ms": pre["busy_ms_per_step"],
+            "prefill_k2_ms": k2_ms(pre),
+            "prefill_top_kernels_ms": pre["top"],
+            "decode_device_busy_ms_per_step": dec["busy_ms_per_step"],
+            "decode_k2_ms_per_step": k2_ms(dec),
+            "decode_top_kernels_ms_per_step": dec["top"]}
+
+
+def int8_timing(torch, dev, model, qmodel, cfg, batch) -> dict:
+    """The bf16 weights and their int8 copy on the same batch: prefill
+    and decode-step wall ms (generate), and model_step_profile's
+    device-busy ms and top kernels of each."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    res = {}
+    for name, m in (("bf16", model), ("int8", qmodel)):
+        prefill_ms, step_ms = step_times_ms(torch, decode.generate, m, batch,
+                                            cfg)
+        res[name] = {"prefill_ms_b8_t128": prefill_ms,
+                     "decode_ms_per_step_b8": step_ms,
+                     **model_step_profile(torch, dev, decode, m, cfg, batch)}
+    res["int8_prefill_over_bf16"] = (res["int8"]["prefill_ms_b8_t128"]
+                                     / res["bf16"]["prefill_ms_b8_t128"])
+    return res
+
+
+def _int8_batch(torch, dev, np, cfg):
+    rs = np.random.RandomState(SEED + 2)
+    return torch.tensor(rs.randint(0, cfg.vocab_size, size=(8, 128)),
+                        device=dev)
+
+
 def int8_phase(torch, dev, np, model, cfg) -> dict:
     from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.models import decode
@@ -928,9 +1080,7 @@ def int8_phase(torch, dev, np, model, cfg) -> dict:
     )
 
     qmodel = quantize_llama_params(model)
-    rs = np.random.RandomState(SEED + 2)
-    batch = torch.tensor(rs.randint(0, cfg.vocab_size, size=(8, 128)),
-                         device=dev)
+    batch = _int8_batch(torch, dev, np, cfg)
     kernels.reset_launches()
     out = decode.generate(qmodel, batch, cfg, 16)
     torch.cuda.synchronize()
@@ -952,14 +1102,15 @@ def int8_phase(torch, dev, np, model, cfg) -> dict:
             f"int8 prefill logits kernel vs plain {diff} > "
             f"{LOGITS_RTOL} * {scale}")
     del kern, plain
-    prefill_ms, step_ms = step_times_ms(torch, decode.generate, qmodel,
-                                        batch, cfg)
+    timing = int8_timing(torch, dev, model, qmodel, cfg, batch)
     result = {"phase": "int8", "model": "llama3_8b", "batch": 8,
               "prompt": 128, "new_tokens": 16, "launches": launches,
               "prefill_logits_max_abs_diff": diff,
               "prefill_logits_max_abs": scale,
-              "prefill_ms_b8_t128": prefill_ms,
-              "decode_ms_per_step_b8": step_ms}
+              "prefill_ms_b8_t128": timing["int8"]["prefill_ms_b8_t128"],
+              "decode_ms_per_step_b8":
+                  timing["int8"]["decode_ms_per_step_b8"],
+              **timing}
     emit(result)
     return result
 
@@ -1797,6 +1948,27 @@ def provoke_all() -> dict:
         return {name: fut.result() for name, fut in futs.items()}
 
 
+K7_ROUNDS = 5
+
+
+def k7_times(torch, x) -> dict:
+    """K7 and torch.mul(x, 2.0) timed in turns, K7_ROUNDS each: their
+    median device ms and every run's."""
+    import statistics
+
+    from container_engine_accelerators_tpu_torch.ops.scale_demo import (
+        scale_demo_cuda,
+    )
+
+    runs = {"ms": [], "library_ms": []}
+    for _ in range(K7_ROUNDS):
+        runs["ms"].append(device_ms(torch, lambda: scale_demo_cuda(x)))
+        runs["library_ms"].append(device_ms(torch,
+                                            lambda: torch.mul(x, 2.0)))
+    return {**{key: statistics.median(v) for key, v in runs.items()},
+            **{f"{key}_runs": v for key, v in runs.items()}}
+
+
 def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
     """The node health path on the card. The healthy K7 runs as the
     node's workload (the one launch counted); then K7 built with the
@@ -1908,10 +2080,8 @@ def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
     n_bytes = 2 * x.numel() * x.element_size()
     bound, bound_by = bound_ms(n_bytes, x.numel(), "f32")
     result = {
-        "phase": "health", "shape": list(shape),
-        "ms": device_ms(torch, lambda: scale_demo(x)),
+        "phase": "health", "shape": list(shape), **k7_times(torch, x),
         "plain_ms": device_ms(torch, lambda: scale_demo_plain(x)),
-        "library_ms": device_ms(torch, lambda: torch.mul(x, 2.0)),
         "library": "torch.mul(x, 2.0), which is also the plain version",
         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
         "launches": launches,
@@ -2049,6 +2219,63 @@ def bwd_main(torch, argv: list[str]) -> int:
                               str(args.seq),
                               *(["--train"] if args.train else [])],
                       args.roots, 900)
+
+
+def k2_timing(torch, dev) -> dict:
+    """K2's and the library call's device ms in every k2_* case (cold
+    weights, timing only: the full smoke checks them), and K7's beside
+    torch.mul in turns."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    res = {}
+    for name, t, d, f, kind in K2_CASES:
+        x, qws = _k2_inputs(torch, dev, gen, t, d, f, kind)
+        res[name] = k2_times(torch, dev, x, qws)
+        del x, qws
+    x = torch.randn(4096, 4096, generator=gen, device=dev)
+    res["k7"] = k7_times(torch, x)
+    return res
+
+
+def k2_main(torch, argv: list[str]) -> int:
+    """`chip_smoke.py k2`: see the module's docstring."""
+    import argparse
+
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py k2")
+    ap.add_argument("roots", nargs="*", metavar="ROOT",
+                    help="a checkout to time in a process of its own")
+    ap.add_argument("--int8", action="store_true",
+                    help="also llama3_8b's prefill and decode step on int8 "
+                         "weights, beside bf16")
+    args = ap.parse_args(argv)
+    flags = ["--int8"] if args.int8 else []
+    if not args.roots:
+        dev = torch.device("cuda", 0)
+        kernels.load()
+        res = {"phase": "k2_timing", "nvidia_smi": nvidia_smi_line(),
+               "kernels": os.path.dirname(kernels.__file__),
+               **k2_timing(torch, dev)}
+        if args.int8:
+            from container_engine_accelerators_tpu_torch.models.llama import (
+                init_params,
+                llama3_8b,
+            )
+            from container_engine_accelerators_tpu_torch.ops.quant import (
+                quantize_llama_params,
+            )
+
+            cfg = llama3_8b()
+            model = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            res["int8"] = int8_timing(
+                torch, dev, model, quantize_llama_params(model), cfg,
+                _int8_batch(torch, dev, np, cfg))
+        emit(res)
+        return 0
+    return time_roots("k2", flags, args.roots, 900)
 
 
 def decode_timing(torch, dev) -> dict:
@@ -2192,6 +2419,8 @@ def main() -> int:
         return bwd_main(torch, sys.argv[2:])
     if sys.argv[1:2] == ["decode"]:
         return decode_main(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["k2"]:
+        return k2_main(torch, sys.argv[2:])
 
     try:
         dev = torch.device("cuda", 0)
@@ -2274,27 +2503,28 @@ def main() -> int:
                  **prefill(results[mode][prefill_case])}
                 for mode in KV_MODES]
 
-    k1_main, k2_main, k3_main = (k1["decode_slots"], k2["w_gate_bf16"],
-                                 k3["decode"])
+    k1_row, k2_row, k3_row = (k1["decode_slots"], k2["w_gate_t8"],
+                              k3["decode"])
     emit({"kernels": [
         {"name": "decode_attention", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches("decode_attention"),
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
          "max_row_rel_err": max(r["max_row_rel_err"] for r in k1.values()),
-         **{key: k1_main[key] for key in ("ms", "plain_ms", "bound_ms",
+         **{key: k1_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
          **prefill(k1["prefill_512"])},
         {"name": "int8_matmul", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches("int8_matmul"),
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-         **{key: k2_main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}},
+         **{key: k2_row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+         **prefill(k2["w_gate_t1024"])},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches("paged_decode_attention"),
          "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
          "max_row_rel_err": max(r["max_row_rel_err"] for r in k3.values()),
-         **{key: k3_main[key] for key in ("ms", "plain_ms", "bound_ms",
+         **{key: k3_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "k1_contiguous_ms", "library")},
          **prefill(k3["prefill_chunk_512"])},
@@ -2314,7 +2544,8 @@ def main() -> int:
          "launches": health["launches"].get("scale_demo", 0),
          **{key: health[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms", "library")}},
+                                         "library_ms", "library", "ms_runs",
+                                         "library_ms_runs")}},
     ]})
     emit({"train_summary": {
         "median_step_ms": train["median_step_ms"],

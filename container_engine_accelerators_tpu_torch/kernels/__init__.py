@@ -2,14 +2,15 @@
 kernels.
 
 `load()` compiles every `*.cu` file beside this module with nvcc for
-`sm_90a` (one nvcc process per source, all started together), links the
+`sm_90a` (one nvcc process per source, all started together; the `*.cuh`
+headers beside them are included by those that need them), links the
 objects into ONE shared library with a plain C interface, and loads it
 with ctypes. Sources without PyTorch's headers build in seconds, where a
 `torch.utils.cpp_extension` build takes minutes. The library lands in
 `.torch_kernels_build/` at the repository root (listed in .gitignore),
-named by a hash of the sources and flags, so a checkout builds once and
-an edited source rebuilds; the compiler's report lies beside it under the
-same name (`build_log()`). A failed build raises.
+named by a hash of the sources, headers and flags, so a checkout builds
+once and an edited source rebuilds; the compiler's report lies beside it
+under the same name (`build_log()`). A failed build raises.
 
 Every wrapper calls `count(name)` right after it launches its kernel and
 nowhere else, so a run can show that its main path went through the
@@ -58,9 +59,9 @@ _SIGNATURES = {
     #  Hkv, D, page, max_pages, n_pages, ...)
     **{f"paged_decode_attention_{mode}": [_P] * 8 + [_I] * 8 + _DECODE_TAIL
        for mode in ("int8", "int4")},
-    # (x, w, scales, partial, y, x_is_bf16, T, D, F, d_per_split, splits,
-    #  stream)
-    "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (x, w, scales, y, part, tickets, x_is_bf16, T, D, F, body, tokens,
+    #  d_per_split, splits, vec, stream); see ops/quant.plan.
+    "int8_matmul": [_P] * 6 + [_I] * 9 + [_P],
     # (q, k, v, seg, out, lse, B, S, Hq, Hkv, D, causal, stream)
     "flash_fwd_bf16": [_P] * 6 + [_I] * 6 + [_P],
     # (q, k, v, seg, do, lse, delta, dq, B, S, Hq, Hkv, D, causal, stream)
@@ -86,8 +87,9 @@ def reset_launches() -> None:
 @functools.cache
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device (132 on an H100 SXM,
-    114 on the PCIe card); sizes int8_matmul's contraction split and
-    decode attention's key-range split."""
+    114 on the PCIe card); sizes int8_matmul's split of D
+    (ops/quant.plan) and decode attention's key-range split
+    (ops/decode_attention.split_plan)."""
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -114,7 +116,7 @@ def build() -> Path:
     beside it."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(SRC_DIR.glob("*.cu*")):   # the headers too
         h.update(src.name.encode() + src.read_bytes())
     digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libport_kernels-{digest}.so"

@@ -111,10 +111,11 @@
 //     the backward needs no alpha. ops/flash_attention.py writes the two
 //     walks out (dq_key_tiles, dkv_q_tiles).
 // All three take S a multiple of 128 (the JAX kernel's own gate).
-#include <cuda.h>           // CUtensorMap and its enums; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -167,41 +168,6 @@ __device__ __forceinline__ uint32_t stage_empty(uint32_t bar, int s) {
   return bar + 8 * (1 + 2 * kFwdStages + s);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Spin until the barrier's phase `parity` has completed. The loop stays
-// inside the asm, so the compiler sees no divergent branch around the
-// wgmma products that are in flight across a wait.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // A value that every lane of the warp read from the same shared-memory
 // word, broadcast from lane 0 so that ptxas knows it is warp-uniform.
 __device__ __forceinline__ int uniform(int x) {
@@ -232,24 +198,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
   tma_box(dst + Rows * 128, map, bar, 64, head, row0, b);
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1);
-// the address and both offsets in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (Q as A, K as B), step kk of 16 dims: box kk / 4, then
-// 32 bytes a step inside the 128-byte row (the hardware applies the
-// swizzle to the computed address); 8-row groups 1024 bytes apart. Rows:
-// the rows of the tile's boxes, Rows x 128 bytes each.
-template <int Rows = 128>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return smem_desc(tile + (kk / 4) * Rows * 128 + (kk % 4) * 32, 16, 1024);
-}
-
 // MN-major operand (V as B, N = dims), step kk of 16 keys: 16 rows of
 // 128 bytes; the two 64-dim boxes are LBO apart, 8-key groups SBO.
 template <int Rows = 128>
@@ -257,50 +205,11 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return smem_desc(tile + kk * 16 * 128, Rows * 128, 1024);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from touching registers that an asynchronous wgmma
-// reads or writes across the wait that retires it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_D8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D64                                                        \
-  WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),     \
-      WG_D8(48), WG_D8(56)
 #define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
 #define WG_REGS32                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
   "%28, %29, %30, %31}"
-#define WG_REGS                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared
 // memory; accumulate = 0 overwrites d. The accumulator of thread
@@ -326,18 +235,6 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : WG_D32
       : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the mma.sync
-// A fragment of each warp's 16 rows), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // Named barriers 1 and 2 take turns between the consumer warpgroups
@@ -579,8 +476,8 @@ __device__ __forceinline__ void fwd_consumer(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-      wgmma_rs(o, p + 4 * kk,
-               mnmajor_desc(k_addr(stage) + kTileBytes, kk));
+      wgmma_rs<1>(o, p + 4 * kk,
+                  mnmajor_desc(k_addr(stage) + kTileBytes, kk));
     wgmma_commit();
     turn_pass(cw);
     wgmma_wait<1>();   // Q.K^T of the next tile; P.V still running
@@ -602,7 +499,8 @@ __device__ __forceinline__ void fwd_consumer(
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-    wgmma_rs(o, p + 4 * kk, mnmajor_desc(k_addr(stage) + kTileBytes, kk));
+    wgmma_rs<1>(o, p + 4 * kk,
+                mnmajor_desc(k_addr(stage) + kTileBytes, kk));
   wgmma_commit();
   if (cw == 0) turn_pass(cw);
   wgmma_wait<0>();
@@ -819,7 +717,7 @@ __device__ __forceinline__ void dq_product(float (&acc)[64],
                                            uint32_t kv) {
 #pragma unroll
   for (int kk = 0; kk < 64 / 16; ++kk)
-    wgmma_rs(acc, ds + 4 * kk, mnmajor_desc<64>(kv, kk));
+    wgmma_rs<1>(acc, ds + 4 * kk, mnmajor_desc<64>(kv, kk));
 }
 
 // K5's WG1 or WG2: 64 query rows over the key tiles the producer
@@ -1060,10 +958,10 @@ __device__ __forceinline__ void dkv_products(float (&dk)[64], float (&dv)[64],
                                              uint32_t qd) {
 #pragma unroll
   for (int kk = 0; kk < 64 / 16; ++kk)
-    wgmma_rs(dv, p + 4 * kk, mnmajor_desc<64>(qd + kHalfBytes, kk));
+    wgmma_rs<1>(dv, p + 4 * kk, mnmajor_desc<64>(qd + kHalfBytes, kk));
 #pragma unroll
   for (int kk = 0; kk < 64 / 16; ++kk)
-    wgmma_rs(dk, ds + 4 * kk, mnmajor_desc<64>(qd, kk));
+    wgmma_rs<1>(dk, ds + 4 * kk, mnmajor_desc<64>(qd, kk));
 }
 
 // K6's WG1 or WG2: 64 keys over the q tiles the producer delivers. dK
@@ -1195,33 +1093,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 bool bad_shape(int B, int S, int Hq, int Hkv, int D) {
   return D != kD || B < 1 || S < kSeqTile || S % kSeqTile || Hkv < 1 ||
          Hq % Hkv;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A [B, S, H, 128] bf16 tensor as 4-D (innermost first: D, H, S, B),

@@ -7,8 +7,9 @@ contraction dim):
   qmodel = quantize_llama_params(model) # every projection and the lm_head
 Decoding at small batch streams every weight once per step, so int8
 storage halves the bytes of the bf16 weight stream; `int8_matmul`
-dispatches on the device: CUDA launches kernels/int8_matmul.cu (dequant
-in registers), CPU runs `int8_matmul_plain`.
+dispatches on the device: CUDA launches kernels/int8_matmul.cu (int8
+converted to bf16 in registers, products on the tensor cores, one launch
+a call as `plan` lays it out), CPU runs `int8_matmul_plain`.
 
 KV cache, symmetric per (token, KV head), scales head-major:
   q, s = quantize_kv(kv)        # [..., T, Hkv, D] -> int8, f32 [..., Hkv, T]
@@ -24,14 +25,24 @@ inputs: both round half to even and divide in IEEE f32.
 
 from __future__ import annotations
 
+import threading
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
 from container_engine_accelerators_tpu_torch import kernels
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-_COLS_PER_BLOCK = 512      # kernels/int8_matmul.cu: 128 threads x 4
-_ROWS_PER_BLOCK = 8
+# kernels/int8_matmul.cu's bodies and tiles. int8_mma_kernel: output
+# columns a CTA (kCols), rows of D a stage (kDepth), the token tiles it is
+# built for (NT). int8_wgmma_kernel, bf16 x at 128 tokens: kWgCols,
+# kWgDepth.
+BODIES = ("int8_mma_kernel", "int8_wgmma_kernel")
+COLS_PER_BLOCK = {"int8_mma_kernel": 128, "int8_wgmma_kernel": 256}
+DEPTH = {"int8_mma_kernel": 64, "int8_wgmma_kernel": 128}
+TOKEN_TILES = (8, 16, 32, 64, 128)
+DECODE_TOKENS = 16         # NT up to it: bound by bytes, 4 CTAs an SM
 
 
 class QuantWeight(nn.Module):
@@ -141,18 +152,86 @@ def int8_matmul_plain(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     return (acc * qw.scales).to(x.dtype)
 
 
-def _splits(t: int, d: int, f: int, sms: int) -> tuple[int, int]:
-    """(splits, d_per_split): enough blocks along the contraction dim to
-    put ~2 blocks on each of the card's `sms` SMs when the output alone
-    gives too few."""
-    blocks = (-(-f // _COLS_PER_BLOCK)) * (-(-t // _ROWS_PER_BLOCK))
-    splits = max(1, min(-(-2 * sms // blocks), d // 128))
-    d_per_split = -(-d // splits)
-    return -(-d // d_per_split), d_per_split
+class Int8Plan(NamedTuple):
+    """How kernels/int8_matmul.cu lays out one call: `body` on a grid of
+    (token_tiles, col_tiles, splits) CTAs, each `tokens` rows of x by
+    COLS_PER_BLOCK[body] output columns over `d_per_split` rows of D."""
+    body: str
+    tokens: int
+    token_tiles: int
+    col_tiles: int
+    splits: int
+    d_per_split: int
+
+
+def plan(t: int, d: int, f: int, sms: int, x_bf16: bool = True,
+         vec: int = 16) -> Int8Plan:
+    """The launch for x [t, d] @ q [d, f] on a card of `sms` SMs, x in
+    bf16 or f32, weight rows copied `vec` bytes at a time. bf16 x past 64
+    rows, with 16-byte rows, takes the wgmma body (128 tokens by 256
+    columns a CTA, one CTA an SM), split over D until the grid fills at
+    most one wave. Otherwise the mma.sync body: the smallest token tile
+    that holds t (128 past it), D split until the grid has ~4 CTAs an SM
+    at decode (the weight stream wants every SM busy, each CTA at least
+    2 stages deep) or ~1 at prefill. A
+    function of the shapes, the SM count and the copy width only, so a
+    call reads nothing on the host and a CUDA graph can hold it; each
+    split is a whole number of DEPTH[body]-row stages, the last ragged."""
+    if min(t, d, f, sms) < 1:
+        raise ValueError(f"int8_matmul plan of an empty product: t={t}, "
+                         f"d={d}, f={f}, sms={sms}")
+    tokens = next((n for n in TOKEN_TILES if t <= n), TOKEN_TILES[-1])
+    wgmma = x_bf16 and tokens == TOKEN_TILES[-1] and vec == 16
+    body = BODIES[wgmma]
+    token_tiles = -(-t // tokens)
+    col_tiles = -(-f // COLS_PER_BLOCK[body])
+    stages = -(-d // DEPTH[body])
+    if wgmma:
+        splits = sms // (token_tiles * col_tiles)
+    elif tokens <= DECODE_TOKENS:
+        # ~4 CTAs an SM, each streaming at least 2 stages.
+        splits = min(-(-4 * sms // (token_tiles * col_tiles)), stages // 2)
+    else:
+        splits = -(-sms // (token_tiles * col_tiles))
+    splits = max(1, min(splits, stages))
+    d_per_split = -(-stages // splits) * DEPTH[body]
+    return Int8Plan(body, tokens, token_tiles, col_tiles,
+                    -(-d // d_per_split), d_per_split)
+
+
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _workspace(p: Int8Plan, t: int, f: int, device
+               ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(partials [splits, t, f] f32, tickets) for a split call, (None,
+    None) for one split. The partials are allocated per call (the
+    caching allocator hands them back after it, in stream order); the
+    int32 tickets persist per device and are zero between calls: the
+    last CTA of each output tile resets its own, so two streams must not
+    run the kernel at once on one device."""
+    if p.splits == 1:
+        return None, None
+    part = torch.empty((p.splits, t, f), dtype=torch.float32, device=device)
+    n = p.token_tiles * p.col_tiles
+    with _tickets_lock:
+        tickets = _tickets.get(device)
+        if tickets is None or tickets.numel() < n:
+            tickets = torch.zeros(n, dtype=torch.int32, device=device)
+            _tickets[device] = tickets
+    return part, tickets
+
+
+def _copy_width(f: int, ptr: int) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that every weight row's
+    start allows."""
+    return next(v for v in (16, 8, 4) if f % v == 0 and ptr % v == 0)
 
 
 def int8_matmul_cuda(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
-    """Launch kernels/int8_matmul.cu on CUDA tensors."""
+    """Launch kernels/int8_matmul.cu on CUDA tensors: one launch, laid
+    out by `plan`."""
     _check(x, qw)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int8_matmul kernel takes bf16 or f32 x, "
@@ -167,16 +246,24 @@ def int8_matmul_cuda(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     if f % 4 or w.data_ptr() % 4:
         raise ValueError("int8_matmul kernel takes F % 4 == 0 and a "
                          f"4-byte aligned weight, got F={f}")
+    if d % 8:
+        raise ValueError(f"int8_matmul kernel takes D % 8 == 0, got D={d}")
     x = x.contiguous()
-    splits, d_per_split = _splits(t, d, f, kernels.sm_count(x.device))
-    partial = torch.empty((splits, t, f), dtype=torch.float32,
-                          device=x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("int8_matmul kernel takes a 16-byte aligned x")
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)
-    lib = kernels.load()
-    err = lib.int8_matmul(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), partial.data_ptr(),
-        y.data_ptr(), int(x.dtype == torch.bfloat16), t, d, f, d_per_split,
-        splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if t == 0:
+        return y
+    vec = _copy_width(f, w.data_ptr())
+    x_bf16 = x.dtype == torch.bfloat16
+    p = plan(t, d, f, kernels.sm_count(x.device), x_bf16, vec)
+    part, tickets = _workspace(p, t, f, x.device)
+    err = kernels.load().int8_matmul(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
+        0 if part is None else part.data_ptr(),
+        0 if tickets is None else tickets.data_ptr(), int(x_bf16), t, d, f,
+        BODIES.index(p.body), p.tokens, p.d_per_split, p.splits, vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check("int8_matmul", err)
     return y
 

@@ -2,7 +2,7 @@
 
 The counterpart of the Pallas `kernel` in the JAX package's
 demo/tpu-error/real-fault/provoke_vmem_oom.py. Its healthy build
-(kernels/scale_demo.cu, a tile of 2 rows x 4096 columns in static shared
+(kernels/scale_demo.cu, a tile of 1 row x 4096 columns in static shared
 memory) is held against `scale_demo_plain`; the same source built with
 the whole array as one tile is the real fault that
 demo/real_fault/provoke_smem_oom.py provokes.

@@ -587,6 +587,113 @@ def test_int8_matmul_kernel_raises_on_what_it_cannot_take(cuda):
         quant.int8_matmul(torch.randn(2, 64, device=cuda).half(), qw)
 
 
+def _int8_case(cuda, t, d, f, x_dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed + t + d + f)
+    x = torch.randn(t, d, generator=gen, device=cuda).to(x_dtype)
+    qw = quant.quantize_weights(
+        torch.randn(d, f, generator=gen, device=cuda) * d ** -0.5)
+    return x, qw
+
+
+def _assert_int8_close(got, want, x_dtype):
+    # Exact int8 x x products (x as bf16 hi + lo terms for f32) summed in
+    # f32 in another order: 1e-4 of max|y| in f32; one bf16 ulp (2^-8
+    # relative) in bf16.
+    tol = 1e-4 if x_dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * want.float().abs().max().item())
+
+
+# Every token tile of the kernel and its edges (1, 7, 8, 9, 16 at decode;
+# 64; 512 and 1037, a ragged last tile of 128, the wgmma body for bf16
+# x), on ragged D and F: D 1000 (a ragged last stage), F 1032 and 520
+# (rows 8-byte aligned, the mma.sync body at every T), F 1040 (16-byte
+# rows, a ragged last column tile of either body), and w_down's D of
+# 14336.
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 7, 8, 9, 16, 64, 512, 1037])
+@pytest.mark.parametrize("d,f", [(1000, 1032), (4096, 520), (1000, 1040),
+                                 (14336, 256)])
+def test_int8_matmul_kernel_matches_plain_at_every_token_tile(cuda, x_dtype,
+                                                               t, d, f):
+    x, qw = _int8_case(cuda, t, d, f, x_dtype)
+    kernels.reset_launches()
+    got = quant.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert kernels.launches["int8_matmul"] == 1
+    _assert_int8_close(got, quant.int8_matmul_plain(x, qw), x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,f", [(8, 4096, 1024), (8, 4096, 14336),
+                                   (1024, 4096, 1024), (128, 4096, 14336)])
+def test_int8_matmul_kernel_repeats_its_bits(cuda, x_dtype, t, d, f):
+    # Split D (tickets, the last CTA merging in split order) and unsplit
+    # shapes: two calls give the same bits.
+    x, qw = _int8_case(cuda, t, d, f, x_dtype)
+    first = quant.int8_matmul(x, qw)
+    second = quant.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_int8_close(first, quant.int8_matmul_plain(x, qw), x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_kernel_replays_in_a_cuda_graph(cuda, x_dtype):
+    # A split call captured after an eager warm-up, replayed on new x
+    # written in place: the bits of an eager call on the new x.
+    x, qw = _int8_case(cuda, 8, 4096, 4096, x_dtype)
+    assert quant.plan(8, 4096, 4096, kernels.sm_count(cuda)).splits > 1
+    quant.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant.int8_matmul(x, qw)
+    x.copy_(torch.randn(x.shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9)
+                        ).to(x_dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant.int8_matmul(x, qw))
+
+
+@pytest.mark.parametrize("t,d,f,x_dtype", [
+    (8, 4096, 1024, torch.bfloat16), (8, 4096, 14336, torch.bfloat16),
+    (8, 14336, 4096, torch.bfloat16), (8, 4096, 128256, torch.float32)])
+def test_int8_matmul_is_one_kernel_a_call(cuda, t, d, f, x_dtype):
+    # The decode shapes of a llama3_8b step: one CUDA kernel a call, the
+    # split merged in the same launch.
+    from torch.profiler import ProfilerActivity, profile
+
+    x, qw = _int8_case(cuda, t, d, f, x_dtype)
+    quant.int8_matmul(x, qw)   # tickets allocated, library loaded
+    torch.cuda.synchronize()
+    names = []
+    for calls in (1, 3):   # the first profile also warms the profiler up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                quant.int8_matmul(x, qw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3, names
+    assert all("int8_mma_kernel" in name for name in names), names
+
+
+def test_int8_matmul_kernel_refuses_what_it_cannot_take(cuda):
+    qw = quant.quantize_weights(torch.randn(64, 32, device=cuda))
+    with pytest.raises(ValueError):    # D % 8
+        quant.int8_matmul(torch.randn(2, 60, device=cuda),
+                          quant.quantize_weights(
+                              torch.randn(60, 32, device=cuda)))
+    with pytest.raises(ValueError):    # x not 16-byte aligned
+        quant.int8_matmul(torch.randn(2 * 64 + 1, device=cuda)[1:].view(
+            2, 64), qw)
+    with pytest.raises(ValueError):    # a weight on another device
+        quant.int8_matmul(torch.randn(2, 64, device=cuda),
+                          quant.quantize_weights(torch.randn(64, 32)))
+
+
 @pytest.mark.parametrize("weights", ["bf16", "int8"])
 def test_generate_goes_through_the_kernels(cuda, weights):
     # head_dim 32 (llama_tiny) at bf16: the kernel path and the plain
@@ -873,6 +980,23 @@ def test_scale_demo_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, scale_demo_plain(x))
     with pytest.raises(TypeError):
         scale_demo(x.half())
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 1023, 1024, 1025, 4097,
+                               4096 * 4096 + 3])
+def test_scale_demo_kernel_is_exact_on_ragged_sizes(cuda, n):
+    # Fewer values than one chunk, one chunk +- 1, more blocks' runs than
+    # the grid evenly holds, and a tail of n % 4 values past the last
+    # 16-byte slot: every value x * 2.0 exactly.
+    from container_engine_accelerators_tpu_torch.ops.scale_demo import (
+        scale_demo,
+    )
+
+    x = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda)
+    got = scale_demo(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x * 2.0)
 
 
 def test_oversized_scale_demo_tile_is_refused_at_compile(cuda):

@@ -66,3 +66,67 @@ def test_decode_kernel_info_names_the_body_that_runs(monkeypatch, tmp_path,
     assert info == {"kernel": body, "splits": splits,
                     "registers": counts[body, payload, 128, keys],
                     "spill_bytes": 0}
+
+
+def _k2_build_log(path):
+    """A build log with every instantiation of kernels/int8_matmul.cu's
+    two bodies, each with its own register count; returns the counts."""
+    ns = "_GLOBAL__N__783171d2_14_int8_matmul_cu_03ece3dc"
+    names = {("int8_wgmma_kernel", 128, "bf16"):
+             f"_ZN47{ns}17int8_wgmma_kernelEPK13__nv_bfloat16PKaPKfPS0_PfPiiiii"}
+    for nt in (8, 16, 32, 64, 128):
+        names["int8_mma_kernel", nt, "bf16"] = (
+            f"_ZN47{ns}15int8_mma_kernelILi{nt}E13__nv_bfloat16EEvPKT0_PKaPKf"
+            "PS2_PfPiiiiii")
+        names["int8_mma_kernel", nt, "f32"] = (
+            f"_ZN47{ns}15int8_mma_kernelILi{nt}EfEEvPKT0_PKaPKfPS1_PfPiiiiii")
+    counts, lines = {}, ["== int8_matmul.cu (rc 0)"]
+    for i, (key, name) in enumerate(sorted(names.items())):
+        counts[key] = 90 + i
+        lines += [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            "loads",
+            f"ptxas info    : Used {90 + i} registers, used 1 barriers, "
+            "128 bytes smem"]
+    path.write_text("\n".join(lines) + "\n")
+    return counts
+
+
+@pytest.mark.parametrize("t,d,f,kind,body,tokens,splits", [
+    (8, 4096, 14336, "bf16", "int8_mma_kernel", 8, 5),    # decode
+    (8, 4096, 1024, "bf16", "int8_mma_kernel", 8, 32),
+    (8, 4096, 128256, "f32", "int8_mma_kernel", 8, 1),    # the lm_head
+    (16, 4096, 4096, "bf16", "int8_mma_kernel", 16, 16),
+    (1024, 4096, 14336, "bf16", "int8_wgmma_kernel", 128, 1),   # prefill
+    (1024, 4096, 1024, "bf16", "int8_wgmma_kernel", 128, 4),
+    (1024, 4096, 128256, "f32", "int8_mma_kernel", 128, 1),
+])
+def test_k2_kernel_info_names_the_body_that_runs(monkeypatch, tmp_path, t, d,
+                                                 f, kind, body, tokens,
+                                                 splits):
+    log = tmp_path / "libport_kernels-0.log"
+    counts = _k2_build_log(log)
+    monkeypatch.setattr(kernels, "build_log", lambda: log)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    info = chip_smoke.k2_kernel_info("cuda", t, d, f, kind)
+    assert info == {"kernel": body, "tokens": tokens, "splits": splits,
+                    "registers": counts[body, tokens, kind],
+                    "spill_bytes": 0, "ptxas_serialized_wgmma": False}
+
+
+def test_k2_ms_sums_both_bodies_and_the_older_kernels():
+    # A prefill runs the wgmma body for bf16 x and the mma.sync body for
+    # the f32 lm_head; an older checkout's K2 was int8_matmul_partial and
+    # int8_matmul_finish. Every other kernel is left out.
+    profile = {"kernels": {
+        "(anonymous namespace)::int8_wgmma_kernel(CUtensorMap_st, CUt": 29.5,
+        "void (anonymous namespace)::int8_mma_kernel<128, float>(floa": 7.75,
+        "void (anonymous namespace)::int8_matmul_partial<__nv_bfloat1": 0.5,
+        "void (anonymous namespace)::int8_matmul_finish<__nv_bfloat16": 0.25,
+        "nvjet_tst_320x128_64x3_1x4_h_bz_coopB_NNT": 10.0,
+        "void at::native::elementwise_kernel<128, 2, at::native::gpu_": 3.0,
+    }}
+    assert chip_smoke.k2_ms(profile) == 38.0
+    assert chip_smoke.k2_ms({"kernels": None}) is None
