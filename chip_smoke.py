@@ -17,10 +17,12 @@ requiring grad, one JSON line; with --train also the train phase's
 device ms a step from torch.profiler). `decode` times K1 and K3 in
 every k1_* and k3_* case on bf16, int8 and int4 caches, one JSON line;
 with --tick also the paged decode tick on llama3_8b (wall and
-device-busy ms), with --prefill one llama3_8b prefill of 2 x 512 tokens
-through decode_step (wall and device-busy ms, K1's ms and share of the
-busy time). `k2` times K2 in every k2_* case beside its library call,
-and K7 beside torch.mul in turns, one JSON line; with --int8 also
+device-busy ms) and the paged engine's own tick at 8 slots (the median
+gap between a streamed request's token events), with --prefill one
+llama3_8b prefill of 2 x 512 tokens through decode_step (wall and
+device-busy ms, K1's ms and share of the busy time). `k2` times K2 in
+every k2_* case beside its library call, and K7 beside torch.mul in
+turns, one JSON line; with --int8 also
 llama3_8b's prefill of 8 x 128 and decode step at batch 8 on bf16
 weights and on their int8 copy (wall ms, device-busy ms, K2's ms and
 the top kernels of each). Each ROOT, a checkout such as a `git archive` of a
@@ -79,6 +81,25 @@ Phases, one JSON line each:
            path against the plain path on the same quantized cache, and
            the drift from bf16; paged_preempt's load on pools of the
            bf16 pool's bytes; a continuous-engine burst in each mode;
+  observe  the serving observability path: PagedContinuousEngine at 16
+           slots, page 128, max_len 2048, on a pool of 2048 pages (32
+           GiB) behind make_server, with a RequestRecorder, its
+           ServeMetricsExporter on an ephemeral port, the flight
+           recorder and every request traced; cli/loadgen as a process
+           of its own sends 64 streamed requests of multi-tenant chat
+           traffic (4 tenants, a 256-token system prompt each, 128-token
+           turns and 1024-token documents, 64 new tokens, 16 at a time).
+           Checks: no loadgen error; the scrape counts 64 requests and
+           64 TTFTs; the tokens counted equal the answers'; no page
+           leaked; a prefix hit; host_gap_fraction in [0, 1]; every host
+           phase has samples; the trace dump's spans in order for every
+           request; /debugz?kv=1's census sums to the pool with every
+           page's tenant; the HbmPoller's bytes in use within 1% of
+           mem_get_info. Then 32 requests of the same traffic on the int8
+           copy of the weights (K2's two bodies) on a pool of the same
+           size. One line a run: TTFT, TPOT and queue-wait p50/p99,
+           tokens/s, host_gap_fraction, each host phase's p50, the
+           thermal census's ms a call at the full pool, nvidia-smi;
   k4_*, k5_*, k6_*  kernels/flash_attention.cu (forward, dq, dk/dv)
            against flash_fwd_plain, flash_bwd_dq_plain and
            flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
@@ -1492,6 +1513,292 @@ def kv_quant_phase(torch, dev, np, model, cfg, preempt_bf16) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- observe
+
+OBSERVE_SLOTS = 16
+OBSERVE_POOL_PAGES = 2048       # 16 MiB a page at llama3_8b: 32 GiB
+OBSERVE_REQUESTS = {"bf16": 64, "int8": 32}
+# Multi-tenant chat traffic: a shared 256-token system prompt a tenant,
+# 128-token turns for the even (chat) tenants, 1024-token documents for
+# the odd (batch) ones, 64 new tokens, every request traced.
+LOADGEN_FLAGS = ["--concurrency", "16", "--tenants", "4",
+                 "--tenant-prefix-len", "256", "--prompt-len", "128",
+                 "--long-prompt-len", "1024", "--max-new-tokens", "64",
+                 "--stream", "--trace-sample-rate", "1.0"]
+SPAN_ORDER = ("req/queue", "req/prefill", "req/prefill_chunk", "req/fetch",
+              "req/stream")
+
+
+def _get(url: str) -> str:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def _scrape(text: str) -> dict:
+    """Sample name{labels} -> value of a /metrics scrape."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    return {s.name + "".join(f"{{{k}={v}}}" for k, v in
+                             sorted(s.labels.items())): s.value
+            for fam in text_string_to_metric_families(text)
+            for s in fam.samples}
+
+
+def _spans_in_order(dump: dict, n_requests: int) -> int:
+    """Every traced request's first req/queue, req/prefill,
+    req/prefill_chunk, req/fetch and req/stream begin, in that order;
+    returns the requests traced."""
+    first: dict = {}
+    for i, e in enumerate(dump["traceEvents"]):
+        if e.get("cat") == "req" and e["ph"] == "b":
+            first.setdefault(e["id"], {}).setdefault(e["name"], i)
+    require(len(first) == n_requests,
+            f"observe: {len(first)} traced requests, want {n_requests}")
+    for rid, names in first.items():
+        idx = [names.get(n) for n in SPAN_ORDER]
+        require(None not in idx and idx == sorted(idx),
+                f"observe: request {rid} spans out of order: {names}")
+    return len(first)
+
+
+def census_ms(engine, calls: int = 10) -> float:
+    """thermal_census's host ms a call with every page of the pool
+    allocated and owned (the engine stopped): its O(pages) cost at the
+    pool's full size."""
+    alloc = engine._alloc
+    rows = alloc.alloc(alloc.free_pages)
+    alloc.set_owner(rows, "0", "chat")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        census = engine.thermal_census()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    require(census["pages_in_use"] == alloc.n_pages - 1,
+            "census at a full pool")
+    alloc.free(rows)
+    return ms
+
+
+def observe_run(torch, dev, model, cfg, weights: str, tmp_dir: str) -> dict:
+    """One loadgen run (a process of its own) against make_server over a
+    PagedContinuousEngine of OBSERVE_SLOTS slots on a pool of
+    OBSERVE_POOL_PAGES pages, with a RequestRecorder, its exporter on an
+    ephemeral port, the flight recorder and every request traced; the
+    checks of the module docstring, then the run's numbers."""
+    import container_engine_accelerators_tpu_torch as port
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+    from container_engine_accelerators_tpu_torch.metrics import (
+        events,
+        trace,
+    )
+    from container_engine_accelerators_tpu_torch.metrics.request_metrics import (  # noqa: E501
+        HOST_PHASES,
+        RequestRecorder,
+        ServeMetricsExporter,
+        percentile,
+    )
+
+    n = OBSERVE_REQUESTS[weights]
+    events.get_bus().clear()
+    events.enable(capacity=1 << 18, dump_path=tmp_dir + os.sep,
+                  signals=False, process_name=f"observe-{weights}")
+    trace.configure(sample_rate=1.0)
+    recorder = RequestRecorder()
+    engine = PagedContinuousEngine(
+        model, cfg, max_slots=OBSERVE_SLOTS, max_len=2048, page=128,
+        pool_pages=OBSERVE_POOL_PAGES, max_prompt_len=2048 - 64,
+        prefill_chunk=512, engine_core="async", recorder=recorder)
+    answered: list = []
+    submit = engine.submit
+
+    def counted(tokens, *args, **kw):
+        fut = submit(tokens, *args, **kw)
+        fut.add_done_callback(lambda f: answered.append(
+            len(f.result()) - len(tokens) if not f.exception() else None))
+        return fut
+
+    engine.submit = counted
+    census_calls: list = []
+    thermal_census = engine.thermal_census
+
+    def timed_census(*args, **kw):
+        t0 = time.perf_counter()
+        out = thermal_census(*args, **kw)
+        census_calls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.thermal_census = timed_census
+    exporter = ServeMetricsExporter(recorder, port=0, host="127.0.0.1")
+    exporter.kv_provider = engine.thermal_census
+    exporter.start_background()
+    metrics_url = f"http://127.0.0.1:{exporter.bound_port}"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+    try:
+        with serving(engine) as url:
+            kernels.reset_launches()
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "container_engine_accelerators_tpu_torch.cli.loadgen",
+                 "--url", url, "--requests", str(n), *LOADGEN_FLAGS],
+                capture_output=True, text=True, timeout=900, cwd=root,
+                env=dict(os.environ, PYTHONPATH=root))
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            require(proc.returncode == 0,
+                    f"observe {weights}: loadgen rc {proc.returncode}: "
+                    f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            deadline = time.monotonic() + 60
+            while (recorder.registry.get_sample_value("serve_active_slots")
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            time.sleep(0.2)   # an idle iteration refreshes the gauges
+            scrape = _scrape(_get(metrics_url + "/metrics"))
+            kv = json.loads(_get(metrics_url + "/debugz?kv=1"))["kv"]
+            rows = exporter.hbm_poller.poll_once()
+            free, total = torch.cuda.mem_get_info(dev)
+        held = engine.prefix_index.pages_held()
+        in_use = engine.pages_in_use
+        full_pool_ms = census_ms(engine)
+        engine.prefix_index.clear()
+        drained = engine.pages_in_use
+    finally:
+        exporter.stop()
+    dump_path = events.dump_now(os.path.join(tmp_dir,
+                                             f"observe-{weights}.json"))
+    with open(dump_path) as f:
+        dump = json.load(f)
+    events.disable(clear=True)
+
+    want_tokens = n * 64
+    require(summary["errors"] == 0 and summary["requests_ok"] == n,
+            f"observe {weights}: loadgen {summary}")
+    require(scrape['serve_requests_total{outcome=ok}'] == n
+            and scrape["serve_ttft_seconds_count"] == n,
+            f"observe {weights}: scrape counts {n}? "
+            f"{scrape.get('serve_requests_total{outcome=ok}')}, "
+            f"{scrape.get('serve_ttft_seconds_count')}")
+    counted_tokens = (scrape["serve_ttft_seconds_count"]
+                      + scrape["serve_tpot_seconds_count"])
+    require(len(answered) == n and sum(answered) == want_tokens
+            and counted_tokens == want_tokens,
+            f"observe {weights}: tokens counted {counted_tokens}, in the "
+            f"answers {sum(a or 0 for a in answered)}, want {want_tokens}")
+    require(in_use == held and drained == 0,
+            f"observe {weights}: leaked pages: {in_use} in use, {held} "
+            f"held by the prefix index, {drained} after clearing it")
+    require(scrape["serve_prefix_hits_total"] >= 1,
+            f"observe {weights}: no prefix hit")
+    gap = recorder.host_gap()
+    require(gap is not None and 0.0 <= gap <= 1.0,
+            f"observe {weights}: host_gap_fraction {gap}")
+    phases = recorder.host_phase_ms((50, 99))
+    require(set(phases) == set(HOST_PHASES),
+            f"observe {weights}: host phases with samples {sorted(phases)}")
+    require(dump["otherData"]["dropped"] == 0,
+            f"observe {weights}: the ring dropped events")
+    traced = _spans_in_order(dump, n)
+    counts = {k: kv[k] for k in ("buckets", "pages_in_use", "free_pages",
+                                 "pages_total")}
+    require(sum(kv["buckets"].values()) == kv["pages_in_use"]
+            and kv["pages_in_use"] + kv["free_pages"] == kv["pages_total"]
+            == OBSERVE_POOL_PAGES - 1,
+            f"observe {weights}: census does not sum to the pool: {counts}")
+    require("unowned" not in kv["tenants"]
+            and sum(t["pages"] for t in kv["tenants"].values())
+            == kv["pages_in_use"],
+            f"observe {weights}: pages without a tenant: {kv['tenants']}")
+    used = rows[0]["bytes_in_use"]
+    require(abs(used - (total - free)) <= 0.01 * (total - free),
+            f"observe {weights}: HbmPoller {used} B in use, mem_get_info "
+            f"{total - free}")
+    name = "int8_matmul" if weights == "int8" else "paged_decode_attention"
+    for kernel in ("paged_decode_attention", name):
+        require(launches.get(kernel, 0) > 0,
+                f"observe {weights}: launched no {kernel}")
+
+    def pct(kind):
+        return recorder.pct_ms(kind, (50, 99))
+
+    # The tick's host time by phase: each phase's seconds summed over the
+    # run over the ticks committed (a tick has several schedule slices,
+    # so a phase's p50 alone hides where a tick goes), and the share of
+    # each phase that ran exposed (the card idle).
+    ticks = len(recorder._host_ticks)
+    per_tick, exposed = {}, {}
+    for p, samples in recorder.host_samples.items():
+        spent = sum(sec for sec, _ in samples)
+        per_tick[p] = spent / ticks * 1e3
+        exposed[p] = (sum(sec for sec, hidden in samples if not hidden)
+                      / spent if spent else None)
+    tick_wall_ms = sum(w for _, w in recorder._host_ticks) / ticks * 1e3
+
+    return {"weights": weights, "requests": n, "slots": OBSERVE_SLOTS,
+            "pool_pages": OBSERVE_POOL_PAGES, "page": 128,
+            "loadgen": summary, "wall_s": wall,
+            "generated_tokens_per_s": want_tokens / wall,
+            "ttft_ms": pct("ttft"), "tpot_ms": pct("tpot"),
+            "queue_wait_ms": pct("queue_wait"),
+            "decode_step_ms": pct("decode_step"),
+            "host_gap_fraction": gap,
+            "host_phase_ms_p50": {p: v["p50"] for p, v in phases.items()},
+            "host_phase_ms_per_tick": per_tick,
+            "host_phase_exposed_share": exposed,
+            "host_ticks": ticks, "tick_wall_ms_mean": tick_wall_ms,
+            "host_phase_ms": phases,
+            "host_phase_samples": {p: len(recorder.host_samples[p])
+                                   for p in HOST_PHASES},
+            "prefix_hits": scrape["serve_prefix_hits_total"],
+            "prefix_lookups": scrape["serve_prefix_lookups_total"],
+            "preemptions": scrape["serve_preemptions_total"],
+            "census_ms_full_pool": full_pool_ms,
+            "census_ms_in_run": {
+                "calls": len(census_calls),
+                "p50": percentile(census_calls, 50),
+                "max": max(census_calls, default=None)},
+            "census_after_drain": {k: kv[k] for k in (
+                "pages_total", "pages_in_use", "buckets", "tenants")},
+            "hbm_bytes_in_use": used, "mem_get_info_used": total - free,
+            "traced_requests": traced,
+            "trace_events": dump["otherData"]["emitted"],
+            "launches": launches, "nvidia_smi": nvidia_smi_line()}
+
+
+def observe_phase(torch, dev, np, model, cfg) -> dict:
+    """The serving observability path at full width (see the module
+    docstring): the bf16 run, then the int8 copy of the weights on a
+    pool of the same size."""
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        quantize_llama_params,
+    )
+
+    result = {"phase": "observe", "model": "llama3_8b", "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        for weights in ("bf16", "int8"):
+            m = model if weights == "bf16" else quantize_llama_params(model)
+            run = observe_run(torch, dev, m, cfg, weights, tmp_dir)
+            del m
+            gc.collect()
+            torch.cuda.empty_cache()
+            for key, count in run["launches"].items():
+                result["launches"][key] = (result["launches"].get(key, 0)
+                                           + count)
+            emit({"phase": f"observe_{weights}",
+                  **{k: run[k] for k in (
+                      "ttft_ms", "tpot_ms", "queue_wait_ms",
+                      "generated_tokens_per_s", "host_gap_fraction",
+                      "host_phase_ms_p50", "host_phase_ms_per_tick",
+                      "tick_wall_ms_mean", "census_ms_full_pool",
+                      "nvidia_smi")}})
+            result[weights] = run
+    emit(result)
+    return result
+
+
 # ---------------------------------------------------------------- K4-K6
 
 def ptxas_report(kernel: str, *parts: str) -> dict:
@@ -2300,13 +2607,50 @@ def decode_timing(torch, dev) -> dict:
     return res
 
 
+def engine_tick(torch, np, model, cfg, new_tokens: int = 64) -> dict:
+    """The paged engine's own tick at 8 slots (page 128, the default
+    pool): 8 streamed requests of 128 tokens submitted together, straight
+    to the engine; the gaps between a request's token events (their
+    `ts`) once all 8 decode are the engine loop's wall ms a tick, host
+    bookkeeping (and, where the engine has them, its recorder and phase
+    clock) included. Takes only what every version of the engine has
+    (no recorder argument), so a parent checkout runs it too."""
+    import queue as queue_mod
+
+    prompt = _prompts(np, cfg, SEED + 7)
+    engine = paged_engine(model, cfg)
+    try:
+        for n in (4, new_tokens):      # a warm-up burst, then the timed one
+            streams = [queue_mod.Queue() for _ in range(8)]
+            for q in streams:
+                engine.submit(prompt(128), n, 0.0, stream=q)
+            ts = []
+            for q in streams:
+                events = []
+                while not events or "done" not in events[-1]:
+                    events.append(q.get(timeout=600))
+                require("error" not in events[-1], f"engine tick {events}")
+                ts.append([e["ts"] for e in events if "token" in e])
+    finally:
+        engine.stop()
+        engine.thread.join(timeout=60)
+    # Ticks after every request's first token: all 8 slots decode.
+    start = max(t[0] for t in ts)
+    gaps = sorted(b - a for t in ts for a, b in zip(t, t[1:]) if a >= start)
+    return {"engine_tick_ms_8_slots": gaps[len(gaps) // 2] * 1e3,
+            "engine_tick_ms_p90": gaps[int(len(gaps) * 0.9)] * 1e3,
+            "engine_ticks_timed": len(gaps) // 8}
+
+
 def tick_timing(torch, dev, np, model, cfg) -> dict:
     """paged_tick on llama3_8b at full width and depth (random weights
-    from the seed): wall and device-busy ms per tick."""
+    from the seed): wall and device-busy ms per tick; and the paged
+    engine's own tick (engine_tick)."""
     tick = paged_tick(torch, dev, np, model, cfg)
-    return {key: tick[key] for key in (
+    return {**{key: tick[key] for key in (
         "paged_decode_tick_ms_8_slots", "device_busy_ms_per_tick",
-        "device_idle_share", "launches_per_tick", "top_kernels_ms_per_tick")}
+        "device_idle_share", "launches_per_tick", "top_kernels_ms_per_tick")},
+        **engine_tick(torch, np, model, cfg)}
 
 
 # The bodies of kernels/decode_attention.cu as torch.profiler names them;
@@ -2460,6 +2804,7 @@ def main() -> int:
                      cfg)
         kvq = timed("kv_quant", kv_quant_phase, torch, dev, np, model, cfg,
                     preempt)
+        obs = timed("observe", observe_phase, torch, dev, np, model, cfg)
         del model   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
@@ -2482,7 +2827,8 @@ def main() -> int:
 
     def launches(name):
         return sum(phase["launches"].get(name, 0)
-                   for phase in (serve, int8, paged, preempt, cont, kvq))
+                   for phase in (serve, int8, paged, preempt, cont, kvq,
+                                 obs))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""

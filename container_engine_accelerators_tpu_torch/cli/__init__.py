@@ -1,2 +1,2 @@
-"""Command-line entry points of the port (serve, generate, train,
-inject_fault)."""
+"""Command-line entry points of the port (serve, loadgen, trace,
+generate, train, inject_fault)."""

@@ -25,10 +25,31 @@ Three engines behind one HTTP API (`--engine`):
   python -m container_engine_accelerators_tpu_torch.cli.serve --tiny --port 8000
   python -m container_engine_accelerators_tpu_torch.cli.serve --tiny --engine paged
 
+Observability, as in the JAX package (metric names, span names and
+dump format shared, so one dashboard and one `trace merge` read both):
+every engine feeds a `RequestRecorder` (metrics/request_metrics.py:
+TTFT, TPOT, queue wait, slots, KV pages, prefix lookups, the paged
+pool's thermal census, and the host-phase split of each tick into
+admit / schedule / sample / stream / fetch with `host_gap_fraction`, the
+share of wall time in host work not hidden under a running tick: an
+upper bound on the card's idle share, since a phase counts hidden only
+if the card is still busy when it ends);
+`--metrics-port` serves it on /metrics and /debugz (`?kv=1`: the paged
+pool's thermal census), `--trace-dump` / `--trace-jsonl` arm the flight
+recorder (metrics/events.py) and `--trace-sample-rate` the per-request
+spans (metrics/trace.py). A request's `"trace": true` forces it into
+the sample; its `"tags": {"tenant": ..., "class": ...}` stamp its spans
+and, on the paged engine, own its pages in the thermal census. None of
+it waits on the card: the engines read the device only at a prompt's
+first token and at each tick's fetch, and the host-phase clock probes
+the newest tick with a CUDA event query.
+
+  python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
+      --engine paged --metrics-port 9100 --trace-dump /tmp/traces/
+
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
-with an error instead of falling back. The request recorder, tracing,
-speculation, prefill pools and the supervisor come with later slices;
-the engines keep the counters that /healthz reports as attributes.
+with an error instead of falling back. Speculation, prefill pools and
+the supervisor come with a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +57,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -46,6 +68,16 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
+
+from container_engine_accelerators_tpu_torch.metrics import (
+    events,
+    introspection,
+    trace,
+)
+from container_engine_accelerators_tpu_torch.metrics.request_metrics import (
+    RequestRecorder,
+    ServeMetricsExporter,
+)
 
 log = logging.getLogger("torch-serve")
 
@@ -62,10 +94,14 @@ def _stream_event(stream, event: dict, rid=None) -> None:
         stream.put(ev)
 
 
-def _fail(fut, stream, exc: Exception, rid=None) -> None:
+def _fail(fut, stream, exc: Exception, rid=None, recorder=None) -> None:
     if not fut.done():
         fut.set_exception(exc)
     _stream_event(stream, {"error": str(exc)}, rid)
+    if recorder is not None:
+        # A no-op for requests the recorder never saw enqueued
+        # (validation rejections count as validation_failures).
+        recorder.fail(rid)
 
 
 def _to_device(values: list, dtype: torch.dtype,
@@ -80,7 +116,7 @@ def _to_device(values: list, dtype: torch.dtype,
 
 
 def _validate_request(tokens, max_new_tokens, max_prompt_len, vocab_size,
-                      fut, stream, rid=None) -> bool:
+                      fut, stream, rid=None, recorder=None) -> bool:
     """Fails `fut` (and the stream, so SSE clients see the error instead
     of a hang) and returns False on a bad request. Token ids are range
     checked: an out-of-range embedding index on the card is a device-side
@@ -95,14 +131,69 @@ def _validate_request(tokens, max_new_tokens, max_prompt_len, vocab_size,
         err = ValueError(f"token ids must be in [0, {vocab_size})")
     if err is None:
         return True
+    if recorder is not None:
+        recorder.validation_failures.inc()
     _fail(fut, stream, err, rid)
     return False
+
+
+class _PhaseClock:
+    """Per-tick host-phase stopwatch. Each slice of engine host work is
+    attributed to a named phase (admit / schedule / sample / stream /
+    fetch) and flagged hidden when it ran under a dispatched-but-unfetched
+    tick that was still running on the card: host time that cost the
+    card no idle time. The exposed rest over the tick's wall time is the
+    recorder's `host_gap_fraction`.
+
+    Hidden is decided by `busy_probe` at the phase's end: the engine's
+    `_device_busy`, a CUDA event query on the newest tick in flight (it
+    never waits), so a phase counts hidden only when the card was still
+    busy as it closed. If the card finished mid-phase, or nothing was in
+    flight, the phase is exposed. The fetch is never exposure
+    (`exposed=False`): the host waits on device work there; it still
+    gives a phase sample."""
+
+    __slots__ = ("rec", "_busy", "_tick_t0", "_exposed")
+
+    def __init__(self, recorder, busy_probe=None):
+        self.rec = recorder
+        self._busy = busy_probe if busy_probe is not None else (
+            lambda: False)
+        self._tick_t0 = None
+        self._exposed = 0.0
+
+    def start_tick(self) -> None:
+        self._tick_t0 = time.monotonic()
+        self._exposed = 0.0
+
+    @contextlib.contextmanager
+    def phase(self, name: str, exposed: bool | None = None):
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            dt = time.monotonic() - t0
+            hidden = self._busy() if exposed is None else not exposed
+            self.rec.observe_host_phase(name, dt, hidden)
+            if not hidden:
+                self._exposed += dt
+
+    def commit_tick(self) -> None:
+        """Close one tick's exposure accounting; a no-op unless
+        start_tick ran (idle iterations never commit, so parked waits do
+        not dilute the fraction)."""
+        if self._tick_t0 is None:
+            return
+        self.rec.observe_host_tick(
+            self._exposed, time.monotonic() - self._tick_t0)
+        self._tick_t0 = None
 
 
 class BatchingEngine:
     def __init__(self, model, cfg, max_batch: int = 8,
                  window_ms: float = 5.0, max_prompt_len: int = 1024,
-                 engine_core: str = "async"):
+                 engine_core: str = "async",
+                 recorder: RequestRecorder | None = None):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
@@ -112,6 +203,10 @@ class BatchingEngine:
         self.max_batch = max_batch
         self.window = window_ms / 1000.0
         self.max_prompt_len = max_prompt_len
+        # One recorder can be shared between engines; by default each
+        # engine owns a private one.
+        self.recorder = recorder if recorder is not None \
+            else RequestRecorder()
         self._rid = itertools.count(1)  # request ids (count() is atomic)
         # queue.Queue, not SimpleQueue: the C _queue module's timed get
         # can lose a put's wakeup; _work bounds any residual wait
@@ -136,14 +231,21 @@ class BatchingEngine:
         self.thread.start()
 
     def submit(self, tokens: list[int], max_new_tokens: int,
-               temperature: float, stream: queue.Queue | None = None
-               ) -> concurrent.futures.Future:
+               temperature: float, stream: queue.Queue | None = None,
+               trace_ctx: dict | None = None) -> concurrent.futures.Future:
         fut: concurrent.futures.Future = concurrent.futures.Future()
         rid = next(self._rid)
         if not _validate_request(tokens, max_new_tokens,
                                  self.max_prompt_len, self.cfg.vocab_size,
-                                 fut, stream, rid=rid):
+                                 fut, stream, rid=rid,
+                                 recorder=self.recorder):
             return fut
+        # The trace starts before enqueue, so the client's force and tags
+        # land on the handle the recorder's enqueue reuses.
+        if trace_ctx:
+            trace.start(rid, force=bool(trace_ctx.get("force")),
+                        tags=trace_ctx.get("tags"))
+        self.recorder.enqueue(rid)
         self.queue.put((tuple(tokens), max_new_tokens, temperature, fut,
                         stream, rid))
         self._work.set()  # after put: the worker's drain must see it
@@ -166,6 +268,7 @@ class BatchingEngine:
             generate,
         )
 
+        clock = _PhaseClock(self.recorder, self._device_busy)
         pending = self._pending
         while not self._stop.is_set():
             # Only block for new traffic when nothing is deferred, and
@@ -178,7 +281,9 @@ class BatchingEngine:
                     pending.append(self.queue.get_nowait())
                 except queue.Empty:
                     if self._inflight:
-                        self._drain_batches()
+                        clock.start_tick()
+                        self._drain_batches(clock)
+                        clock.commit_tick()
                     continue
             # Gather same-bucket requests for one window.
             deadline = time.monotonic() + self.window
@@ -208,32 +313,50 @@ class BatchingEngine:
                 else:
                     pending.append(item)
 
+            rec = self.recorder
+            clock.start_tick()
+            with clock.phase("admit"):
+                for item in batch:
+                    rec.admit(item[5])
+                rec.set_slots(active=len(batch), total=self.max_batch)
             n_new, temp = batch[0][1], batch[0][2]
+            t_batch = time.monotonic()
             try:
-                tokens = _to_device([list(item[0]) for item in batch],
-                                    torch.long, self.device)
-                gen = None
-                if temp > 0:
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        time.time_ns() & 0xFFFF)
-                # Dispatch only: generate() never waits for the device.
-                out = generate(self.model, tokens, self.cfg, n_new,
-                               temperature=temp, generator=gen)
-                done = None
-                if self.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record()
+                with clock.phase("schedule"):
+                    tokens = _to_device([list(item[0]) for item in batch],
+                                        torch.long, self.device)
+                    gen = None
+                    if temp > 0:
+                        gen = torch.Generator(
+                            device=self.device).manual_seed(
+                                time.time_ns() & 0xFFFF)
+                    # Dispatch only: generate() never waits for the
+                    # device.
+                    out = generate(self.model, tokens, self.cfg, n_new,
+                                   temperature=temp, generator=gen)
+                    done = None
+                    if self.device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record()
             except Exception as e:
+                introspection.note_failure(e, "serve/window_batch")
                 log.exception("batch failed")
                 for item in batch:
-                    _fail(item[3], item[4], e, item[5])
+                    _fail(item[3], item[4], e, item[5], rec)
                 self._batch = []
+                rec.set_slots(active=0, total=self.max_batch)
                 continue
             self._inflight.append({"batch": batch, "out": out,
-                                   "done": done})
+                                   "done": done, "t0": t_batch})
+            for item in batch:
+                h = trace.handle(item[5])
+                if h is not None:
+                    h.instant(trace.EV_DISPATCH,
+                              {"batch": len(batch), "n_new": n_new})
             self._batch = []
-            self._drain_batches(keep=1 if self.engine_core == "async"
+            self._drain_batches(clock, keep=1 if self.engine_core == "async"
                                 else 0)
+            clock.commit_tick()
 
     def _device_busy(self) -> bool:
         """True while the newest dispatched-but-unfetched batch still
@@ -243,31 +366,60 @@ class BatchingEngine:
         done = self._inflight[-1]["done"]
         return done is not None and not done.query()
 
-    def _drain_batches(self, keep: int = 0) -> None:
-        """Fetch outstanding batches until at most `keep` remain."""
+    def _drain_batches(self, clock, keep: int = 0) -> None:
+        """Fetch outstanding batches until at most `keep` remain; zero
+        the slot gauge once nothing is in flight."""
         while len(self._inflight) > keep:
-            self._fetch_batch()
+            self._fetch_batch(clock)
+        if not self._inflight:
+            self.recorder.set_slots(active=0, total=self.max_batch)
 
-    def _fetch_batch(self) -> None:
+    def _fetch_batch(self, clock) -> None:
         """Bring the OLDEST dispatched batch to the host (the engine's
         only wait on the device) and deliver its results and streams."""
+        rec = self.recorder
         fl = self._inflight.pop(0)
         batch = fl["batch"]
+        handles = [trace.handle(item[5]) for item in batch]
+        t_fetch = time.monotonic()
         try:
-            out_host = fl["out"].tolist()
+            with clock.phase("fetch", exposed=False):
+                out_host = fl["out"].tolist()
         except Exception as e:
             # Device errors of an asynchronous dispatch surface here.
+            introspection.note_failure(e, "serve/window_batch")
             log.exception("batch failed")
             for item in batch:
-                _fail(item[3], item[4], e, item[5])
+                _fail(item[3], item[4], e, item[5], rec)
             return
-        for item, row in zip(batch, out_host):
-            rid = item[5]
-            item[3].set_result(row)
-            if item[4] is not None:
-                for tok in row[len(item[0]):]:
-                    _stream_event(item[4], {"token": tok}, rid)
-                _stream_event(item[4], {"done": True, "tokens": row}, rid)
+        batch_dt = time.monotonic() - fl["t0"]
+        t_streamed = time.monotonic()
+        for h in handles:
+            if h is not None:
+                h.begin(trace.SPAN_FETCH, ts=t_fetch)
+                h.end(trace.SPAN_FETCH, ts=t_streamed)
+                h.begin(trace.SPAN_STREAM, ts=t_streamed)
+        with clock.phase("stream"):
+            for item, row in zip(batch, out_host):
+                rid = item[5]
+                item[3].set_result(row)
+                # No incremental tokens here: the client's TTFT is the
+                # batch's completion, and TPOT amortizes the batch time
+                # over the generated tokens (the observation counts stay
+                # those of the other engines).
+                rec.first_token(rid)
+                n_gen = len(row) - len(item[0])
+                for _ in range(n_gen - 1):
+                    rec.observe_tpot(batch_dt / max(n_gen, 1))
+                if item[4] is not None:
+                    for tok in row[len(item[0]):]:
+                        _stream_event(item[4], {"token": tok}, rid)
+                    _stream_event(item[4], {"done": True, "tokens": row},
+                                  rid)
+                h = trace.handle(rid)
+                if h is not None:
+                    h.end(trace.SPAN_STREAM)
+                rec.finish(rid)
         self.batches_run += 1
         self.requests_served += len(batch)
 
@@ -297,12 +449,18 @@ class ContinuousEngine:
     PagedContinuousEngine overrides the policy hooks (admission, page
     growth, preemption, release); the control flow lives here.
     `plain=True` runs the kernels' plain versions on any device (the
-    on-card reference for the kernel path)."""
+    on-card reference for the kernel path).
+
+    Each loop iteration holds `_mu` from admission to the decode tick,
+    so a reader on another thread (the paged engine's thermal census
+    for /debugz) sees the slot table and page pool between iterations,
+    never mid-change; the idle wait does not hold it."""
 
     def __init__(self, model, cfg, max_slots: int = 8,
                  max_len: int = 2048, prompt_bucket: int = 64,
                  max_prompt_len: int = 1024, prefill_chunk: int = 0,
-                 engine_core: str = "async", plain: bool = False):
+                 engine_core: str = "async", plain: bool = False,
+                 recorder: RequestRecorder | None = None):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
@@ -320,14 +478,19 @@ class ContinuousEngine:
         self.prefill_chunk = prefill_chunk
         self.engine_core = engine_core
         self.plain = plain
+        self.recorder = recorder if recorder is not None \
+            else RequestRecorder()
         self._rid = itertools.count(1)
-        # Dispatched-but-unfetched decode ticks, oldest first:
-        # {"toks", "slots": [(slot, final)], "done": CUDA event or None}.
+        # Dispatched-but-unfetched decode ticks, oldest first: {"toks",
+        # "slots": [(slot, final)], "done": CUDA event or None, "t0":
+        # dispatch time}.
         self._inflight: list = []
         # Device-resident last-token vector (async core) and the
         # host-known tokens to merge into it at the next dispatch.
         self._dev_tok = None
         self._tok_overrides: dict = {}
+        self._clock = _PhaseClock(self.recorder, self._device_busy)
+        self._mu = threading.RLock()
         # queue.Queue + Event wake, as in BatchingEngine.
         self.queue: queue.Queue = queue.Queue()
         self._work = threading.Event()
@@ -345,28 +508,45 @@ class ContinuousEngine:
         self.requests_served = 0
         self.batches_run = 0        # = steps_run, for /healthz
         self._stop = threading.Event()
+        # The slot table and cache exist before the worker starts, so a
+        # reader on another thread (the census) never sees them missing.
+        self._slots: list[dict | None] = [None] * max_slots
+        self._backlog: list = []
+        self._last_tok = [0] * max_slots
+        self._temps = [0.0] * max_slots
+        self._admit_seq = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self._fresh_state()
         self.thread = threading.Thread(target=self._worker, daemon=True,
                                        name="serve-continuous")
         self.thread.start()
 
     def submit(self, tokens: list[int], max_new_tokens: int,
-               temperature: float, stream: queue.Queue | None = None
-               ) -> concurrent.futures.Future:
+               temperature: float, stream: queue.Queue | None = None,
+               trace_ctx: dict | None = None) -> concurrent.futures.Future:
         fut: concurrent.futures.Future = concurrent.futures.Future()
         rid = next(self._rid)
         if not _validate_request(tokens, max_new_tokens,
                                  self.max_prompt_len, self.cfg.vocab_size,
-                                 fut, stream, rid=rid):
+                                 fut, stream, rid=rid,
+                                 recorder=self.recorder):
             return fut
         # The prompt is padded up to a bucket multiple before prefill,
         # so the bucketed length must fit the cache too.
         bucketed = -(-len(tokens) // self.prompt_bucket) * self.prompt_bucket
         if (len(tokens) + max_new_tokens > self.max_len
                 or bucketed > self.max_len):
+            self.recorder.validation_failures.inc()
             _fail(fut, stream, ValueError(
                 f"prompt (bucketed to {bucketed}) + max_new_tokens "
                 f"exceeds cache max_len {self.max_len}"), rid)
             return fut
+        # Before enqueue: the recorder's enqueue reuses this handle.
+        if trace_ctx:
+            trace.start(rid, force=bool(trace_ctx.get("force")),
+                        tags=trace_ctx.get("tags"))
+            self._note_tenant(rid, trace_ctx.get("tags"))
+        self.recorder.enqueue(rid)
         self.queue.put((tuple(tokens), max_new_tokens, temperature, fut,
                         stream, rid))
         self._work.set()  # after put: the worker's drain must see it
@@ -377,6 +557,18 @@ class ContinuousEngine:
         self._work.set()
 
     # ---------- hooks (overridden by the paged engine) ----------
+
+    def _note_tenant(self, rid: int, tags: dict | None) -> None:
+        """Tenant attribution: the paged engine records a request's
+        tenant and class tags so its pages carry an owner in the thermal
+        census. A no-op on the slot engine."""
+
+    def _record_occupancy(self):
+        """Occupancy gauges, once an iteration (the paged engine adds
+        the page pool's)."""
+        self.recorder.set_slots(
+            active=sum(sl is not None for sl in self._slots),
+            total=self.max_slots)
 
     def _fresh_state(self):
         from container_engine_accelerators_tpu_torch.models.decode import (
@@ -437,21 +629,27 @@ class ContinuousEngine:
     # ---------- worker ----------
 
     def _worker(self):
-        self._slots: list[dict | None] = [None] * self.max_slots
-        self._backlog: list = []
-        self._last_tok = [0] * self.max_slots
-        self._temps = [0.0] * self.max_slots
-        self._admit_seq = 0
-        self._gen = torch.Generator(device=self.device).manual_seed(0)
-        self._fresh_state()
+        # While tick t runs on the card, this iteration's admission,
+        # prefill and page growth run in the gap, tick t+1 dispatches
+        # behind it, and only then is tick t fetched (async core). The
+        # phase clock attributes each host slice and flags it hidden
+        # when a tick was still running.
+        clock = self._clock
         while not self._stop.is_set():
             self._pump_queue()
-            self._admit_phase()
-            if all(sl is None for sl in self._slots):
-                continue
-            self._prefill_tick()
-            if self._pre_step():
-                self._decode_tick()
+            with self._mu:
+                clock.start_tick()
+                with clock.phase("admit"):
+                    self._admit_phase()
+                self._record_occupancy()
+                if all(sl is None for sl in self._slots):
+                    continue
+                with clock.phase("schedule"):
+                    self._prefill_tick()
+                with clock.phase("schedule"):
+                    ok = self._pre_step()
+                if ok and self._decode_tick():
+                    clock.commit_tick()
 
     def _pump_queue(self):
         # No timed queue-get: drain without blocking and park on an
@@ -473,13 +671,15 @@ class ContinuousEngine:
                 if not self._admit_one(item, free[0]):
                     return  # resources exhausted: retry next loop
             except Exception as e:
+                introspection.note_failure(e, "serve/admit")
                 log.exception("admission failed")
                 self._backlog.pop(0)
-                _fail(item[3], item[4], e, item[5])
+                _fail(item[3], item[4], e, item[5], self.recorder)
                 self._reset(e)
                 return
             self._backlog.pop(0)
             if self._slots[free[0]] is not None:  # actually admitted
+                self.recorder.admit(item[5])
                 free.pop(0)
 
     def _prefill_tick(self) -> bool:
@@ -503,6 +703,10 @@ class ContinuousEngine:
         bucketed = -(-take // self.prompt_bucket) * self.prompt_bucket
         padded = sl["pending"][:take] + [0] * (bucketed - take)
         start, new_len = sl["len"], sl["len"] + take
+        h = trace.handle(sl["rid"])
+        if h is not None:
+            h.begin(trace.SPAN_PREFILL_CHUNK,
+                    {"tokens": take, "final": final, "pool": False})
         try:
             last_logits = self._run_chunk(
                 i, _to_device(padded, torch.long, self.device), start,
@@ -515,14 +719,20 @@ class ContinuousEngine:
                 tok = int(pick_tokens(last_logits[None, :], temps,
                                       self._gen)[0])
         except Exception as e:
+            # The bundle first: _reset rebuilds the pool, destroying the
+            # evidence.
+            introspection.note_failure(e, "serve/prefill_chunk")
             log.exception("prefill chunk failed")
             self._reset(e)
             return False
+        if h is not None:
+            h.end(trace.SPAN_PREFILL_CHUNK)
         sl["pending"] = sl["pending"][take:]
         sl["len"] = new_len
         self.prefill_chunks_run += 1
         self.prefill_tokens_run += take
         self.prefill_chunk_trace.append(self.steps_run)
+        self.recorder.observe_prefill_chunk(take)
         if not final:
             return True
         self._on_prefill_complete(i, sl)
@@ -531,6 +741,8 @@ class ContinuousEngine:
         sl["remaining"] -= 1
         self._last_tok[i] = tok
         self._tok_overrides[i] = tok
+        # Stamped where the token already reached the host (int() above).
+        self.recorder.first_token(sl["rid"])
         _stream_event(sl["stream"], {"token": tok}, sl["rid"])
         if sl["remaining"] <= 0:
             self._finish(i)
@@ -557,46 +769,56 @@ class ContinuousEngine:
             self._drain_inflight()
             return fetched
         dev = self.device
-        try:
-            if self._dev_tok is None:
-                tokens = _to_device(self._last_tok, torch.long, dev)
-            elif self._tok_overrides:
-                ov = [self._tok_overrides.get(i, 0)
-                      for i in range(self.max_slots)]
-                mk = [i in self._tok_overrides
-                      for i in range(self.max_slots)]
-                tokens = merge_tokens(self._dev_tok,
-                                      _to_device(ov, torch.long, dev),
-                                      _to_device(mk, torch.bool, dev))
-            else:
-                tokens = self._dev_tok
-            self._tok_overrides = {}
-            logits = self._step(tokens, _to_device(decoding, torch.bool, dev))
-            toks = pick_tokens(logits,
-                               _to_device(self._temps, torch.float32, dev),
-                               self._gen)
-            done = None
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
-        except Exception as e:
-            log.exception("decode step failed")
-            self._reset(e)
-            return False
-        self.steps_run += 1
-        self.batches_run = self.steps_run
-        if self.engine_core == "async":
-            self._dev_tok = toks
-        # Whether this tick is a slot's last is pinned here: by fetch time
-        # a later dispatch may have moved `remaining` on.
-        ticked = []
-        for i, sl in enumerate(self._slots):
-            if not decoding[i]:
-                continue
-            sl["len"] = min(sl["len"] + 1, self.max_len)
-            sl["remaining"] -= 1
-            ticked.append((i, sl["remaining"] <= 0))
-        self._inflight.append({"toks": toks, "slots": ticked, "done": done})
+        with self._clock.phase("schedule"):
+            t_step = time.monotonic()
+            try:
+                if self._dev_tok is None:
+                    tokens = _to_device(self._last_tok, torch.long, dev)
+                elif self._tok_overrides:
+                    ov = [self._tok_overrides.get(i, 0)
+                          for i in range(self.max_slots)]
+                    mk = [i in self._tok_overrides
+                          for i in range(self.max_slots)]
+                    tokens = merge_tokens(self._dev_tok,
+                                          _to_device(ov, torch.long, dev),
+                                          _to_device(mk, torch.bool, dev))
+                else:
+                    tokens = self._dev_tok
+                self._tok_overrides = {}
+                logits = self._step(tokens,
+                                    _to_device(decoding, torch.bool, dev))
+                toks = pick_tokens(
+                    logits, _to_device(self._temps, torch.float32, dev),
+                    self._gen)
+                done = None
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+            except Exception as e:
+                introspection.note_failure(e, "serve/decode_tick")
+                log.exception("decode step failed")
+                self._reset(e)
+                return False
+        with self._clock.phase("sample"):
+            self.steps_run += 1
+            self.batches_run = self.steps_run
+            if self.engine_core == "async":
+                self._dev_tok = toks
+            # Whether this tick is a slot's last is pinned here: by fetch
+            # time a later dispatch may have moved `remaining` on.
+            ticked = []
+            for i, sl in enumerate(self._slots):
+                if not decoding[i]:
+                    continue
+                sl["len"] = min(sl["len"] + 1, self.max_len)
+                sl["remaining"] -= 1
+                ticked.append((i, sl["remaining"] <= 0))
+                h = trace.handle(sl["rid"])
+                if h is not None:
+                    h.instant(trace.EV_DISPATCH,
+                              {"tick": self.steps_run}, ts=t_step)
+            self._inflight.append({"toks": toks, "slots": ticked,
+                                   "done": done, "t0": t_step})
         keep = 1 if self.engine_core == "async" else 0
         while len(self._inflight) > keep:
             self._fetch_tick()
@@ -610,23 +832,41 @@ class ContinuousEngine:
         if not self._inflight:
             return
         fl = self._inflight.pop(0)
+        t_f0 = time.monotonic()
         try:
-            toks = fl["toks"].tolist()
+            with self._clock.phase("fetch", exposed=False):
+                toks = fl["toks"].tolist()
         except Exception as e:
             # Device errors of an asynchronous dispatch surface here.
+            introspection.note_failure(e, "serve/decode_tick")
             log.exception("decode step failed")
             self._reset(e)
             return
-        for i, final in fl["slots"]:
-            sl = self._slots[i]
-            if sl is None:
-                continue  # reclaimed by a reset before the fetch
-            tok = toks[i]
-            sl["out"].append(tok)
-            self._last_tok[i] = tok
-            _stream_event(sl["stream"], {"token": tok}, sl["rid"])
-            if final:
-                self._finish(i)
+        # Dispatch to fetch: the tick's device time plus the host work
+        # hidden under it, the pipelined tick's wall time.
+        t_f1 = time.monotonic()
+        t_tick = t_f1 - fl["t0"]
+        self.recorder.observe_decode_step(t_tick)
+        with self._clock.phase("stream"):
+            for i, final in fl["slots"]:
+                sl = self._slots[i]
+                if sl is None:
+                    continue  # reclaimed by a reset before the fetch
+                h = trace.handle(sl["rid"])
+                if h is not None:
+                    h.begin(trace.SPAN_FETCH, {"tick_ms": round(
+                        t_tick * 1e3, 3)}, ts=t_f0)
+                    h.end(trace.SPAN_FETCH, ts=t_f1)
+                    h.begin(trace.SPAN_STREAM)
+                tok = toks[i]
+                sl["out"].append(tok)
+                self._last_tok[i] = tok
+                self.recorder.decode_token(sl["rid"])
+                _stream_event(sl["stream"], {"token": tok}, sl["rid"])
+                if h is not None:
+                    h.end(trace.SPAN_STREAM)
+                if final:
+                    self._finish(i)
 
     def _drain_inflight(self) -> None:
         """Fetch every outstanding tick (preemption needs the host view
@@ -650,6 +890,7 @@ class ContinuousEngine:
             sl["fut"].set_result(out)
         _stream_event(sl["stream"], {"done": True, "tokens": out},
                       sl["rid"])
+        self.recorder.finish(sl["rid"])
         self.requests_served += 1
         self._slots[i] = None
 
@@ -659,12 +900,14 @@ class ContinuousEngine:
         self._inflight = []
         self._dev_tok = None
         self._tok_overrides = {}
+        self.recorder.engine_resets.inc()
         for i, sl in enumerate(self._slots):
             if sl is not None:
-                _fail(sl["fut"], sl["stream"], err, sl["rid"])
+                _fail(sl["fut"], sl["stream"], err, sl["rid"],
+                      self.recorder)
             self._slots[i] = None
         for item in self._backlog:
-            _fail(item[3], item[4], err, item[5])
+            _fail(item[3], item[4], err, item[5], self.recorder)
         self._backlog.clear()
         self._fresh_state()
 
@@ -690,14 +933,26 @@ class PagedContinuousEngine(ContinuousEngine):
       - finish: pages go back to the free list.
 
     `max_len` rounds up to a page multiple; the prompt bucket is the
-    page."""
+    page.
+
+    KV thermal observability: the allocator stamps every page's touches
+    and its tenant (from the request's tags), and once per
+    `thermal_interval_s` the loop takes `thermal_census()` (O(pages) on
+    the host: hot, warm and cold pages under `thermal_hot_s` and
+    `thermal_warm_s`, per-tenant pages, the working set) into the
+    recorder, with `kv/thrash` instants for prefix pages re-referenced
+    after their eviction; every admitted prompt leaves a
+    `kv/prefix_access` instant."""
 
     def __init__(self, model, cfg, max_slots: int = 8,
                  max_len: int = 2048, page: int = 128,
                  pool_pages: int | None = None,
                  max_prompt_len: int = 1024, prefix_cap: int = 256,
                  prefill_chunk: int = 0, engine_core: str = "async",
-                 plain: bool = False):
+                 plain: bool = False,
+                 recorder: RequestRecorder | None = None,
+                 thermal_hot_s: float = 2.0, thermal_warm_s: float = 10.0,
+                 thermal_interval_s: float = 1.0):
         max_len = -(-max_len // page) * page
         self.page = page
         self.max_pages = max_len // page
@@ -706,26 +961,90 @@ class PagedContinuousEngine(ContinuousEngine):
         self.preemptions = 0
         self.prefix_cap = prefix_cap
         self.prefix_pages_reused = 0
+        self.thermal_hot_s = thermal_hot_s
+        self.thermal_warm_s = thermal_warm_s
+        self.thermal_interval_s = thermal_interval_s
+        # rid -> (tenant, class), bounded, oldest dropped first
+        self._tenants: collections.OrderedDict[int, tuple[str, str]] = \
+            collections.OrderedDict()
+        self._tenants_cap = 4096
         super().__init__(model, cfg, max_slots=max_slots, max_len=max_len,
                          prompt_bucket=page, max_prompt_len=max_prompt_len,
                          prefill_chunk=prefill_chunk,
-                         engine_core=engine_core, plain=plain)
+                         engine_core=engine_core, plain=plain,
+                         recorder=recorder)
 
-    def submit(self, tokens, max_new_tokens, temperature, stream=None):
+    def submit(self, tokens, max_new_tokens, temperature, stream=None,
+               trace_ctx=None):
         """Reject a prompt whose pages can never all be free at once:
         admission would retry it forever and block every later
         request."""
         pages = -(-len(tokens) // self.page)
         if pages > self.pool_pages - 1:
             fut: concurrent.futures.Future = concurrent.futures.Future()
+            self.recorder.validation_failures.inc()
             _fail(fut, stream, ValueError(
                 f"prompt needs {pages} pages but the pool has only "
                 f"{self.pool_pages - 1} usable; raise --pool-pages"))
             return fut
         return super().submit(tokens, max_new_tokens, temperature,
-                              stream=stream)
+                              stream=stream, trace_ctx=trace_ctx)
 
     # ---------- hooks ----------
+
+    def _note_tenant(self, rid: int, tags: dict | None) -> None:
+        if not tags:
+            return
+        tenant = tags.get("tenant")
+        if tenant is None:
+            return
+        self._tenants[rid] = (str(tenant), str(tags.get("class", "-")))
+        while len(self._tenants) > self._tenants_cap:
+            self._tenants.popitem(last=False)
+
+    def thermal_census(self, top_n: int = 16) -> dict:
+        """Live thermal snapshot of the page pool (the /debugz?kv=1
+        payload): the rows of live slots count hot (the card reads them
+        every tick), the prefix index's rows carry the cold-evictable
+        linkage. Under `_mu`: the slots and the pool do not move
+        mid-census."""
+        with self._mu:
+            active: set[int] = set()
+            for sl in self._slots:
+                if sl is not None:
+                    active.update(sl["rows"])
+            return self._alloc.thermal_census(
+                hot_s=self.thermal_hot_s, warm_s=self.thermal_warm_s,
+                active_rows=active,
+                prefix_rows=self.prefix_index.rows_held(), top_n=top_n)
+
+    def _record_occupancy(self):
+        super()._record_occupancy()
+        # The prefix cache's pages are spent pool too.
+        self.recorder.set_kv_pages(
+            used=self._alloc.pages_in_use, total=self._alloc.n_pages - 1)
+        self.recorder.set_prefix_cache_pages(self.prefix_index.pages_held())
+        # The census is O(pages) on the host: at most once an interval,
+        # not once a tick.
+        now = time.monotonic()
+        if now - self._last_census_ts >= self.thermal_interval_s:
+            self._last_census_ts = now
+            self.recorder.set_kv_thermal(self.thermal_census())
+            self._emit_thrash_events()
+
+    def _emit_thrash_events(self) -> None:
+        """One kv/thrash instant per prefix page re-referenced after its
+        eviction since the last call, and the running counter track."""
+        new = self.prefix_index.rereferences - self._rerefs_seen
+        if new <= 0:
+            return
+        ages = list(self.prefix_index.reref_ages)[-new:]
+        self._rerefs_seen = self.prefix_index.rereferences
+        if events.enabled():
+            for _, age in ages:
+                events.instant("kv/thrash", "kv", {"age_s": round(age, 3)})
+            events.counter("serve/kv_thrash",
+                           {"rerefs": self.prefix_index.rereferences})
 
     def _fresh_state(self):
         from container_engine_accelerators_tpu_torch.models.decode import (
@@ -739,6 +1058,11 @@ class PagedContinuousEngine(ContinuousEngine):
                                        self.max_pages, self.device)
         self._alloc = PageAllocator(self.pool_pages)
         self.prefix_index = PrefixIndex(self._alloc, cap=self.prefix_cap)
+        self._rerefs_seen = 0
+        self._last_census_ts = 0.0
+        # Requests whose admission waits on free pages: a req/page_stall
+        # span stays open from the first failed allocation to the admit.
+        self._page_stalled: set = set()
 
     @property
     def pages_in_use(self) -> int:
@@ -778,6 +1102,7 @@ class PagedContinuousEngine(ContinuousEngine):
                                  sl["rid"]))
         self._slots[i] = None
         self.preemptions += 1
+        self.recorder.preempt(sl["rid"])
         return i
 
     def _admit_one(self, item, slot_idx) -> bool:
@@ -793,23 +1118,61 @@ class PagedContinuousEngine(ContinuousEngine):
         if n_pages > self.pool_pages - 1:
             # A preempted request's regrown prompt can outgrow the pool
             # that submit() checked: fail it, do not block the backlog.
+            self._page_stalled.discard(rid)
             _fail(fut, stream, RuntimeError(
                 f"request needs {n_pages} prompt pages but the pool has "
                 f"only {self.pool_pages - 1} usable; raise --pool-pages"),
-                rid)
+                rid, self.recorder)
             return True  # consumed
         # Share the longest indexed chain of FULL prompt pages; the page
         # holding the last prompt token stays private, since decode
         # writes into it.
         n_full = (len(tokens) - 1) // page
+        h = trace.handle(rid)
+        if h is not None:
+            h.begin(trace.SPAN_PREFIX_LOOKUP, {"full_pages": n_full})
         keys = PrefixIndex.chain_keys(tokens, page, n_full)
         shared = self.prefix_index.match(keys)
+        if h is not None:
+            h.end(trace.SPAN_PREFIX_LOOKUP, {"shared_pages": len(shared)})
+            h.begin(trace.SPAN_PAGE_ALLOC,
+                    {"pages": n_pages - len(shared)})
         fresh = self._try_alloc(n_pages - len(shared))
         if fresh is None:
             self._alloc.free(shared)  # drop the refs; entries stay
+            if h is not None:
+                h.end(trace.SPAN_PAGE_ALLOC, {"ok": False})
+                if rid not in self._page_stalled:
+                    # Open until the retry that admits it.
+                    self._page_stalled.add(rid)
+                    h.begin(trace.SPAN_PAGE_STALL,
+                            {"pages_needed": n_pages - len(shared)})
             return False
+        if h is not None:
+            h.end(trace.SPAN_PAGE_ALLOC,
+                  {"ok": True, "fresh_pages": len(fresh)})
+            if rid in self._page_stalled:
+                self._page_stalled.discard(rid)
+                h.end(trace.SPAN_PAGE_STALL)
+        if n_full:
+            # One lookup per admitted prompt with a full page (shorter
+            # prompts can never hit; a retried admission counts once).
+            self.recorder.prefix_lookup(hit=bool(shared))
         p_len = len(shared) * page
         rows = shared + fresh
+        owner = self._tenants.get(rid)
+        if owner is not None:
+            self._alloc.set_owner(rows, owner[0], owner[1])
+        if events.enabled():
+            # The prompt's page-chain hashes: a touch trace to replay.
+            events.instant("kv/prefix_access", "kv", {
+                "rid": rid,
+                "tenant": owner[0] if owner else None,
+                "class": owner[1] if owner else None,
+                "keys": [k for k, _ in keys],
+                "hit_pages": len(shared),
+                "full_pages": n_full,
+            })
         table_row = rows + [0] * (self.max_pages - len(rows))
         self._cache = set_slot_pages(
             self._cache, slot_idx,
@@ -824,6 +1187,8 @@ class PagedContinuousEngine(ContinuousEngine):
         self._last_tok[slot_idx] = 0
         self._temps[slot_idx] = temp
         self.prefix_pages_reused += len(shared)
+        if shared:
+            self.recorder.prefix_pages_reused.inc(len(shared))
         return True
 
     def _run_chunk(self, slot_idx, tokens, start, new_len):
@@ -909,6 +1274,7 @@ class PagedContinuousEngine(ContinuousEngine):
                 _to_device(rws, torch.int32, dev),
                 _to_device(mask, torch.bool, dev))
         except Exception as e:
+            introspection.note_failure(e, "serve/assign_pages")
             log.exception("assign_pages failed")
             self._reset(e)
             return False
@@ -967,11 +1333,21 @@ def make_server(engine, port: int) -> ThreadingHTTPServer:
                 args = ([int(t) for t in req["tokens"]],
                         int(req.get("max_new_tokens", 16)),
                         float(req.get("temperature", 0.0)))
+                # `"trace": true` forces the request into the trace
+                # sample; `"tags"` stamp its spans (loadgen sends the
+                # tenant and request class).
+                trace_ctx = None
+                if req.get("trace") or req.get("tags"):
+                    tags = req.get("tags")
+                    trace_ctx = {
+                        "force": bool(req.get("trace")),
+                        "tags": tags if isinstance(tags, dict) else None}
                 if req.get("stream"):
                     stream_q: queue.Queue = queue.Queue()
-                    engine.submit(*args, stream=stream_q)
+                    engine.submit(*args, stream=stream_q,
+                                  trace_ctx=trace_ctx)
                     return self._stream_response(stream_q)
-                fut = engine.submit(*args)
+                fut = engine.submit(*args, trace_ctx=trace_ctx)
                 return self._send({"tokens": fut.result(timeout=120)})
             except (KeyError, ValueError, TypeError) as e:
                 return self._send({"error": str(e)}, 400)
@@ -1033,6 +1409,45 @@ def main(argv=None) -> int:
                         "half the bytes of bf16 a token); int4 packs two "
                         "4-bit values a byte (about a quarter; lossier). "
                         "Independent of --weight-dtype")
+    p.add_argument("--thermal-hot-s", type=float, default=2.0,
+                   help="paged engine: pages idle <= this many seconds "
+                        "count hot in the KV thermal census")
+    p.add_argument("--thermal-warm-s", type=float, default=10.0,
+                   help="paged engine: pages idle <= this (and > "
+                        "--thermal-hot-s) count warm; beyond is cold")
+    p.add_argument("--thermal-interval-s", type=float, default=1.0,
+                   help="paged engine: seconds between KV thermal "
+                        "census snapshots (O(pages) host work each)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve request-lifecycle Prometheus metrics "
+                        "(TTFT/TPOT/queue-wait histograms, slot and KV "
+                        "page occupancy, host phases) and /debugz on "
+                        "this port; 0 binds an ephemeral port (logged "
+                        "at startup); omit to disable the exporter")
+    p.add_argument("--metrics-host", default="",
+                   help="bind host for the metrics exporter (default: "
+                        "all interfaces)")
+    p.add_argument("--trace-dump", default=None,
+                   help="enable the flight-recorder EventBus and write "
+                        "its ring as Chrome-trace JSON to this path on "
+                        "exit/crash and on SIGUSR2 (a directory gets a "
+                        "per-pid file); TPU_TRACE_DUMP env is the "
+                        "flagless equivalent")
+    p.add_argument("--trace-jsonl", default=None,
+                   help="stream the EventBus to this JSONL file as "
+                        "events happen (a directory gets a per-pid "
+                        "file), the per-process input `trace merge` "
+                        "reads; enables the bus if no --trace-dump "
+                        "armed it")
+    p.add_argument("--trace-sample-rate", type=float,
+                   default=trace.DEFAULT_SAMPLE_RATE,
+                   help="fraction of requests emitting per-request "
+                        "spans (req/queue, req/prefill_chunk, "
+                        "req/dispatch ... on eid=request id; "
+                        "metrics/trace.py), decided per request id. "
+                        "Failed/preempted/SLO-violating requests are "
+                        "always captured by tail sampling; 0 disables "
+                        "head sampling, 1 traces everything")
     p.add_argument("--engine-core", choices=("async", "sync"),
                    default="async",
                    help="async = dispatch batch (window) or tick "
@@ -1044,6 +1459,19 @@ def main(argv=None) -> int:
     if not args.tiny:
         p.error("checkpoints are not ported yet; pass --tiny")
     logging.basicConfig(level=logging.INFO)
+    if args.trace_dump:
+        events.enable(dump_path=args.trace_dump, signals=True,
+                      process_name="serve")
+        log.info("flight recorder on; trace dump -> %s (SIGUSR2 dumps "
+                 "on demand)", args.trace_dump)
+    else:
+        events.configure_from_env(process_name="serve")
+    if args.trace_jsonl:
+        events.stream_jsonl(args.trace_jsonl)
+        log.info("streaming EventBus JSONL -> %s", args.trace_jsonl)
+    # Always configured: with the bus off, start() returns None and the
+    # request path stays span-free.
+    trace.configure(sample_rate=args.trace_sample_rate)
 
     from container_engine_accelerators_tpu_torch.models.convert import (
         load_model,
@@ -1061,27 +1489,50 @@ def main(argv=None) -> int:
     if args.weight_dtype == "int8":
         model = quantize_llama_params(model)
         log.info("serving int8-quantized weights")
+    recorder = RequestRecorder()
     if args.engine == "paged":
         engine = PagedContinuousEngine(
             model, cfg, max_slots=args.max_batch, max_len=args.max_len,
             page=args.page_size, pool_pages=args.pool_pages,
             prefix_cap=args.prefix_cache_cap,
-            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core)
+            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core,
+            recorder=recorder, thermal_hot_s=args.thermal_hot_s,
+            thermal_warm_s=args.thermal_warm_s,
+            thermal_interval_s=args.thermal_interval_s)
     elif args.engine == "continuous":
         engine = ContinuousEngine(
             model, cfg, max_slots=args.max_batch, max_len=args.max_len,
-            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core)
+            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core,
+            recorder=recorder)
     else:
         engine = BatchingEngine(model, cfg, max_batch=args.max_batch,
                                 window_ms=args.batch_window_ms,
-                                engine_core=args.engine_core)
+                                engine_core=args.engine_core,
+                                recorder=recorder)
+    exporter = None
+    if args.metrics_port is not None:
+        # The poller reads the serving card only, and none for --device
+        # cpu (reading one would create a CUDA context there).
+        dev = model.device
+        poller = introspection.HbmPoller(
+            registry=recorder.registry,
+            devices=[] if dev.type == "cpu" else [dev.index or 0])
+        exporter = ServeMetricsExporter(recorder, port=args.metrics_port,
+                                        host=args.metrics_host,
+                                        hbm_poller=poller)
+        if args.engine == "paged":
+            exporter.kv_provider = engine.thermal_census
+        exporter.start_background()
+        log.info("request metrics on :%d/metrics", exporter.bound_port)
     server = make_server(engine, args.port)
     log.info("serving on :%d (/generate, /healthz) on %s, %s engine",
-             args.port, model.device, args.engine)
+             server.server_address[1], model.device, args.engine)
     try:
         server.serve_forever()
     finally:
         engine.stop()
+        if exporter is not None:
+            exporter.stop()
     return 0
 
 

@@ -37,6 +37,7 @@ from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
     PHYSICAL_PREFIX,
     UNHEALTHY,
 )
+from container_engine_accelerators_tpu_torch.metrics import events
 
 log = logging.getLogger(__name__)
 
@@ -295,6 +296,12 @@ class TPUHealthChecker:
                             "critical": critical,
                             "message": ev.message[:200],
                             "t": round(time.time(), 3)}
+        if events.enabled():
+            # On the flight-recorder timeline a card fault lines up
+            # against the serving spans it degraded.
+            events.instant(f"health/{ev.error_class}", "health",
+                           {"chip": ev.chip_index, "critical": critical,
+                            "message": ev.message[:200]})
         if critical:
             self._critical_seen = True
             if ev.chip_index < 0:

@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
@@ -39,6 +40,9 @@ launches: collections.Counter = collections.Counter()
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _lib_path: Path | None = None
+# The last build() in this process: its library, whether it compiled or
+# found the library already built, and its seconds (build_record()).
+_last_build: dict | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,6 +118,8 @@ def build() -> Path:
     library; returns its path. The compiler's output, register and
     shared-memory reports included, goes to a `.log` of the same name
     beside it."""
+    global _last_build
+    t0 = time.perf_counter()
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(SRC_DIR.glob("*.cu*")):   # the headers too
@@ -121,6 +127,8 @@ def build() -> Path:
     digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libport_kernels-{digest}.so"
     if lib_path.exists():
+        _last_build = {"library": str(lib_path), "compiled": False,
+                       "seconds": time.perf_counter() - t0}
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -152,7 +160,19 @@ def build() -> Path:
     if link.returncode:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, lib_path)   # atomic: a concurrent loader sees all or none
+    _last_build = {"library": str(lib_path), "compiled": True,
+                   "seconds": time.perf_counter() - t0}
     return lib_path
+
+
+def build_record() -> dict:
+    """The kernel library this process built or found (`build()`): its
+    path, whether it was compiled here, the seconds that took, and
+    whether it is loaded; no library before the first build."""
+    rec = dict(_last_build) if _last_build else {
+        "library": None, "compiled": False, "seconds": None}
+    rec["loaded"] = _lib is not None
+    return rec
 
 
 def load() -> ctypes.CDLL:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 
 import torch
 import torch.nn.functional as F
@@ -536,7 +537,20 @@ class PageAllocator:
     second request (or kept by the prefix index) is shared, not copied,
     and returns to the free list when its last holder frees it. Only
     full pages are shared and decode writes only at positions at or past
-    a slot's length, so a shared page is never written."""
+    a slot's length, so a shared page is never written.
+
+    Thermal tracking: every alloc and share stamps the row's last-touch
+    time and touch count, and `set_owner` its tenant, in host dicts
+    updated inside bookkeeping that already runs between device steps (no
+    device work). `thermal_census()` folds them into an O(pages)
+    hot/warm/cold snapshot with a sampled reuse-distance profile, the
+    same dict as the JAX package's. Time is `self.clock` (monotonic; a
+    test may put a clock of its own there) unless a call takes `now`."""
+
+    #: one reuse-distance sample per this many touches: the census stays
+    #: O(pages) and a touch O(1) amortised (the stack-distance walk is
+    #: O(distance), paid on sampled touches only).
+    REUSE_SAMPLE_EVERY = 16
 
     def __init__(self, n_pages: int):
         if n_pages < 2:
@@ -544,6 +558,59 @@ class PageAllocator:
         self._free = list(range(n_pages - 1, 0, -1))  # pop() -> low rows
         self._refs: dict[int, int] = {}
         self.n_pages = n_pages
+        # Thermal bookkeeping, keyed by allocated row and dropped when
+        # the refcount reaches zero, so the census after a drain is
+        # empty, as the leak check wants.
+        self.clock = time.monotonic
+        self._alloc_ts: dict[int, float] = {}
+        self._last_touch: dict[int, float] = {}
+        self._touch_count: dict[int, int] = {}
+        # row -> (tenant, request class); the first owner keeps it, so a
+        # shared prefix page stays with the tenant that paid for it.
+        self._owner: dict[int, tuple[str, str]] = {}
+        self._touch_seq = 0
+        # LRU stack of touched rows (most recent last) for Mattson stack
+        # distances; freed rows leave it, so it is at most the pool.
+        self._stack: collections.OrderedDict[int, None] = \
+            collections.OrderedDict()
+        self._reuse_samples: collections.deque[int] = \
+            collections.deque(maxlen=1024)
+
+    def _touch(self, row: int, now: float) -> None:
+        self._touch_seq += 1
+        self._last_touch[row] = now
+        self._touch_count[row] = self._touch_count.get(row, 0) + 1
+        stack = self._stack
+        if row in stack:
+            if self._touch_seq % self.REUSE_SAMPLE_EVERY == 0:
+                d = 0
+                for r in reversed(stack):
+                    if r == row:
+                        break
+                    d += 1
+                self._reuse_samples.append(d)
+            stack.move_to_end(row)
+        else:
+            stack[row] = None  # first touch: infinite distance, unsampled
+
+    def touch(self, rows: list[int], now: float | None = None) -> None:
+        """Refresh last-touch on allocated rows (a page read again
+        outside alloc and share); unallocated rows are ignored."""
+        t = self.clock() if now is None else now
+        for r in rows:
+            if r in self._refs:
+                self._touch(r, t)
+
+    def set_owner(self, rows: list[int], tenant: str | None,
+                  req_class: str | None = None) -> None:
+        """Attribute allocated rows to a tenant and request class. The
+        first owner keeps a row: a prefix page shared by later tenants
+        stays attributed to the one that computed it."""
+        if tenant is None:
+            return
+        for r in rows:
+            if r in self._refs and r not in self._owner:
+                self._owner[r] = (str(tenant), str(req_class or "-"))
 
     @property
     def free_pages(self) -> int:
@@ -563,8 +630,11 @@ class PageAllocator:
         if n > len(self._free):
             return None
         rows = [self._free.pop() for _ in range(n)]
+        now = self.clock()
         for r in rows:
             self._refs[r] = 1
+            self._alloc_ts[r] = now
+            self._touch(r, now)
         return rows
 
     def share(self, row: int) -> int:
@@ -572,6 +642,7 @@ class PageAllocator:
         if self._refs.get(row, 0) < 1:
             raise ValueError(f"share of unallocated page row {row}")
         self._refs[row] += 1
+        self._touch(row, self.clock())
         return row
 
     def free(self, rows: list[int]) -> None:
@@ -587,6 +658,120 @@ class PageAllocator:
             if self._refs[r] == 0:
                 del self._refs[r]
                 self._free.append(r)
+                self._alloc_ts.pop(r, None)
+                self._last_touch.pop(r, None)
+                self._touch_count.pop(r, None)
+                self._owner.pop(r, None)
+                self._stack.pop(r, None)
+
+    def thermal_census(self, *, hot_s: float = 2.0, warm_s: float = 10.0,
+                       now: float | None = None,
+                       active_rows=(), prefix_rows=(),
+                       top_n: int = 8) -> dict:
+        """O(pages) thermal snapshot of the pool. `active_rows`, the rows
+        of live slots, are read by the card every tick, so they count hot
+        whatever their last host touch (an active page never reports
+        cold). `prefix_rows` are the prefix index's rows: a cold page
+        among them is evictable, a cold page in neither set an orphan
+        (a leak sign)."""
+        t = self.clock() if now is None else now
+        active = set(active_rows)
+        prefix = set(prefix_rows)
+        buckets = {"hot": 0, "warm": 0, "cold": 0}
+        tenants: dict[str, dict[str, int]] = {}
+        idles: list[float] = []
+        ages: list[float] = []
+        cold_evictable = cold_orphan = 0
+        per_page: list[tuple[float, int]] = []
+        for row in self._refs:
+            pinned = row in active
+            idle = 0.0 if pinned else max(t - self._last_touch.get(row, t),
+                                          0.0)
+            age = max(t - self._alloc_ts.get(row, t), 0.0)
+            if idle <= hot_s:
+                b = "hot"
+            elif idle <= warm_s:
+                b = "warm"
+            else:
+                b = "cold"
+            buckets[b] += 1
+            idles.append(idle)
+            ages.append(age)
+            owner = self._owner.get(row)
+            key = owner[0] if owner else "unowned"
+            trec = tenants.setdefault(key, {"pages": 0, "cold": 0})
+            trec["pages"] += 1
+            if b == "cold":
+                trec["cold"] += 1
+                if row in prefix:
+                    cold_evictable += 1
+                else:
+                    cold_orphan += 1
+            per_page.append((idle, row))
+        per_page.sort(reverse=True)
+        coldest = []
+        for idle, row in per_page[:max(top_n, 0)]:
+            owner = self._owner.get(row)
+            coldest.append({
+                "row": row,
+                "idle_s": round(idle, 3),
+                "age_s": round(max(t - self._alloc_ts.get(row, t), 0.0), 3),
+                "touches": self._touch_count.get(row, 0),
+                "refs": self._refs.get(row, 0),
+                "tenant": owner[0] if owner else None,
+                "class": owner[1] if owner else None,
+                "prefix": row in prefix,
+                "active": row in active,
+            })
+        rd = sorted(self._reuse_samples)
+        if rd:
+            # A page at stack distance d hits in a cache of d + 1 pages.
+            wss = _percentile(rd, 0.90) + 1
+        else:
+            # No reuse seen yet: the recently touched set stands in.
+            wss = buckets["hot"] + buckets["warm"]
+        return {
+            "t": t,
+            "hot_s": hot_s,
+            "warm_s": warm_s,
+            "pages_total": self.n_pages - 1,
+            "pages_in_use": self.pages_in_use,
+            "free_pages": len(self._free),
+            "buckets": buckets,
+            "active_pages": len(active & self._refs.keys()),
+            "prefix_pages": len(prefix & self._refs.keys()),
+            "cold_evictable": cold_evictable,
+            "cold_orphan": cold_orphan,
+            "idle_s": _pct_summary(idles),
+            "age_s": _pct_summary(ages),
+            "idle_values": [round(v, 3) for v in idles],
+            "tenants": tenants,
+            "reuse_distance": {
+                "samples": len(rd),
+                "p50": _percentile(rd, 0.50) if rd else None,
+                "p90": _percentile(rd, 0.90) if rd else None,
+            },
+            "working_set_pages": int(wss),
+            "touches_total": self._touch_seq,
+            "coldest": coldest,
+        }
+
+
+def _percentile(sorted_vals, q: float):
+    """Nearest-rank percentile of an already sorted sequence."""
+    if not sorted_vals:
+        return None
+    idx = min(int(q * len(sorted_vals)), len(sorted_vals) - 1)
+    return sorted_vals[idx]
+
+
+def _pct_summary(vals: list[float]) -> dict:
+    s = sorted(vals)
+    return {
+        "p50": round(_percentile(s, 0.50), 3) if s else None,
+        "p90": round(_percentile(s, 0.90), 3) if s else None,
+        "max": round(s[-1], 3) if s else None,
+    }
 
 
 class PrefixIndex:
@@ -600,14 +785,30 @@ class PrefixIndex:
     The chain hash (of (parent hash, page tokens)) makes a page's
     identity include its whole prefix. Entries keep the page's tokens
     and `match` compares them, so a 64-bit hash collision reads as a
-    miss instead of attaching another prompt's pages."""
+    miss instead of attaching another prompt's pages.
 
-    def __init__(self, alloc: PageAllocator, cap: int = 256):
+    Thrash tracking: entries evicted under pressure are remembered with
+    their eviction time (on the allocator's clock); a later `match` miss
+    on one within `reref_horizon_s` counts as evicted-then-re-referenced
+    (`rereferences`, `reref_ages`): the prefix would have hit had it
+    stayed."""
+
+    def __init__(self, alloc: PageAllocator, cap: int = 256,
+                 reref_horizon_s: float = 30.0):
         self.alloc = alloc
         self.cap = cap
         # hash -> (pool row, page token tuple), least recent first
         self._lru: collections.OrderedDict[int, tuple[int, tuple]] = \
             collections.OrderedDict()
+        self.reref_horizon_s = reref_horizon_s
+        # hash -> eviction time, oldest first, bounded
+        self._evicted: collections.OrderedDict[int, float] = \
+            collections.OrderedDict()
+        self._evicted_cap = max(4 * cap, 64)
+        self.rereferences = 0
+        # (time, seconds since eviction) of the latest rereferences
+        self.reref_ages: collections.deque[tuple[float, float]] = \
+            collections.deque(maxlen=256)
 
     @staticmethod
     def chain_keys(tokens, page: int,
@@ -631,6 +832,13 @@ class PrefixIndex:
         for h, block in keys:
             hit = self._lru.get(h)
             if hit is None or hit[1] != block:
+                if hit is None and h in self._evicted:
+                    ev_ts = self._evicted.pop(h)
+                    now = self.alloc.clock()
+                    age = max(now - ev_ts, 0.0)
+                    if age <= self.reref_horizon_s:
+                        self.rereferences += 1
+                        self.reref_ages.append((now, age))
                 break
             self._lru.move_to_end(h)
             rows.append(self.alloc.share(hit[0]))
@@ -641,22 +849,31 @@ class PrefixIndex:
         if h in self._lru:
             self._lru.move_to_end(h)
             return
+        self._evicted.pop(h, None)
         self._lru[h] = (self.alloc.share(row), block)
         if len(self._lru) > self.cap:
             self.evict_lru()
+
+    def rows_held(self) -> set[int]:
+        """Distinct pool rows the index references (the prefix linkage
+        the thermal census reports per page)."""
+        return {row for row, _ in self._lru.values()}
 
     def pages_held(self) -> int:
         """Distinct pool rows the index references. After every request
         has finished these are the only pages in use, so
         `pages_in_use == pages_held()` says no page leaked."""
-        return len({row for row, _ in self._lru.values()})
+        return len(self.rows_held())
 
     def evict_lru(self) -> bool:
         """Drop the least recently used entry and its reference; False
         when empty."""
         if not self._lru:
             return False
-        _, (row, _) = self._lru.popitem(last=False)
+        h, (row, _) = self._lru.popitem(last=False)
+        self._evicted[h] = self.alloc.clock()
+        while len(self._evicted) > self._evicted_cap:
+            self._evicted.popitem(last=False)
         self.alloc.free([row])
         return True
 

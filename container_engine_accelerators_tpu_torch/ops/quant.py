@@ -229,9 +229,42 @@ def _copy_width(f: int, ptr: int) -> int:
     return next(v for v in (16, 8, 4) if f % v == 0 and ptr % v == 0)
 
 
+def pad_plan(d: int, f: int, ptr: int, contiguous: bool = True
+             ) -> tuple[int, int] | None:
+    """The (D, F) the kernel is given for a weight [d, f] at address
+    `ptr`: None when it takes the weight as it is (contiguous, F % 4 == 0,
+    4-byte aligned rows, D % 8 == 0), else D rounded up to 8 and F to 16
+    (zero rows and columns, 16-byte rows). A zero row of D meets a zero
+    column of x, and a zero column of F is sliced off y, so the padded
+    product is the same function."""
+    if contiguous and f % 4 == 0 and ptr % 4 == 0 and d % 8 == 0:
+        return None
+    return -(-d // 8) * 8, -(-f // 16) * 16
+
+
+def _padded_operands(qw: QuantWeight, d_k: int, f_k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The weight and scales zero-padded to [d_k, f_k] and [f_k], made
+    once per QuantWeight and kept on it until its values change."""
+    w, s = qw.values, qw.scales
+    key = (w.data_ptr(), w._version, s.data_ptr(), s._version, d_k, f_k)
+    cached = getattr(qw, "_padded", None)
+    if cached is None or cached[0] != key:
+        d, f = w.shape
+        w_k = torch.zeros((d_k, f_k), dtype=torch.int8, device=w.device)
+        w_k[:d, :f] = w
+        s_k = torch.zeros(f_k, dtype=torch.float32, device=s.device)
+        s_k[:f] = s
+        cached = qw._padded = (key, w_k, s_k)
+    return cached[1], cached[2]
+
+
 def int8_matmul_cuda(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     """Launch kernels/int8_matmul.cu on CUDA tensors: one launch, laid
-    out by `plan`."""
+    out by `plan`. A weight the kernel cannot take as it is goes in
+    zero-padded by `pad_plan` (once per QuantWeight) with x padded to
+    match, and an x not 16-byte aligned is copied, so every shape the
+    plain version takes runs through the kernel."""
     _check(x, qw)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int8_matmul kernel takes bf16 or f32 x, "
@@ -239,33 +272,35 @@ def int8_matmul_cuda(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     w, s = qw.values, qw.scales
     if w.device != x.device or s.device != x.device:
         raise ValueError("x and the QuantWeight must share a device")
-    if not (w.is_contiguous() and s.is_contiguous()):
-        raise ValueError("int8_matmul kernel takes a contiguous weight")
     t, d = x.shape
     f = w.shape[1]
-    if f % 4 or w.data_ptr() % 4:
-        raise ValueError("int8_matmul kernel takes F % 4 == 0 and a "
-                         f"4-byte aligned weight, got F={f}")
-    if d % 8:
-        raise ValueError(f"int8_matmul kernel takes D % 8 == 0, got D={d}")
+    padded = pad_plan(d, f, w.data_ptr(),
+                      w.is_contiguous() and s.is_contiguous())
+    if padded is not None:
+        d_k, f_k = padded
+        w, s = _padded_operands(qw, d_k, f_k)
+        if d_k != d:
+            x = torch.nn.functional.pad(x, (0, d_k - d))
+    else:
+        d_k, f_k = d, f
     x = x.contiguous()
     if x.data_ptr() % 16:
-        raise ValueError("int8_matmul kernel takes a 16-byte aligned x")
-    y = torch.empty((t, f), dtype=x.dtype, device=x.device)
+        x = x.clone()   # a fresh allocation is aligned
+    y = torch.empty((t, f_k), dtype=x.dtype, device=x.device)
     if t == 0:
-        return y
-    vec = _copy_width(f, w.data_ptr())
+        return y[:, :f]
+    vec = _copy_width(f_k, w.data_ptr())
     x_bf16 = x.dtype == torch.bfloat16
-    p = plan(t, d, f, kernels.sm_count(x.device), x_bf16, vec)
-    part, tickets = _workspace(p, t, f, x.device)
+    p = plan(t, d_k, f_k, kernels.sm_count(x.device), x_bf16, vec)
+    part, tickets = _workspace(p, t, f_k, x.device)
     err = kernels.load().int8_matmul(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
         0 if part is None else part.data_ptr(),
-        0 if tickets is None else tickets.data_ptr(), int(x_bf16), t, d, f,
-        BODIES.index(p.body), p.tokens, p.d_per_split, p.splits, vec,
+        0 if tickets is None else tickets.data_ptr(), int(x_bf16), t, d_k,
+        f_k, BODIES.index(p.body), p.tokens, p.d_per_split, p.splits, vec,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check("int8_matmul", err)
-    return y
+    return y if f_k == f else y[:, :f].contiguous()
 
 
 def int8_matmul(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:

@@ -579,7 +579,9 @@ def test_int8_matmul_kernel_matches_plain(cuda, x_dtype, t, d, f):
 
 
 def test_int8_matmul_kernel_raises_on_what_it_cannot_take(cuda):
-    qw = quant.quantize_weights(torch.randn(64, 30, device=cuda))
+    # Any F and D run (test_int8_matmul_kernel_takes_every_shape); an x
+    # that does not contract with the weight does not.
+    qw = quant.quantize_weights(torch.randn(60, 30, device=cuda))
     with pytest.raises(ValueError):
         quant.int8_matmul(torch.randn(2, 64, device=cuda), qw)
     qw = quant.quantize_weights(torch.randn(64, 32, device=cuda))
@@ -681,17 +683,50 @@ def test_int8_matmul_is_one_kernel_a_call(cuda, t, d, f, x_dtype):
 
 
 def test_int8_matmul_kernel_refuses_what_it_cannot_take(cuda):
+    # D % 8 and an x not 16-byte aligned are served now (padded or
+    # copied: test_int8_matmul_kernel_takes_every_shape); a weight on
+    # another device or an x of the wrong rank is not.
     qw = quant.quantize_weights(torch.randn(64, 32, device=cuda))
-    with pytest.raises(ValueError):    # D % 8
-        quant.int8_matmul(torch.randn(2, 60, device=cuda),
-                          quant.quantize_weights(
-                              torch.randn(60, 32, device=cuda)))
-    with pytest.raises(ValueError):    # x not 16-byte aligned
-        quant.int8_matmul(torch.randn(2 * 64 + 1, device=cuda)[1:].view(
-            2, 64), qw)
     with pytest.raises(ValueError):    # a weight on another device
         quant.int8_matmul(torch.randn(2, 64, device=cuda),
                           quant.quantize_weights(torch.randn(64, 32)))
+    with pytest.raises(ValueError):    # x of rank 3
+        quant.int8_matmul(torch.randn(1, 2, 64, device=cuda), qw)
+
+
+def _misaligned(t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """A contiguous copy of t that starts `offset` elements into its
+    buffer, so its address is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# Shapes the reference takes that the kernel's layout does not: F 1003
+# (odd), D 1001 (odd), at decode (T 8) and prefill (T 512, bf16 x on the
+# wgmma body once padded); x a view at an odd element offset, and a
+# weight whose rows start off a 4-byte boundary.
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [8, 512])
+@pytest.mark.parametrize("layout", ["fresh", "x_offset", "w_offset"])
+def test_int8_matmul_kernel_takes_every_shape(cuda, x_dtype, t, layout):
+    d, f = 1001, 1003
+    x, qw = _int8_case(cuda, t, d, f, x_dtype)
+    if layout == "x_offset":
+        x = _misaligned(x)
+        assert x.data_ptr() % 16
+    if layout == "w_offset":
+        qw = quant.QuantWeight(_misaligned(qw.values), qw.scales)
+        assert qw.values.data_ptr() % 4
+    kernels.reset_launches()
+    got = quant.int8_matmul(x, qw)
+    again = quant.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert kernels.launches["int8_matmul"] == 2
+    assert got.shape == (t, f) and got.is_contiguous()
+    assert torch.equal(got, again)
+    _assert_int8_close(got, quant.int8_matmul_plain(x, qw), x_dtype)
 
 
 @pytest.mark.parametrize("weights", ["bf16", "int8"])

@@ -383,3 +383,47 @@ def test_f32_x_as_bf16_hi_lo_within_1e4_at_lm_head_width():
     scale = want.abs().max()
     assert (got - want).abs().max() <= 1e-4 * scale
     assert (bf16_only - want).abs().max() > 1e-4 * scale
+
+
+@pytest.mark.parametrize("d,f,ptr,contiguous,want", [
+    (4096, 14336, 0, True, None),          # every llama3_8b projection
+    (4096, 128256, 512, True, None),       # the lm_head
+    (64, 32, 4, True, None),               # 4-byte rows: the kernel's
+    (1001, 1003, 0, True, (1008, 1008)),   # odd D and F
+    (64, 30, 0, True, (64, 32)),           # F % 4
+    (60, 32, 0, True, (64, 32)),           # D % 8
+    (64, 32, 1, True, (64, 32)),           # rows off a 4-byte boundary
+    (64, 32, 0, False, (64, 32)),          # a strided weight
+])
+def test_pad_plan_pads_only_what_the_kernel_cannot_take(d, f, ptr,
+                                                        contiguous, want):
+    assert quant.pad_plan(d, f, ptr, contiguous) == want
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,f", [(8, 1001, 1003), (512, 1001, 1003),
+                                   (3, 60, 30)])
+def test_padded_operands_give_the_same_product(x_dtype, t, d, f):
+    # The wrapper's padding on the CPU: the padded weight and x through
+    # the plain version, sliced back, give the unpadded product (the zero
+    # rows and columns add exact zeros; the CPU's matmul may block the
+    # longer contraction in another order: 1e-5 of max|y| in f32, one
+    # bf16 ulp in bf16). The padded copy is made once per QuantWeight and
+    # remade when its values change.
+    gen = torch.Generator().manual_seed(t + d + f)
+    x = torch.randn(t, d, generator=gen).to(x_dtype)
+    qw = quant.quantize_weights(torch.randn(d, f, generator=gen))
+    d_k, f_k = quant.pad_plan(d, f, qw.values.data_ptr())
+    w_k, s_k = quant._padded_operands(qw, d_k, f_k)
+    assert w_k.shape == (d_k, f_k) and s_k.shape == (f_k,)
+    assert w_k.data_ptr() % 16 == 0 and f_k % 16 == 0 and d_k % 8 == 0
+    assert quant._padded_operands(qw, d_k, f_k)[0] is w_k
+    x_k = torch.nn.functional.pad(x, (0, d_k - d))
+    got = quant.int8_matmul_plain(x_k, quant.QuantWeight(w_k, s_k))[:, :f]
+    want = quant.int8_matmul_plain(x, qw)
+    tol = 1e-5 if x_dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * want.float().abs().max().item())
+    qw.values.mul_(-1)
+    w_new, _ = quant._padded_operands(qw, d_k, f_k)
+    assert w_new is not w_k and torch.equal(w_new[:d, :f], qw.values)

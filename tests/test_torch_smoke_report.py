@@ -130,3 +130,48 @@ def test_k2_ms_sums_both_bodies_and_the_older_kernels():
     }}
     assert chip_smoke.k2_ms(profile) == 38.0
     assert chip_smoke.k2_ms({"kernels": None}) is None
+
+
+def _dump(order_by_rid: dict) -> dict:
+    events = [{"name": "process_name", "ph": "M"}]
+    for rid, names in order_by_rid.items():
+        for name in names:
+            events.append({"name": name, "cat": "req", "ph": "b",
+                           "id": str(rid)})
+            events.append({"name": name, "cat": "req", "ph": "e",
+                           "id": str(rid)})
+        events.append({"name": "request", "cat": "serve", "ph": "b",
+                       "id": str(rid)})
+    return {"traceEvents": events}
+
+
+def test_observe_span_check_reads_the_trace_dump():
+    # The observe phase's trace check: every traced request's first
+    # queue, prefill, prefill_chunk, fetch and stream begins in that
+    # order (admission's lookup and allocation spans may come between),
+    # and every request traced.
+    good = ["req/queue", "req/prefix_lookup", "req/page_alloc",
+            "req/prefill", "req/prefill_chunk", "req/prefill_chunk",
+            "req/fetch", "req/stream", "req/fetch", "req/stream"]
+    assert chip_smoke._spans_in_order(_dump({1: good, 2: good}), 2) == 2
+    with pytest.raises(chip_smoke.SmokeFailure, match="out of order"):
+        chip_smoke._spans_in_order(
+            _dump({1: good, 2: ["req/queue", "req/prefill", "req/fetch",
+                                "req/prefill_chunk", "req/stream"]}), 2)
+    with pytest.raises(chip_smoke.SmokeFailure, match="out of order"):
+        chip_smoke._spans_in_order(_dump({1: good[:-3]}), 1)
+    with pytest.raises(chip_smoke.SmokeFailure, match="traced requests"):
+        chip_smoke._spans_in_order(_dump({1: good}), 2)
+
+
+def test_observe_scrape_keys_samples_by_labels():
+    text = ('# TYPE serve_requests counter\n'
+            'serve_requests_total{outcome="ok"} 64.0\n'
+            '# TYPE serve_ttft_seconds histogram\n'
+            'serve_ttft_seconds_bucket{le="+Inf"} 64.0\n'
+            'serve_ttft_seconds_count 64.0\n'
+            'serve_ttft_seconds_sum 12.5\n')
+    got = chip_smoke._scrape(text)
+    assert got["serve_requests_total{outcome=ok}"] == 64.0
+    assert got["serve_ttft_seconds_count"] == 64.0
+    assert got["serve_ttft_seconds_bucket{le=+Inf}"] == 64.0
