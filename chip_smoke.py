@@ -343,12 +343,16 @@ def decode_kernel_info(torch, dev, payload: str, keys: str, t: int, b: int,
 K1_SHAPE = (32, 8, 128, 2048)     # Hq, Hkv, D, max_len
 # The paged tick's short rows: 8 slots of 128-160 cached keys.
 TICK_LENGTHS = [128, 132, 136, 140, 145, 150, 155, 160]
+# A speculative verify at 16 slots: T = k + 1 = 5 new queries a row over
+# rows of the tick's kind, each at its own length.
+VERIFY_LENGTHS = TICK_LENGTHS + [n + 40 for n in TICK_LENGTHS]
 K1_CASES = [                      # (name, T, B, cache lengths)
     ("decode_slots", 1, 8, [0, 1, 127, 128, 129, 2047, 1000, 513]),
     ("decode_scalar", 1, 8, 1500),
     ("decode_tick", 1, 8, TICK_LENGTHS),
     ("prefill_128", 128, 8, 0),
     ("prefill_512", 512, 2, [0, 1024]),
+    ("verify_k4", 5, 16, VERIFY_LENGTHS),
 ]
 
 
@@ -365,6 +369,18 @@ def _k1_args(torch, dev, gen, t: int, b: int, lens, mode: str) -> tuple:
         return q, k.bfloat16(), v.bfloat16(), cache_len
     (k, ks), (v, vs) = _quantized(torch, k, mode), _quantized(torch, v, mode)
     return q, k, v, cache_len, ks, vs, mode == "int4"
+
+
+def _decode_steps(kernel, q, cache, lens, tail=()):
+    """The T single-token launches that score q's T rows one at a time
+    (a plain tick's attention for each verified position): row j at
+    lengths lens + j."""
+    steps = [lens + j for j in range(q.shape[1])]
+
+    def run():
+        for j, n in enumerate(steps):
+            kernel(q[:, j:j + 1], *cache, n, *tail)
+    return run
 
 
 def k1_phase(torch, dev) -> dict:
@@ -398,6 +414,10 @@ def k1_phase(torch, dev) -> dict:
                          "ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bms,
                          "bound_by": by}
+        if name.startswith("verify"):
+            results[name]["decode_steps_ms"] = device_ms(
+                torch, _decode_steps(decode_attention_cuda, q, (k, v),
+                                     cache_len))
         emit({"phase": f"k1_{name}", "T": t, "B": b, "Hq": hq, "Hkv": hkv,
               "D": d, "max_len": max_len, "lengths": lens,
               "row_rtol": K1_ROW_RTOL, "row_atol": K1_ROW_ATOL,
@@ -424,6 +444,9 @@ K2_CASES = [                 # (name, T, D, F, x dtype)
     ("wk_t1024", 1024, 4096, 1024, "bf16"),
     ("lm_head_t1024", 1024, 4096, 128256, "f32"),
     ("w_gate_t512", 512, 4096, 14336, "bf16"),
+    # A verify pass at 16 slots: 16 x (k + 1) = 80 rows.
+    ("w_gate_t80", 80, 4096, 14336, "bf16"),
+    ("lm_head_t80", 80, 4096, 128256, "f32"),
 ]
 # Weights are timed cold, as a decode step finds them: calls rotate over
 # copies that together exceed the 50 MB L2.
@@ -539,6 +562,7 @@ K3_CASES = [                      # (name, T, cache lengths)
     ("decode_tick", 1, TICK_LENGTHS),
     ("prefill_chunk_512", 512, [512]),
     ("prefix_suffix_128", 128, [256]),
+    ("verify_k4", 5, VERIFY_LENGTHS),
 ]
 
 
@@ -621,6 +645,10 @@ def k3_phase(torch, dev) -> dict:
                          "library_ms": library_ms,
                          "library": "SDPA on a contiguous copy",
                          "bound_ms": bms, "bound_by": by}
+        if name.startswith("verify"):
+            results[name]["decode_steps_ms"] = device_ms(
+                torch, _decode_steps(paged_decode_attention_cuda, q,
+                                     (k_pool, v_pool), lens_t, (tables,)))
         emit({"phase": f"k3_{name}", "T": t, "slots": b, "Hq": hq,
               "Hkv": hkv, "D": d, "page": page, "max_pages": max_pages,
               "n_pages": k_pool.shape[0], "lengths": lens,
@@ -844,19 +872,22 @@ def step_times_ms(torch, generate, model, prompt, cfg) -> tuple[float, float]:
     return short * 1e3, (long - short) / 32 * 1e3
 
 
-def profile_steps(torch, step, steps: int = 4, top: int = 6) -> dict:
+def profile_steps(torch, step, steps: int = 4, top: int = 6,
+                  cpu: bool = True) -> dict:
     """Device time of `steps` calls of step() by kernel, from
     torch.profiler: the busy time per step, the `top` kernels that take
     most of it, and the device-side spans of record_function ranges
     (the optimizer's step, for one), which cover kernels counted on
     their own and so are kept out of the busy time. None where the
-    profiler saw no device activity."""
+    profiler saw no device activity. `cpu=False` traces the card alone
+    (no spans): a long run's host events make the trace slow to read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
@@ -1795,6 +1826,669 @@ def observe_phase(torch, dev, np, model, cfg) -> dict:
                       "tick_wall_ms_mean", "census_ms_full_pool",
                       "nvidia_smi")}})
             result[weights] = run
+    emit(result)
+    return result
+
+
+# ------------------------------------------- spec, pools and supervise
+
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
+SPEC_SLOTS, SPEC_NEW_TOKENS = 16, 64
+POOLS_NEW_TOKENS = 32
+
+
+def _pattern_prompts(np, cfg, seed: int, n: int, length: int = 128,
+                     period: int = 16) -> list:
+    """n prompts of `length` tokens, each a seeded `period`-token
+    pattern repeated: prompt lookup finds what follows."""
+    rs = np.random.RandomState(seed)
+    prompts = []
+    for _ in range(n):
+        pattern = rs.randint(0, cfg.vocab_size, size=period).tolist()
+        prompts.append((pattern * -(-length // period))[:length])
+    return prompts
+
+
+def _cache_copy(torch, cache):
+    """The cache with every tensor cloned."""
+    import dataclasses
+
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).clone()
+        for f in dataclasses.fields(cache)
+        if isinstance(getattr(cache, f.name), torch.Tensor)})
+
+
+def verify_drift(torch, dev, model, cfg, prefix, window,
+                 paged: bool) -> float:
+    """D: the largest |verify logits - the logits of k+1 single-token
+    steps| from the same cache, which holds `prefix` [B, T0] (T0 a
+    multiple of 128); `window` [B, k+1] are the verified tokens. The two
+    sum in different orders (the prefill body against the split decode
+    body), so their logits part in the last bits; the tokens may part
+    only where the plain run's top two lie within 2 D. A contiguous slot
+    cache, or a page pool at 128."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    b, t0 = prefix.shape
+    k1 = window.shape[1]
+    on = torch.ones(b, dtype=torch.bool, device=dev)
+    if paged:
+        page = 128
+        max_pages = -(-(t0 + k1) // page)
+        cache = decode.init_paged_cache(cfg, b, b * max_pages + 1, page,
+                                        max_pages, dev)
+        for s in range(b):
+            rows = torch.arange(1 + s * max_pages, 1 + (s + 1) * max_pages,
+                                dtype=torch.int32, device=dev)
+            decode.set_slot_pages(cache, s, rows, 0)
+            _, cache = decode.prefill_suffix_paged(model, cache, s,
+                                                   prefix[s], t0, cfg)
+    else:
+        cache = decode.init_slot_cache(cfg, b, t0 + k1, dev)
+        _, cache = decode.verify_step(model, cache, prefix, on, cfg)
+        cache = decode.advance_lengths(
+            cache, torch.full((b,), t0, dtype=torch.int32, device=dev), on)
+    steps = _cache_copy(torch, cache)
+    verify, _ = decode.verify_step(model, cache, window, on, cfg)
+    single = []
+    for j in range(k1):
+        logits, steps = decode.decode_step(model, steps, window[:, j:j + 1],
+                                           cfg, active=on)
+        single.append(logits[:, 0])
+    return (verify - torch.stack(single, dim=1)).abs().max().item()
+
+
+def plain_margins(torch, dev, model, cfg, prompts: list,
+                  answers: list) -> list:
+    """The plain decode path's top-two logit margin at each generated
+    position of each answer, teacher-forced: every prompt prefilled into
+    its slot, then the answers' tokens one step at a time (T 1, the
+    decode body) in one batch. margins[i][j] is the margin where row i's
+    generated token j was picked."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    b = len(prompts)
+    n_new = len(answers[0]) - len(prompts[0])
+    bucket = 128
+    max_len = max(-(-len(p) // bucket) * bucket for p in prompts) + n_new
+    cache = decode.init_slot_cache(cfg, b, max_len, dev)
+    last = []
+    for i, p in enumerate(prompts):
+        padded = p + [0] * (-len(p) % bucket)
+        logits, cache = decode.prefill_slot(
+            model, cache, i, torch.tensor(padded, device=dev), len(p), cfg)
+        last.append(logits)
+    logits = torch.stack(last)
+    on = torch.ones(b, dtype=torch.bool, device=dev)
+    margins = []
+    for j in range(n_new):
+        top = logits.topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        if j + 1 < n_new:
+            tok = torch.tensor([a[len(p) + j] for p, a in
+                                zip(prompts, answers)], device=dev)
+            logits, cache = decode.decode_step_slots(model, cache, tok, on,
+                                                     cfg)
+    return torch.stack(margins, dim=1).tolist()
+
+
+def divergence_rule(plain: list, got: list, prompts: list, margins: list,
+                    d: float, what: str) -> dict:
+    """Hold `got` to the plain run's tokens: where a row first parts from
+    them, the plain run's top-two margin there must lie within 2 D (a
+    near tie the two summation orders may resolve either way); after
+    that the contexts differ and nothing more is compared. Every
+    divergence is reported with its margin."""
+    diverged = []
+    for i, (ref, out) in enumerate(zip(plain, got)):
+        n0 = len(prompts[i])
+        require(len(out) == len(ref) and out[:n0] == ref[:n0],
+                f"{what}: row {i} is malformed")
+        for j in range(n0, len(ref)):
+            if out[j] != ref[j]:
+                m = margins[i][j - n0]
+                diverged.append({"row": i, "token": j - n0, "margin": m})
+                require(m <= 2 * d,
+                        f"{what}: row {i} parts from the plain run at "
+                        f"generated token {j - n0}, where its top-two "
+                        f"margin {m} exceeds 2 D = {2 * d}")
+                break
+    return {"D": d, "two_D": 2 * d, "rows": len(plain),
+            "divergences": len(diverged), "diverged_at": diverged}
+
+
+def spec_generate_run(torch, dev, np, model, cfg) -> dict:
+    """(a): generate at batch 2 on prompts of a repeated 16-token
+    pattern, 64 new tokens, speculation off, ngram and draft (k 4, 2
+    draft layers): wall and device-busy ms, the speculative counts, and
+    the speculative tokens held to the plain run by the divergence
+    rule."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    prompts = _pattern_prompts(np, cfg, SEED + 20, 2)
+    p = torch.tensor(prompts, device=dev)
+    runs, launches = {}, {}
+    for mode in ("off", "ngram", "draft"):
+        def run(stats=None):
+            return decode.generate(model, p, cfg, SPEC_NEW_TOKENS,
+                                   speculate=mode, spec_k=SPEC_K,
+                                   draft_layers=SPEC_DRAFT_LAYERS,
+                                   spec_stats=stats)
+
+        run()   # warm
+        stats: dict = {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run(stats)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for name, n in kernels.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        busy = profile_steps(torch, run, steps=1,
+                             cpu=False)["busy_ms_per_step"]
+        runs[mode] = {"tokens": out.tolist(), "wall_ms": wall,
+                      "device_busy_ms": busy, **stats}
+        if stats:
+            runs[mode]["acceptance_rate"] = (stats["accepted"]
+                                             / stats["drafted"])
+            runs[mode]["tokens_per_verify"] = (stats["committed"]
+                                               / stats["verifies"])
+            require(stats["verifies"] > 0, f"spec generate {mode}: no "
+                    "verify ran")
+    plain = runs["off"]["tokens"]
+    window = torch.tensor([r[128:128 + SPEC_K + 1] for r in plain],
+                          device=dev)
+    d = verify_drift(torch, dev, model, cfg, p, window, paged=False)
+    margins = plain_margins(torch, dev, model, cfg, prompts, plain)
+    for mode in ("ngram", "draft"):
+        runs[mode]["rule"] = divergence_rule(
+            plain, runs[mode]["tokens"], prompts, margins, d,
+            f"spec generate {mode}")
+    for r in runs.values():
+        del r["tokens"]
+    return {"batch": 2, "prompt": 128, "new_tokens": SPEC_NEW_TOKENS,
+            "spec_k": SPEC_K, "draft_layers": SPEC_DRAFT_LAYERS,
+            **runs, "launches": launches}
+
+
+def spec_tick_timing(torch, dev, np, model, cfg, ticks: int = 16) -> dict:
+    """The paged verify tick beside the plain tick at 16 slots (page 128,
+    each slot prefilled with 128 tokens): the plain tick is
+    decode_step_paged + argmax, the verify tick verify_step over k+1
+    tokens + argmax + a commit of one token. Wall ms a tick around
+    `ticks` ticks (synchronised at the end), device-busy ms a tick from
+    torch.profiler."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    slots, page, max_pages = SPEC_SLOTS, 128, 16
+    per_slot = 3
+    cache = decode.init_paged_cache(cfg, slots, slots * per_slot + 1, page,
+                                    max_pages, dev)
+    prompt = _prompts(np, cfg, SEED + 22)
+    for s in range(slots):
+        rows = ([1 + per_slot * s + i for i in range(per_slot)]
+                + [0] * (max_pages - per_slot))
+        decode.set_slot_pages(cache, s, torch.tensor(
+            rows, dtype=torch.int32, device=dev), 0)
+        _, cache = decode.prefill_suffix_paged(
+            model, cache, s, torch.tensor(prompt(128), device=dev), 128, cfg)
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    one = torch.ones(slots, dtype=torch.int32, device=dev)
+    window = torch.tensor([prompt(SPEC_K + 1) for _ in range(slots)],
+                          device=dev)
+    tok = torch.zeros(slots, dtype=torch.long, device=dev)
+
+    def plain_tick():
+        nonlocal cache, tok
+        logits, cache = decode.decode_step_paged(model, cache, tok, active,
+                                                 cfg)
+        tok = logits.argmax(dim=-1)
+
+    def verify_tick():
+        nonlocal cache
+        logits, cache = decode.verify_step(model, cache, window, active,
+                                           cfg)
+        logits.argmax(dim=-1)
+        cache = decode.advance_lengths(cache, one, active)
+
+    out = {}
+    for name, tick in (("plain", plain_tick), ("verify", verify_tick)):
+        for _ in range(2):
+            tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            tick()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / ticks * 1e3
+        busy = profile_steps(torch, tick)["busy_ms_per_step"]
+        out[f"{name}_tick_ms"] = wall
+        out[f"{name}_device_busy_ms"] = busy
+    return out
+
+
+def _count_bodies(decode, da):
+    """Wrap models.decode's paged attention entry to count its calls by
+    the body they take (a call is one launch); returns (counts, undo)."""
+    counts: dict = {}
+    inner = decode.paged_decode_attention
+
+    def counted(q, k_pool, *args, **kw):
+        rows = q.shape[1] * (q.shape[2] // k_pool.shape[2])
+        body = ("decode_split_kernel" if rows <= da.DECODE_ROWS
+                else "prefill_mma_kernel")
+        key = f"{body} T{q.shape[1]}"
+        counts[key] = counts.get(key, 0) + 1
+        return inner(q, k_pool, *args, **kw)
+
+    decode.paged_decode_attention = counted
+
+    def undo():
+        decode.paged_decode_attention = inner
+    return counts, undo
+
+
+def spec_engine_run(torch, dev, np, model, cfg, speculate: str) -> dict:
+    """(b) and (c): PagedContinuousEngine at 16 slots, page 128, max_len
+    2048 behind make_server on 16 concurrent requests of a repeated
+    16-token pattern (128 tokens, 64 new), with speculation off and then
+    `speculate`: the tokens held by the divergence rule, no page leaked,
+    the serve_spec_* scrape against the engine's own counts, the
+    engine's tick beside the plain engine's, and K3 launches by body."""
+    from prometheus_client import generate_latest
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models import decode
+    from container_engine_accelerators_tpu_torch.ops import (
+        decode_attention as da,
+    )
+
+    prompts = _pattern_prompts(np, cfg, SEED + 21, SPEC_SLOTS)
+    requests = [{"tokens": t, "max_new_tokens": SPEC_NEW_TOKENS}
+                for t in prompts]
+    runs, launches = {}, {}
+    for mode in ("off", speculate):
+        engine = PagedContinuousEngine(
+            model, cfg, max_slots=SPEC_SLOTS, max_len=2048, page=128,
+            prefill_chunk=512, engine_core="async", speculate=mode,
+            spec_k=SPEC_K, draft_layers=SPEC_DRAFT_LAYERS)
+        verifies = []          # decoding slots of each verify pass
+        if mode != "off":
+            verify = engine._verify
+
+            def counted_verify(tokens, active, engine=engine,
+                               verify=verify, verifies=verifies):
+                verifies.append(sum(sl is not None and not sl["pending"]
+                                    for sl in engine._slots))
+                return verify(tokens, active)
+
+            engine._verify = counted_verify
+        bodies, undo = _count_bodies(decode, da)
+        try:
+            with serving(engine) as url:
+                kernels.reset_launches()
+                bodies.clear()
+                answers, t_start, t_end = burst(url, requests)
+                torch.cuda.synchronize()
+                run_launches = dict(kernels.launches)
+                by_body = dict(bodies)
+                scrape = _scrape(generate_latest(
+                    engine.recorder.registry).decode())
+                health = healthz(url)
+        finally:
+            undo()
+        for name, n in run_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        generated = _check_burst(requests, answers, cfg.vocab_size,
+                                 f"spec {mode}")
+        require(engine.pages_in_use == engine.prefix_index.pages_held(),
+                f"spec {mode}: leaked pages")
+        require(sum(by_body.values())
+                == run_launches.get("paged_decode_attention", 0),
+                f"spec {mode}: K3 calls by body {by_body} against "
+                f"{run_launches}")
+        step = engine.recorder.pct_ms("decode_step", (50, 99))
+        run = {"tokens": [_answer_tokens(r, a) for r, (a, _, _)
+                          in zip(requests, answers)],
+               "burst_s": t_end - t_start,
+               "generated_tokens_per_s": generated / (t_end - t_start),
+               "ticks": health["batches"], "engine_tick_ms": step,
+               "k3_launches_by_body": by_body, "launches": run_launches}
+        if mode != "off":
+            n_verifies = scrape["serve_spec_verifies_total"]
+            spec = {k: scrape[f"serve_spec_{k}"] for k in (
+                "drafted_tokens_total", "accepted_tokens_total",
+                "verifies_total", "committed_tokens_total",
+                "acceptance_rate", "tokens_per_verify")}
+            require(len(verifies) == engine.spec_ticks_run > 0
+                    and n_verifies == sum(verifies)
+                    and spec["drafted_tokens_total"] == SPEC_K * n_verifies
+                    and spec["committed_tokens_total"] >= n_verifies
+                    and abs(spec["acceptance_rate"]
+                            - spec["accepted_tokens_total"]
+                            / spec["drafted_tokens_total"]) < 1e-9
+                    and abs(spec["tokens_per_verify"]
+                            - spec["committed_tokens_total"]
+                            / n_verifies) < 1e-9,
+                    f"spec {mode}: scrape {spec} against the engine's "
+                    f"{len(verifies)} verify passes over {sum(verifies)} "
+                    f"slots, spec ticks {engine.spec_ticks_run}")
+            require(scrape["serve_ttft_seconds_count"]
+                    + scrape["serve_tpot_seconds_count"] == generated,
+                    f"spec {mode}: tokens counted")
+            run.update(spec_ticks=engine.spec_ticks_run, scrape=spec)
+        runs[mode] = run
+        del engine
+    plain = runs["off"]["tokens"]
+    window = torch.tensor([r[128:128 + SPEC_K + 1] for r in plain[:2]],
+                          device=dev)
+    d = verify_drift(torch, dev, model, cfg,
+                     torch.tensor(prompts[:2], device=dev), window,
+                     paged=True)
+    margins = plain_margins(torch, dev, model, cfg, prompts, plain)
+    runs[speculate]["rule"] = divergence_rule(
+        plain, runs[speculate]["tokens"], prompts, margins, d,
+        f"spec engine {speculate}")
+    require(runs[speculate]["launches"].get("paged_decode_attention", 0)
+            > 0, f"spec engine {speculate}: no K3 launch")
+    for r in runs.values():
+        del r["tokens"]
+    return {"slots": SPEC_SLOTS, "page": 128, "max_len": 2048,
+            "requests": len(requests), "new_tokens": SPEC_NEW_TOKENS,
+            "spec_k": SPEC_K, **runs, "launches": launches,
+            **spec_tick_timing(torch, dev, np, model, cfg)}
+
+
+def spec_phase(torch, dev, np, model, cfg) -> dict:
+    """Speculative decoding at full width: (a) generate, (b) the paged
+    engine with ngram drafts, (c) the same on the int8 copy of the
+    weights with the self-draft (K2 at N 80 in the verify)."""
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        quantize_llama_params,
+    )
+
+    result = {"phase": "spec", "model": "llama3_8b",
+              "n_layers": cfg.n_layers, "launches": {}}
+    qmodel = quantize_llama_params(model)
+    parts = (
+        ("generate", lambda: spec_generate_run(torch, dev, np, model, cfg)),
+        ("engine_ngram",
+         lambda: spec_engine_run(torch, dev, np, model, cfg, "ngram")),
+        ("engine_int8_draft",
+         lambda: spec_engine_run(torch, dev, np, qmodel, cfg, "draft")))
+    for name, run in parts:
+        t0 = time.perf_counter()
+        part = run()
+        part["seconds"] = time.perf_counter() - t0
+        for key, count in part["launches"].items():
+            result["launches"][key] = result["launches"].get(key, 0) + count
+        result[name] = part
+        emit({"phase": f"spec_{name}", **part,
+              "nvidia_smi": nvidia_smi_line()})
+    require(result["engine_int8_draft"]["draft"]["launches"].get(
+        "int8_matmul", 0) > 0, "spec int8: no K2 launch")
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["nvidia_smi"] = nvidia_smi_line()
+    return result
+
+
+def _pools_requests(np, cfg) -> list:
+    """16 requests of multi-tenant traffic: 12 chat turns (a 256-token
+    system prompt of 2 tenants plus a 128-token turn) and 4 documents
+    of 1024 tokens, 32 new tokens each; documents interleaved."""
+    prompt = _prompts(np, cfg, SEED + 23)
+    systems = [prompt(256), prompt(256)]
+    requests = []
+    for i in range(16):
+        tokens = (prompt(1024) if i % 4 == 3
+                  else systems[i % 2] + prompt(128))
+        requests.append({"tokens": tokens,
+                         "max_new_tokens": POOLS_NEW_TOKENS})
+    return requests
+
+
+def pools_phase(torch, dev, np, model, cfg) -> dict:
+    """The paged engine (16 slots, prefill_chunk 512) with 2 prefill
+    workers against the single loop on the same traffic: the tokens by
+    the divergence rule (the budget changes the chunks' shapes), decode
+    ticks between a document's chunks, the pool depth gauge sampled
+    through the run, no page leaked."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        PagedContinuousEngine,
+    )
+
+    requests = _pools_requests(np, cfg)
+    runs, launches = {}, {}
+    for workers in (0, 2):
+        engine = PagedContinuousEngine(
+            model, cfg, max_slots=16, max_len=2048, page=128,
+            prefill_chunk=512, prefill_workers=workers)
+        chunks = []            # (request id, start, new_len, steps_run)
+        run_chunk = engine._run_chunk
+
+        def logged(slot, tokens, start, new_len, engine=engine,
+                   chunks=chunks, run_chunk=run_chunk):
+            chunks.append((engine._slots[slot]["rid"], start, new_len,
+                           engine.steps_run))
+            return run_chunk(slot, tokens, start, new_len)
+
+        engine._run_chunk = logged
+        depths = {"prefill": [], "decode": []}
+        done = threading.Event()
+
+        def sample(engine=engine, depths=depths, done=done):
+            reg = engine.recorder.registry
+            while not done.wait(0.01):
+                for pool in depths:
+                    v = reg.get_sample_value("serve_pool_queue_depth",
+                                             {"pool": pool})
+                    if v is not None:
+                        depths[pool].append(v)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            with serving(engine) as url:
+                kernels.reset_launches()
+                answers, t_start, t_end = burst(url, requests)
+                torch.cuda.synchronize()
+                run_launches = dict(kernels.launches)
+                health = healthz(url)
+        finally:
+            done.set()
+            sampler.join(timeout=10)
+        for name, n in run_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        generated = _check_burst(requests, answers, cfg.vocab_size,
+                                 f"pools {workers}")
+        require(engine.pages_in_use == engine.prefix_index.pages_held(),
+                f"pools {workers}: leaked pages")
+        by_rid: dict = {}
+        for rid, start, new_len, steps in chunks:
+            by_rid.setdefault(rid, []).append((start, new_len, steps))
+        docs = [c for c in by_rid.values() if c[-1][1] >= 1024]
+        run = {"tokens": [_answer_tokens(r, a) for r, (a, _, _)
+                          in zip(requests, answers)],
+               "burst_s": t_end - t_start,
+               "generated_tokens_per_s": generated / (t_end - t_start),
+               "ticks": health["batches"],
+               "tpot_ms": engine.recorder.pct_ms("tpot", (50, 99)),
+               "ttft_ms": engine.recorder.pct_ms("ttft", (50, 99)),
+               "document_chunks": docs, "launches": run_launches}
+        if workers:
+            require(health["prefill_workers"] == 2
+                    and health["prefill_workers_alive"] == 2,
+                    f"pools: healthz {health}")
+            require(any(len(c) > 1 and c[-1][2] > c[0][2] for c in docs),
+                    f"pools: no decode tick between a document's chunks: "
+                    f"{docs}")
+            require(max(depths["prefill"], default=0) > 0
+                    and max(depths["decode"], default=0) > 0,
+                    "pools: serve_pool_queue_depth never moved")
+            run["pool_depth"] = {
+                pool: {"samples": len(v), "max": max(v, default=None)}
+                for pool, v in depths.items()}
+        runs["pools" if workers else "single_loop"] = run
+        del engine
+    prompts = [r["tokens"] for r in requests]
+    plain = runs["single_loop"]["tokens"]
+    window = torch.tensor([r[384:384 + SPEC_K + 1] for r in plain[:2]],
+                          device=dev)
+    d = verify_drift(torch, dev, model, cfg,
+                     torch.tensor([p[:384] for p in prompts[:2]],
+                                  device=dev), window, paged=True)
+    margins = plain_margins(torch, dev, model, cfg, prompts, plain)
+    runs["pools"]["rule"] = divergence_rule(
+        plain, runs["pools"]["tokens"], prompts, margins, d, "pools")
+    for r in runs.values():
+        del r["tokens"]
+    result = {"phase": "pools", "model": "llama3_8b", "slots": 16,
+              "prefill_workers": 2, "prefill_chunk": 512,
+              "requests": len(requests), **runs, "launches": launches,
+              "nvidia_smi": nvidia_smi_line()}
+    emit(result)
+    return result
+
+
+def _wait_for(cond, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        require(time.monotonic() < deadline, f"timed out: {what}")
+        time.sleep(0.02)
+
+
+def supervise_phase(torch, dev, np, model, cfg) -> dict:
+    """EngineSupervisor (backoff 0.05 s) over the paged engine behind
+    make_server: a worker killed mid-decode fails its two in-flight
+    requests with "supervised recovery", the pages return to baseline,
+    serve_worker_restarts reads 1 and a fresh request answers the tokens
+    it answered before the kill; then a prefill worker of a pooled engine
+    killed mid-prefill fails no request and serve_prefill_worker_restarts
+    reads 1."""
+    import queue
+
+    from prometheus_client import generate_latest
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        EngineSupervisor,
+        PagedContinuousEngine,
+    )
+
+    prompt = _prompts(np, cfg, SEED + 24)
+    fresh = {"tokens": prompt(128), "max_new_tokens": 32}
+    launches: dict = {}
+
+    def scrape(engine):
+        return _scrape(generate_latest(engine.recorder.registry).decode())
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    engine = PagedContinuousEngine(model, cfg, max_slots=8, max_len=2048,
+                                   page=128, prefill_chunk=512)
+    sup = EngineSupervisor(engine, backoff_base_s=0.05, poll_interval_s=0.05)
+    with serving(engine) as url:
+        try:
+            sup.start()
+            kernels.reset_launches()
+            before = _answer_tokens(fresh, _post(url, fresh)[0])
+            baseline = engine.pages_in_use
+            streams = [queue.Queue(), queue.Queue()]
+            futs = [engine.submit(prompt(128), 512, 0.0, stream=st)
+                    for st in streams]
+            for st in streams:
+                ev = st.get(timeout=300)
+                require("token" in ev, f"supervise: first event {ev}")
+            in_use = engine.pages_in_use
+            t_kill = time.monotonic()
+            engine.fault_kill = True
+            errors = []
+            for fut in futs:
+                try:
+                    fut.result(timeout=300)
+                    errors.append(None)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            require(all(e and "supervised recovery" in e for e in errors),
+                    f"supervise: in-flight requests ended {errors}")
+            failed_s = time.monotonic() - t_kill
+            _wait_for(lambda: engine.worker_restarts == 1
+                      and engine.thread.is_alive(), "the restart")
+            restarted_s = time.monotonic() - t_kill
+            pages_after = engine.pages_in_use
+            restarts = scrape(engine)["serve_worker_restarts_total"]
+            after = _answer_tokens(fresh, _post(url, fresh)[0])
+            torch.cuda.synchronize()
+            add(kernels.launches)
+            health = healthz(url)
+        finally:
+            sup.stop()
+    require(pages_after == baseline,
+            f"supervise: {pages_after} pages in use after the recovery, "
+            f"{baseline} before")
+    require(restarts == 1, f"supervise: serve_worker_restarts {restarts}")
+    require(after == before, "supervise: the restarted worker answered "
+            "other tokens")
+    require(health["worker_alive"] and health["worker_restarts"] == 1,
+            f"supervise: healthz {health}")
+    kill = {"in_flight_errors": errors, "pages_in_use_mid_decode": in_use,
+            "pages_in_use_after": pages_after, "baseline": baseline,
+            "worker_restarts": restarts, "same_tokens_after": True,
+            "requests_failed_after_s": failed_s,
+            "worker_back_after_s": restarted_s}
+    del engine
+
+    docs = [{"tokens": prompt(1024), "max_new_tokens": 16}
+            for _ in range(6)]
+    engine = PagedContinuousEngine(model, cfg, max_slots=8, max_len=2048,
+                                   page=128, prefill_chunk=512,
+                                   prefill_workers=2)
+    sup = EngineSupervisor(engine, backoff_base_s=0.05, poll_interval_s=0.05)
+    with serving(engine) as url:
+        try:
+            sup.start()
+            _wait_for(lambda: engine.prefill_workers_alive() == 2,
+                      "the prefill pool")
+            kernels.reset_launches()
+            engine.fault_kill_prefill = True
+            answers, t_start, t_end = burst(url, docs)
+            torch.cuda.synchronize()
+            add(kernels.launches)
+            _wait_for(lambda: sup.prefill_restarts == 1
+                      and engine.prefill_workers_alive() == 2,
+                      "the prefill worker's replacement")
+            prefill_restarts = scrape(engine)[
+                "serve_prefill_worker_restarts_total"]
+            health = healthz(url)
+        finally:
+            sup.stop()
+    require(not engine.fault_kill_prefill, "supervise: the prefill kill "
+            "was never consumed")
+    _check_burst(docs, answers, cfg.vocab_size, "supervise pools")
+    require(prefill_restarts == 1 and engine.prefill_worker_restarts == 1,
+            f"supervise: serve_prefill_worker_restarts {prefill_restarts}")
+    require(health["worker_restarts"] == 0
+            and health["prefill_worker_restarts"] == 1,
+            f"supervise: healthz {health}")
+    require(engine.pages_in_use == engine.prefix_index.pages_held(),
+            "supervise pools: leaked pages")
+    result = {"phase": "supervise", "model": "llama3_8b",
+              "backoff_s": 0.05, "worker_kill": kill,
+              "prefill_kill": {"requests": len(docs), "failed": 0,
+                               "prefill_worker_restarts": prefill_restarts,
+                               "burst_s": t_end - t_start},
+              "launches": launches, "nvidia_smi": nvidia_smi_line()}
     emit(result)
     return result
 
@@ -2805,6 +3499,10 @@ def main() -> int:
         kvq = timed("kv_quant", kv_quant_phase, torch, dev, np, model, cfg,
                     preempt)
         obs = timed("observe", observe_phase, torch, dev, np, model, cfg)
+        spec = timed("spec", spec_phase, torch, dev, np, model, cfg)
+        pools = timed("pools", pools_phase, torch, dev, np, model, cfg)
+        sup = timed("supervise", supervise_phase, torch, dev, np, model,
+                    cfg)
         del model   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
@@ -2828,12 +3526,19 @@ def main() -> int:
     def launches(name):
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
-                                 obs))
+                                 obs, spec, pools, sup))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""
         return {"prefill_ms": case["ms"], "prefill_bound_ms": case["bound_ms"],
                 "prefill_library_ms": case["library_ms"]}
+
+    def verify(case):
+        """The verify case of K1, K2 or K3 (T 5 at 16 slots; N 80)."""
+        return {"verify_ms": case["ms"], "verify_bound_ms": case["bound_ms"],
+                "verify_library_ms": case["library_ms"],
+                **({"verify_decode_steps_ms": case["decode_steps_ms"]}
+                   if "decode_steps_ms" in case else {})}
 
     def quant_entries(base, source, replaces, results, main_case,
                       prefill_case):
@@ -2858,13 +3563,13 @@ def main() -> int:
          "max_row_rel_err": max(r["max_row_rel_err"] for r in k1.values()),
          **{key: k1_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
-         **prefill(k1["prefill_512"])},
+         **prefill(k1["prefill_512"]), **verify(k1["verify_k4"])},
         {"name": "int8_matmul", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches("int8_matmul"),
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
          **{key: k2_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
-         **prefill(k2["w_gate_t1024"])},
+         **prefill(k2["w_gate_t1024"]), **verify(k2["w_gate_t80"])},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches("paged_decode_attention"),
@@ -2873,7 +3578,7 @@ def main() -> int:
          **{key: k3_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "k1_contiguous_ms", "library")},
-         **prefill(k3["prefill_chunk_512"])},
+         **prefill(k3["prefill_chunk_512"]), **verify(k3["verify_k4"])},
         *({"name": name, "route": "cuda", "source": FLASH_SOURCE,
            "replaces": FLASH_REPLACES[name],
            "launches": train["launches"].get(name, 0),

@@ -2,6 +2,8 @@
 
   python -m container_engine_accelerators_tpu_torch.cli.generate --tiny \
       --prompt-ids 1,5,42 --max-new-tokens 8
+  python -m container_engine_accelerators_tpu_torch.cli.generate --tiny \
+      --prompt-ids 5,9,7,5,9,7 --speculate ngram --spec-k 4
 
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back.
@@ -24,6 +26,15 @@ def main(argv=None) -> int:
     p.add_argument("--max-new-tokens", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--speculate", choices=["off", "ngram", "draft"],
+                   default="off",
+                   help="speculative decoding (greedy only; the tokens "
+                        "are those of off - models/spec.py)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens per verify pass")
+    p.add_argument("--draft-layers", type=int, default=2,
+                   help="--speculate draft: layers in the truncated "
+                        "self-draft model")
     p.add_argument("--weight-dtype", choices=["bf16", "int8"],
                    default="bf16",
                    help="int8: per-output-channel weight quantization, "
@@ -51,7 +62,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     t0 = time.perf_counter()
     out = dec.generate(model, prompt, cfg, args.max_new_tokens,
-                       temperature=args.temperature, generator=gen)
+                       temperature=args.temperature, generator=gen,
+                       speculate=args.speculate, spec_k=args.spec_k,
+                       draft_layers=args.draft_layers)
     out_ids = out[0].tolist()
     dt = time.perf_counter() - t0
     print("token ids:", out_ids)

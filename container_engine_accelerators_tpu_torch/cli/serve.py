@@ -47,9 +47,25 @@ the newest tick with a CUDA event query.
   python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
       --engine paged --metrics-port 9100 --trace-dump /tmp/traces/
 
+Speculative decoding (`--speculate ngram|draft`, `--spec-k`,
+`--draft-layers`; models/spec.py): greedy requests draft k tokens a slot
+(prompt lookup, or the model's first layers), score them in one verify
+pass of k+1 positions and commit the accepted prefix plus the verifier's
+own next token; a tick with a sampled slot runs the plain step. The
+continuous and paged engines can split into a decode loop and a pool of
+`--prefill-workers` prefill threads, whose chunks a `PrefillBudget`
+sizes to about half a decode tick while anything decodes; all of them
+launch on one CUDA stream, one at a time under the engine's lock.
+`--supervise` arms an `EngineSupervisor`: a dead engine worker has its
+requests failed, its slots and pages reclaimed and a fresh worker started
+under a bounded exponential backoff; a dead prefill worker is replaced
+and no request fails.
+
+  python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
+      --engine paged --speculate ngram --prefill-workers 2 --supervise
+
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
-with an error instead of falling back. Speculation, prefill pools and
-the supervisor come with a later slice.
+with an error instead of falling back.
 """
 
 from __future__ import annotations
@@ -77,6 +93,25 @@ from container_engine_accelerators_tpu_torch.metrics import (
 from container_engine_accelerators_tpu_torch.metrics.request_metrics import (
     RequestRecorder,
     ServeMetricsExporter,
+)
+from container_engine_accelerators_tpu_torch.models import spec
+from container_engine_accelerators_tpu_torch.models.decode import (
+    PageAllocator,
+    PrefixIndex,
+    advance_lengths,
+    assign_pages,
+    decode_step_paged,
+    decode_step_slots,
+    draft_layer_count,
+    generate,
+    init_paged_cache,
+    init_slot_cache,
+    merge_tokens,
+    pick_tokens,
+    prefill_suffix_paged,
+    prefill_suffix_slot,
+    set_slot_pages,
+    verify_step,
 )
 
 log = logging.getLogger("torch-serve")
@@ -115,6 +150,24 @@ def _to_device(values: list, dtype: torch.dtype,
     return host
 
 
+def _trace_restart_touch(rid, err: Exception) -> None:
+    """Stamp a supervisor-restart instant on a victim request's trace and
+    promote it, so its tail buffer reaches the dump."""
+    h = trace.handle(rid)
+    if h is not None:
+        h.promote("supervisor_restart")
+        h.instant(trace.EV_SUPERVISOR_RESTART, {"error": str(err)})
+
+
+def _device_scope(device: torch.device):
+    """The engine's card as the calling thread's current CUDA device: the
+    kernels' ctypes launches go to the thread's current device, so every
+    engine thread, a restarted one included, runs under it."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _validate_request(tokens, max_new_tokens, max_prompt_len, vocab_size,
                       fut, stream, rid=None, recorder=None) -> bool:
     """Fails `fut` (and the stream, so SSE clients see the error instead
@@ -135,6 +188,28 @@ def _validate_request(tokens, max_new_tokens, max_prompt_len, vocab_size,
         recorder.validation_failures.inc()
     _fail(fut, stream, err, rid)
     return False
+
+
+class WorkerKilled(RuntimeError):
+    """Raised inside an engine worker by the worker-kill fault: the
+    exception unwinds the worker loop and the thread dies with slots
+    occupied and futures unresolved, the wreckage a crashed runtime
+    leaves. Only the EngineSupervisor (serve --supervise) recovers it."""
+
+
+def _maybe_injected_hang(engine) -> None:
+    """Consume an injected hang or kill (engine.fault_hang_s /
+    engine.fault_kill): the worker thread itself sleeps or dies, so the
+    failure looks like a real wedge and must be detected, not told."""
+    if engine.fault_kill:
+        engine.fault_kill = False
+        log.warning("injected worker kill: worker thread dying with "
+                    "in-flight work abandoned")
+        raise WorkerKilled("injected worker kill")
+    s, engine.fault_hang_s = engine.fault_hang_s, 0.0
+    if s > 0:
+        log.warning("injected hang: worker sleeping %.1fs", s)
+        time.sleep(s)
 
 
 class _PhaseClock:
@@ -193,7 +268,9 @@ class BatchingEngine:
     def __init__(self, model, cfg, max_batch: int = 8,
                  window_ms: float = 5.0, max_prompt_len: int = 1024,
                  engine_core: str = "async",
-                 recorder: RequestRecorder | None = None):
+                 recorder: RequestRecorder | None = None,
+                 speculate: str = "off", spec_k: int = 4,
+                 draft_layers: int = 2):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
@@ -203,6 +280,11 @@ class BatchingEngine:
         self.max_batch = max_batch
         self.window = window_ms / 1000.0
         self.max_prompt_len = max_prompt_len
+        # Speculative decoding: each greedy batch runs generate()'s
+        # speculative loop; a sampled batch runs the plain loop.
+        self.speculate = speculate
+        self.spec_k = spec_k
+        self.draft_layers = draft_layers
         # One recorder can be shared between engines; by default each
         # engine owns a private one.
         self.recorder = recorder if recorder is not None \
@@ -216,6 +298,12 @@ class BatchingEngine:
         self.batches_run = 0
         self.requests_served = 0
         self.worker_restarts = 0
+        # Fault hooks: a nonzero fault_hang_s makes the worker sleep that
+        # long at its next loop top (a real hang); fault_kill makes it
+        # raise WorkerKilled there, dying with its work abandoned (the
+        # supervisor's recovery path).
+        self.fault_hang_s = 0.0
+        self.fault_kill = False
         # "async" dispatches batch t+1's generate() while batch t still
         # runs on the device and fetches batch t one batch behind;
         # "sync" fetches at once (the token-identity reference path).
@@ -223,9 +311,15 @@ class BatchingEngine:
         # In-flight state lives on the engine, not in worker locals.
         self._pending: collections.deque = collections.deque()
         self._batch: list = []
-        # Dispatched-but-unfetched batches: {"batch", "out", "done"}.
+        # Dispatched-but-unfetched batches: {"batch", "out", "done",
+        # "stats", "t0"}.
         self._inflight: list = []
         self._stop = threading.Event()
+        self._start_worker()
+
+    def _start_worker(self):
+        """(Re)create the worker thread: __init__ and the supervisor's
+        restart share this."""
         self.thread = threading.Thread(target=self._worker, daemon=True,
                                        name="serve-batcher")
         self.thread.start()
@@ -255,6 +349,28 @@ class BatchingEngine:
         self._stop.set()
         self._work.set()  # wake an idle worker so it can exit promptly
 
+    def recover_after_worker_death(self, err: Exception) -> None:
+        """Fail every request the dead worker abandoned (the batches in
+        flight, the batch being gathered, parked and queued requests)
+        and zero the slot gauge. The supervisor calls it before it
+        restarts the worker; clients get an error, not a hang."""
+        inflight = [item for fl in self._inflight for item in fl["batch"]]
+        for item in inflight + self._batch + list(self._pending):
+            _trace_restart_touch(item[5], err)
+            _fail(item[3], item[4], err, item[5], self.recorder)
+        self._inflight = []
+        self._batch = []
+        self._pending.clear()
+        while True:
+            try:
+                item = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            _trace_restart_touch(item[5], err)
+            _fail(item[3], item[4], err, item[5], self.recorder)
+        self._work.clear()
+        self.recorder.set_slots(active=0, total=self.max_batch)
+
     # ---------- worker ----------
 
     @staticmethod
@@ -264,13 +380,14 @@ class BatchingEngine:
         return (len(tokens), n_new, temp)
 
     def _worker(self):
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            generate,
-        )
+        with _device_scope(self.device):
+            self._batch_loop()
 
+    def _batch_loop(self):
         clock = _PhaseClock(self.recorder, self._device_busy)
         pending = self._pending
         while not self._stop.is_set():
+            _maybe_injected_hang(self)
             # Only block for new traffic when nothing is deferred, and
             # never while a batch is in flight: its results must land.
             if not pending:
@@ -330,10 +447,17 @@ class BatchingEngine:
                         gen = torch.Generator(
                             device=self.device).manual_seed(
                                 time.time_ns() & 0xFFFF)
-                    # Dispatch only: generate() never waits for the
-                    # device.
+                    stats: dict = {}
+                    # Dispatch only: the plain generate() never waits for
+                    # the device (the speculative one reads each round's
+                    # argmax).
                     out = generate(self.model, tokens, self.cfg, n_new,
-                                   temperature=temp, generator=gen)
+                                   temperature=temp, generator=gen,
+                                   speculate=(self.speculate if temp <= 0
+                                              else "off"),
+                                   spec_k=self.spec_k,
+                                   draft_layers=self.draft_layers,
+                                   spec_stats=stats)
                     done = None
                     if self.device.type == "cuda":
                         done = torch.cuda.Event()
@@ -347,7 +471,8 @@ class BatchingEngine:
                 rec.set_slots(active=0, total=self.max_batch)
                 continue
             self._inflight.append({"batch": batch, "out": out,
-                                   "done": done, "t0": t_batch})
+                                   "done": done, "stats": stats,
+                                   "t0": t_batch})
             for item in batch:
                 h = trace.handle(item[5])
                 if h is not None:
@@ -392,6 +517,12 @@ class BatchingEngine:
             for item in batch:
                 _fail(item[3], item[4], e, item[5], rec)
             return
+        stats = fl["stats"]
+        if stats:
+            rec.observe_spec(drafted=stats.get("drafted", 0),
+                             accepted=stats.get("accepted", 0),
+                             verifies=stats.get("verifies", 0),
+                             committed=stats.get("committed", 0))
         batch_dt = time.monotonic() - fl["t0"]
         t_streamed = time.monotonic()
         for h in handles:
@@ -424,6 +555,51 @@ class BatchingEngine:
         self.requests_served += len(batch)
 
 
+class PrefillBudget:
+    """Token budget of the prefill pool (--prefill-workers).
+
+    Each grant answers "how many prompt tokens may the prefill pool
+    forward now without breaking decode's tick cadence": while any slot
+    decodes, the grant is sized so one chunk costs about `slack_frac` of
+    a decode tick (from moving averages of the observed decode tick and
+    the prefill cost a token), floored at one prompt bucket, so prefill
+    always progresses, and capped at the engine's prefill_chunk. With
+    nothing decoding there is no cadence to protect and the whole chunk
+    is granted. Grants are prompt-bucket multiples.
+
+    Host-side and lock-free (the engine serializes callers)."""
+
+    def __init__(self, bucket: int, chunk: int,
+                 slack_frac: float = 0.5):
+        self.bucket = max(int(bucket), 1)
+        self.chunk = int(chunk) if chunk else 0
+        self.slack_frac = slack_frac
+        self._decode_s: float | None = None  # EMA decode-tick seconds
+        self._tok_s: float | None = None     # EMA prefill seconds a token
+
+    @staticmethod
+    def _ema(old, new, alpha=0.2):
+        return new if old is None else (1 - alpha) * old + alpha * new
+
+    def note_decode(self, seconds: float) -> None:
+        self._decode_s = self._ema(self._decode_s, seconds)
+
+    def note_prefill(self, tokens: int, seconds: float) -> None:
+        if tokens > 0:
+            self._tok_s = self._ema(self._tok_s, seconds / tokens)
+
+    def grant(self, decoding: bool) -> int:
+        """The most prompt tokens the next prefill chunk may take."""
+        cap = self.chunk if self.chunk else (1 << 30)
+        if not decoding:
+            return cap
+        n = self.bucket
+        if self._decode_s and self._tok_s:
+            n = int(self._decode_s * self.slack_frac / self._tok_s)
+            n = (n // self.bucket) * self.bucket
+        return max(self.bucket, min(n, cap))
+
+
 class ContinuousEngine:
     """In-flight (continuous) batching: a fixed pool of decode slots
     steps together every iteration, and new requests are prefilled into
@@ -444,7 +620,20 @@ class ContinuousEngine:
     tokens merged in by merge_tokens. "sync" fetches every tick at once
     (the token-identity reference). The engine reads the device at two
     points only: the first token after a prompt's final chunk, and
-    `_fetch_tick`.
+    `_fetch_tick` (a speculative tick also reads its verify).
+
+    Speculative decoding (`speculate` 'ngram' or 'draft'): a tick where
+    every decoding slot is greedy and has k+1 positions of room drafts
+    `spec_k` tokens a slot and scores them in one verify pass; any other
+    tick is the plain one-token tick. The draft model's cache is a slot
+    cache, also under the paged engine.
+
+    Pools (`prefill_workers` > 0): the worker keeps admission and the
+    decode ticks, and that many prefill threads run the prompt chunks,
+    each sized by a PrefillBudget, at most one a decode tick while
+    anything decodes. The core is then "sync". Every thread launches on
+    the card's one stream, under `_mu`: the kernels keep tickets per
+    device, so no two calls may run on two streams at once.
 
     PagedContinuousEngine overrides the policy hooks (admission, page
     growth, preemption, release); the control flow lives here.
@@ -459,11 +648,19 @@ class ContinuousEngine:
     def __init__(self, model, cfg, max_slots: int = 8,
                  max_len: int = 2048, prompt_bucket: int = 64,
                  max_prompt_len: int = 1024, prefill_chunk: int = 0,
+                 prefill_workers: int = 0,
                  engine_core: str = "async", plain: bool = False,
-                 recorder: RequestRecorder | None = None):
+                 recorder: RequestRecorder | None = None,
+                 speculate: str = "off", spec_k: int = 4,
+                 draft_layers: int = 2):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
+        if speculate not in ("off", "ngram", "draft"):
+            raise ValueError(f"speculate must be 'off', 'ngram' or "
+                             f"'draft', got {speculate!r}")
+        if speculate != "off" and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -476,6 +673,17 @@ class ContinuousEngine:
             # bucket boundaries.
             prefill_chunk = -(-prefill_chunk // prompt_bucket) * prompt_bucket
         self.prefill_chunk = prefill_chunk
+        self.speculate = speculate
+        self.spec_k = spec_k
+        self.spec_ticks_run = 0
+        self._spec_tick = False
+        self.prefill_workers = max(int(prefill_workers), 0)
+        self._budget = PrefillBudget(prompt_bucket, self.prefill_chunk)
+        # Pools run synchronously: the decode tick and the prefill chunks
+        # take turns under _mu from different threads, and a trailing
+        # fetch would keep the slot bookkeeping stale across turns.
+        if self.prefill_workers:
+            engine_core = "sync"
         self.engine_core = engine_core
         self.plain = plain
         self.recorder = recorder if recorder is not None \
@@ -490,10 +698,23 @@ class ContinuousEngine:
         self._dev_tok = None
         self._tok_overrides: dict = {}
         self._clock = _PhaseClock(self.recorder, self._device_busy)
+        # RLock: recovery re-enters it.
         self._mu = threading.RLock()
+        self._prefill_work = threading.Event()
+        self._prefill_threads: list[threading.Thread] = []
+        self.prefill_worker_restarts = 0
+        # Pools: while anything decodes, at most one budgeted chunk a
+        # decode tick (locks are not fair: a busy pool could otherwise
+        # take _mu ahead of the waiting decode loop every time).
+        self._chunks_this_tick = 0
         # queue.Queue + Event wake, as in BatchingEngine.
         self.queue: queue.Queue = queue.Queue()
         self._work = threading.Event()
+        # Fault hooks, as BatchingEngine's; fault_kill_prefill kills one
+        # prefill worker at the next moment a prompt is mid-prefill.
+        self.fault_hang_s = 0.0
+        self.fault_kill = False
+        self.fault_kill_prefill = False
         self.worker_restarts = 0
         self.steps_run = 0          # decode ticks (all slots at once)
         self.prefills_run = 0       # completed request prefills
@@ -508,15 +729,21 @@ class ContinuousEngine:
         self.requests_served = 0
         self.batches_run = 0        # = steps_run, for /healthz
         self._stop = threading.Event()
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        if speculate == "draft":
+            n_draft = draft_layer_count(cfg, draft_layers)
+            self._draft_cfg = spec.draft_config(cfg, n_draft)
+            self._draft_model = spec.truncate_params(model, n_draft)
         # The slot table and cache exist before the worker starts, so a
         # reader on another thread (the census) never sees them missing.
-        self._slots: list[dict | None] = [None] * max_slots
-        self._backlog: list = []
-        self._last_tok = [0] * max_slots
-        self._temps = [0.0] * max_slots
-        self._admit_seq = 0
-        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self._fresh_slots()
         self._fresh_state()
+        self._start_worker()
+
+    def _start_worker(self):
+        """(Re)create the worker thread: __init__ and the supervisor's
+        restart share this. The slot table and cache are the engine's,
+        rebuilt by recover_after_worker_death, not by the thread."""
         self.thread = threading.Thread(target=self._worker, daemon=True,
                                        name="serve-continuous")
         self.thread.start()
@@ -555,6 +782,40 @@ class ContinuousEngine:
     def stop(self):
         self._stop.set()
         self._work.set()
+        self._prefill_work.set()
+
+    def recover_after_worker_death(self, err: Exception) -> None:
+        """Fail every request the dead worker abandoned (occupied slots,
+        the backlog, everything queued), drop the ticks in flight and the
+        device token vector, and rebuild the slot table, the cache (and
+        the paged engine's allocator and prefix index) and the draft
+        cache, so the restarted worker starts on a clean pool. The
+        supervisor calls it before the restart. Under _mu: live prefill
+        workers and the census never see the state half rebuilt."""
+        with self._mu:
+            self._inflight = []
+            self._dev_tok = None
+            self._tok_overrides = {}
+            self._spec_tick = False
+            for sl in self._slots:
+                if sl is not None:
+                    _trace_restart_touch(sl["rid"], err)
+                    _fail(sl["fut"], sl["stream"], err, sl["rid"],
+                          self.recorder)
+            for item in self._backlog:
+                _trace_restart_touch(item[5], err)
+                _fail(item[3], item[4], err, item[5], self.recorder)
+            while True:
+                try:
+                    item = self.queue.get_nowait()
+                except queue.Empty:
+                    break
+                _trace_restart_touch(item[5], err)
+                _fail(item[3], item[4], err, item[5], self.recorder)
+            self._work.clear()
+            self._fresh_slots()
+            self._fresh_state()
+            self._record_occupancy()
 
     # ---------- hooks (overridden by the paged engine) ----------
 
@@ -570,13 +831,26 @@ class ContinuousEngine:
             active=sum(sl is not None for sl in self._slots),
             total=self.max_slots)
 
-    def _fresh_state(self):
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            init_slot_cache,
-        )
+    def _fresh_slots(self):
+        self._slots: list[dict | None] = [None] * self.max_slots
+        self._backlog: list = []
+        self._last_tok = [0] * self.max_slots
+        self._temps = [0.0] * self.max_slots
+        self._admit_seq = 0
 
+    def _fresh_state(self):
+        # The old cache goes first, so the card never holds two.
+        self._cache = None
         self._cache = init_slot_cache(self.cfg, self.max_slots,
                                       self.max_len, self.device)
+        self._fresh_draft_state()
+
+    def _fresh_draft_state(self):
+        if self.speculate != "draft":
+            return
+        self._draft_cache = None
+        self._draft_cache = init_slot_cache(self._draft_cfg, self.max_slots,
+                                            self.max_len, self.device)
 
     def _admit_one(self, item, slot_idx) -> bool:
         """Register the request in a free slot; its prompt runs in the
@@ -595,10 +869,6 @@ class ContinuousEngine:
 
     def _run_chunk(self, slot_idx: int, tokens: torch.Tensor, start: int,
                    new_len: int) -> torch.Tensor:
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            prefill_suffix_slot,
-        )
-
         last, self._cache = prefill_suffix_slot(
             self.model, self._cache, slot_idx, tokens, start, new_len,
             self.cfg, plain=self.plain)
@@ -606,10 +876,6 @@ class ContinuousEngine:
 
     def _step(self, tokens: torch.Tensor, active: torch.Tensor
               ) -> torch.Tensor:
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            decode_step_slots,
-        )
-
         logits, self._cache = decode_step_slots(self.model, self._cache,
                                                 tokens, active, self.cfg,
                                                 plain=self.plain)
@@ -620,8 +886,27 @@ class ContinuousEngine:
 
     def _pre_step(self) -> bool:
         """Between the prefill and decode ticks (paged: page growth).
-        False = a device error was handled; skip the decode tick."""
+        Decides whether the coming tick speculates, before it runs, so
+        the paged engine can back the verify window with pages. False =
+        a device error was handled; skip the decode tick."""
+        self._spec_tick = self._want_spec_tick()
         return True
+
+    def _want_spec_tick(self) -> bool:
+        """Speculate this tick iff every decoding slot is greedy and has
+        room for the verify's k+1 uncommitted writes, and at least one
+        still wants more than one token (a one-token tail is cheaper on
+        the plain tick)."""
+        if self.speculate == "off":
+            return False
+        k1 = self.spec_k + 1
+        dec = [sl for sl in self._slots
+               if sl is not None and not sl["pending"]]
+        if not dec:
+            return False
+        return (all(sl["temp"] <= 0 and sl["len"] + k1 <= self.max_len
+                    for sl in dec)
+                and any(sl["remaining"] > 1 for sl in dec))
 
     def _release_slot(self, slot_idx: int) -> None:
         pass
@@ -629,6 +914,13 @@ class ContinuousEngine:
     # ---------- worker ----------
 
     def _worker(self):
+        with _device_scope(self.device):
+            if self.prefill_workers:
+                self._decode_pool_loop()
+            else:
+                self._loop()
+
+    def _loop(self):
         # While tick t runs on the card, this iteration's admission,
         # prefill and page growth run in the gap, tick t+1 dispatches
         # behind it, and only then is tick t fetched (async core). The
@@ -636,6 +928,7 @@ class ContinuousEngine:
         # when a tick was still running.
         clock = self._clock
         while not self._stop.is_set():
+            _maybe_injected_hang(self)
             self._pump_queue()
             with self._mu:
                 clock.start_tick()
@@ -657,11 +950,134 @@ class ContinuousEngine:
         if all(sl is None for sl in self._slots) and not self._backlog:
             self._work.wait(0.05)
         self._work.clear()
+        self._drain_queue()
+
+    def _drain_queue(self):
         while True:
             try:
                 self._backlog.append(self.queue.get_nowait())
             except queue.Empty:
                 return
+
+    # ---------- pools (prefill_workers > 0) ----------
+
+    def _decode_pool_loop(self):
+        """The decode loop of the pools layout: admission and the tick
+        cadence; the prefill pool runs the chunks within the budget's
+        grant. Every shared-state phase holds _mu; the idle waits do
+        not (a parked decode loop must never block a prefill chunk)."""
+        self._ensure_prefill_threads()
+        while not self._stop.is_set():
+            _maybe_injected_hang(self)
+            with self._mu:
+                idle = (all(sl is None for sl in self._slots)
+                        and not self._backlog)
+            if idle:
+                self._work.wait(0.05)
+            self._work.clear()
+            with self._mu:
+                self._drain_queue()
+                self._admit_phase()
+                self._record_occupancy()
+                n_prefilling = sum(sl is not None and bool(sl["pending"])
+                                   for sl in self._slots)
+                n_decoding = sum(sl is not None and not sl["pending"]
+                                 for sl in self._slots)
+                # The prefill pool owns the backlog and every slot still
+                # holding prompt tokens; decode owns the ticking slots.
+                self.recorder.set_pool_depths(
+                    prefill=len(self._backlog) + n_prefilling,
+                    decode=n_decoding)
+            if n_prefilling:
+                self._prefill_work.set()
+            if not n_decoding:
+                # No cadence to protect: park briefly. A prefill worker
+                # sets _work when a slot's first token lands.
+                if n_prefilling or not idle:
+                    self._work.wait(0.005)
+                continue
+            with self._mu:
+                if not self._pre_step():
+                    continue
+                self._decode_tick()
+                self._chunks_this_tick = 0  # the tick paid: a new grant
+            if n_prefilling:
+                self._prefill_work.set()
+
+    def _prefill_worker(self):
+        """A prefill-pool worker: runs budgeted chunks of the oldest
+        prefilling slot under _mu. An injected kill raises between
+        chunks with _mu released, so a dying worker leaves no lock held
+        and no slot or page half changed: the replacement resumes the
+        pending prompts where they stopped."""
+        with _device_scope(self.device):
+            while not self._stop.is_set():
+                if self.fault_kill_prefill:
+                    self._maybe_killed_prefill()
+                with self._mu:
+                    did = self._prefill_tick()
+                if not did:
+                    self._prefill_work.wait(0.01)
+                    self._prefill_work.clear()
+
+    def _maybe_killed_prefill(self) -> None:
+        """Consume an armed prefill kill when a prompt is mid-prefill
+        (dying while idle would exercise nothing), stamping the victims
+        at the moment of death, then raise with _mu released."""
+        with self._mu:
+            victims = [sl for sl in self._slots
+                       if sl is not None and sl["pending"]]
+            if not (victims and self.fault_kill_prefill):
+                return
+            self.fault_kill_prefill = False
+            for sl in victims:
+                h = trace.handle(sl["rid"])
+                if h is not None:
+                    h.promote("pool_restart")
+                    h.instant(trace.EV_POOL_RESTART, {"injected": True})
+        log.warning("injected prefill-pool worker kill: thread dying "
+                    "between chunks")
+        raise WorkerKilled("injected prefill worker kill")
+
+    def _ensure_prefill_threads(self):
+        """Top the pool up to `prefill_workers` live threads."""
+        self._prefill_threads = [t for t in self._prefill_threads
+                                 if t.is_alive()]
+        while len(self._prefill_threads) < self.prefill_workers:
+            t = threading.Thread(
+                target=self._prefill_worker, daemon=True,
+                name=f"serve-prefill-{len(self._prefill_threads)}")
+            t.start()
+            self._prefill_threads.append(t)
+
+    def prefill_workers_alive(self) -> int:
+        return sum(t.is_alive() for t in self._prefill_threads)
+
+    def restart_dead_prefill_workers(self) -> int:
+        """Supervisor entry: replace dead prefill workers and return how
+        many. Partial recovery: no request fails and no page moves, since
+        the slot and page state is the engine's and a killed worker dies
+        between chunks; the replacements resume the pending prompts."""
+        if not self.prefill_workers or self._stop.is_set():
+            return 0
+        with self._mu:
+            dead = sum(1 for t in self._prefill_threads
+                       if not t.is_alive())
+            if not dead:
+                return 0
+            self._ensure_prefill_threads()
+            self.prefill_worker_restarts += dead
+            for sl in self._slots:
+                if sl is not None and sl["pending"]:
+                    h = trace.handle(sl["rid"])
+                    if h is not None:
+                        h.promote("pool_restart")
+                        h.instant(trace.EV_POOL_RESTART,
+                                  {"dead_workers": dead})
+        self._prefill_work.set()
+        return dead
+
+    # ---------- the ticks ----------
 
     def _admit_phase(self):
         free = [i for i in range(self.max_slots) if self._slots[i] is None]
@@ -685,11 +1101,9 @@ class ContinuousEngine:
     def _prefill_tick(self) -> bool:
         """Run ONE prompt chunk of the oldest still-prefilling slot; on
         the final chunk, sample the request's first token and move the
-        slot to decoding. True iff a chunk ran."""
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            pick_tokens,
-        )
-
+        slot to decoding. True iff a chunk ran (a prefill worker parks
+        on False). The chunk is --prefill-chunk tokens on the single
+        loop, the budget's grant in the pools layout."""
         cand = [i for i, sl in enumerate(self._slots)
                 if sl is not None and sl["pending"]]
         if not cand:
@@ -697,7 +1111,13 @@ class ContinuousEngine:
         i = min(cand, key=lambda j: self._slots[j]["admitted"])
         sl = self._slots[i]
         take = len(sl["pending"])
-        if self.prefill_chunk:
+        if self.prefill_workers:
+            decoding = any(s is not None and not s["pending"]
+                           for s in self._slots)
+            if decoding and self._chunks_this_tick:
+                return False  # this tick's grant is spent
+            take = min(self._budget.grant(decoding), take)
+        elif self.prefill_chunk:
             take = min(self.prefill_chunk, take)
         final = take == len(sl["pending"])
         bucketed = -(-take // self.prompt_bucket) * self.prompt_bucket
@@ -706,11 +1126,22 @@ class ContinuousEngine:
         h = trace.handle(sl["rid"])
         if h is not None:
             h.begin(trace.SPAN_PREFILL_CHUNK,
-                    {"tokens": take, "final": final, "pool": False})
+                    {"tokens": take, "final": final,
+                     "pool": bool(self.prefill_workers)})
+        t_chunk = time.monotonic()
         try:
-            last_logits = self._run_chunk(
-                i, _to_device(padded, torch.long, self.device), start,
-                new_len)
+            chunk = _to_device(padded, torch.long, self.device)
+            last_logits = self._run_chunk(i, chunk, start, new_len)
+            if self.speculate == "draft":
+                # Mirror the chunk into the drafter's slot cache, so its
+                # prefix matches the main cache position for position.
+                # On a paged prefix hit the shared pages' tokens were
+                # never forwarded and the draft cache has no K/V there:
+                # drafts degrade, and the verifier keeps the output
+                # exact (a wrong draft is rejected, never emitted).
+                _, self._draft_cache = prefill_suffix_slot(
+                    self._draft_model, self._draft_cache, i, chunk, start,
+                    new_len, self._draft_cfg, plain=self.plain)
             if final:
                 temps = _to_device([sl["temp"]], torch.float32, self.device)
                 # The first token is read at once (it streams the time to
@@ -727,6 +1158,8 @@ class ContinuousEngine:
             return False
         if h is not None:
             h.end(trace.SPAN_PREFILL_CHUNK)
+        self._budget.note_prefill(take, time.monotonic() - t_chunk)
+        self._chunks_this_tick += 1
         sl["pending"] = sl["pending"][take:]
         sl["len"] = new_len
         self.prefill_chunks_run += 1
@@ -746,6 +1179,9 @@ class ContinuousEngine:
         _stream_event(sl["stream"], {"token": tok}, sl["rid"])
         if sl["remaining"] <= 0:
             self._finish(i)
+        elif self.prefill_workers:
+            # The slot just became decodable: wake a parked decode loop.
+            self._work.set()
         return True
 
     def _decode_tick(self) -> bool:
@@ -755,11 +1191,16 @@ class ContinuousEngine:
         state after the tick; the token values land in `_fetch_tick`,
         one tick later on the async core, at once on the sync core.
         True iff a tick was dispatched or an outstanding one fetched."""
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            merge_tokens,
-            pick_tokens,
-        )
-
+        if self._spec_tick:
+            self._spec_tick = False
+            # A speculative round reads its verify on the host and drafts
+            # from the host's history, so the pipeline drains first:
+            # _last_tok and the outputs must be current, and no tick in
+            # flight may hold a `final` pinned before the round moves
+            # `remaining`.
+            self._drain_inflight()
+            if self._spec_decode_tick():
+                return True
         decoding = [sl is not None and not sl["pending"]
                     and sl["remaining"] > 0 for sl in self._slots]
         if not any(decoding):
@@ -847,6 +1288,7 @@ class ContinuousEngine:
         t_f1 = time.monotonic()
         t_tick = t_f1 - fl["t0"]
         self.recorder.observe_decode_step(t_tick)
+        self._budget.note_decode(t_tick)
         with self._clock.phase("stream"):
             for i, final in fl["slots"]:
                 sl = self._slots[i]
@@ -869,8 +1311,8 @@ class ContinuousEngine:
                     self._finish(i)
 
     def _drain_inflight(self) -> None:
-        """Fetch every outstanding tick (preemption needs the host view
-        current)."""
+        """Fetch every outstanding tick (speculation and preemption need
+        the host view current)."""
         while self._inflight:
             self._fetch_tick()
 
@@ -881,6 +1323,138 @@ class ContinuousEngine:
             return False
         done = self._inflight[-1]["done"]
         return done is not None and not done.query()
+
+    def _verify(self, tokens: torch.Tensor, active: torch.Tensor
+                ) -> torch.Tensor:
+        """The verify pass over [slots, k+1] tokens; returns its logits,
+        the cache's lengths unmoved."""
+        logits, self._cache = verify_step(self.model, self._cache, tokens,
+                                          active, self.cfg,
+                                          plain=self.plain)
+        return logits
+
+    def _spec_decode_tick(self) -> bool:
+        """One draft + verify + commit round over every decoding slot:
+        spec_k drafts a slot, ONE verify pass of k+1 positions over the
+        model, greedy acceptance on the host, one advance_lengths commit.
+        Returns False, having run nothing, when ngram drafting found no
+        candidate in any slot (the plain tick is cheaper then). A draft
+        token is emitted only where it equals the verifier's argmax, and
+        rejected writes sit past the committed lengths, where later
+        writes overwrite them."""
+        s, k = self.max_slots, self.spec_k
+        dev = self.device
+        # The round moves tokens on the host; the device token vector is
+        # stale after it, so the next plain dispatch rebuilds it from
+        # the host mirror.
+        self._dev_tok = None
+        decoding = [sl is not None and not sl["pending"]
+                    for sl in self._slots]
+        if not any(decoding):
+            return False  # a preemption emptied the round
+        if self.speculate == "ngram":
+            drafts = [[0] * k for _ in range(s)]
+            got = False
+            for i, sl in enumerate(self._slots):
+                if decoding[i]:
+                    d = spec.ngram_draft(sl["out"], k)
+                    drafts[i][:len(d)] = d
+                    got = got or bool(d)
+            if not got:
+                return False  # no lookup hit anywhere: the plain tick
+        t_step = time.monotonic()
+        try:
+            active = _to_device(decoding, torch.bool, dev)
+            last = _to_device(self._last_tok, torch.long, dev)
+            if self.speculate == "draft":
+                cols, cur = [], last
+                for _ in range(k):
+                    dlogits, self._draft_cache = decode_step_slots(
+                        self._draft_model, self._draft_cache, cur, active,
+                        self._draft_cfg, plain=self.plain)
+                    cur = dlogits.argmax(dim=-1)
+                    cols.append(cur)
+                draft_dev = torch.stack(cols, dim=1)
+            else:
+                draft_dev = _to_device(drafts, torch.long, dev)
+            tokens_dev = torch.cat([last[:, None], draft_dev], dim=1)
+            logits = self._verify(tokens_dev, active)
+            # The round's one read of the device: the verified tokens
+            # (the drafts included) and the verifier's argmax.
+            tokens, greedy = torch.stack(
+                [tokens_dev, logits.argmax(dim=-1)]).cpu().numpy()
+        except Exception as e:
+            introspection.note_failure(e, "serve/decode_tick")
+            log.exception("speculative verify failed")
+            self._reset(e)
+            return True
+        with self._clock.phase("sample"):
+            counts, bonus = spec.greedy_verify(greedy, tokens)
+            # Draft mode never commits the bonus token: its K/V is not in
+            # the draft cache (the drafter stepped k times), so committing
+            # it would part the caches; it becomes the next round's last
+            # token instead.
+            cap = k if self.speculate == "draft" else k + 1
+            commit = [0] * s
+            emitted: dict = {}
+            for i, sl in enumerate(self._slots):
+                if not decoding[i]:
+                    continue
+                a = int(counts[i]) - 1
+                seq = [int(t) for t in tokens[i, 1:1 + a]] + [int(bonus[i])]
+                c = min(len(seq), cap, sl["remaining"])
+                commit[i] = c
+                emitted[i] = seq[:c]
+                h = trace.handle(sl["rid"])
+                if h is not None:
+                    h.instant(trace.EV_DISPATCH,
+                              {"tick": self.steps_run + 1, "spec": True,
+                               "drafted": k, "committed": c}, ts=t_step)
+        try:
+            self._cache = advance_lengths(
+                self._cache, _to_device(commit, torch.int32, dev), active)
+            if self.speculate == "draft":
+                # The draft cache's prefix matches the main cache's token
+                # for token: the length is the whole re-anchor.
+                self._draft_cache = dataclasses.replace(
+                    self._draft_cache, length=self._cache.length.clone())
+        except Exception as e:
+            introspection.note_failure(e, "serve/decode_tick")
+            log.exception("speculative commit failed")
+            self._reset(e)
+            return True
+        t_tick = time.monotonic() - t_step
+        self.steps_run += 1
+        self.batches_run = self.steps_run
+        self.spec_ticks_run += 1
+        self.recorder.observe_decode_step(t_tick)
+        self._budget.note_decode(t_tick)
+        # The commit is queued, never waited for, and no Event tracks it,
+        # so the probe cannot see it: this slice is counted hidden.
+        with self._clock.phase("stream", exposed=False):
+            n_dec = sum(decoding)
+            self.recorder.observe_spec(
+                drafted=n_dec * k,
+                accepted=int(sum(counts[i] for i in emitted)) - n_dec,
+                verifies=n_dec, committed=sum(commit))
+            for i, toks in emitted.items():
+                sl = self._slots[i]
+                h = trace.handle(sl["rid"])
+                if h is not None and toks:
+                    h.begin(trace.SPAN_STREAM,
+                            {"tokens": len(toks), "spec": True})
+                for tok in toks:
+                    sl["out"].append(tok)
+                    sl["len"] = min(sl["len"] + 1, self.max_len)
+                    self._last_tok[i] = tok
+                    sl["remaining"] -= 1
+                    self.recorder.decode_token(sl["rid"])
+                    _stream_event(sl["stream"], {"token": tok}, sl["rid"])
+                if h is not None and toks:
+                    h.end(trace.SPAN_STREAM)
+                if sl["remaining"] <= 0:
+                    self._finish(i)
+        return True
 
     def _finish(self, i: int):
         sl = self._slots[i]
@@ -925,8 +1499,9 @@ class PagedContinuousEngine(ContinuousEngine):
         the pool cannot cover now waits in the backlog, after the prefix
         index has given back what it holds;
       - prefill: the unshared suffix runs in chunks of whole pages;
-      - decode: before each tick, slots whose next token opens a page get
-        one through one masked assign_pages scatter;
+      - decode: before each tick, slots whose next write (a speculative
+        tick's whole verify window) opens a page get one through masked
+        assign_pages scatters;
       - exhaustion: with no page free, preempt the youngest request: free
         its pages and requeue it at the front of the backlog (its prompt
         and the tokens so far become its new prompt);
@@ -948,9 +1523,11 @@ class PagedContinuousEngine(ContinuousEngine):
                  max_len: int = 2048, page: int = 128,
                  pool_pages: int | None = None,
                  max_prompt_len: int = 1024, prefix_cap: int = 256,
-                 prefill_chunk: int = 0, engine_core: str = "async",
-                 plain: bool = False,
+                 prefill_chunk: int = 0, prefill_workers: int = 0,
+                 engine_core: str = "async", plain: bool = False,
                  recorder: RequestRecorder | None = None,
+                 speculate: str = "off", spec_k: int = 4,
+                 draft_layers: int = 2,
                  thermal_hot_s: float = 2.0, thermal_warm_s: float = 10.0,
                  thermal_interval_s: float = 1.0):
         max_len = -(-max_len // page) * page
@@ -971,8 +1548,10 @@ class PagedContinuousEngine(ContinuousEngine):
         super().__init__(model, cfg, max_slots=max_slots, max_len=max_len,
                          prompt_bucket=page, max_prompt_len=max_prompt_len,
                          prefill_chunk=prefill_chunk,
+                         prefill_workers=prefill_workers,
                          engine_core=engine_core, plain=plain,
-                         recorder=recorder)
+                         recorder=recorder, speculate=speculate,
+                         spec_k=spec_k, draft_layers=draft_layers)
 
     def submit(self, tokens, max_new_tokens, temperature, stream=None,
                trace_ctx=None):
@@ -989,6 +1568,13 @@ class PagedContinuousEngine(ContinuousEngine):
             return fut
         return super().submit(tokens, max_new_tokens, temperature,
                               stream=stream, trace_ctx=trace_ctx)
+
+    def recover_after_worker_death(self, err: Exception) -> None:
+        # The base rebuilds the pool, the allocator and the prefix index,
+        # and publishes the empty pool's gauges and census.
+        with self._mu:
+            self._tenants.clear()
+            super().recover_after_worker_death(err)
 
     # ---------- hooks ----------
 
@@ -1047,12 +1633,8 @@ class PagedContinuousEngine(ContinuousEngine):
                            {"rerefs": self.prefix_index.rereferences})
 
     def _fresh_state(self):
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            PageAllocator,
-            PrefixIndex,
-            init_paged_cache,
-        )
-
+        # The old pool goes first, so the card never holds two.
+        self._cache = None
         self._cache = init_paged_cache(self.cfg, self.max_slots,
                                        self.pool_pages, self.page,
                                        self.max_pages, self.device)
@@ -1063,6 +1645,7 @@ class PagedContinuousEngine(ContinuousEngine):
         # Requests whose admission waits on free pages: a req/page_stall
         # span stays open from the first failed allocation to the admit.
         self._page_stalled: set = set()
+        self._fresh_draft_state()
 
     @property
     def pages_in_use(self) -> int:
@@ -1107,11 +1690,6 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _admit_one(self, item, slot_idx) -> bool:
         """False = not enough pages right now (item NOT consumed)."""
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            PrefixIndex,
-            set_slot_pages,
-        )
-
         tokens, n_new, temp, fut, stream, rid = item
         page = self.page
         n_pages = -(-len(tokens) // page)
@@ -1192,10 +1770,6 @@ class PagedContinuousEngine(ContinuousEngine):
         return True
 
     def _run_chunk(self, slot_idx, tokens, start, new_len):
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            prefill_suffix_paged,
-        )
-
         # The start is length[slot] on the device, set by admission or
         # by the previous chunk.
         last, self._cache = prefill_suffix_paged(
@@ -1204,10 +1778,6 @@ class PagedContinuousEngine(ContinuousEngine):
         return last
 
     def _step(self, tokens, active):
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            decode_step_paged,
-        )
-
         logits, self._cache = decode_step_paged(self.model, self._cache,
                                                 tokens, active, self.cfg,
                                                 plain=self.plain)
@@ -1220,14 +1790,29 @@ class PagedContinuousEngine(ContinuousEngine):
             self.prefix_index.insert(sl["keys"][j], sl["rows"][j])
 
     def _pre_step(self) -> bool:
-        """Give every decoding slot whose next write opens a page one
-        fresh page (one masked scatter), preempting on exhaustion. One
-        round is enough: a tick writes one position per slot. False = a
-        device error was handled."""
-        from container_engine_accelerators_tpu_torch.models.decode import (
-            assign_pages,
-        )
+        """Give every decoding slot whose coming writes reach unassigned
+        pages fresh pages (masked scatters), preempting on exhaustion.
+        False = a device error was handled.
 
+        A speculative tick writes positions [len, len + spec_k] before it
+        commits, so the growth covers the whole verify window: rounds of
+        at most one page a slot, until every decoding slot's window is
+        backed (a second round only when the window spans a page
+        boundary past a fresh page)."""
+        self._spec_tick = self._want_spec_tick()
+        lookahead = self.spec_k if self._spec_tick else 0
+        while True:
+            grew = self._grow_pages_round(lookahead)
+            if grew is None:
+                return False
+            if not grew:
+                return True
+
+    def _grow_pages_round(self, lookahead: int) -> bool | None:
+        """One masked-scatter round of page growth: each decoding slot
+        whose write window [len, len + lookahead] reaches past its pages
+        gets ONE page. True if a scatter ran (the caller loops), False
+        when nothing was needed, None on a handled device error."""
         s, page = self.max_slots, self.page
         mask, pos, rws = [False] * s, [0] * s, [0] * s
         for i, sl in enumerate(self._slots):
@@ -1236,7 +1821,9 @@ class PagedContinuousEngine(ContinuousEngine):
                 # slots (final token dispatched, fetch pending) never
                 # tick again, so a page for them would leak.
                 continue
-            target = min(sl["len"] // page, self.max_pages - 1)
+            # The highest page the window touches, within the capacity.
+            target = min((sl["len"] + lookahead) // page,
+                         self.max_pages - 1)
             pg = len(sl["rows"])  # next unallocated page index
             if pg > target:
                 continue
@@ -1266,7 +1853,7 @@ class PagedContinuousEngine(ContinuousEngine):
             sl["rows"].append(row)
             mask[i], pos[i], rws[i] = True, pg, row
         if not any(mask):
-            return True
+            return False
         dev = self.device
         try:
             self._cache = assign_pages(
@@ -1277,8 +1864,148 @@ class PagedContinuousEngine(ContinuousEngine):
             introspection.note_failure(e, "serve/assign_pages")
             log.exception("assign_pages failed")
             self._reset(e)
-            return False
+            return None
         return True
+
+
+class EngineSupervisor:
+    """Worker-restart loop (serve --supervise): watches the engine's
+    worker thread and, when it dies unexpectedly (an uncaught error, an
+    injected kill, anything that escapes the guarded regions), runs the
+    engine's recovery (every in-flight request fails with an error,
+    slots and KV pages are reclaimed, the occupancy gauges zeroed) and
+    starts a fresh worker under a bounded exponential backoff:
+    consecutive deaths double the delay up to `backoff_cap_s`, a worker
+    alive `stable_after_s` resets the ladder, and more than
+    `max_restarts` consecutive deaths makes the supervisor give up
+    loudly (the engine stays recovered but stopped; /healthz shows
+    worker_alive false). Dead prefill-pool workers are replaced on the
+    same ladder, gated by a deadline instead of a sleep, and fail no
+    request.
+
+    Without it, a dead worker leaves /healthz green, slots occupied and
+    every queued future waiting for its client's timeout."""
+
+    def __init__(self, engine, backoff_base_s: float = 0.5,
+                 backoff_cap_s: float = 10.0, max_restarts: int = 16,
+                 poll_interval_s: float = 0.2,
+                 stable_after_s: float = 30.0):
+        self.engine = engine
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        self.max_restarts = max_restarts
+        self.poll_interval_s = poll_interval_s
+        self.stable_after_s = stable_after_s
+        self.restarts = 0           # lifetime restarts (monotonic)
+        self.gave_up = False
+        self._consecutive = 0
+        self._last_restart: float | None = None
+        self.prefill_restarts = 0
+        self._prefill_consecutive = 0
+        self._prefill_last: float | None = None
+        self._prefill_next_ok = 0.0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self):
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="engine-supervisor")
+        self._thread.start()
+        log.info("engine supervisor armed: backoff %.2fs..%.1fs, "
+                 "max %d consecutive restarts", self.backoff_base_s,
+                 self.backoff_cap_s, self.max_restarts)
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def _delay(self, consecutive: int) -> float:
+        return min(self.backoff_cap_s,
+                   self.backoff_base_s * 2 ** (consecutive - 1))
+
+    def _supervise_prefill_pool(self, eng, now: float) -> None:
+        """Replace dead prefill-pool workers: partial recovery, no
+        request fails and no page moves, and the next replacement waits
+        on the ladder's deadline, never delaying decode supervision."""
+        restart = getattr(eng, "restart_dead_prefill_workers", None)
+        if restart is None or now < self._prefill_next_ok:
+            return
+        if (self._prefill_last is not None
+                and now - self._prefill_last >= self.stable_after_s):
+            self._prefill_consecutive = 0  # the pool had stabilized
+        n = restart()
+        if not n:
+            return
+        self._prefill_consecutive += 1
+        self._prefill_last = now
+        delay = self._delay(self._prefill_consecutive)
+        self._prefill_next_ok = now + delay
+        self.prefill_restarts += n
+        eng.recorder.prefill_worker_restarts.inc(n)
+        log.warning("prefill-pool worker death: %d worker(s) replaced "
+                    "(decode unaffected; next replacement gated for "
+                    "%.2fs)", n, delay)
+        if events.enabled():
+            events.instant("supervisor/prefill_worker_death", "chaos",
+                           {"workers": n})
+            events.instant("supervisor/prefill_worker_restart", "chaos",
+                           {"restarts": self.prefill_restarts,
+                            "backoff_s": round(delay, 3)})
+
+    def _loop(self):
+        eng = self.engine
+        while not self._stop.is_set():
+            if eng._stop.is_set():
+                return  # a deliberate engine.stop(): nothing to revive
+            self._supervise_prefill_pool(eng, time.monotonic())
+            if eng.thread.is_alive():
+                self._stop.wait(self.poll_interval_s)
+                continue
+            now = time.monotonic()
+            if (self._last_restart is not None
+                    and now - self._last_restart >= self.stable_after_s):
+                self._consecutive = 0  # the worker had stabilized
+            self._consecutive += 1
+            err = RuntimeError(
+                "engine worker died unexpectedly; request failed during "
+                f"supervised recovery (restart {self.restarts + 1})")
+            log.error("engine worker died; recovering "
+                      "(consecutive death %d)", self._consecutive)
+            if events.enabled():
+                events.instant("supervisor/worker_death", "chaos",
+                               {"consecutive": self._consecutive})
+            try:
+                eng.recover_after_worker_death(err)
+            except Exception:
+                log.exception("engine recovery failed; restarting anyway")
+            if self._consecutive > self.max_restarts:
+                self.gave_up = True
+                log.error("engine worker died %d consecutive times; "
+                          "supervisor giving up (engine recovered but "
+                          "stopped: restart the server)",
+                          self._consecutive)
+                if events.enabled():
+                    events.instant("supervisor/gave_up", "chaos",
+                                   {"restarts": self.restarts})
+                return
+            delay = self._delay(self._consecutive)
+            if self._stop.wait(delay) or eng._stop.is_set():
+                return
+            eng._start_worker()
+            self.restarts += 1
+            eng.worker_restarts = self.restarts
+            self._last_restart = time.monotonic()
+            eng.recorder.worker_restarts.inc()
+            log.warning("engine worker restarted (restart %d, after "
+                        "%.2fs backoff)", self.restarts, delay)
+            if events.enabled():
+                events.instant("supervisor/worker_restart", "chaos",
+                               {"restart": self.restarts,
+                                "backoff_s": round(delay, 3)})
 
 
 def make_server(engine, port: int) -> ThreadingHTTPServer:
@@ -1296,12 +2023,22 @@ def make_server(engine, port: int) -> ThreadingHTTPServer:
 
         def do_GET(self):
             if self.path == "/healthz":
+                alive_fn = getattr(engine, "prefill_workers_alive", None)
                 return self._send({
                     "ok": True,
                     "batches": engine.batches_run,
                     "requests": engine.requests_served,
+                    # A dead worker behind a green /healthz is the wedge
+                    # the supervisor exists for: report it either way,
+                    # and the prefill pool's too.
                     "worker_alive": engine.thread.is_alive(),
-                    "worker_restarts": engine.worker_restarts})
+                    "worker_restarts": engine.worker_restarts,
+                    "prefill_workers": getattr(engine, "prefill_workers",
+                                               0),
+                    "prefill_workers_alive": (alive_fn() if alive_fn
+                                              else 0),
+                    "prefill_worker_restarts": getattr(
+                        engine, "prefill_worker_restarts", 0)})
             return self._send({"error": "not found"}, 404)
 
         def _stream_response(self, stream_q):
@@ -1397,6 +2134,49 @@ def main(argv=None) -> int:
                         "prefilled between decode steps (bounds the "
                         "latency a long admission injects into "
                         "in-flight requests); 0 = whole prompt at once")
+    p.add_argument("--prefill-workers", type=int, default=0,
+                   help="continuous/paged engine: split into a decode "
+                        "loop and this many prefill-pool threads. The "
+                        "decode thread keeps the tick cadence and "
+                        "admission; prefill chunks run on the pool under "
+                        "a token budget (one chunk costs about half a "
+                        "decode tick while anything decodes), all on the "
+                        "card's one stream. 0 (the default) keeps the "
+                        "single loop. --supervise also watches the pool: "
+                        "a dead prefill worker is replaced without "
+                        "failing any request")
+    p.add_argument("--speculate", choices=("off", "ngram", "draft"),
+                   default="off",
+                   help="speculative decoding for greedy requests: draft "
+                        "--spec-k tokens (ngram = prompt lookup, no "
+                        "weights; draft = the model's first "
+                        "--draft-layers layers), score them in ONE verify "
+                        "pass, emit the accepted prefix plus the "
+                        "verifier's own next token. The tokens are those "
+                        "of off up to the last bits of the logits; only "
+                        "the tokens per pass change. Ticks with a "
+                        "sampled (temperature > 0) slot run the plain "
+                        "step")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens per verify pass (--speculate)")
+    p.add_argument("--draft-layers", type=int, default=2,
+                   help="--speculate draft: layers in the truncated "
+                        "self-draft model")
+    p.add_argument("--supervise", action="store_true",
+                   help="arm the EngineSupervisor: a dead engine worker "
+                        "thread is recovered (in-flight requests fail "
+                        "with errors, slots and KV pages reclaimed, "
+                        "occupancy gauges zeroed) and restarted under a "
+                        "bounded exponential backoff instead of wedging "
+                        "the server")
+    p.add_argument("--supervise-backoff", type=float, default=0.5,
+                   help="supervisor restart backoff base seconds "
+                        "(doubles per consecutive death, capped at 10 s; "
+                        "a worker stable for 30 s resets the ladder)")
+    p.add_argument("--supervise-max-restarts", type=int, default=16,
+                   help="consecutive worker deaths after which the "
+                        "supervisor gives up loudly (the engine stays "
+                        "recovered but stopped)")
     p.add_argument("--weight-dtype", choices=("bf16", "int8"),
                    default="bf16",
                    help="int8: per-output-channel int8 weight storage, "
@@ -1489,26 +2269,41 @@ def main(argv=None) -> int:
     if args.weight_dtype == "int8":
         model = quantize_llama_params(model)
         log.info("serving int8-quantized weights")
+    if args.speculate != "off":
+        if args.spec_k < 1:
+            p.error("--spec-k must be >= 1")
+        log.info("speculative decoding on: %s drafting, k=%d",
+                 args.speculate, args.spec_k)
+    spec_kw = dict(speculate=args.speculate, spec_k=args.spec_k,
+                   draft_layers=args.draft_layers,
+                   engine_core=args.engine_core)
     recorder = RequestRecorder()
     if args.engine == "paged":
         engine = PagedContinuousEngine(
             model, cfg, max_slots=args.max_batch, max_len=args.max_len,
             page=args.page_size, pool_pages=args.pool_pages,
             prefix_cap=args.prefix_cache_cap,
-            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core,
-            recorder=recorder, thermal_hot_s=args.thermal_hot_s,
+            prefill_chunk=args.prefill_chunk,
+            prefill_workers=args.prefill_workers, recorder=recorder,
+            thermal_hot_s=args.thermal_hot_s,
             thermal_warm_s=args.thermal_warm_s,
-            thermal_interval_s=args.thermal_interval_s)
+            thermal_interval_s=args.thermal_interval_s, **spec_kw)
     elif args.engine == "continuous":
         engine = ContinuousEngine(
             model, cfg, max_slots=args.max_batch, max_len=args.max_len,
-            prefill_chunk=args.prefill_chunk, engine_core=args.engine_core,
-            recorder=recorder)
+            prefill_chunk=args.prefill_chunk,
+            prefill_workers=args.prefill_workers, recorder=recorder,
+            **spec_kw)
     else:
         engine = BatchingEngine(model, cfg, max_batch=args.max_batch,
                                 window_ms=args.batch_window_ms,
-                                engine_core=args.engine_core,
-                                recorder=recorder)
+                                recorder=recorder, **spec_kw)
+    sup = None
+    if args.supervise:
+        sup = EngineSupervisor(
+            engine, backoff_base_s=args.supervise_backoff,
+            max_restarts=args.supervise_max_restarts)
+        sup.start()
     exporter = None
     if args.metrics_port is not None:
         # The poller reads the serving card only, and none for --device
@@ -1530,6 +2325,8 @@ def main(argv=None) -> int:
     try:
         server.serve_forever()
     finally:
+        if sup is not None:
+            sup.stop()
         engine.stop()
         if exporter is not None:
             exporter.stop()

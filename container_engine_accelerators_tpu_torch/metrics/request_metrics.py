@@ -11,7 +11,8 @@ and it turns those edges into Prometheus histograms (TTFT, TPOT, queue
 wait, prefill time, decode step time), gauges (queue depth, active
 slots, KV page occupancy, KV thermal buckets, host-gap fraction) and
 counters (requests by outcome, preemptions, validation failures, engine
-resets, prefix lookups) on a private `CollectorRegistry`, served over
+resets, prefix lookups, worker restarts, speculative drafts and
+acceptances) on a private `CollectorRegistry`, served over
 HTTP by `ServeMetricsExporter` (`serve --metrics-port`; port 0 binds an
 ephemeral port). Metric names, labels and buckets are the JAX
 package's, so one dashboard reads a scrape of either.
@@ -20,10 +21,8 @@ The recorder also keeps the raw samples (bounded deques), so offline
 harnesses (chip_smoke.py's observe phase) derive p50/p95/p99 from the
 same observations the scrape exports.
 
-Not here yet: the speculative-decoding, prefill-pool and supervisor
-families (`observe_spec`, pool depths, worker restarts) come with those
-features, and the fleet scraper's `state_snapshot` with the fleet
-plane.
+Not here yet: the fleet scraper's `state_snapshot`, which comes with
+the fleet plane.
 
 All methods take an optional `now` (monotonic seconds) so tests can
 drive a synthetic timeline; production callers omit it. Thread-safe:
@@ -158,6 +157,12 @@ class RequestRecorder:
             "Distinct KV pool pages retained by the prefix cache; "
             "after a drain, kv_pages_in_use minus this must be zero "
             "(the leak invariant)", registry=reg)
+        self.pool_queue_depth = Gauge(
+            "serve_pool_queue_depth",
+            "Per-pool work depth in the disaggregated layout "
+            "(serve --prefill-workers): prefill = backlogged requests "
+            "plus slots still holding prompt tokens, decode = slots "
+            "ticking", ["pool"], registry=reg)
         self.host_gap_fraction = Gauge(
             "serve_host_gap_fraction",
             "Fraction of engine wall time spent in host-side work NOT "
@@ -232,6 +237,45 @@ class RequestRecorder:
             "Prompt chunks forwarded by the prefill path (its progress "
             "signal)",
             registry=reg)
+        self.worker_restarts = Counter(
+            "serve_worker_restarts",
+            "Engine worker threads restarted by the supervisor after an "
+            "unexpected death (serve --supervise)", registry=reg)
+        self.prefill_worker_restarts = Counter(
+            "serve_prefill_worker_restarts",
+            "Prefill-pool workers replaced by the supervisor after an "
+            "unexpected death (serve --prefill-workers --supervise); "
+            "partial recovery — no request fails", registry=reg)
+        # Speculative decoding: one "verify" is one slot scored in one
+        # verify pass (a pass over 4 slots counts 4), so tokens per
+        # verify is the per-request speedup, not a batch-size artifact.
+        self.spec_drafted = Counter(
+            "serve_spec_drafted_tokens",
+            "Draft tokens proposed to the verifier", registry=reg)
+        self.spec_accepted = Counter(
+            "serve_spec_accepted_tokens",
+            "Draft tokens accepted by greedy verification (excludes "
+            "the bonus token every verify pass yields)", registry=reg)
+        self.spec_verifies = Counter(
+            "serve_spec_verifies",
+            "Slot-verify passes (one per active slot per speculative "
+            "tick)", registry=reg)
+        self.spec_committed = Counter(
+            "serve_spec_committed_tokens",
+            "Tokens emitted by speculative ticks (accepted drafts plus "
+            "bonus tokens, after caps)", registry=reg)
+        self.spec_acceptance_rate = Gauge(
+            "serve_spec_acceptance_rate",
+            "accepted / drafted over this process's lifetime",
+            registry=reg)
+        self.spec_tokens_per_verify = Gauge(
+            "serve_spec_tokens_per_verify",
+            "committed tokens per verify pass (1.0 = speculation is "
+            "pure overhead; k+1 = every draft accepted)", registry=reg)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_verifies = 0
+        self._spec_committed = 0
         self._prefix_lookups = 0
         self._prefix_hits = 0
 
@@ -430,6 +474,15 @@ class RequestRecorder:
             if tenant_cold:
                 events.counter("serve/kv_tenant_cold", tenant_cold)
 
+    def set_pool_depths(self, prefill: int, decode: int) -> None:
+        """Per-pool depth gauges (disaggregated layout), and their twin
+        flight-recorder counter."""
+        self.pool_queue_depth.labels(pool="prefill").set(prefill)
+        self.pool_queue_depth.labels(pool="decode").set(decode)
+        if events.enabled():
+            events.counter("serve/pool_depth", {"prefill": prefill,
+                                                "decode": decode})
+
     # ---------- prefix cache / prefill progress ----------
 
     def prefix_lookup(self, hit: bool) -> None:
@@ -445,6 +498,32 @@ class RequestRecorder:
                 self.prefix_misses.inc()
             self.prefix_hit_rate.set(
                 self._prefix_hits / self._prefix_lookups)
+
+    def observe_spec(self, drafted: int, accepted: int, verifies: int,
+                     committed: int) -> None:
+        """One speculative verify tick: `drafted` and `accepted` draft
+        tokens over `verifies` slot-verify passes, emitting `committed`
+        tokens. The counters and the derived gauges move together under
+        one lock, so a scrape never sees a torn ratio."""
+        with self._lock:
+            self._spec_drafted += drafted
+            self._spec_accepted += accepted
+            self._spec_verifies += verifies
+            self._spec_committed += committed
+            self.spec_drafted.inc(drafted)
+            self.spec_accepted.inc(accepted)
+            self.spec_verifies.inc(verifies)
+            self.spec_committed.inc(committed)
+            if self._spec_drafted:
+                self.spec_acceptance_rate.set(
+                    self._spec_accepted / self._spec_drafted)
+            if self._spec_verifies:
+                self.spec_tokens_per_verify.set(
+                    self._spec_committed / self._spec_verifies)
+            if events.enabled():
+                events.counter("serve/spec", {
+                    "drafted": self._spec_drafted,
+                    "accepted": self._spec_accepted})
 
     # ---------- host-gap attribution ----------
 

@@ -17,9 +17,10 @@ events (`eid=rid`, cat "req") for each lifecycle stage:
     req/fetch          b/e   deferred device fetch of the rid's tick
     req/stream         b/e   SSE fan-out of the rid's tokens
     req/preempt        n     preemption (victim track)
-
-(The supervisor's and the prefill pools' restart instants come with
-those features.)
+    req/supervisor_restart  n  the supervisor failed the rid while it
+                             recovered a dead engine worker
+    req/pool_restart   n     a prefill-pool worker died while the rid
+                             was mid-prefill (it resumes; nothing fails)
 
 Sampling has two layers, matching the Dapper lineage:
 
@@ -70,6 +71,8 @@ SPAN_FETCH = "req/fetch"
 SPAN_STREAM = "req/stream"
 EV_DISPATCH = "req/dispatch"
 EV_PREEMPT = "req/preempt"
+EV_SUPERVISOR_RESTART = "req/supervisor_restart"
+EV_POOL_RESTART = "req/pool_restart"
 EV_TRUNCATED = "req/trace_truncated"
 
 DEFAULT_SAMPLE_RATE = 0.01

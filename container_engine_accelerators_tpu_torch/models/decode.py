@@ -35,9 +35,11 @@ import collections
 import dataclasses
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from container_engine_accelerators_tpu_torch.models import spec
 from container_engine_accelerators_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
@@ -186,11 +188,17 @@ def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
 def decode_step(model: Llama, cache: KVCache | PagedKVCache,
                 tokens: torch.Tensor, cfg: LlamaConfig,
                 active: torch.Tensor | None = None,
-                plain: bool = False
+                plain: bool = False, advance: bool = True
                 ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """Run T new tokens ([B, T]; T = prompt length for prefill, 1 for
     decode). Returns (logits [B, T, vocab] f32, cache with the new K/V
     written in place and the lengths advanced).
+
+    `advance=False` is the speculative verify mode: K/V for all T
+    positions are written and attended as usual, but the lengths do not
+    move. The caller commits the accepted prefix with advance_lengths;
+    the rejected positions sit past the live length, masked by position,
+    and the next write overwrites them.
 
     With per-slot lengths (and always on a paged cache), row b writes at
     min(length[b], max_len - T) and `active` ([B] bool) gates which rows'
@@ -302,6 +310,8 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
     # The vocab projection is a true f32 product (TF32 stays off).
     logits = _proj(x.float(), model.lm_head, plain)
 
+    if not advance:
+        return logits, cache
     if per_slot:
         new_len = (cache.length + t).clamp(max=max_len)
         if active is not None:
@@ -493,10 +503,13 @@ def pick_tokens(logits: torch.Tensor, temps: torch.Tensor,
 def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
              max_new_tokens: int, temperature: float = 0.0,
              generator: torch.Generator | None = None,
-             plain: bool = False) -> torch.Tensor:
+             plain: bool = False, speculate: str = "off", spec_k: int = 4,
+             draft_layers: int = 2,
+             spec_stats: dict | None = None) -> torch.Tensor:
     """Greedy (temperature 0) or sampled generation. prompt: [B, T0]
     integer tokens. Returns [B, T0 + max_new_tokens] int64 on the
-    prompt's device, without waiting for the device.
+    prompt's device, without waiting for the device (speculation reads
+    the device every round).
 
     The cache holds T0 + max_new_tokens positions. Unlike the JAX
     package, that length is not rounded up to a multiple of 128: the
@@ -504,7 +517,27 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
     any length, and padding would only add masked slots that change no
     token. Sampling draws from `generator` (a fixed seed when None), so
     a seed gives the same tokens on the same device; the draws are not
-    jax.random's."""
+    jax.random's.
+
+    `speculate` ('ngram' or 'draft') turns on speculative decoding:
+    greedy verification gives the tokens of speculate='off' at
+    temperature 0, and only the number of model passes changes. 'ngram'
+    drafts by prompt lookup (models/spec.ngram_draft, no weights);
+    'draft' runs the first `draft_layers` layers of the model as the
+    proposer. It needs temperature 0. `spec_stats` (a dict) accumulates
+    drafted / accepted / verifies / committed totals."""
+    if speculate not in ("off", "ngram", "draft"):
+        raise ValueError(f"speculate must be 'off', 'ngram' or 'draft', "
+                         f"got {speculate!r}")
+    if speculate != "off":
+        if temperature > 0.0:
+            raise ValueError(
+                "speculative decoding verifies greedily; it requires "
+                "temperature=0")
+        return _generate_speculative(model, prompt, cfg, max_new_tokens,
+                                     mode=speculate, spec_k=spec_k,
+                                     draft_layers=draft_layers,
+                                     spec_stats=spec_stats, plain=plain)
     b, t0 = prompt.shape
     prompt = prompt.long()
     if temperature > 0.0 and generator is None:
@@ -526,6 +559,157 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
         tok = pick(logits)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
+
+
+def draft_layer_count(cfg: LlamaConfig, draft_layers: int) -> int:
+    """The self-draft's depth: `draft_layers`, at least 1 and below the
+    model's own depth."""
+    return max(1, min(draft_layers, cfg.n_layers - 1))
+
+
+def _generate_speculative(model: Llama, prompt: torch.Tensor,
+                          cfg: LlamaConfig, max_new_tokens: int,
+                          mode: str = "ngram", spec_k: int = 4,
+                          draft_layers: int = 2,
+                          spec_stats: dict | None = None,
+                          plain: bool = False) -> torch.Tensor:
+    """Speculative generate: generate(temperature=0)'s contract with
+    fewer model passes. The cache has per-row lengths even at batch > 1,
+    since rows accept different counts and part after the first verify.
+    The prompt is prefilled through verify_step and committed, then each
+    round drafts, verifies k+1 positions in one pass and commits the
+    accepted prefix; the host reads each round's argmax."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    b, t0 = prompt.shape
+    dev = prompt.device
+    prompt = prompt.long()
+    # Verify writes K/V at [len, len + k + 1) before it commits, so the
+    # cache needs k + 1 positions of slack past the last committed one:
+    # without them the per-row write clamp would fold candidate writes
+    # onto committed positions near the end.
+    max_len = t0 + max_new_tokens + spec_k + 1
+    cache = init_slot_cache(cfg, b, max_len, dev)
+    all_on = torch.ones(b, dtype=torch.bool, device=dev)
+    logits, cache = verify_step(model, cache, prompt, all_on, cfg,
+                                plain=plain)
+    cache = advance_lengths(
+        cache, torch.full((b,), t0, dtype=torch.int32, device=dev), all_on)
+    last = logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
+
+    if mode == "draft":
+        n_draft = draft_layer_count(cfg, draft_layers)
+        draft_cfg = spec.draft_config(cfg, n_draft)
+        draft_model = spec.truncate_params(model, n_draft)
+        draft_cache = init_slot_cache(draft_cfg, b, max_len, dev)
+        _, draft_cache = decode_step(draft_model, draft_cache, prompt,
+                                     draft_cfg, plain=plain)
+
+    out = np.zeros((b, t0 + max_new_tokens), np.int64)
+    out[:, :t0] = prompt.cpu().numpy()
+    out[:, t0] = last
+    produced = np.ones((b,), np.int32)
+    # Draft mode commits at most k (never the bonus): on full acceptance
+    # the bonus token's K/V is missing from the draft cache (the drafter
+    # stepped k times), so committing it would part the two caches. The
+    # bonus still becomes the next round's last token.
+    cap = spec_k if mode == "draft" else spec_k + 1
+
+    while (produced < max_new_tokens).any():
+        act = produced < max_new_tokens
+        if mode == "ngram":
+            drafts = np.zeros((b, spec_k), np.int32)
+            for i in range(b):
+                if act[i]:
+                    d = spec.ngram_draft(out[i, :t0 + produced[i]], spec_k)
+                    drafts[i, :len(d)] = d
+        else:
+            tok = torch.from_numpy(last).long().to(dev)[:, None]
+            cols = []
+            for _ in range(spec_k):
+                dl, draft_cache = decode_step(draft_model, draft_cache, tok,
+                                              draft_cfg, plain=plain)
+                tok = dl[:, -1].argmax(dim=-1)[:, None]
+                cols.append(tok)
+            drafts = torch.cat(cols, dim=1).cpu().numpy().astype(np.int32)
+
+        tokens = np.concatenate([last[:, None], drafts], axis=1)
+        act_dev = torch.from_numpy(act).to(dev)
+        logits, cache = verify_step(model, cache,
+                                    torch.from_numpy(tokens).long().to(dev),
+                                    act_dev, cfg, plain=plain)
+        greedy = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)
+        counts, bonus = spec.greedy_verify(greedy, tokens)
+
+        commit = np.zeros((b,), np.int32)
+        for i in range(b):
+            if not act[i]:
+                continue
+            a = int(counts[i]) - 1          # accepted draft tokens
+            seq = list(tokens[i, 1:1 + a]) + [int(bonus[i])]
+            c = min(len(seq), cap, int(max_new_tokens - produced[i]))
+            out[i, t0 + produced[i]:t0 + produced[i] + c] = seq[:c]
+            last[i] = seq[c - 1]
+            produced[i] += c
+            commit[i] = c
+        cache = advance_lengths(cache, torch.from_numpy(commit).to(dev),
+                                act_dev)
+        if spec_stats is not None:
+            n_act = int(act.sum())
+            spec_stats["drafted"] = (spec_stats.get("drafted", 0)
+                                     + n_act * spec_k)
+            spec_stats["accepted"] = (spec_stats.get("accepted", 0)
+                                      + int(counts[act].sum()) - n_act)
+            spec_stats["verifies"] = spec_stats.get("verifies", 0) + n_act
+            spec_stats["committed"] = (spec_stats.get("committed", 0)
+                                       + int(commit.sum()))
+        if mode == "draft":
+            # The drafter's cached prefix matches the main cache's
+            # committed tokens position for position, so the length is
+            # the whole re-anchor.
+            draft_cache = dataclasses.replace(draft_cache,
+                                              length=cache.length.clone())
+    return torch.from_numpy(out).to(dev)
+
+
+# ---------- speculative decoding: verify and commit ----------
+#
+# Draft-then-verify: the engine proposes k tokens (models/spec.py),
+# verify_step scores all k+1 positions in one model pass, and
+# advance_lengths commits the accepted prefix. The length is what makes
+# a position live: verify writes K/V for every candidate, and rejected
+# ones stay past the committed length, masked by position and
+# overwritten by the next append, so a rollback costs nothing.
+
+
+def verify_step(model: Llama, cache: KVCache | PagedKVCache,
+                tokens: torch.Tensor, active: torch.Tensor | None,
+                cfg: LlamaConfig, plain: bool = False
+                ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
+    """Score k+1 speculative candidates in one pass: tokens [B, k+1] =
+    [last committed but uncached token, draft_1..draft_k] a row. Returns
+    (logits [B, k+1, vocab] f32, cache with the candidates' K/V written
+    and the lengths unchanged). On a paged cache the pages covering
+    length + k + 1 must already be in the table. Commit with
+    advance_lengths."""
+    return decode_step(model, cache, tokens, cfg, active=active,
+                       plain=plain, advance=False)
+
+
+def advance_lengths(cache: KVCache | PagedKVCache, counts: torch.Tensor,
+                    active: torch.Tensor | None = None
+                    ) -> KVCache | PagedKVCache:
+    """Commit `counts` verified tokens a row ([B] int32 on the cache's
+    device): the lengths advance, clamped to the capacity, where
+    `active` (all rows when None); nothing else moves."""
+    if isinstance(cache, PagedKVCache):
+        max_len = cache.tables.shape[1] * cache.page
+    else:
+        max_len = cache.k.shape[2]
+    new_len = (cache.length + counts.to(torch.int32)).clamp(max=max_len)
+    if active is not None:
+        new_len = torch.where(active, new_len, cache.length)
+    return dataclasses.replace(cache, length=new_len.to(torch.int32))
 
 
 class PageAllocator:
@@ -623,6 +807,11 @@ class PageAllocator:
 
     def refcount(self, row: int) -> int:
         return self._refs.get(row, 0)
+
+    def outstanding_rows(self) -> dict[int, int]:
+        """row -> refcount of every allocated row; empty means every page
+        is back on the free list."""
+        return dict(self._refs)
 
     def alloc(self, n: int = 1) -> list[int] | None:
         """n pool rows (refcount 1 each), or None (nothing allocated)

@@ -508,6 +508,114 @@ def test_prefill_matches_plain_at_tile_edges(cuda, mode, page, t, hq, hkv,
         assert torch.equal(decode_attention(*flat), got)
 
 
+# ------------------------------- K1, K3 at the speculative verify shape
+
+# T = k + 1 new queries a row over 16 slots at their own lengths, at
+# llama3_8b's heads (the verify of a speculative tick at 16 slots): 0 and
+# 2047 cached keys, windows across a page of 128 (126, 253 and 2047 with
+# k 4), a partial tile (63), a tile (64); slots 11 and 12 are inactive, their
+# table rows all the trash row 0 (it holds the finite garbage inactive
+# writes leave there).
+VERIFY_LENS = [0, 2047, 1, 126, 127, 128, 253, 63, 64, 1000, 513, 1500,
+               700, 1023, 2000, 255]
+VERIFY_INACTIVE = [11, 12]
+
+
+def _verify_case(cuda, seed, mode, page, t):
+    """(args of the call, args of K1 on a contiguous copy of the same
+    keys, or None for a contiguous case) at VERIFY_LENS."""
+    hq, hkv, d = 32, 8, 128
+    int4 = mode == "int4"
+    b = len(VERIFY_LENS)
+    if page is None:
+        max_len = 2048 + 128
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        q = torch.randn(b, t, hq, d, generator=gen, device=cuda).bfloat16()
+        k, v = (torch.randn(b, max_len, hkv, d, generator=gen, device=cuda)
+                for _ in range(2))
+        lens = torch.tensor(VERIFY_LENS, dtype=torch.int32, device=cuda)
+        if mode == "bf16":
+            return (q, k.bfloat16(), v.bfloat16(), lens), None
+        (k, ks), (v, vs) = _quantized(k, mode), _quantized(v, mode)
+        return (q, k, v, lens, ks, vs, int4), None
+    max_pages = -(-(max(VERIFY_LENS) + t) // page)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    trash = torch.randn(2, 1, page, hkv, d, generator=gen, device=cuda)
+    if mode == "bf16":
+        q, kp, vp, lens, tables = _paged_case(
+            cuda, seed, VERIFY_LENS, t, page, hq, hkv, d, max_pages)
+        kp[0], vp[0] = trash[0, 0].bfloat16(), trash[1, 0].bfloat16()
+        scales = ()
+    else:
+        q, kp, vp, ksp, vsp, lens, tables = _quantized_paged_case(
+            cuda, seed, VERIFY_LENS, t, page, hq, hkv, d, max_pages, mode)
+        for pool, spool, x in ((kp, ksp, trash[0]), (vp, vsp, trash[1])):
+            payload, sc = _quantized(x, mode)
+            pool[0], spool[0] = payload[0], sc[0]
+        scales = (ksp, vsp, int4)
+    tables[VERIFY_INACTIVE] = 0
+    max_len = max_pages * page
+    rows = tables.long().clamp(0, kp.shape[0] - 1)
+    k = kp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    v = vp[rows].reshape(b, max_len, hkv, -1).contiguous()
+    flat = ()
+    if scales:
+        flat = tuple(x[rows].transpose(1, 2).reshape(b, hkv, max_len)
+                     .contiguous() for x in scales[:2]) + (int4,)
+    return (q, kp, vp, lens, tables, *scales), (q, k, v, lens, *flat)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("page", [None, 128])
+@pytest.mark.parametrize("k", [1, 4, 7])
+def test_verify_shape_matches_plain(cuda, mode, page, k):
+    # The verify pass's attention (T = k + 1: 8 to 32 query rows a KV
+    # head, the prefill body) against its plain version at the row
+    # tolerance, one launch, the same bits twice, and K3 the same bits as
+    # K1 on a contiguous copy of its keys.
+    t = k + 1
+    args, flat = _verify_case(cuda, 300 + t + (page or 0) + len(mode), mode,
+                              page, t)
+    op, plain = _ops(page)
+    name = ("paged_decode_attention" if page else "decode_attention") + (
+        "" if mode == "bf16" else f"_{mode}")
+    kernels.reset_launches()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {name: 1}
+    want = plain(*args)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    _assert_rows_close(got, want, 128)
+    assert torch.equal(op(*args), got)
+    if page:
+        assert torch.equal(decode_attention(*flat), got)
+
+
+def test_speculative_paged_engine_goes_through_the_kernels(cuda):
+    # The paged engine's verify runs K3 at T = k + 1 with the verify
+    # window across pages of 16; its tokens are well formed, no page
+    # leaks, and the ticks were speculative.
+    cfg = llama_tiny()
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    reqs = [([5, 9, 7] * 5, 24), ([1, 2, 3, 4] * 4, 20), ([9] * 14, 16)]
+    eng = serve.PagedContinuousEngine(model, cfg, max_slots=4, max_len=128,
+                                      page=16, speculate="ngram", spec_k=4)
+    try:
+        kernels.reset_launches()
+        futs = [eng.submit(list(t), n, 0.0) for t, n in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+        launches = kernels.launches["paged_decode_attention"]
+    finally:
+        eng.stop()
+        eng.thread.join(timeout=60)
+    assert launches > 0 and eng.spec_ticks_run > 0
+    for (t, n), out in zip(reqs, outs):
+        assert out[:len(t)] == t and len(out) == len(t) + n
+        assert all(0 <= x < cfg.vocab_size for x in out)
+    assert eng.pages_in_use == eng.prefix_index.pages_held()
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_generate_on_a_quantized_cache_goes_through_the_kernel(cuda, mode):
     cfg = llama_tiny(kv_cache_dtype=mode)
@@ -636,6 +744,24 @@ def test_int8_matmul_kernel_repeats_its_bits(cuda, x_dtype, t, d, f):
     first = quant.int8_matmul(x, qw)
     second = quant.int8_matmul(x, qw)
     torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_int8_close(first, quant.int8_matmul_plain(x, qw), x_dtype)
+
+
+# The verify pass at 8 and 16 slots: N = 8 x 5 and 16 x 5 rows through
+# w_gate (bf16 x; N 80 past DECODE_TOKENS takes the wgmma body) and the
+# f32 lm_head (the mma body).
+@pytest.mark.parametrize("t", [40, 80])
+@pytest.mark.parametrize("d,f,x_dtype", [(4096, 14336, torch.bfloat16),
+                                         (4096, 128256, torch.float32)],
+                         ids=["w_gate", "lm_head"])
+def test_int8_matmul_at_the_verify_shape(cuda, t, d, f, x_dtype):
+    x, qw = _int8_case(cuda, t, d, f, x_dtype)
+    kernels.reset_launches()
+    first = quant.int8_matmul(x, qw)
+    second = quant.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert kernels.launches["int8_matmul"] == 2
     assert torch.equal(first, second)
     _assert_int8_close(first, quant.int8_matmul_plain(x, qw), x_dtype)
 

@@ -31,9 +31,15 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+# Modules the scan must reach, the speculative path's among them.
+REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
+            "cli/generate.py", "metrics/request_metrics.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    assert all(PORT / name in files for name in REQUIRED)
     bad = [(f.relative_to(REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
@@ -76,6 +82,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         generate.main(["--tiny", "--prompt-ids", "1,2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--tiny", "--port", "0"])
+    for flags in (["--speculate", "ngram"], ["--speculate", "draft"],
+                  ["--engine", "paged", "--prefill-workers", "2",
+                   "--supervise"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--tiny", "--port", "0", *flags])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.main(["--tiny", "--prompt-ids", "1,2", "--speculate",
+                       "ngram"])
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it():
@@ -104,6 +118,12 @@ def test_generate_cli_runs_on_the_cpu_when_asked(capsys):
                           "--weight-dtype", "int8"]) == 0
     ids = capsys.readouterr().out.split("token ids:")[1]
     assert ids.strip().startswith("[1, 5, 42,")
+    for mode in ("ngram", "draft"):
+        assert generate.main(["--tiny", "--prompt-ids", "1,5,42",
+                              "--max-new-tokens", "3", "--device", "cpu",
+                              "--weight-dtype", "int8", "--speculate",
+                              mode]) == 0
+        assert capsys.readouterr().out.split("token ids:")[1] == ids
 
 
 def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):

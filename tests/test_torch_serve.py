@@ -105,8 +105,12 @@ def test_healthz_and_bad_requests(server):
         assert "error" in json.loads(text)
     with urllib.request.urlopen(url + "/healthz", timeout=10) as resp:
         health = json.loads(resp.read())
+    # The window engine has no prefill pool: its pool fields read 0, as
+    # the JAX server's do.
     assert health == {"ok": True, "batches": 0, "requests": 0,
-                      "worker_alive": True, "worker_restarts": 0}
+                      "worker_alive": True, "worker_restarts": 0,
+                      "prefill_workers": 0, "prefill_workers_alive": 0,
+                      "prefill_worker_restarts": 0}
     assert not engine._device_busy()
 
 

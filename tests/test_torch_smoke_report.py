@@ -175,3 +175,37 @@ def test_observe_scrape_keys_samples_by_labels():
     assert got["serve_requests_total{outcome=ok}"] == 64.0
     assert got["serve_ttft_seconds_count"] == 64.0
     assert got["serve_ttft_seconds_bucket{le=+Inf}"] == 64.0
+
+
+def test_divergence_rule_allows_only_near_ties():
+    # The spec and pools phases' token check: each row's first
+    # divergence from the plain run must sit at a top-two margin within
+    # 2 D; later tokens are not compared (the contexts differ there).
+    prompts = [[1, 2], [3, 4], [5, 6]]
+    plain = [[1, 2, 7, 8, 9], [3, 4, 7, 8, 9], [5, 6, 7, 8, 9]]
+    margins = [[0.5, 0.01, 0.5], [0.5, 0.5, 0.5], [0.03, 0.5, 0.5]]
+    got = [[1, 2, 7, 0, 0], [3, 4, 7, 8, 9], [5, 6, 0, 8, 9]]
+    rule = chip_smoke.divergence_rule(plain, got, prompts, margins, 0.02,
+                                      "t")
+    assert rule["divergences"] == 2 and rule["two_D"] == 0.04
+    assert rule["diverged_at"] == [{"row": 0, "token": 1, "margin": 0.01},
+                                   {"row": 2, "token": 0, "margin": 0.03}]
+    with pytest.raises(chip_smoke.SmokeFailure, match="exceeds 2 D"):
+        chip_smoke.divergence_rule(plain, got, prompts, margins, 0.01, "t")
+    with pytest.raises(chip_smoke.SmokeFailure, match="malformed"):
+        chip_smoke.divergence_rule(plain, [[9, 2, 7, 8, 9]] * 3, prompts,
+                                   margins, 1.0, "t")
+
+
+def test_pattern_prompts_repeat_a_seeded_pattern():
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama_tiny,
+    )
+
+    a = chip_smoke._pattern_prompts(np, llama_tiny(), 3, 4)
+    assert a == chip_smoke._pattern_prompts(np, llama_tiny(), 3, 4)
+    assert len(a) == 4 and all(len(p) == 128 for p in a)
+    assert all(p[16:32] == p[:16] == p[112:] for p in a)
+    assert len({tuple(p[:16]) for p in a}) == 4
