@@ -8,6 +8,7 @@ health paths on one GPU.
   python3 chip_smoke.py bwd [--batch B] [--seq S] [--train] [ROOT ...]
   python3 chip_smoke.py decode [--tick] [--prefill] [ROOT ...]
   python3 chip_smoke.py k2 [--int8] [ROOT ...]
+  python3 chip_smoke.py training
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -29,7 +30,8 @@ the top kernels of each). Each ROOT, a checkout such as a `git archive` of a
 parent unpacked under checkout_proof/, is timed in a process of its own
 that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
-card.
+card. `training` runs the build and the training path's phases alone
+(train through serve_ckpt below).
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -115,12 +117,35 @@ Phases, one JSON line each:
            masters from a seed, trained for 6 steps at batch 4 x 2048 by
            fit (synthetic data, make_optimizer, 'dots' remat): step ms,
            tokens/s, MFU, peak memory, losses, launches per step, and a
-           torch.profiler breakdown of one more step;
+           torch.profiler breakdown of one more step; then the same 6
+           steps under 'dots_save_attn' (K4 8 a step, not 16);
   train_parity  llama3_8b widths at 2 layers, batch 1 x 512: one
            make_train_step on the kernel path and on the plain path from
-           the same weights, and the kernel path under 'none', 'dots' and
-           'full' remat, which must give identical gradients;
+           the same weights, and the kernel path under 'none', 'dots',
+           'full' and 'dots_save_attn' remat, which must give identical
+           gradients ('dots_save_attn' with one K4 launch a layer);
   train_cli  cli.train --preset tiny --steps 3 on the card;
+  ckpt     checkpoint and resume at full width, 2 layers in /dev/shm
+           (ckpt_room: the machine caps a call's disk writes), batch
+           2 x 1024: fit for 4 steps saving every 2, a second fit
+           resuming at 4 to 6, held against an uninterrupted 6-step run
+           (CKPT_RESUME_RTOL); the same with async saves (the steps'
+           extra seconds against the uninterrupted run's, beside the sync
+           save's; bytes, save and restore GB/s);
+           then the newest step truncated, quarantined, and the run
+           resumed from the step before;
+  observe_train  fit at 2 layers with /metrics on an ephemeral port, the
+           JSONL step log, a heartbeat dir and the hang watchdog (2 s),
+           a 5 s data stall (training/dataset.inject_stall): the scrape's
+           tokens/s, MFU and goodput families, one JSONL line a step,
+           the heartbeat moving, train_stalled raised, the stall in the
+           `stalled` bucket; the recorder's MFU beside the log fences';
+  eval     cli/eval.py on the ckpt phase's checkpoint and a token file,
+           against loss_fn on the same weights and batches (K4 counted);
+  serve_ckpt  load_model(<ckpt dir>) behind make_server on the paged
+           engine, one request, against generate on the same weights
+           (divergence rule, SERVE_CKPT_D); the same on int8 weights
+           (K2); cli/generate.py --checkpoint prints generate's tokens;
   health   the node health path: K7 (kernels/scale_demo.cu) as the
            node's workload; then K7 built with the whole [4096, 4096]
            array as one shared-memory tile (refused by ptxas), an
@@ -151,6 +176,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -205,8 +232,37 @@ FLASH_GRAD_ROW_RTOL, FLASH_TENSOR_ATOL, LSE_ATOL = 2 ** -6, 2 ** -14, 1e-4
 # loss within 1e-2 relative and each weight's gradient within 5e-2 of
 # its norm.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 5e-2
-TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 16, "flash_bwd_dq": 8,
-                           "flash_bwd_dkv": 8}   # 8 layers, 'dots' remat
+# 8 layers: 'dots' replays K4 in the backward, 'dots_save_attn' keeps its
+# residuals and does not.
+TRAIN_LAUNCHES_PER_STEP = {
+    "dots": {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8},
+    "dots_save_attn": {"flash_fwd": 8, "flash_bwd_dq": 8,
+                       "flash_bwd_dkv": 8}}
+# ckpt: the state is 12 bytes a parameter (f32 masters, two f32 Adam
+# moments), 17.8 GB a step at full width and 2 layers. The phase saves 7
+# times (2 + 1 sync, 2 + 1 async, 1 after the torn step), 125 GB, and
+# the card's machine ends a call past 45 GiB of disk writes, so the
+# steps live in RAM-backed /dev/shm (8 layers would need 90 GB there).
+# It holds at most 2.7 steps at once (two and a torn one); beside them
+# the host holds one pinned async snapshot (1.1 steps, the pinned
+# allocator rounds up) and some room (ckpt_room).
+CKPT_N_LAYERS, CKPT_SHM = 2, "/dev/shm"
+CKPT_BYTES_PER_PARAM, CKPT_PEAK_STEPS, CKPT_HOST_STEPS = 12, 2.7, 4.2
+CKPT_ROOT_PREFIX = "chip_smoke_ckpt-"
+# A resumed run against the uninterrupted one: identical bits expected
+# (every kernel on the step is deterministic); the bound holds the last
+# loss and each master weight within 1e-5 of its largest |x| in case the
+# embedding backward's atomics reorder a sum.
+CKPT_RESUME_RTOL = 1e-5
+# cli/eval.py against loss_fn on the same weights and batches: the same
+# launches on the same inputs, so equal; 1e-6 relative.
+EVAL_RTOL = 1e-6
+# serve --checkpoint against generate on the same weights: the paged
+# engine (K3, 8 slots) and generate (K1, one row) sum in other orders,
+# so a row may part from generate only at a top-two margin within 2 D,
+# D = 0.09, the largest such logit gap the spec phase has measured at 8B
+# bf16 on the H100 (PERF.md).
+SERVE_CKPT_D = 0.09
 # The train step's device time by kind of kernel, from the kernel names
 # torch.profiler reports (cuBLAS's are nvjet_* or *gemm*).
 STEP_KERNEL_KINDS = {"matmul": ("nvjet", "gemm", "cutlass"),
@@ -2732,11 +2788,13 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
 # ---------------------------------------------------------------- train
 
 def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
-                seq: int = 2048, steps: int = 6) -> dict:
+                seq: int = 2048, steps: int = 6,
+                remat_policy: str = "dots") -> dict:
     """fit() on llama3_8b widths at `n_layers` layers from seed 0 for
-    `steps` steps, logging every step: the loss fetch at each log is a
-    device fence, so the gaps between logs are device-synchronised step
-    times, and the launch counts between logs are one step's."""
+    `steps` steps under `remat_policy`, logging every step: the loss
+    fetch at each log is a device fence, so the gaps between logs are
+    device-synchronised step times, and the launch counts between logs
+    are one step's."""
     import re
 
     from container_engine_accelerators_tpu_torch import kernels
@@ -2753,7 +2811,7 @@ def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
         to_device,
     )
 
-    cfg = llama3_8b(n_layers=n_layers)
+    cfg = llama3_8b(n_layers=n_layers, remat_policy=remat_policy)
     batches = synthetic_batches(cfg.vocab_size, batch, seq, seed=SEED)
     logs = []
 
@@ -2779,11 +2837,10 @@ def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
     per_step, prev = [], {}
     for _, _, counts in logs:
         per_step.append({name: counts.get(name, 0) - prev.get(name, 0)
-                         for name in TRAIN_LAUNCHES_PER_STEP})
+                         for name in FLASH_REPLACES})
         prev = counts
-    want = TRAIN_LAUNCHES_PER_STEP if n_layers == 8 else {
-        name: n * n_layers // 8 for name, n in
-        TRAIN_LAUNCHES_PER_STEP.items()}
+    want = {name: n * n_layers // 8 for name, n in
+            TRAIN_LAUNCHES_PER_STEP[remat_policy].items()}
     require(all(step == want for step in per_step),
             f"train: launches per step {per_step}, want {want}")
     step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(logs, logs[1:])]
@@ -2830,8 +2887,9 @@ def train_phase(torch, dev, np, n_layers: int = 8, batch: int = 4,
 def train_parity_phase(torch, dev, np, n_layers: int = 2, seq: int = 512
                        ) -> dict:
     """One make_train_step from the same weights and batch: the kernel
-    path against the plain path, and the kernel path under three remat
-    policies, which must give identical bits."""
+    path against the plain path, and the kernel path under four remat
+    policies, which must give identical bits ('dots_save_attn' with one
+    K4 launch a layer where 'dots' has two)."""
     import dataclasses
 
     from container_engine_accelerators_tpu_torch import kernels
@@ -2881,7 +2939,7 @@ def train_parity_phase(torch, dev, np, n_layers: int = 2, seq: int = 512
     require(grad_rel <= TRAIN_GRAD_RTOL,
             f"train_parity: a gradient is {grad_rel} of its norm off plain")
     identical, remat_launches = {}, {"dots": launches_k}
-    for policy in ("none", "full"):
+    for policy in ("none", "full", "dots_save_attn"):
         loss, grads, remat_launches[policy] = run(False, policy)
         identical[policy] = loss == loss_k and all(
             torch.equal(a, b) for a, b in zip(grads, grads_k))
@@ -2889,6 +2947,13 @@ def train_parity_phase(torch, dev, np, n_layers: int = 2, seq: int = 512
     del model, params, start, grads_k
     require(all(identical.values()),
             f"train_parity: remat policies gave other gradients {identical}")
+    saved = remat_launches["dots_save_attn"]
+    require(saved.get("flash_fwd") == n_layers and
+            launches_k.get("flash_fwd") == 2 * n_layers and
+            all(saved.get(k) == launches_k.get(k)
+                for k in ("flash_bwd_dq", "flash_bwd_dkv")),
+            f"train_parity: dots_save_attn launched {saved}, dots "
+            f"{launches_k}: want K4 once a layer, K5/K6 unchanged")
     result = {"phase": "train_parity", "model": "llama3_8b",
               "n_layers": n_layers, "batch": 1, "seq": seq,
               "loss_kernel": loss_k, "loss_plain": loss_p,
@@ -2896,6 +2961,572 @@ def train_parity_phase(torch, dev, np, n_layers: int = 2, seq: int = 512
               "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
               "remat_identical_to_dots": identical,
               "launches_by_remat": remat_launches}
+    emit(result)
+    return result
+
+
+def greedy_margins(torch, dev, model, cfg, prompt: list, n_new: int
+                   ) -> tuple[list, list]:
+    """(tokens, margins): decode.generate's greedy loop (the same cache
+    length, so the same launches and bits), keeping each picked token's
+    top-two logit margin."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    cache = decode.init_cache(cfg, 1, len(prompt) + n_new, dev)
+    tok = torch.tensor([prompt], dtype=torch.long, device=dev)
+    out, margins = list(prompt), []
+    for _ in range(n_new):
+        logits, cache = decode.decode_step(model, cache, tok, cfg)
+        top = logits[0, -1].topk(2).values
+        margins.append((top[0] - top[1]).item())
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        out.append(int(tok[0, 0]))
+    return out, margins
+
+
+def _fit_run(torch, dev, cfg, batch: int, seq: int, steps: int,
+             ref: dict | None = None, **kw) -> dict:
+    """fit() from seed 0 on the smoke's synthetic stream, logging every
+    step; its log lines, last loss (exact) and flash launches, and either
+    its final masters (kept on the device) or, given the run `ref` that
+    kept them, the comparison with it (_resume_diff)."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+    )
+
+    logs = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = fit(
+        cfg, make_optimizer(),
+        synthetic_batches(cfg.vocab_size, batch, seq, seed=SEED),
+        device=dev, max_steps=steps, seed=SEED, log_every=1,
+        log_fn=lambda m: logs.append((time.perf_counter(), m)), **kw)
+    end = time.perf_counter()
+    seconds = end - t0
+    run = {"step": state.step, "seconds": seconds, "end": end,
+           "logs": [m for _, m in logs], "log_times": [t for t, _ in logs],
+           "last_loss": metrics["loss"].item(),
+           "params": [p.detach().clone() for p in state.model.parameters()],
+           "launches": dict(kernels.launches)}
+    del state, metrics
+    if ref is not None:
+        run["diff"] = _resume_diff(run, ref)
+        del run["params"]
+    _free_card(torch)
+    return run
+
+
+def _free_card(torch) -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _resume_diff(run: dict, ref: dict) -> dict:
+    """The resumed run against the uninterrupted one: bit identity of
+    the final masters and last loss, and the largest difference of each
+    relative to the reference's largest |x|."""
+    rel = max(((a - b).abs().max()
+               / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(run["params"], ref["params"]))
+    loss_rel = abs(run["last_loss"] - ref["last_loss"]) / abs(
+        ref["last_loss"])
+    identical = run["last_loss"] == ref["last_loss"] and all(
+        a.equal(b) for a, b in zip(run["params"], ref["params"]))
+    return {"bit_identical": identical, "max_param_rel_diff": rel,
+            "last_loss_rel_diff": loss_rel,
+            "last_loss": run["last_loss"]}
+
+
+def _mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def sweep_ckpt_roots(shm: str = CKPT_SHM) -> list[str]:
+    """Remove the ckpt roots that an earlier smoke left in `shm` when it
+    was killed before its cleanup: this user's `<prefix><pid>-*` dirs
+    whose process is gone. RAM they hold is not freed until reboot, and
+    ckpt_room would find no room. Returns the names removed."""
+    removed = []
+    for name in sorted(os.listdir(shm)) if os.path.isdir(shm) else ():
+        m = re.match(re.escape(CKPT_ROOT_PREFIX) + r"(\d+)-", name)
+        path = os.path.join(shm, name)
+        if not m or os.stat(path).st_uid != os.getuid():
+            continue
+        try:
+            os.kill(int(m.group(1)), 0)
+            continue                        # its smoke still runs
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            continue
+        shutil.rmtree(path, ignore_errors=True)
+        removed.append(name)
+    return removed
+
+
+def ckpt_room(tmp_dir: str, shm: str = CKPT_SHM) -> dict:
+    """The ckpt phase's depth, place and room: CKPT_N_LAYERS at full
+    width in `shm`, which must hold CKPT_PEAK_STEPS steps while the
+    host's MemAvailable holds CKPT_HOST_STEPS; raises otherwise. The
+    temp dir's free space is recorded beside them (the steps cannot go
+    there: see CKPT_SHM)."""
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama3_8b,
+    )
+
+    step = (llama3_8b(n_layers=CKPT_N_LAYERS).num_params()
+            * CKPT_BYTES_PER_PARAM)
+    room = {"n_layers": CKPT_N_LAYERS, "where": shm, "state_bytes": step,
+            "swept": sweep_ckpt_roots(shm),
+            "disk_free_bytes": shutil.disk_usage(tmp_dir).free,
+            "shm_free_bytes": (shutil.disk_usage(shm).free
+                               if os.path.isdir(shm) else 0),
+            "mem_available_bytes": _mem_available_bytes()}
+    if (room["shm_free_bytes"] < CKPT_PEAK_STEPS * step
+            or room["mem_available_bytes"] < CKPT_HOST_STEPS * step):
+        raise SmokeFailure(
+            f"ckpt: {shm} must hold {CKPT_PEAK_STEPS} steps and "
+            f"MemAvailable {CKPT_HOST_STEPS} of {step} bytes: {room}")
+    return room
+
+
+@contextlib.contextmanager
+def _removed_on_sigterm():
+    """SIGTERM (a `timeout`) raises SystemExit in the main thread, so the
+    `finally` that removes a RAM-backed ckpt root runs."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def stop(signum, frame):
+        raise SystemExit(128 + signum)
+
+    previous = signal.signal(signal.SIGTERM, stop)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+
+
+def _step_path_extra(run: dict, ref: dict) -> float:
+    """Seconds the steps of `run` took beyond the same steps of the
+    uninterrupted `ref`: the fit loop fences and logs every step, so a
+    step's time is the gap from the previous step's log line; each step
+    whose previous one ran in `run` counts, and so does the time fit took
+    after its last step. A save's cost lands in the step that calls it
+    and in the steps its write slows, however the save splits it."""
+    def times(r):
+        return {int(m.split()[1]): t for t, m in zip(r["log_times"],
+                                                     r["logs"])
+                if m.startswith("step ")}
+
+    mine, base = times(run), times(ref)
+    extra = sum((mine[s] - mine[s - 1]) - (base[s] - base[s - 1])
+                for s in mine if s - 1 in mine)
+    last = max(mine)
+    return extra + (run["end"] - mine[last]) - (ref["end"] - base[max(base)])
+
+
+def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
+               batch: int = 2, seq: int = 1024) -> dict:
+    """Checkpoint and resume: fit for 4 steps saving every 2, a second
+    fit on the same directory resuming at 4 and running to 6, held
+    against an uninterrupted 6-step run; the same with async saves;
+    then the newest step torn, quarantined, and the run resumed from the
+    step before. Steps go under `ckpt_root` (the caller's, from
+    ckpt_room), logs under `tmp_dir`; the last checkpoint is left at
+    `<ckpt_root>/ckpt`. A step no later run reads is removed once it is
+    checked, so at most CKPT_PEAK_STEPS are held."""
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+        read_metrics_jsonl,
+    )
+    from container_engine_accelerators_tpu_torch.training import (
+        checkpoint,
+    )
+
+    saves, restores = [], []
+    commit, restore = (checkpoint.CheckpointManager._commit,
+                       checkpoint.CheckpointManager.restore)
+
+    def spy_commit(self, *args):
+        commit(self, *args)
+        saves.append(dict(self.last_save_info, async_mode=self.async_save))
+
+    def spy_restore(self, *args, **kw):
+        out = restore(self, *args, **kw)
+        if self.last_restore_info:
+            restores.append(dict(self.last_restore_info))
+        return out
+
+    def run(steps, ckpt_dir=None, ckpt_async=False):
+        """One fit; every run after the first (the uninterrupted one)
+        is held against it, and keeps only that comparison."""
+        log_path = os.path.join(tmp_dir, f"steps-{len(runs)}.jsonl")
+        rec = TrainRecorder(log_path=log_path)
+        try:
+            out = _fit_run(torch, dev, cfg, batch, seq, steps,
+                           ref=runs[0] if runs else None,
+                           ckpt_dir=ckpt_dir, save_every=2,
+                           ckpt_async=ckpt_async, recorder=rec)
+        finally:
+            rec.close()
+        out["records"] = read_metrics_jsonl(log_path)
+        runs.append(out)
+        return out
+
+    runs: list = []
+    ref = run(6)
+    results = {}
+    checkpoint.CheckpointManager._commit = spy_commit
+    checkpoint.CheckpointManager.restore = spy_restore
+    try:
+        for mode, is_async in (("sync", False), ("async", True)):
+            d = os.path.join(ckpt_root, "ckpt")
+            shutil.rmtree(d, ignore_errors=True)
+            n_saves = len(saves)
+            first = run(4, d, is_async)
+            require(checkpoint.step_dirs(d) == [2, 4],
+                    f"ckpt {mode}: steps {checkpoint.step_dirs(d)} after 4")
+            shutil.rmtree(os.path.join(d, "2"))   # the resume reads 4
+            second = run(6, d, is_async)
+            require(second["logs"][0] == "resumed from step 4",
+                    f"ckpt {mode}: {second['logs'][:1]}")
+            require(second["logs"][1:] == ref["logs"][4:],
+                    f"ckpt {mode}: resumed losses {second['logs'][1:]} "
+                    f"against {ref['logs'][4:]}")
+            diff = second["diff"]
+            require(diff["max_param_rel_diff"] <= CKPT_RESUME_RTOL and
+                    diff["last_loss_rel_diff"] <= CKPT_RESUME_RTOL,
+                    f"ckpt {mode}: resumed run parts from the "
+                    f"uninterrupted one: {diff}")
+            calls = [r["seconds"] for r in first["records"]
+                     + second["records"] if r["kind"] == "ckpt_save"]
+            joins = [r["seconds"] for r in first["records"]
+                     + second["records"] if r.get("join")]
+            mine = saves[n_saves:]
+            results[mode] = {
+                **diff, "steps_on_disk": checkpoint.step_dirs(d),
+                "step_path_s": (_step_path_extra(first, ref)
+                                + _step_path_extra(second, ref)),
+                "save_call_s": calls, "end_join_s": joins,
+                "saves": mine,
+                "bytes_per_save": mine[0]["bytes"],
+                "save_gb_per_s": [s["bytes"] / (s["snapshot_s"]
+                                                + s["write_s"]) / 1e9
+                                  for s in mine],
+                "restore": restores[-1],
+                "restore_gb_per_s": restores[-1]["bytes"]
+                / restores[-1]["seconds"] / 1e9,
+                "fit_s": [first["seconds"], second["seconds"]],
+                "launches": [first["launches"], second["launches"]]}
+            del first, second
+        # The torn step: cut the newest step's optimizer state in half.
+        torn = os.path.join(d, "6", "state", checkpoint.OPTIMIZER_FILE)
+        with open(torn, "r+b") as f:
+            f.truncate(os.path.getsize(torn) // 2)
+        again = run(6, d)
+        require(again["logs"][0] == "resumed from step 4" and
+                os.path.isdir(os.path.join(d, "6.corrupt")),
+                f"ckpt torn: {again['logs'][:1]}, "
+                f"{sorted(os.listdir(d))}")
+        torn_diff = again["diff"]
+        require(torn_diff["max_param_rel_diff"] <= CKPT_RESUME_RTOL,
+                f"ckpt torn: {torn_diff}")
+        torn_steps = sorted(os.listdir(d))
+        shutil.rmtree(os.path.join(d, "6.corrupt"))
+    finally:
+        checkpoint.CheckpointManager._commit = commit
+        checkpoint.CheckpointManager.restore = restore
+    launches: dict = {}
+    for r in runs:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    del ref["params"]
+    result = {
+        "phase": "ckpt", "model": "llama3_8b", "n_layers": cfg.n_layers,
+        "params": cfg.num_params(), "batch": batch, "seq": seq,
+        "resume_rtol": CKPT_RESUME_RTOL,
+        "uninterrupted_losses": ref["logs"],
+        "sync": results["sync"], "async": results["async"],
+        "async_step_path_over_sync": (results["async"]["step_path_s"]
+                                      / results["sync"]["step_path_s"]),
+        "torn": {"quarantined": "6.corrupt", "resumed_from": 4,
+                 **torn_diff, "steps_on_disk": torn_steps},
+        "ckpt_dir": d, "launches": launches}
+    emit(result)
+    return result
+
+
+def _wall_mfu(cfg, log_times: list, tokens_per_step: int, seq: int,
+              skip: set, peak: float) -> float:
+    """MFU from the log fences' wall clock: every step after the first
+    is the gap between its log line and the one before, less any
+    stalled step."""
+    gaps = [b - a for i, (a, b) in enumerate(zip(log_times, log_times[1:]))
+            if i + 2 not in skip]
+    return (tokens_per_step * len(gaps) / sum(gaps)
+            * cfg.train_flops_per_token(seq) / peak)
+
+
+def observe_train_phase(torch, dev, np, tmp_dir: str, cfg=None,
+                        batch: int = 1, seq: int = 1024, steps: int = 6,
+                        threshold_s: float = 2.0,
+                        stall_s: float = 5.0) -> dict:
+    """The train recorder on the card: a short fit with /metrics on an
+    ephemeral port, the JSONL step log, a heartbeat dir and the hang
+    watchdog, and a data stall longer than the threshold armed before
+    step 4's batch."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.metrics import events
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+        detect_peak_flops,
+        read_metrics_jsonl,
+    )
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama3_8b,
+    )
+    from container_engine_accelerators_tpu_torch.training import dataset
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+    )
+
+    cfg = cfg or llama3_8b(n_layers=2)
+    log_path = os.path.join(tmp_dir, "observe_train.jsonl")
+    hb_dir = os.path.join(tmp_dir, "hb")
+    rec = TrainRecorder(log_path=log_path, heartbeat_dir=hb_dir,
+                        process_id=0)
+    hb_path = os.path.join(hb_dir, "hb-0")
+    hb_before = open(hb_path).read().split()
+    scrapes, stop = [], threading.Event()
+    logs: list = []
+
+    def log_fn(msg):
+        logs.append((time.perf_counter(), msg))
+        m = re.match(r"train metrics on :(\d+)/metrics", msg)
+        if m:
+            threading.Thread(target=scrape_loop, args=(int(m.group(1)),),
+                             daemon=True).start()
+
+    def scrape_loop(port):
+        url = f"http://localhost:{port}"
+        while not stop.is_set():
+            try:
+                scrapes.append(_scrape(_get(url + "/metrics")))
+            except OSError:
+                return      # fit stopped its exporter
+            stop.wait(0.25)
+
+    def stream():
+        for i, b in enumerate(synthetic_batches(cfg.vocab_size, batch, seq,
+                                                seed=SEED)):
+            yield b
+            if i == 2:   # the next fetch, step 4's, stalls
+                dataset.inject_stall(once_s=stall_s)
+
+    events.enable(capacity=1 << 16)
+    events.get_bus().clear()
+    kernels.reset_launches()
+    try:
+        state, _ = fit(cfg, make_optimizer(), stream(), device=dev,
+                       max_steps=steps, seed=SEED, log_every=1,
+                       log_fn=log_fn, recorder=rec, metrics_port=0,
+                       heartbeat_dir=hb_dir,
+                       watchdog_threshold_s=threshold_s)
+        stop.set()
+        launches = dict(kernels.launches)
+        hb_after = open(hb_path).read().split()
+        summary = rec.summary()
+        instants = [ev[3] for ev in events.get_bus().snapshot()
+                    if ev[0] == "i"]
+    finally:
+        stop.set()
+        dataset.clear_stall()
+        events.disable(clear=True)
+        rec.close()
+    del state
+    _free_card(torch)
+    records = read_metrics_jsonl(log_path)
+    step_recs = [r for r in records if r["kind"] == "step"]
+    require(len(step_recs) == steps and [r["step"] for r in step_recs]
+            == list(range(1, steps + 1)),
+            f"observe_train: JSONL steps {[r['step'] for r in step_recs]}")
+    require(scrapes, "observe_train: /metrics was never scraped")
+    last = scrapes[-1]
+    families = ("train_tokens_per_sec", "train_mfu",
+                "train_goodput_seconds{bucket=productive}",
+                "train_goodput_seconds{bucket=stalled}",
+                "train_goodput_fraction", "train_stalled")
+    missing = [f for f in families if f not in last]
+    require(not missing, f"observe_train: scrape lacks {missing}")
+    flagged = max(s.get("train_stalled", 0.0) for s in scrapes)
+    require(flagged == 1.0 and "train/stalled" in instants,
+            f"observe_train: the watchdog never flagged the stall "
+            f"(max train_stalled {flagged}, instants {set(instants)})")
+    require(hb_before[1] == "0" and hb_after[1] == str(steps),
+            f"observe_train: heartbeat {hb_before} -> {hb_after}")
+    stalled = summary["goodput"]["stalled"]
+    require(stalled >= stall_s, f"observe_train: stalled bucket {stalled} "
+            f"s < the {stall_s} s stall")
+    peak = detect_peak_flops(dev)
+    wall = (None if peak is None else _wall_mfu(
+        cfg, [t for t, m in logs if m.startswith("step ")],
+        batch * seq, seq, {4}, peak))
+    result = {"phase": "observe_train", "model": "llama3_8b",
+              "n_layers": cfg.n_layers, "batch": batch, "seq": seq,
+              "steps": steps, "watchdog_threshold_s": threshold_s,
+              "stall_s": stall_s, "jsonl_step_lines": len(step_recs),
+              "heartbeat": [hb_before[1], hb_after[1]],
+              "max_train_stalled": flagged, "scrapes": len(scrapes),
+              "scrape_mfu": last["train_mfu"],
+              "scrape_tokens_per_sec": last["train_tokens_per_sec"],
+              "recorder_mfu": summary["mfu"], "wall_clock_mfu": wall,
+              "peak_flops": peak, "summary": summary,
+              "launches": launches}
+    emit(result)
+    return result
+
+
+def eval_phase(torch, dev, np, ckpt_dir: str, tmp_dir: str,
+               batch: int = 2, seq: int = 1024, batches: int = 2) -> dict:
+    """cli/eval.py on the ckpt phase's checkpoint and a token file
+    written with training/dataset.py, against loss_fn on the same
+    weights and batches."""
+    import io
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli import eval as eval_cli
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        load_model,
+    )
+    from container_engine_accelerators_tpu_torch.training import dataset
+    from container_engine_accelerators_tpu_torch.training.train import (
+        loss_fn,
+        to_device,
+    )
+
+    model, cfg = load_model(ckpt_dir, device=dev)
+    path = os.path.join(tmp_dir, "eval_tokens.bin")
+    rng = np.random.default_rng(SEED + 13)
+    dataset.write_token_file(rng.integers(0, cfg.vocab_size,
+                                          size=8 * seq + 1),
+                             path, cfg.vocab_size)
+    out = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = eval_cli.main(["--checkpoint", ckpt_dir, "--data", path,
+                            "--batch-size", str(batch), "--seq-len",
+                            str(seq), "--batches", str(batches),
+                            "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    with torch.no_grad():
+        want = float(np.mean([
+            loss_fn(model, to_device(b, dev), cfg).item()
+            for b in dataset.token_file_batches(path, batch, seq,
+                                                num_batches=batches)]))
+    del model
+    _free_card(torch)
+    rel = abs(report["eval_loss"] - want) / abs(want)
+    require(rc == 0 and report["batches"] == batches and
+            math.isfinite(report["eval_loss"]) and rel <= EVAL_RTOL,
+            f"eval: {report} against loss_fn {want}")
+    require(launches.get("flash_fwd", 0) == cfg.n_layers * batches,
+            f"eval: flash_fwd launches {launches}")
+    result = {"phase": "eval", **report, "loss_fn": want,
+              "rel_diff": rel, "rtol": EVAL_RTOL, "n_layers": cfg.n_layers,
+              "batch": batch, "seq": seq, "seconds": seconds,
+              "launches": launches}
+    emit(result)
+    return result
+
+
+def serve_ckpt_phase(torch, dev, np, ckpt_dir: str, n_new: int = 16
+                     ) -> dict:
+    """load_model(<ckpt dir>) behind make_server on the paged engine,
+    one request, against generate on the same weights (held by the
+    divergence rule at SERVE_CKPT_D); the same on the int8 copy of the
+    weights (K2); cli/generate.py --checkpoint gives generate's tokens."""
+    import io
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli import (
+        generate as generate_cli,
+    )
+    from container_engine_accelerators_tpu_torch.models import decode
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        load_model,
+    )
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        quantize_llama_params,
+    )
+
+    model, cfg = load_model(ckpt_dir, device=dev)
+    prompt = _prompts(np, cfg, SEED + 17)(128)
+    req = {"tokens": prompt, "max_new_tokens": n_new}
+    runs, launches = {}, {}
+    for weights in ("bf16", "int8"):
+        m = model if weights == "bf16" else quantize_llama_params(model)
+        kernels.reset_launches()
+        ref, margins = greedy_margins(torch, dev, m, cfg, prompt, n_new)
+        gen = decode.generate(m, torch.tensor([prompt], device=dev), cfg,
+                              n_new)[0].tolist()
+        require(gen == ref, f"serve_ckpt {weights}: generate {gen} "
+                            f"against its own loop {ref}")
+        with serving(paged_engine(m, cfg)) as url:
+            ans, _, _ = _post(url, req)
+        torch.cuda.synchronize()
+        got = _answer_tokens(req, ans)
+        _check_answer(got, prompt, n_new, cfg.vocab_size,
+                      f"serve_ckpt {weights}")
+        rule = divergence_rule([ref], [got], [prompt], [margins],
+                               SERVE_CKPT_D, f"serve_ckpt {weights}")
+        runs[weights] = {"tokens_equal_generate": got == ref, **rule,
+                         "generate_tokens": ref[len(prompt):],
+                         "served_tokens": got[len(prompt):],
+                         "launches": dict(kernels.launches)}
+        for name, n in kernels.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        del m
+    require(runs["int8"]["launches"].get("int8_matmul", 0) > 0 and
+            runs["bf16"]["launches"].get("paged_decode_attention", 0) > 0
+            and runs["bf16"]["launches"].get("decode_attention", 0) > 0,
+            f"serve_ckpt: launches {runs['bf16']['launches']} "
+            f"{runs['int8']['launches']}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = generate_cli.main(["--checkpoint", ckpt_dir, "--prompt-ids",
+                                ",".join(map(str, prompt)),
+                                "--max-new-tokens", str(n_new),
+                                "--device", str(dev)])
+    cli_tokens = json.loads(out.getvalue().split("token ids:")[1].strip())
+    require(rc == 0 and cli_tokens == prompt + runs["bf16"][
+        "generate_tokens"], f"serve_ckpt: generate --checkpoint gave "
+                            f"{cli_tokens[len(prompt):]}")
+    del model
+    _free_card(torch)
+    result = {"phase": "serve_ckpt", "n_layers": cfg.n_layers,
+              "prompt_len": len(prompt), "new_tokens": n_new,
+              "bf16": runs["bf16"], "int8": runs["int8"],
+              "cli_generate_equal": True, "launches": launches}
     emit(result)
     return result
 
@@ -3433,6 +4064,106 @@ def decode_main(torch, argv: list[str]) -> int:
     return time_roots("decode", flags, args.roots, 600)
 
 
+def training_phases(torch, dev, np, timed) -> dict:
+    """The training path's phases in order, the card's memory freed
+    between them: train under 'dots' then 'dots_save_attn', train_parity,
+    train_cli, ckpt, observe_train, eval and serve_ckpt on the ckpt
+    phase's checkpoint."""
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama3_8b,
+    )
+
+    out = {}
+    for name, fn, *args in (
+            ("train", train_phase, torch, dev, np),
+            ("train_save_attn", functools.partial(
+                train_phase, remat_policy="dots_save_attn"), torch, dev, np),
+            ("train_parity", train_parity_phase, torch, dev, np),
+            ("train_cli", train_cli_phase)):
+        out[name] = timed(name, fn, *args)
+        _free_card(torch)
+    with tempfile.TemporaryDirectory() as tmp_dir, _removed_on_sigterm():
+        room = ckpt_room(tmp_dir)
+        root = tempfile.mkdtemp(prefix=f"{CKPT_ROOT_PREFIX}{os.getpid()}-",
+                                dir=room["where"])
+        try:
+            out["ckpt"] = timed("ckpt", ckpt_phase, torch, dev, np, tmp_dir,
+                                root, llama3_8b(n_layers=room["n_layers"]))
+            out["ckpt"]["room"] = room
+            ckpt_dir = out["ckpt"]["ckpt_dir"]
+            for name, fn, *args in (
+                    ("observe_train", observe_train_phase, torch, dev, np,
+                     tmp_dir),
+                    ("eval", eval_phase, torch, dev, np, ckpt_dir, tmp_dir),
+                    ("serve_ckpt", serve_ckpt_phase, torch, dev, np,
+                     ckpt_dir)):
+                out[name] = timed(name, fn, *args)
+                _free_card(torch)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        room["shm_free_bytes_after"] = shutil.disk_usage(room["where"]).free
+        emit({"phase": "ckpt_room", **room})
+    return out
+
+
+def training_summary(tr: dict) -> dict:
+    train, saved = tr["train"], tr["train_save_attn"]
+    ck = tr["ckpt"]
+    return {
+        "median_step_ms": train["median_step_ms"],
+        "tokens_per_s": train["tokens_per_s"], "mfu": train["mfu"],
+        "device_busy_share": train["device_busy_share"],
+        "max_memory_allocated_bytes": train["max_memory_allocated_bytes"],
+        "dots_save_attn": {
+            key: saved[key] for key in ("median_step_ms", "mfu",
+                                        "max_memory_allocated_bytes",
+                                        "launches_per_step")},
+        "dots_save_attn_step_ms_over_dots":
+            saved["median_step_ms"] / train["median_step_ms"],
+        "dots_save_attn_extra_bytes": (saved["max_memory_allocated_bytes"]
+                                       - train["max_memory_allocated_bytes"]),
+        "parity_max_grad_rel_diff": tr["train_parity"]["max_grad_rel_diff"],
+        "cli_tokens_per_sec": tr["train_cli"]["tokens_per_sec"],
+        "ckpt_n_layers": ck["n_layers"],
+        "ckpt_save_gb_per_s": ck["sync"]["save_gb_per_s"],
+        "ckpt_restore_gb_per_s": ck["sync"]["restore_gb_per_s"],
+        "ckpt_async_step_path_over_sync": ck["async_step_path_over_sync"],
+        "resume_bit_identical": [ck["sync"]["bit_identical"],
+                                 ck["async"]["bit_identical"]],
+        "observe_train_mfu": [tr["observe_train"]["recorder_mfu"],
+                              tr["observe_train"]["wall_clock_mfu"]],
+        "eval_loss": tr["eval"]["eval_loss"],
+        "serve_ckpt_tokens_equal_generate": [
+            tr["serve_ckpt"]["bf16"]["tokens_equal_generate"],
+            tr["serve_ckpt"]["int8"]["tokens_equal_generate"]]}
+
+
+def training_main(torch, dev, np) -> int:
+    """`chip_smoke.py training`: see the module's docstring."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    timed("build", kernels.build)
+    kernels.load()
+    try:
+        tr = training_phases(torch, dev, np, timed)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    emit({"phase_seconds": seconds})
+    emit({"train_summary": training_summary(tr)})
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3459,6 +4190,8 @@ def main() -> int:
         return decode_main(torch, sys.argv[2:])
     if sys.argv[1:2] == ["k2"]:
         return k2_main(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["training"]:
+        return training_main(torch, torch.device("cuda", 0), np)
 
     try:
         dev = torch.device("cuda", 0)
@@ -3507,15 +4240,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         flash = timed("flash", flash_phase, torch, dev)
-        train = timed("train", train_phase, torch, dev, np)
-        gc.collect()
-        torch.cuda.empty_cache()
-        parity = timed("train_parity", train_parity_phase, torch, dev, np)
-        gc.collect()
-        torch.cuda.empty_cache()
-        train_cli = timed("train_cli", train_cli_phase)
-        gc.collect()
-        torch.cuda.empty_cache()
+        tr = training_phases(torch, dev, np, timed)
         with tempfile.TemporaryDirectory() as tmp_dir:
             health = timed("health", health_phase, torch, dev, tmp_dir)
     except SmokeFailure as e:
@@ -3526,7 +4251,12 @@ def main() -> int:
     def launches(name):
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
-                                 obs, spec, pools, sup))
+                                 obs, spec, pools, sup, tr["serve_ckpt"]))
+
+    def flash_launches(name):
+        return sum(tr[phase]["launches"].get(name, 0)
+                   for phase in ("train", "train_save_attn", "ckpt",
+                                 "observe_train", "eval"))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""
@@ -3581,7 +4311,7 @@ def main() -> int:
          **prefill(k3["prefill_chunk_512"]), **verify(k3["verify_k4"])},
         *({"name": name, "route": "cuda", "source": FLASH_SOURCE,
            "replaces": FLASH_REPLACES[name],
-           "launches": train["launches"].get(name, 0),
+           "launches": flash_launches(name),
            "max_abs_err": max(r["max_abs_err"] for r in flash[name].values()),
            "max_row_rel_err": max(r["max_row_rel_err"]
                                   for r in flash[name].values()),
@@ -3598,13 +4328,7 @@ def main() -> int:
                                          "library_ms", "library", "ms_runs",
                                          "library_ms_runs")}},
     ]})
-    emit({"train_summary": {
-        "median_step_ms": train["median_step_ms"],
-        "tokens_per_s": train["tokens_per_s"], "mfu": train["mfu"],
-        "device_busy_share": train["device_busy_share"],
-        "max_memory_allocated_bytes": train["max_memory_allocated_bytes"],
-        "parity_max_grad_rel_diff": parity["max_grad_rel_diff"],
-        "cli_tokens_per_sec": train_cli["tokens_per_sec"]}})
+    emit({"train_summary": training_summary(tr)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

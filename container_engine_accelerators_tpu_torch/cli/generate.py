@@ -2,6 +2,8 @@
 
   python -m container_engine_accelerators_tpu_torch.cli.generate --tiny \
       --prompt-ids 1,5,42 --max-new-tokens 8
+  python -m container_engine_accelerators_tpu_torch.cli.generate \
+      --checkpoint /ckpt/llama3-8b --prompt-ids 1,5,42
   python -m container_engine_accelerators_tpu_torch.cli.generate --tiny \
       --prompt-ids 5,9,7,5,9,7 --speculate ngram --spec-k 4
 
@@ -18,9 +20,11 @@ import time
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--checkpoint", default=None,
+                   help="a training checkpoint dir (training/"
+                        "checkpoint.py) or an HF Llama export")
     p.add_argument("--tiny", action="store_true",
-                   help="random llama_tiny (the only model this port "
-                        "loads so far; required)")
+                   help="random llama_tiny instead of --checkpoint")
     p.add_argument("--prompt-ids", default="1",
                    help="comma-separated token ids")
     p.add_argument("--max-new-tokens", type=int, default=32)
@@ -41,8 +45,8 @@ def main(argv=None) -> int:
                         "dequantized inside the matmul kernel")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if not args.tiny:
-        p.error("checkpoints are not ported yet; pass --tiny")
+    if not (args.tiny or args.checkpoint):
+        p.error("pass --checkpoint DIR or --tiny")
 
     import torch
 
@@ -54,7 +58,8 @@ def main(argv=None) -> int:
         quantize_llama_params,
     )
 
-    model, cfg = load_model(seed=args.seed, device=args.device)
+    model, cfg = load_model(None if args.tiny else args.checkpoint,
+                            seed=args.seed, device=args.device)
     if args.weight_dtype == "int8":
         model = quantize_llama_params(model)
     ids = [int(x) for x in args.prompt_ids.split(",")]

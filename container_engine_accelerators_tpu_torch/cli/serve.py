@@ -2096,9 +2096,11 @@ def make_server(engine, port: int) -> ThreadingHTTPServer:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--checkpoint", default=None,
+                   help="a training checkpoint dir (training/"
+                        "checkpoint.py) or an HF Llama export")
     p.add_argument("--tiny", action="store_true",
-                   help="random llama_tiny (the only model this port "
-                        "loads so far; required)")
+                   help="random llama_tiny instead of --checkpoint")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8,
                    help="window engine: requests per batch; continuous/"
@@ -2236,8 +2238,8 @@ def main(argv=None) -> int:
                         "at once (the token-identity reference)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if not args.tiny:
-        p.error("checkpoints are not ported yet; pass --tiny")
+    if not (args.tiny or args.checkpoint):
+        p.error("pass --checkpoint DIR or --tiny")
     logging.basicConfig(level=logging.INFO)
     if args.trace_dump:
         events.enable(dump_path=args.trace_dump, signals=True,
@@ -2260,7 +2262,8 @@ def main(argv=None) -> int:
         quantize_llama_params,
     )
 
-    model, cfg = load_model(device=args.device)
+    model, cfg = load_model(None if args.tiny else args.checkpoint,
+                            device=args.device)
     if args.kv_dtype != "bf16":
         # One cfg field carries the mode to every engine's cache
         # allocation (init_cache, init_slot_cache, init_paged_cache).

@@ -10,17 +10,16 @@ port's copy of the JAX package's.
                                   single epoch-aligned Chrome trace
                                   (same machinery as merge).
 
-  trace merge  Merge per-process EventBus dumps (of either package) and
-               stamped SSE event logs (--sse-log) into ONE clock-aligned
-               Chrome-trace JSON:
+  trace merge  Merge per-process EventBus dumps (of either package),
+               the train recorder's JSONL step logs (--train-jsonl,
+               `train --metrics-log`) and stamped SSE event logs
+               (--sse-log) into ONE clock-aligned Chrome-trace JSON:
 
                  trace merge serve-trace.json other-trace.json \\
-                     --sse-log sse.jsonl -o merged.json
+                     --train-jsonl steps.jsonl --sse-log sse.jsonl \\
+                     -o merged.json
 
                Open the output at ui.perfetto.dev (or chrome://tracing).
-               The train recorder's step logs (--train-jsonl) come with
-               the port's training metrics; passing one exits with a
-               message until then.
 
   trace oom    Pretty-print an OOM forensics bundle
                (metrics/introspection.py writes one next to the trace
@@ -96,12 +95,8 @@ def cmd_merge(args) -> int:
     if not (args.inputs or args.train_jsonl or args.sse_log):
         print("trace merge: nothing to merge", file=sys.stderr)
         return 2
-    try:
-        trace = merge_traces(args.inputs, args.train_jsonl, args.sse_log)
-    except NotImplementedError as e:
-        print(f"trace merge: {e}", file=sys.stderr)
-        return 2
-    _write(trace, args.out)
+    _write(merge_traces(args.inputs, args.train_jsonl, args.sse_log),
+           args.out)
     return 0
 
 
@@ -185,8 +180,8 @@ def main(argv=None) -> int:
     m.add_argument("inputs", nargs="*",
                    help="EventBus dump files (one per process)")
     m.add_argument("--train-jsonl", action="append", default=[],
-                   help="train-recorder JSONL step log (repeatable; not "
-                        "read until the port has its train recorder)")
+                   help="train-recorder JSONL step log "
+                        "(`train --metrics-log`; repeatable)")
     m.add_argument("--sse-log", action="append", default=[],
                    help="saved SSE event log with epoch `t` stamps "
                         "(repeatable)")

@@ -1,16 +1,34 @@
 """train — train a Llama-3-family model on one device.
 
   python -m container_engine_accelerators_tpu_torch.cli.train \
-      --preset tiny --steps 20
+      --preset tiny --steps 20 --ckpt-dir /tmp/ckpt --metrics-port 0 \
+      --metrics-log /tmp/steps.jsonl --heartbeat-dir /tmp/hb
 
-Runs `training/train.py` `fit` over synthetic data (or a token file
-from `training/dataset.py`, `--data`) from random weights. Runs on the
-GPU unless `--device cpu` is given; without CUDA it exits with an error
-instead of falling back. Prints one JSON line at the end: final_step,
-steps, tokens (targets trained on), tokens_per_sec (tokens over the
-loop's wall time, to its last device fence) and the last step's loss.
-Checkpoints, the metrics exporter, heartbeats and multi-device meshes
-are not ported yet.
+Runs `training/train.py` `fit` (checkpoint and auto-resume included)
+over synthetic data (or a token file from `training/dataset.py`,
+`--data`) from random weights, with:
+
+  --ckpt-dir        restore the newest step there and save every
+                    --save-every steps and at the end (--ckpt-async:
+                    the write runs on a background thread; the loop
+                    pays only a pinned host snapshot)
+  --metrics-port    the train recorder on /metrics (0 = ephemeral):
+                    step/data-wait/ckpt histograms, tokens/s, MFU,
+                    goodput buckets, watchdog gauges
+  --metrics-log     crash-safe JSONL step log (one line a step,
+                    parseable at any truncation point)
+  --heartbeat-dir   per-process heartbeat files + HangWatchdog: a
+                    stalled process trips `train_stalled` with its id
+  --trace-dump      the flight recorder's ring as a Chrome trace on
+                    exit, crash and SIGUSR2
+
+Runs on the GPU unless `--device cpu` is given; without CUDA it exits
+with an error instead of falling back. Prints one JSON line at the end:
+the recorder's summary (steps and tokens of this run, tokens_per_sec
+over productive time without the first step, MFU, step percentiles,
+the goodput split), final_step and the last step's loss. The remat
+policy comes with the preset's config ('dots'); multi-device meshes are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -48,11 +66,50 @@ def main(argv=None) -> int:
                    help="token file (training/dataset.py format); "
                         "synthetic data when absent")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--save-every", type=int, default=100)
+    p.add_argument("--ckpt-async", action="store_true",
+                   help="asynchronous checkpoint saves: the step loop "
+                        "pays only a pinned host snapshot (charged to "
+                        "the ckpt_async badput bucket); serialize and "
+                        "commit run on a background thread")
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve training metrics on this port; 0 binds "
+                        "an ephemeral port (logged at startup); omit "
+                        "to disable the exporter")
+    p.add_argument("--metrics-host", default="",
+                   help="bind host for the metrics exporter (default: "
+                        "all interfaces)")
+    p.add_argument("--metrics-log", default=None,
+                   help="append one JSON line per step to this file "
+                        "(line-buffered; survives any kill)")
+    p.add_argument("--heartbeat-dir", default=None,
+                   help="per-process heartbeat files + hang watchdog")
+    p.add_argument("--watchdog-threshold", type=float, default=300.0,
+                   help="seconds a heartbeat may age before "
+                        "train_stalled fires")
+    p.add_argument("--trace-dump", default=None,
+                   help="enable the flight-recorder EventBus and write "
+                        "its ring as Chrome-trace JSON to this path on "
+                        "exit/crash and on SIGUSR2 (a directory gets a "
+                        "per-pid file); TPU_TRACE_DUMP env is the "
+                        "flagless equivalent")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    from container_engine_accelerators_tpu_torch.metrics import events
+    if args.trace_dump:
+        events.enable(dump_path=args.trace_dump, signals=True,
+                      process_name="train")
+        log.info("flight recorder on; trace dump -> %s", args.trace_dump)
+    else:
+        events.configure_from_env(process_name="train")
+
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+    )
     from container_engine_accelerators_tpu_torch.training.train import (
         fit,
         make_optimizer,
@@ -72,18 +129,27 @@ def main(argv=None) -> int:
         batches = synthetic_batches(cfg.vocab_size, args.batch_size,
                                     args.seq_len, seed=args.seed)
 
-    state, metrics = fit(cfg, make_optimizer(), batches, device=args.device,
-                         max_steps=args.steps, seed=args.seed,
-                         log_every=args.log_every, log_fn=log.info)
-    loss = float(metrics["loss"]) if metrics is not None else None
-    print(json.dumps({
-        "final_step": state.step,
-        "steps": state.step,
-        "tokens": state.tokens,
-        "tokens_per_sec": state.tokens / state.seconds if state.seconds
-        else 0.0,
-        "loss": loss,
-    }))
+    # The CLI owns the recorder (fit would build one too) so the summary
+    # can be printed after fit returns.
+    recorder = TrainRecorder(log_path=args.metrics_log,
+                             heartbeat_dir=args.heartbeat_dir)
+    try:
+        state, metrics = fit(
+            cfg, make_optimizer(), batches, device=args.device,
+            max_steps=args.steps, seed=args.seed,
+            log_every=args.log_every, log_fn=log.info,
+            ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+            ckpt_async=args.ckpt_async, recorder=recorder,
+            metrics_port=args.metrics_port, metrics_host=args.metrics_host,
+            heartbeat_dir=args.heartbeat_dir,
+            watchdog_threshold_s=args.watchdog_threshold)
+        summary = recorder.summary()
+    finally:
+        recorder.close()
+    summary["final_step"] = state.step
+    summary["loss"] = (float(metrics["loss"]) if metrics is not None
+                       else None)
+    print(json.dumps(summary))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Serving observability: the flight recorder (events), request tracing
+"""Observability: the flight recorder (events), request tracing
 (trace), the request recorder and its /metrics exporter
-(request_metrics, serving) and device memory introspection
+(request_metrics, serving), the train recorder, hang watchdog and their
+/metrics exporter (train_metrics) and device memory introspection
 (introspection)."""

@@ -615,6 +615,58 @@ def _synth_meta(pid: int, name: str) -> dict:
             "args": {"name": name}}
 
 
+def _train_jsonl_events(path: str, pid: int) -> list[dict]:
+    """The train recorder's crash-safe JSONL step log as X/instant
+    events. Records carry `t` = unix-epoch seconds at record time (phase
+    END), so phases rebase without the writer's monotonic anchor."""
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        read_metrics_jsonl,
+    )
+
+    out = []
+
+    def x(name, end_s, dur_s, args):
+        dur_s = max(dur_s, 0.0)
+        out.append({"name": name, "cat": "train", "ph": "X",
+                    "ts": round((end_s - dur_s) * 1e6, 3),
+                    "dur": round(dur_s * 1e6, 3), "pid": pid, "tid": 1,
+                    "args": args})
+
+    for rec in read_metrics_jsonl(path):
+        kind = rec.get("kind")
+        t = rec.get("t")
+        if t is None:
+            continue
+        if kind == "step":
+            compute = float(rec.get("compute_s", 0.0))
+            dw = float(rec.get("data_wait_s", 0.0))
+            args = {k: rec[k] for k in ("step", "tokens", "loss",
+                                        "mfu_inst", "first") if k in rec}
+            x("train/step", t, compute, args)
+            if dw > 0:
+                x("train/data_wait", t - compute, dw,
+                  {"step": rec.get("step")})
+        elif kind == "window":
+            x("train/window", t, float(rec.get("total_s", 0.0)),
+              {"n": rec.get("n"), "tokens": rec.get("tokens")})
+        elif kind == "ckpt_save":
+            x("train/ckpt_save", t, float(rec.get("seconds", 0.0)), {})
+        elif kind == "recompile":
+            x("train/recompile", t, float(rec.get("seconds", 0.0)),
+              {"fn": rec.get("fn")})
+        elif kind == "restore":
+            x("train/restore", t, float(rec.get("seconds", 0.0)),
+              {"step": rec.get("step")})
+        elif kind == "fast_forward":
+            x("train/fast_forward", t, float(rec.get("seconds", 0.0)),
+              {"batches": rec.get("batches")})
+        else:
+            out.append({"name": f"train/{kind}", "cat": "train",
+                        "ph": "i", "s": "t", "ts": round(t * 1e6, 3),
+                        "pid": pid, "tid": 1})
+    return out
+
+
 def _sse_log_events(path: str, pid: int) -> list[dict]:
     """Stamped SSE event-log lines ({"token"/"done"/"error", "ts", "t",
     "req"}) as instant events. Lines without the epoch stamp `t` (logs
@@ -676,24 +728,16 @@ def _event_jsonl_records(path: str):
 
 def merge_traces(dump_paths=(), train_jsonl_paths=(), sse_log_paths=(),
                  event_jsonl_paths=()) -> dict:
-    """Merge per-process EventBus dumps, stamped SSE event logs and
-    streamed EventBus JSONL files into ONE clock-aligned Chrome trace.
+    """Merge per-process EventBus dumps, the train recorder's JSONL step
+    logs, stamped SSE event logs and streamed EventBus JSONL files into
+    ONE clock-aligned Chrome trace.
 
     Every source is rebased to unix-epoch µs (bus dumps and JSONL
-    streams by their recorded anchor, SSE logs by their per-record epoch
-    stamps), then shifted so the earliest event sits at ts 0;
-    `otherData.epoch_origin_us` records the subtracted origin. Per-source
-    drop counts ride along in `otherData.sources`, so a truncated merge
-    is labeled.
-
-    `train_jsonl_paths`, the train recorder's step logs, are not read
-    yet: the train recorder comes with the port's training metrics
-    (ROADMAP queue 1, slice 9), and until then passing one raises
-    NotImplementedError."""
-    if train_jsonl_paths:
-        raise NotImplementedError(
-            "merging train-recorder JSONL step logs waits for the port's "
-            "train recorder (ROADMAP queue 1, slice 9)")
+    streams by their recorded anchor, step logs and SSE logs by their
+    per-record epoch stamps), then shifted so the earliest event sits at
+    ts 0; `otherData.epoch_origin_us` records the subtracted origin.
+    Per-source drop counts ride along in `otherData.sources`, so a
+    truncated merge is labeled."""
     merged: list[dict] = []
     meta: list[dict] = []
     sources = []
@@ -766,6 +810,15 @@ def merge_traces(dump_paths=(), train_jsonl_paths=(), sse_log_paths=(),
                         "events": n, "pid": pid, "dropped": dropped,
                         "replica": anchor.get("replica"),
                         "process_name": pname})
+
+    for path in train_jsonl_paths:
+        synth_pid += 1
+        evs = _train_jsonl_events(path, synth_pid)
+        meta.append(_synth_meta(
+            synth_pid, f"train-jsonl:{os.path.basename(path)}"))
+        merged.extend(evs)
+        sources.append({"path": path, "kind": "train-jsonl",
+                        "events": len(evs), "pid": synth_pid})
 
     for path in sse_log_paths:
         synth_pid += 1

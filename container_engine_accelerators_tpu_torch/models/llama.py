@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +44,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16          # activations
     param_dtype: torch.dtype = torch.float32     # training master weights
-    # Training: 'none' | 'dots' | 'dots_all' | 'full' (see forward);
-    # 'dots_save_attn' is not ported yet.
+    # Training: 'none' | 'dots' | 'dots_all' | 'full' | 'dots_save_attn'
+    # (see forward).
     remat_policy: str = "dots"
     use_flash: bool | None = None                # None: flash on CUDA
     flash_causal_grid: str = "rect"              # 'rect' | 'tri'
@@ -198,16 +199,21 @@ def _random_llama(cfg: LlamaConfig, generator: torch.Generator, device,
 _F32_WEIGHTS = ("attn_norm", "mlp_norm", "final_norm", "lm_head")
 
 
+def decode_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    """The decode path's dtype of weight `name`: f32 for the norms and
+    the lm_head, cfg.dtype for the rest."""
+    return torch.float32 if name in _F32_WEIGHTS else cfg.dtype
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: str | torch.device) -> Llama:
     """Frozen random weights for decoding, each in its decode-path dtype
     (norms and lm_head f32, the rest cfg.dtype). The numbers differ from
     jax.random's; carry JAX weights across with interop.params_from_jax
     where they must match."""
-    return _random_llama(
-        cfg, generator, device,
-        lambda name: torch.float32 if name in _F32_WEIGHTS else cfg.dtype,
-        trainable=False)
+    return _random_llama(cfg, generator, device,
+                         functools.partial(decode_dtype, cfg),
+                         trainable=False)
 
 
 def init_train_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -262,7 +268,13 @@ _SAVED_OPS = {
     "dots_all": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                  torch.ops.aten.bmm.default),
 }
-REMAT_POLICIES = ("none", "dots", "dots_all", "full")
+# Not a set of saved ops but a split of the layer: two 'dots'-rematted
+# halves with the attention core between them, outside any checkpoint.
+# The flash Function then keeps q, k, v, out and lse for its backward
+# (~168 MB a layer at B 4 x S 2048, 32/8 heads of 128, bf16), and the
+# backward replays no K4: one forward launch a layer a step, not two.
+REMAT_SPLIT_ATTN = "dots_save_attn"
+REMAT_POLICIES = ("none", "dots", "dots_all", "full", REMAT_SPLIT_ATTN)
 
 
 KV_CACHE_DTYPES = ("bf16", "int8", "int4")
@@ -280,9 +292,6 @@ def check_kv_cache_dtype(cfg: LlamaConfig) -> None:
 
 
 def _check_train_config(cfg: LlamaConfig) -> None:
-    if cfg.remat_policy == "dots_save_attn":
-        raise NotImplementedError(
-            "remat_policy='dots_save_attn' is not ported yet")
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                          f"valid: {REMAT_POLICIES}")
@@ -292,25 +301,73 @@ def _check_train_config(cfg: LlamaConfig) -> None:
     check_kv_cache_dtype(cfg)
 
 
-def _layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor, plain: bool) -> torch.Tensor:
+def _attention_qkv(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
+                   cos: torch.Tensor, sin: torch.Tensor):
     b, s, _ = x.shape
     hd, dt = cfg.head_dim, cfg.dtype
     h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
     q = (h @ layer.wq.to(dt)).view(b, s, cfg.n_heads, hd)
     k = (h @ layer.wk.to(dt)).view(b, s, cfg.n_kv_heads, hd)
     v = (h @ layer.wv.to(dt)).view(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    attn = multi_head_attention(q, k, v, causal=True,
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attention_core(q, k, v, cfg: LlamaConfig, plain: bool) -> torch.Tensor:
+    return multi_head_attention(q, k, v, causal=True,
                                 use_flash=cfg.use_flash,
                                 causal_grid=cfg.flash_causal_grid,
                                 plain=plain)
-    x = x + attn.reshape(b, s, cfg.n_heads * hd) @ layer.wo.to(dt)
+
+
+def _attention_out_mlp(x: torch.Tensor, attn: torch.Tensor,
+                       layer: LlamaLayer, cfg: LlamaConfig) -> torch.Tensor:
+    b, s, _ = x.shape
+    dt = cfg.dtype
+    x = x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ layer.wo.to(dt)
     h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
     gate = F.silu(h @ layer.w_gate.to(dt))
     up = h @ layer.w_up.to(dt)
     return x + (gate * up) @ layer.w_down.to(dt)
+
+
+def _layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
+           cos: torch.Tensor, sin: torch.Tensor, plain: bool) -> torch.Tensor:
+    q, k, v = _attention_qkv(x, layer, cfg, cos, sin)
+    return _attention_out_mlp(x, _attention_core(q, k, v, cfg, plain),
+                              layer, cfg)
+
+
+def _saved_ops_context(policy: str):
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             list(_SAVED_OPS[policy]))
+
+
+def _split_attn_layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      plain: bool) -> torch.Tensor:
+    """'dots_save_attn': the pre half (norm, q/k/v, RoPE) and the post
+    half (wo, residual, MLP) each under the 'dots' checkpoint, the
+    attention core between them outside both."""
+    q, k, v = ckpt.checkpoint(_attention_qkv, x, layer, cfg, cos, sin,
+                              use_reentrant=False,
+                              context_fn=_saved_ops_context("dots"))
+    attn = _attention_core(q, k, v, cfg, plain)
+    return ckpt.checkpoint(_attention_out_mlp, x, attn, layer, cfg,
+                           use_reentrant=False,
+                           context_fn=_saved_ops_context("dots"))
+
+
+def _warn_if_flash_off(cfg: LlamaConfig, device: torch.device) -> None:
+    """The JAX package's warning: without the flash kernel, the hoisted
+    attention keeps its [B, H, S, S] probabilities for the backward."""
+    use_flash = (device.type == "cuda" if cfg.use_flash is None
+                 else cfg.use_flash)
+    if cfg.head_dim % 128 or not use_flash:
+        warnings.warn(
+            "remat_policy='dots_save_attn' without the flash kernel "
+            "(use_flash resolves False or head_dim % 128 != 0) pins "
+            "O(B*H*S^2) attention probabilities per layer - use 'dots' "
+            "instead", stacklevel=3)
 
 
 def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -321,23 +378,28 @@ def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     The embedding gathers from the table cast to cfg.dtype; each layer
     runs under cfg.remat_policy through torch.utils.checkpoint ('full'),
     or its selective form keeping the matmul outputs ('dots',
-    'dots_all'); the lm_head multiplies cfg.dtype operands into f32
-    logits. Attention dispatches as `multi_head_attention` does;
-    `plain=True` runs flash attention's plain versions on the card."""
+    'dots_all'), or as two 'dots' halves around an attention core that
+    keeps its own residuals ('dots_save_attn'); the lm_head multiplies
+    cfg.dtype operands into f32 logits. Attention dispatches as
+    `multi_head_attention` does; `plain=True` runs flash attention's
+    plain versions on the card."""
     _check_train_config(cfg)
     b, s = tokens.shape
     cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
                                 device=tokens.device)
     x = F.embedding(tokens, model.embed.to(cfg.dtype))
+    if cfg.remat_policy == REMAT_SPLIT_ATTN:
+        _warn_if_flash_off(cfg, tokens.device)
     for layer in model.layers:
         if cfg.remat_policy == "none":
             x = _layer(x, layer, cfg, cos, sin, plain)
             continue
+        if cfg.remat_policy == REMAT_SPLIT_ATTN:
+            x = _split_attn_layer(x, layer, cfg, cos, sin, plain)
+            continue
         context_fn = ckpt.noop_context_fn
         if cfg.remat_policy in _SAVED_OPS:
-            context_fn = functools.partial(
-                ckpt.create_selective_checkpoint_contexts,
-                list(_SAVED_OPS[cfg.remat_policy]))
+            context_fn = _saved_ops_context(cfg.remat_policy)
         x = ckpt.checkpoint(_layer, x, layer, cfg, cos, sin, plain,
                             use_reentrant=False, context_fn=context_fn)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)

@@ -330,3 +330,24 @@ def quantize_llama_params(model):
     return Llama(model.cfg, embed=model.embed, layers=layers,
                  final_norm=model.final_norm,
                  lm_head=quantize_weights(model.lm_head))
+
+
+def dequantize_llama_params(model, dtype: torch.dtype = torch.float32):
+    """The inverse of quantize_llama_params: a copy of the model with
+    every QuantWeight expanded to a dense `dtype` weight (the JAX
+    package's eval quality gate: the training forward over the int8
+    round trip, which the decode path's kernel dequantizes alike)."""
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        Llama,
+        LlamaLayer,
+    )
+
+    def dense(w):
+        return dequantize(w, dtype) if isinstance(w, QuantWeight) else w
+
+    layers = [LlamaLayer(**{name: dense(getattr(layer, name))
+                            for name in LlamaLayer.WEIGHTS})
+              for layer in model.layers]
+    return Llama(model.cfg, embed=model.embed, layers=layers,
+                 final_norm=model.final_norm,
+                 lm_head=dense(model.lm_head))

@@ -1,7 +1,9 @@
-"""Training on one device: the step, the loop, AdamW and the data."""
+"""Training on one device: the step, the loop, checkpoints, AdamW and
+the data."""
 
 from container_engine_accelerators_tpu_torch.training.train import (
     TrainState,
+    evaluate,
     fit,
     loss_fn,
     make_optimizer,
@@ -11,6 +13,7 @@ from container_engine_accelerators_tpu_torch.training.train import (
 
 __all__ = [
     "TrainState",
+    "evaluate",
     "fit",
     "loss_fn",
     "make_optimizer",

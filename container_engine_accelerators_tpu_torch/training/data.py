@@ -1,5 +1,5 @@
-"""Synthetic LM data: a copy of the JAX package's `synthetic_batches`
-(without its chaos stall hook), deterministic and host-side. For the same
+"""Synthetic LM data: a copy of the JAX package's `synthetic_batches`,
+deterministic and host-side, with its chaos stall hook. For the same
 arguments it yields the same arrays."""
 
 from __future__ import annotations
@@ -17,9 +17,16 @@ def synthetic_batches(vocab_size: int, batch_size: int, seq_len: int,
     Sequences follow x[t+1] = (a * x[t] + b) % vocab with per-sequence
     (a, b) and 10% uniform noise: learnable structure, nonzero floor.
     """
+    from container_engine_accelerators_tpu_torch.training.dataset import (
+        maybe_stall,
+    )
+
     rng = np.random.default_rng(seed)
     i = 0
     while num_batches is None or i < num_batches:
+        # An armed data-stall fault sleeps here, inside the iterator, so
+        # the loop's data-wait clock sees a real loader stall.
+        maybe_stall()
         a = rng.integers(1, min(vocab_size, 7), size=(batch_size, 1))
         b = rng.integers(0, vocab_size, size=(batch_size, 1))
         x0 = rng.integers(0, vocab_size, size=(batch_size, 1))

@@ -1,18 +1,74 @@
 """Token-file datasets: a copy of the JAX package's flat binary token
 format (uint16 when the vocabulary fits, else uint32, with a JSON
-sidecar) and its deterministic, process-sharded batch sampling, without
-the chaos stall hook. The files are interchangeable between the two
+sidecar), its deterministic, process-sharded batch sampling and its
+chaos stall hook. The files are interchangeable between the two
 packages, and the same file and seed give the same batches."""
 
 from __future__ import annotations
 
 import json
 import os
+import threading
+import time
 from typing import Iterator
 
 import numpy as np
 
 MAGIC = "tpu-tokens-v1"
+
+
+# ---------- chaos stall hook ----------
+#
+# A data-stall or straggler fault makes a real batch iterator stop
+# producing: the iterator itself sleeps, so the train loop's data-wait
+# clock, the recorder's `stalled` goodput bucket and the heartbeat
+# watchdog all see it as they would a wedged mount. One one-shot stall
+# plus a persistent per-batch delay, consumed by every batch iterator of
+# this package through maybe_stall().
+
+_STALL_LOCK = threading.Lock()
+_STALL = {"once_s": 0.0, "per_batch_s": 0.0, "per_batch_until": 0.0}
+
+
+def inject_stall(once_s: float = 0.0, per_batch_s: float = 0.0,
+                 duration_s: float = 0.0) -> None:
+    """Arm the stall hook: `once_s` sleeps the NEXT batch fetch once;
+    `per_batch_s` sleeps every fetch for `duration_s` seconds (0 =
+    until cleared) - the slow-straggler fault."""
+    with _STALL_LOCK:
+        _STALL["once_s"] = max(_STALL["once_s"], float(once_s))
+        _STALL["per_batch_s"] = float(per_batch_s)
+        _STALL["per_batch_until"] = (
+            time.monotonic() + duration_s if duration_s else float("inf")
+        ) if per_batch_s else 0.0
+
+
+def clear_stall() -> None:
+    with _STALL_LOCK:
+        _STALL.update(once_s=0.0, per_batch_s=0.0, per_batch_until=0.0)
+
+
+def maybe_stall() -> float:
+    """Consume any armed stall (batch iterators call it before each
+    yield); returns the seconds slept. Emits a `data/stall` flight-
+    recorder instant, so the stall is attributable on a merged timeline
+    and not only visible as anonymous data wait."""
+    with _STALL_LOCK:
+        s = _STALL["once_s"]
+        _STALL["once_s"] = 0.0
+        if _STALL["per_batch_s"]:
+            if time.monotonic() <= _STALL["per_batch_until"]:
+                s += _STALL["per_batch_s"]
+            else:
+                _STALL["per_batch_s"] = 0.0
+                _STALL["per_batch_until"] = 0.0
+    if s <= 0:
+        return 0.0
+    from container_engine_accelerators_tpu_torch.metrics import events
+    if events.enabled():
+        events.instant("data/stall", "chaos", {"seconds": round(s, 3)})
+    time.sleep(s)
+    return s
 
 
 def write_token_file(tokens, path: str, vocab_size: int) -> None:
@@ -74,6 +130,7 @@ def token_file_batches(path: str, batch_size: int, seq_len: int,
         for i in range(0, len(mine) - batch_size + 1, batch_size):
             if num_batches is not None and produced >= num_batches:
                 return
+            maybe_stall()
             idxs = mine[i:i + batch_size]
             pairs = [ds.window(int(j), seq_len) for j in idxs]
             yield {

@@ -119,8 +119,34 @@ def test_jsonl_streams_merge_alike(monkeypatch, tmp_path):
 
 
 def test_train_jsonl_source_waits_for_the_train_recorder(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tevents.merge_traces(train_jsonl_paths=[str(tmp_path / "x")])
+    # The train recorder is ported: a step log it writes (every kind of
+    # record, and a torn tail) merges as the JAX package merges it.
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+    )
+
+    path = str(tmp_path / "steps.jsonl")
+    rec = TrainRecorder(log_path=path, flops_per_token=100.0,
+                        peak_flops_per_chip=1e6, now=0.0)
+    rec.record_restore(0.5, step=2, now=1.0)
+    rec.record_fast_forward(0.1, batches=2, now=1.2)
+    rec.record_step(3, compute_s=0.2, tokens=64, data_wait_s=0.05,
+                    first=True, now=1.5)
+    rec.record_step(4, compute_s=0.1, tokens=64, loss=2.5, now=1.7)
+    rec.record_checkpoint_save(0.3, now=2.0, async_mode=True)
+    rec.record_steps(2, 0.4, 128, now=2.5)
+    rec.record_badput("detection", 0.2, now=2.6)
+    rec.close()
+    with open(path, "a") as f:
+        f.write('{"kind": "step", "t": 1')
+    missing = str(tmp_path / "missing.jsonl")
+    want = jevents.merge_traces(train_jsonl_paths=[path, missing])
+    got = tevents.merge_traces(train_jsonl_paths=[path, missing])
+    assert got == want
+    names = [e["name"] for e in got["traceEvents"] if e["ph"] != "M"]
+    assert {"train/restore", "train/fast_forward", "train/step",
+            "train/data_wait", "train/ckpt_save", "train/window",
+            "train/badput"} <= set(names)
 
 
 def test_dump_now_and_the_exit_hook_target(tmp_path):

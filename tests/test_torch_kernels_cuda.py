@@ -1122,6 +1122,94 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
         assert (gk - gp).norm() <= 5e-2 * gp.norm()
 
 
+def test_dots_save_attn_launches_k4_once_a_layer(cuda):
+    # The split layer keeps the flash Function's residuals, so the
+    # backward replays no K4; its gradients are 'dots' bit for bit.
+    import dataclasses
+
+    cfg = llama_tiny(d_model=256, n_heads=2, n_kv_heads=1,
+                     remat_policy="dots")
+    batch = to_device(next(synthetic_batches(cfg.vocab_size, 2, 256)), cuda)
+    runs = {}
+    for policy in ("dots", "dots_save_attn"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        model = init_train_params(c, torch.Generator(
+            device=cuda).manual_seed(0), cuda)
+        step = make_train_step(c, FusedAdamW(model.parameters(), lr=1e-3))
+        kernels.reset_launches()
+        metrics = step(model, batch)
+        torch.cuda.synchronize()
+        runs[policy] = (dict(kernels.launches), metrics["loss"].item(),
+                        [p.grad.clone() for p in model.parameters()])
+    assert runs["dots_save_attn"][0] == {"flash_fwd": cfg.n_layers,
+                                         "flash_bwd_dq": cfg.n_layers,
+                                         "flash_bwd_dkv": cfg.n_layers}
+    assert runs["dots"][0]["flash_fwd"] == 2 * cfg.n_layers
+    assert runs["dots"][1] == runs["dots_save_attn"][1]
+    assert all(torch.equal(a, b) for a, b in zip(runs["dots"][2],
+                                                 runs["dots_save_attn"][2]))
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_cuda_state_checkpoint_round_trip_bit_for_bit(cuda, tmp_path,
+                                                      async_save,
+                                                      monkeypatch):
+    # A card state through the files (async: through the pinned
+    # snapshot; sync: through the pinned staging chunk, here cut small
+    # so every tensor takes several chunks and a partial last one) and
+    # back onto the card: every master and moment bit for bit, and the
+    # restored tensors live on the card.
+    from container_engine_accelerators_tpu_torch.training import (
+        checkpoint as ck,
+    )
+    from container_engine_accelerators_tpu_torch.utils import safetensors
+
+    monkeypatch.setattr(safetensors, "STAGE_BYTES", 4104)
+    from container_engine_accelerators_tpu_torch.training.train import (
+        TrainState,
+    )
+
+    cfg = llama_tiny(d_model=256, n_heads=2, n_kv_heads=1)
+
+    def state(seed, steps):
+        model = init_train_params(cfg, torch.Generator(
+            device=cuda).manual_seed(seed), cuda)
+        opt = FusedAdamW(model.parameters(), lr=1e-3,
+                         mu_dtype=torch.bfloat16)
+        step = make_train_step(cfg, opt)
+        for b in synthetic_batches(cfg.vocab_size, 2, 256, num_batches=steps,
+                                   seed=seed):
+            step(model, to_device(b, cuda))
+        return TrainState(step=steps, model=model, optimizer=opt)
+
+    saved = state(0, 2)
+    mngr = ck.CheckpointManager(str(tmp_path), save_interval_steps=1,
+                                async_save=async_save)
+    assert mngr.save(2, saved, cfg=cfg)
+    want = {f: {k: v.detach().clone() for k, v in t.items()}
+            for f, t in ck.state_tensors(saved).items()}
+    # In-place updates after save returns do not reach the step.
+    make_train_step(cfg, saved.optimizer)(saved.model, to_device(next(
+        synthetic_batches(cfg.vocab_size, 2, 256, seed=9)), cuda))
+    mngr.wait_async()
+    # Async snapshots go through pinned buffers the manager keeps; a
+    # sync save keeps none.
+    if async_save:
+        assert mngr._pinned and all(b.is_pinned()
+                                    for b in mngr._pinned.values())
+    else:
+        assert not mngr._pinned
+    fresh = state(1, 1)
+    mngr.restore(fresh)
+    got = ck.state_tensors(fresh)
+    for f, tensors in want.items():
+        for k, v in tensors.items():
+            assert got[f][k].is_cuda and got[f][k].dtype == v.dtype, k
+            assert torch.equal(got[f][k], v), k
+    assert fresh.step == 2 and fresh.optimizer.count == 2
+    mngr.close()
+
+
 @pytest.mark.parametrize("shape", [(4096, 4096), (1023, 4097), (3,)])
 def test_scale_demo_kernel_matches_plain(cuda, shape):
     # f32 times 2 is exact: the kernel must equal x * 2.0 bit for bit,

@@ -170,9 +170,16 @@ def test_loadgen_summary_keys_match_jax_against_the_port(server, tmp_path,
 def test_trace_cli_refuses_what_is_not_ported(tmp_path, capsys):
     assert ttrace_cli.main(["doctor", "x.json", "--window", "3"]) == 2
     assert "not ported" in capsys.readouterr().err
-    assert ttrace_cli.main(["merge", "--train-jsonl", str(tmp_path / "x"),
-                            "-o", str(tmp_path / "o.json")]) == 2
-    assert "slice 9" in capsys.readouterr().err
+    # Train step logs are ported: merge takes one.
+    log = tmp_path / "steps.jsonl"
+    log.write_text(json.dumps({"kind": "step", "step": 1, "t": 10.0,
+                               "compute_s": 0.5, "data_wait_s": 0.1,
+                               "tokens": 8}) + "\n")
+    out = tmp_path / "o.json"
+    assert ttrace_cli.main(["merge", "--train-jsonl", str(log),
+                            "-o", str(out)]) == 0
+    names = [e["name"] for e in json.loads(out.read_text())["traceEvents"]]
+    assert "train/step" in names and "train/data_wait" in names
 
 
 def test_loadgen_main_refuses_bad_flag_mixes():

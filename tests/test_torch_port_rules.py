@@ -33,7 +33,9 @@ def _imported_roots(path: Path):
 
 # Modules the scan must reach, the speculative path's among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
-            "cli/generate.py", "metrics/request_metrics.py")
+            "cli/generate.py", "metrics/request_metrics.py",
+            "metrics/train_metrics.py", "training/checkpoint.py",
+            "models/convert.py", "cli/eval.py", "cli/train.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -108,6 +110,9 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
         train.main(["--preset", "tiny", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         fit(llama_tiny(), make_optimizer(), iter([]))
+    from container_engine_accelerators_tpu_torch.cli import eval as eval_cli
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_cli.main(["--data", "x.bin"])
 
 
 def test_generate_cli_runs_on_the_cpu_when_asked(capsys):

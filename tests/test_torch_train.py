@@ -172,11 +172,99 @@ def test_unported_and_unknown_configs_raise():
     model = tllama.init_train_params(tcfg, torch.Generator().manual_seed(0),
                                      "cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    for kw, err in (({"remat_policy": "dots_save_attn"}, NotImplementedError),
-                    ({"remat_policy": "nothing"}, ValueError),
+    for kw, err in (({"remat_policy": "nothing"}, ValueError),
                     ({"flash_causal_grid": "triangular"}, ValueError)):
         with pytest.raises(err):
             tllama.forward(model, tokens, dataclasses.replace(tcfg, **kw))
+    with pytest.raises(NotImplementedError):
+        tllama.cfg_from_json_dict({**tllama.cfg_to_json_dict(tcfg),
+                                   "n_experts": 4})
+    # 'dots_save_attn' is ported: without flash it runs and warns, as the
+    # JAX package does, since the hoisted attention keeps its S x S
+    # probabilities.
+    with pytest.warns(UserWarning, match="dots_save_attn"):
+        logits = tllama.forward(model, tokens, dataclasses.replace(
+            tcfg, remat_policy="dots_save_attn"))
+    assert logits.shape == (1, 8, tcfg.vocab_size)
+
+
+def _loss_and_grads(tcfg, batch, policy, seed=0):
+    cfg = dataclasses.replace(tcfg, remat_policy=policy)
+    model = tllama.init_train_params(cfg, torch.Generator().manual_seed(seed),
+                                     "cpu")
+    loss = ttrain.loss_fn(model, batch, cfg)
+    loss.backward()
+    return loss.item(), [p.grad for p in model.parameters()]
+
+
+def test_dots_save_attn_is_bit_identical_to_dots_and_runs_flash_once():
+    # The split layer computes the same ops on the same values as 'dots';
+    # only what the backward keeps differs. Its flash forward runs once
+    # a layer (the backward replays none), where 'dots' replays it.
+    _, tcfg = _configs(use_flash=True)
+    batch = _tensors(_batch(tcfg.vocab_size, b=1))
+    calls = []
+    fwd = tfa._FWD["plain"]
+
+    def spy(*a):
+        calls.append(1)
+        return fwd(*a)
+
+    results = {}
+    for policy in ("dots", "dots_save_attn"):
+        calls.clear()
+        tfa._FWD["plain"] = spy
+        try:
+            results[policy] = _loss_and_grads(tcfg, batch, policy)
+        finally:
+            tfa._FWD["plain"] = fwd
+        results[policy] += (len(calls),)
+    (l_d, g_d, n_d), (l_s, g_s, n_s) = (results["dots"],
+                                        results["dots_save_attn"])
+    assert l_d == l_s
+    assert all(torch.equal(a, b) for a, b in zip(g_d, g_s))
+    assert (n_d, n_s) == (2 * tcfg.n_layers, tcfg.n_layers)
+
+
+def test_dots_save_attn_matches_jax(jax_flash_interpret):
+    # The port's split layer against JAX's REMAT_SPLIT_ATTN, JAX's flash
+    # in interpret mode: the tolerances of the forward test above.
+    jcfg, tcfg = _configs(use_flash=True, remat_policy="dots_save_attn")
+    tree, model = _params(jcfg, tcfg)
+    batch = _batch(jcfg.vocab_size)
+    want_loss, want_grads = jax.value_and_grad(_jax_loss(jcfg))(tree, batch)
+    loss = ttrain.loss_fn(model, _tensors(batch), tcfg)
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= LOSS_RTOL * abs(
+        float(want_loss))
+    got = dict(_flat(_grads_np(model)))
+    for name, gw in _flat(jax.device_get(want_grads)):
+        assert _rel(got[name], gw) <= GRAD_TOL, name
+
+
+def test_three_dots_save_attn_steps_match_jax(jax_flash_interpret):
+    # test_three_train_steps_match_jax's steps, eps and tolerances, under
+    # the split layer on both sides.
+    jcfg, tcfg = _configs(use_flash=True, remat_policy="dots_save_attn")
+    tree, model = _params(jcfg, tcfg)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-5, weight_decay=0.1, grad_clip=1.0)
+    jopt = fused_adamw(1e-4, **kw)
+    jstate = jopt.init(tree)
+    step = ttrain.make_train_step(tcfg, FusedAdamW(model.parameters(),
+                                                   lr=1e-4, **kw))
+    jgrad = jax.jit(jax.value_and_grad(_jax_loss(jcfg)))
+    jparams = tree
+    for i, batch in enumerate(tdata.synthetic_batches(
+            tcfg.vocab_size, 2, SEQ, num_batches=3, seed=1)):
+        loss, grads = jgrad(jparams, batch)
+        updates, jstate = jopt.update(grads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        metrics = step(model, _tensors(batch))
+        assert abs(metrics["loss"].item() - float(loss)) <= LOSS_RTOL * abs(
+            float(loss)), i
+    got = dict(_flat(interop.params_to_numpy(model)))
+    for name, want in _flat(jax.device_get(jparams)):
+        assert _rel(got[name], want) <= PARAM_TOL, name
 
 
 def test_train_params_round_trip_and_flops_match_jax():
