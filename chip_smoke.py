@@ -9,6 +9,7 @@ health paths on one GPU.
   python3 chip_smoke.py decode [--tick] [--prefill] [ROOT ...]
   python3 chip_smoke.py k2 [--int8] [ROOT ...]
   python3 chip_smoke.py training
+  python3 chip_smoke.py node
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -31,7 +32,7 @@ parent unpacked under checkout_proof/, is timed in a process of its own
 that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
 card. `training` runs the build and the training path's phases alone
-(train through serve_ckpt below).
+(train through serve_ckpt below), `node` the build and the node phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -155,7 +156,27 @@ Phases, one JSON line each:
            (VMEM_OOM and HBM_OOM, every device still Healthy); then
            cli.inject_fault's HBM_ECC_UNCORRECTABLE for card 0 (nvidia0
            Unhealthy, one Warning Event, the node condition); K7 against
-           x * 2.0 (exact), timed in turns with torch.mul (5 each).
+           x * 2.0 (exact), timed in turns with torch.mul (5 each);
+  node     the node layer, no model: NVML's cards and driver version,
+           each /dev/nvidia<N> (opens, NVML's identity, torch's card); a
+           dev root of links to the nodes NVML names where a node does
+           not open or NVML does not name it; cli/device_plugin_main.py
+           as a process (metrics every 0.5 s, health on) registering
+           with a kubelet stub; ListAndWatch equal to discovery,
+           GetPreferredAllocation, Allocate for torch's card (its node,
+           the control nodes, the driver mount, CUDA_VISIBLE_DEVICES its
+           UUID); a process with exactly those envs running K4 for 6 s
+           beside an 8 GiB allocation (one card, that UUID); /metrics'
+           NVML duty cycle (> 50%, within 15 points of nvidia-smi) and
+           memory (within 512 MiB of nvidia-smi, above 8 GiB) on
+           nvidia<N> and on the PodResources stub's ns/pod/ctr, the
+           health families, then the duty cycle falling once the K4 loop
+           ends; an injected HBM_ECC_UNCORRECTABLE Unhealthy on the open
+           stream (within one of the health checker's default 5 s polls,
+           plus 5 s); re-registration after the socket is removed and after a
+           kubelet restart (10 s each); partition_tpu and runtime_ready
+           on the served root; read_driver_version beside nvidia-smi;
+           SIGTERM (10 s, socket removed).
 Then each phase's seconds, the kernels line (launches on the main path,
 errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before that line. Without CUDA, or outside a
@@ -172,6 +193,7 @@ import concurrent.futures
 import contextlib
 import functools
 import gc
+import inspect
 import json
 import math
 import os
@@ -3731,6 +3753,649 @@ def health_phase(torch, dev, tmp_dir: str, shape=(4096, 4096)) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- node
+
+NODE_CHILD_BYTES = 8 << 30      # the container's extra allocation
+NODE_CHILD_SECONDS = 6.0        # its K4 loop
+NODE_METRICS_INTERVAL = 0.5     # the daemon's NVML sampling period, s
+NODE_DUTY_MIN = 50.0            # % the busy card's duty cycle must pass
+NODE_DUTY_GAP = 15.0            # points between /metrics and nvidia-smi
+# Bytes between /metrics and nvidia-smi: nvmlDeviceGetMemoryInfo (the
+# reference's call) counts the driver's reserve as used, nvidia-smi does
+# not (480 MiB on an H100 with driver 580.159.03: NVML 503316480 bytes
+# used on an idle card where nvidia-smi reads 0 MiB).
+NODE_MEMORY_GAP = 512 << 20
+NODE_FLIP_S = 5.0               # injected fault -> Unhealthy on the stream,
+                                # beyond one of the checker's default polls
+NODE_REREGISTER_S = 10.0        # a restart trigger -> a new Register
+NODE_STOP_S = 10.0              # SIGTERM -> the daemon gone
+NODE_POD = {"namespace": "ns", "pod": "pod", "container": "ctr"}
+
+# The allocated container's workload: K4 (ops/flash_attention) at the
+# flash phase's shape in a loop, beside an allocation of argv[1] bytes,
+# for argv[2] seconds. It prints one line when the loop starts and one
+# with its card's UUID, device count and K4 launches at the end.
+NODE_CHILD = r"""
+import json, os, sys, time
+import torch
+from container_engine_accelerators_tpu_torch import kernels
+from container_engine_accelerators_tpu_torch.ops.flash_attention import (
+    flash_attention)
+dev = torch.device("cuda", 0)
+hold = torch.empty(int(sys.argv[1]), dtype=torch.uint8, device=dev)
+g = torch.Generator(device=dev).manual_seed(0)
+q = torch.randn(4, 2048, 32, 128, generator=g, device=dev).bfloat16()
+k = torch.randn(4, 2048, 8, 128, generator=g, device=dev).bfloat16()
+v = torch.randn(4, 2048, 8, 128, generator=g, device=dev).bfloat16()
+out = flash_attention(q, k, v, causal=True)
+torch.cuda.synchronize()
+kernels.reset_launches()
+print(json.dumps({"running": True}), flush=True)
+t0, iters = time.monotonic(), 0
+while time.monotonic() - t0 < float(sys.argv[2]):
+    for _ in range(20):
+        out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    iters += 20
+print(json.dumps({
+    "uuid": "GPU-" + str(torch.cuda.get_device_properties(0).uuid),
+    "device_count": torch.cuda.device_count(),
+    "launches": kernels.launches.get("flash_fwd", 0), "iters": iters,
+    "seconds": time.monotonic() - t0,
+    "finite": bool(torch.isfinite(out.float()).all()),
+    "held_bytes": hold.numel()}), flush=True)
+"""
+
+
+def port_root() -> str:
+    """The checkout that holds the port's package."""
+    import container_engine_accelerators_tpu_torch as port
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+
+
+def loaded_library_path() -> str | None:
+    """The file of the NVML library this process has mapped (after an
+    Nvml() over the real library), from /proc/self/maps."""
+    try:
+        with open("/proc/self/maps") as f:
+            for line in f:
+                path = line.split()[-1] if line.strip() else ""
+                if os.path.basename(path).startswith("libnvidia-ml.so"):
+                    return path
+    except OSError:
+        pass
+    return None
+
+
+def gpu_query(fields: str, card: str) -> list[str]:
+    """One card's `nvidia-smi --query-gpu=FIELDS` (no units), the card
+    named by UUID."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", card, f"--query-gpu={fields}",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [x.strip() for x in out.stdout.strip().splitlines()[0].split(",")]
+
+
+class KubeletStub:
+    """A kubelet's Registration service on a unix socket, recording each
+    Register with the time it came."""
+
+    def __init__(self, sock: str):
+        import queue
+
+        import grpc
+
+        from container_engine_accelerators_tpu_torch.deviceplugin.api import (
+            RegistrationServicer,
+            add_registration_servicer,
+        )
+
+        from container_engine_accelerators_tpu_torch.deviceplugin.api import (
+            deviceplugin_pb2 as pb,
+        )
+
+        stub = self
+
+        class Servicer(RegistrationServicer):
+            def Register(self, request, context):
+                stub.registrations.put((time.monotonic(), request))
+                return pb.Empty()
+
+        self.sock = sock
+        self.registrations = queue.Queue()
+        self.server = grpc.server(concurrent.futures.ThreadPoolExecutor(2))
+        add_registration_servicer(Servicer(), self.server)
+        self.server.add_insecure_port(f"unix://{sock}")
+        self.server.start()
+
+    def wait(self, timeout_s: float, what: str):
+        """(time, RegisterRequest) of the next registration."""
+        import queue
+
+        try:
+            return self.registrations.get(timeout=timeout_s)
+        except queue.Empty:
+            raise SmokeFailure(f"node: no registration within {timeout_s} s "
+                               f"({what})") from None
+
+    def stop(self) -> None:
+        self.server.stop(grace=0.2).wait()
+        # gRPC unlinks the socket as its listener closes; wait for that,
+        # or a later unlink could remove the next stub's socket.
+        deadline = time.monotonic() + 5
+        while os.path.exists(self.sock) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(self.sock)
+
+
+class PodResourcesServer:
+    """The kubelet's PodResources service answering one container that
+    holds `device_id` of `nvidia.com/gpu`."""
+
+    def __init__(self, sock: str, device_id: str):
+        import grpc
+
+        from container_engine_accelerators_tpu_torch import GPU_RESOURCE_NAME
+        from container_engine_accelerators_tpu_torch.metrics import (
+            podresources_pb2 as pb,
+        )
+        from container_engine_accelerators_tpu_torch.metrics.devices import (
+            add_podresources_servicer,
+        )
+
+        answer = pb.ListPodResourcesResponse(pod_resources=[
+            pb.PodResources(
+                name=NODE_POD["pod"], namespace=NODE_POD["namespace"],
+                containers=[pb.ContainerResources(
+                    name=NODE_POD["container"], devices=[
+                        pb.ContainerDevices(resource_name=GPU_RESOURCE_NAME,
+                                            device_ids=[device_id])])])])
+
+        class Servicer:
+            def List(self, request, context):
+                return answer
+
+        self.server = grpc.server(concurrent.futures.ThreadPoolExecutor(2))
+        add_podresources_servicer(Servicer(), self.server)
+        self.server.add_insecure_port(f"unix://{sock}")
+        self.server.start()
+
+    def stop(self) -> None:
+        self.server.stop(grace=0.2).wait()
+
+
+class PluginProcess:
+    """cli/device_plugin_main.py in a process of its own, its output in
+    `log_path`; stop() sends SIGTERM."""
+
+    def __init__(self, argv: list[str], log_path: str):
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.cli.device_plugin_main",
+             *argv], cwd=port_root(), stdout=self._log,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=port_root()))
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def stop(self, timeout_s: float) -> int | None:
+        """SIGTERM; the exit code, or None if it had to be killed."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = None
+        self._log.close()
+        return rc
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _opens(path: str) -> bool | str:
+    """True if the node opens read-write, else the error."""
+    try:
+        os.close(os.open(path, os.O_RDWR))
+        return True
+    except OSError as e:
+        return f"{type(e).__name__}: {e.strerror}"
+
+
+def _lines(stream, out) -> None:
+    for line in stream:
+        out.put((time.monotonic(), line))
+
+
+def _watch(call, out) -> None:
+    """Each ListAndWatch response as (time, {ID: health}); the error
+    that ends the stream last."""
+    import grpc
+
+    try:
+        for resp in call:
+            out.put((time.monotonic(),
+                     {d.ID: d.health for d in resp.devices}))
+    except grpc.RpcError as e:
+        out.put((time.monotonic(), e))
+
+
+def _next_snapshot(q, timeout_s: float, what: str):
+    import queue
+
+    try:
+        t, snap = q.get(timeout=timeout_s)
+    except queue.Empty:
+        raise SmokeFailure(f"node: no ListAndWatch response within "
+                           f"{timeout_s} s ({what})") from None
+    require(isinstance(snap, dict), f"node: the stream ended: {snap}")
+    return t, snap
+
+
+def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
+               child_code: str = NODE_CHILD,
+               child_seconds: float = NODE_CHILD_SECONDS,
+               child_bytes: int = NODE_CHILD_BYTES) -> dict:
+    """The node layer on the card: discovery through NVML and torch's
+    card among the /dev nodes; the device plugin daemon
+    (cli/device_plugin_main.py, metrics and health on) registering with
+    a kubelet stub; Allocate's answer for torch's card started as a
+    container (a process with exactly those envs running K4); its NVML
+    duty cycle and memory on /metrics, attributed through a PodResources
+    stub, beside nvidia-smi; an injected HBM_ECC_UNCORRECTABLE on the
+    open ListAndWatch stream; both restart triggers; partition_tpu,
+    runtime_ready and the driver version; SIGTERM."""
+    import io
+    import queue
+
+    import grpc
+
+    from container_engine_accelerators_tpu_torch.cli import (
+        inject_fault,
+        partition_tpu,
+        runtime_ready,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        HEALTHY,
+        UNHEALTHY,
+        SysfsDeviceInfo,
+        TPUConfig,
+        TPUManager,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        manager as mgr,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.api import (
+        DevicePluginStub,
+        deviceplugin_pb2 as pb,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.devutil import (
+        torch_card_minor,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.version_visibility import (
+        read_driver_version,
+    )
+    from container_engine_accelerators_tpu_torch.healthcheck import (
+        TPUHealthChecker,
+    )
+    from container_engine_accelerators_tpu_torch.utils import nvml
+
+    # The daemon's checker polls at its default: a fault reaches the
+    # stream within one poll.
+    health_poll_s = inspect.signature(TPUHealthChecker).parameters[
+        "poll_interval"].default
+
+    # 1. Discovery: NVML's cards, the /dev nodes, torch's card.
+    try:
+        session = nvml.Nvml()
+        cards = session.cards()
+        driver = session.driver_version()
+    except nvml.NvmlError as e:
+        raise SmokeFailure(f"node: NVML: {e}") from None
+    minor = torch_card_minor(torch, 0, cards)
+    require(minor is not None,
+            f"node: torch's card 0 is none of NVML's cards {cards}")
+    card = cards[minor]
+    dev_id = f"{mgr.PHYSICAL_PREFIX}{minor}"
+    info = SysfsDeviceInfo(dev_root=dev_root, nvml=session)
+    nodes = [{"node": os.path.basename(c.dev_path), "minor": c.index,
+              "opens": _opens(c.dev_path), "pci_address": c.pci_address,
+              "uuid": c.uuid, "in_nvml": c.index in cards,
+              "torch_card": c.index == minor} for c in info.discover()]
+    require(any(n["torch_card"] for n in nodes),
+            f"node: torch's card nvidia{minor} is not under {dev_root}: "
+            f"{nodes}")
+    generation = info.chip_generation()
+    require(generation == card.name != "unknown",
+            f"node: chip_generation {generation!r}, NVML {card.name!r}")
+
+    # 2. A node that does not open, or that NVML does not name for this
+    # process, would fail runtime_ready and hand a container a card it
+    # cannot open: serve a root of links to the nodes NVML names.
+    trouble = [n["node"] for n in nodes
+               if n["opens"] is not True or not n["in_nvml"]]
+    root = dev_root
+    if trouble:
+        root = os.path.join(tmp_dir, "dev")
+        os.makedirs(root)
+        for name in [f"{mgr.PHYSICAL_PREFIX}{m}" for m in sorted(cards)] \
+                + list(mgr.CONTROL_NODES):
+            if os.path.exists(os.path.join(dev_root, name)):
+                os.symlink(os.path.join(dev_root, name),
+                           os.path.join(root, name))
+    control = [n for n in mgr.CONTROL_NODES
+               if os.path.exists(os.path.join(root, n))]
+    served = TPUManager(TPUConfig(), SysfsDeviceInfo(dev_root=root,
+                                                     nvml=session))
+    served.discover()
+    want_devices = {d.ID: d.health for d in served.snapshot()}
+
+    # 3. Serve: the daemon with metrics and health, a kubelet stub and a
+    # PodResources stub that gives torch's card to ns/pod/ctr.
+    plugin_dir = os.path.join(tmp_dir, "device-plugin")
+    os.makedirs(plugin_dir)
+    sock = os.path.join(plugin_dir, mgr.PLUGIN_SOCKET)
+    require(len(os.path.join(tmp_dir, "podresources.sock")) < 100,
+            f"node: {tmp_dir} is too long a directory for unix sockets")
+    kubelet_sock = os.path.join(plugin_dir, mgr.KUBELET_SOCKET)
+    kubelet = KubeletStub(kubelet_sock)
+    pr_sock = os.path.join(tmp_dir, "podresources.sock")
+    pod_resources = PodResourcesServer(pr_sock, dev_id)
+    feed = os.path.join(tmp_dir, "errors.jsonl")
+    open(feed, "w").close()
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}/metrics"
+    t_start = time.monotonic()
+    plugin = PluginProcess([
+        "--dev-root", root, "--device-plugin-path", plugin_dir,
+        "--config-file", os.path.join(tmp_dir, "absent.json"),
+        "--enable-metrics", "--metrics-port", str(port),
+        "--metrics-interval", str(NODE_METRICS_INTERVAL),
+        "--podresources-socket", pr_sock, "--enable-health-monitoring",
+        "--error-log", feed,
+        "--wait-for-devices-timeout", "10"],
+        os.path.join(tmp_dir, "plugin.log"))
+    channel = call = child = None
+    try:
+        t_reg, req = kubelet.wait(120, "first registration")
+        require(req.resource_name == "nvidia.com/gpu"
+                and req.version == mgr.DEVICE_PLUGIN_API_VERSION
+                and req.endpoint == mgr.PLUGIN_SOCKET,
+                f"node: registered {req}")
+        channel = grpc.insecure_channel(f"unix://{sock}")
+        grpc.channel_ready_future(channel).result(timeout=30)
+        client = DevicePluginStub(channel)
+        stream = queue.Queue()
+        call = client.ListAndWatch(pb.Empty())
+        threading.Thread(target=_watch, args=(call, stream),
+                         daemon=True).start()
+        _, first = _next_snapshot(stream, 10, "first snapshot")
+        require(first == want_devices
+                and set(first.values()) == {HEALTHY},
+                f"node: ListAndWatch {first}, discovered {want_devices}")
+        preferred = client.GetPreferredAllocation(
+            pb.PreferredAllocationRequest(container_requests=[
+                pb.ContainerPreferredAllocationRequest(
+                    available_deviceIDs=sorted(first)[::-1],
+                    allocation_size=1)]))
+        preferred = [list(r.deviceIDs) for r in
+                     preferred.container_responses]
+        require(len(preferred) == 1 and len(preferred[0]) == 1,
+                f"node: GetPreferredAllocation {preferred}")
+        t0 = time.perf_counter()
+        resp = client.Allocate(pb.AllocateRequest(container_requests=[
+            pb.ContainerAllocateRequest(devicesIDs=[dev_id])]))
+        allocate_ms = (time.perf_counter() - t0) * 1e3
+        cresp = resp.container_responses[0]
+        envs = dict(cresp.envs)
+        specs = [d.host_path for d in cresp.devices]
+        mounts = [(m.container_path, m.host_path, m.read_only)
+                  for m in cresp.mounts]
+        torch_uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+        require(specs == [os.path.join(root, n) for n in [dev_id, *control]]
+                and all(d.permissions == "mrw" for d in cresp.devices),
+                f"node: Allocate's device specs {specs}")
+        require(mounts == [(mgr.DEFAULT_DRIVER_CONTAINER_DIR,
+                            mgr.DEFAULT_DRIVER_HOST_DIR, True)],
+                f"node: Allocate's mounts {mounts}")
+        require(envs == {"CUDA_VISIBLE_DEVICES": card.uuid,
+                         mgr.MODEL_ENV: generation}
+                and card.uuid == torch_uuid,
+                f"node: Allocate's envs {envs}, torch's card {torch_uuid}")
+
+        # 4. A container on the card: a process with exactly those envs.
+        env = {k: v for k, v in os.environ.items()
+               if k != "CUDA_VISIBLE_DEVICES"}
+        env.update(envs, PYTHONPATH=port_root())
+        child = subprocess.Popen(
+            [sys.executable, "-c", child_code, str(child_bytes),
+             str(child_seconds)], cwd=port_root(), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        lines = queue.Queue()
+        threading.Thread(target=_lines, args=(child.stdout, lines),
+                         daemon=True).start()
+        try:
+            _, line = lines.get(timeout=300)
+        except queue.Empty:
+            raise SmokeFailure("node: the container did not start its "
+                               "loop in 300 s") from None
+        require(json.loads(line).get("running"),
+                f"node: the container said {line}")
+
+        # 5. /metrics while it runs, beside nvidia-smi in the same second.
+        def value(values, name, labels):
+            return values.get(name + "".join(
+                f"{{{k}={v}}}" for k, v in sorted(labels.items())))
+
+        def scrape():
+            text = _get(url)
+            node = {"tpu_chip": dev_id, "model": generation}
+            pod = {**NODE_POD, **node}
+            values = _scrape(text)
+            return text, {
+                "duty_cycle": value(values, "node_duty_cycle", node),
+                "memory_used": value(values, "node_memory_used", node),
+                "memory_total": value(values, "node_memory_total", node),
+                "pod_duty_cycle": value(values, "duty_cycle", pod),
+                "pod_memory_used": value(values, "memory_used", pod),
+                "request_tpu_chips": value(values, "request_tpu_chips",
+                                           NODE_POD)}
+
+        deadline = time.monotonic() + child_seconds
+        while True:
+            text, busy = scrape()
+            smi = gpu_query("utilization.gpu,memory.used", card.uuid)
+            # A scrape may fall between the exporter's clear and refill.
+            if ((busy["duty_cycle"] or 0) > NODE_DUTY_MIN
+                    and (busy["memory_used"] or 0) > child_bytes
+                    and busy["request_tpu_chips"] == 1) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(NODE_METRICS_INTERVAL / 2)
+        busy["smi_utilization"] = float(smi[0])
+        busy["smi_memory_used"] = float(smi[1]) * (1 << 20)
+        require(busy["duty_cycle"] is not None
+                and busy["duty_cycle"] > NODE_DUTY_MIN
+                and abs(busy["duty_cycle"] - busy["smi_utilization"])
+                <= NODE_DUTY_GAP,
+                f"node: busy duty cycle {busy}")
+        require(busy["memory_used"] > child_bytes
+                and abs(busy["memory_used"] - busy["smi_memory_used"])
+                <= NODE_MEMORY_GAP, f"node: busy memory {busy}")
+        require(busy["pod_duty_cycle"] == busy["duty_cycle"]
+                and busy["pod_memory_used"] == busy["memory_used"]
+                and busy["request_tpu_chips"] == 1,
+                f"node: the pod's attribution {busy}")
+        require("# TYPE tpu_health_events_total counter" in text
+                and "tpu_health_last_event_timestamp" in _scrape(text),
+                "node: the health checker's families are not on /metrics")
+        try:
+            t_end, line = lines.get(timeout=child_seconds + 120)
+        except queue.Empty:
+            raise SmokeFailure("node: the container did not finish") \
+                from None
+        # The fall is timed from the end of the container's loop (its
+        # last line), not from its exit, which comes later.
+        while True:
+            _, idle = scrape()
+            if (idle["duty_cycle"] is not None
+                    and idle["duty_cycle"] < busy["duty_cycle"] / 2) \
+                    or time.monotonic() - t_end > 10:
+                break
+            time.sleep(NODE_METRICS_INTERVAL / 2)
+        idle["fell_after_loop_s"] = time.monotonic() - t_end
+        child_rc = child.wait(60)
+        require(child_rc == 0, f"node: the container exited {child_rc}: "
+                f"{child.stderr.read()[-2000:]}")
+        ran = json.loads(line)
+        require(ran["uuid"] == envs["CUDA_VISIBLE_DEVICES"]
+                and ran["device_count"] == 1 and ran["launches"] > 0
+                and ran["finite"], f"node: the container ran {ran}")
+        require(idle["duty_cycle"] is not None
+                and idle["duty_cycle"] < busy["duty_cycle"] / 2,
+                f"node: the duty cycle did not fall: {busy} then {idle}")
+
+        # 6. A fault reaches the open stream.
+        while not stream.empty():
+            stream.get_nowait()
+        t_inject = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = inject_fault.main(["--chip", str(minor), "--error-class",
+                                    "HBM_ECC_UNCORRECTABLE",
+                                    "--error-log", feed])
+        require(rc == 0, f"node: inject_fault exited {rc}")
+        while True:
+            t_flip, snap = _next_snapshot(
+                stream, health_poll_s + NODE_FLIP_S
+                - (time.monotonic() - t_inject),
+                "the injected fault")
+            if snap.get(dev_id) == UNHEALTHY:
+                break
+        flip_s = t_flip - t_inject
+        deadline = time.monotonic() + 5
+        while True:
+            events = value(_scrape(_get(url)), "tpu_health_events_total",
+                           {"error_class": "HBM_ECC_UNCORRECTABLE"})
+            if events is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        require(events == 1.0, f"node: tpu_health_events_total {events}")
+
+        # 7. The restart triggers: the socket removed, a kubelet restart.
+        call.cancel()
+        t0 = time.monotonic()
+        os.unlink(sock)
+        t_reg2, _ = kubelet.wait(NODE_REREGISTER_S, "after the socket went")
+        socket_reregister_s = t_reg2 - t0
+        kubelet.stop()
+        t0 = time.monotonic()
+        kubelet = KubeletStub(kubelet_sock)
+        t_reg3, _ = kubelet.wait(NODE_REREGISTER_S, "after a kubelet restart")
+        kubelet_reregister_s = t_reg3 - t0
+
+        # 8. Partitioning, readiness and the driver version.
+        part_cfg = os.path.join(tmp_dir, "etc", "tpu_config.json")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            part_rc = partition_tpu.main(["--dev-root", root, "--config-file",
+                                          part_cfg, "--chips-per-partition",
+                                          "1"])
+            list_rc = partition_tpu.main(["--dev-root", root,
+                                          "--config-file", part_cfg,
+                                          "--list"])
+        listing = out.getvalue().strip().splitlines()[-len(cards):]
+        require(part_rc == list_rc == 0
+                and any(f"  chips=[{dev_id}]" in row for row in listing),
+                f"node: partition_tpu {part_rc} {list_rc} {listing}")
+        ready = os.path.join(tmp_dir, "run", "ready")
+        ready_rc = runtime_ready.main(["--dev-root", root, "--once",
+                                       "--expected-chips", "1",
+                                       "--ready-file", ready])
+        with open(ready) as f:
+            stamped = f.read()
+        require(ready_rc == 0 and stamped == f"{len(cards)}\n",
+                f"node: runtime_ready {ready_rc} {stamped!r}")
+        host_ready_rc = None
+        if trouble:
+            host_ready_rc = runtime_ready.main([
+                "--dev-root", dev_root, "--once", "--ready-file",
+                os.path.join(tmp_dir, "run", "host-ready")])
+        lib = loaded_library_path()
+        read = read_driver_version(os.path.dirname(lib)) if lib else None
+        smi_driver = gpu_query("driver_version", card.uuid)[0]
+        require(read == smi_driver == driver,
+                f"node: driver version {read} from {lib}, nvidia-smi "
+                f"{smi_driver}, NVML {driver}")
+
+        # 9. SIGTERM ends the daemon and removes its socket.
+        t0 = time.monotonic()
+        stop_rc = plugin.stop(NODE_STOP_S)
+        stop_s = time.monotonic() - t0
+        log = plugin.log()
+        require(stop_rc == 0 and not os.path.exists(sock),
+                f"node: the daemon exited {stop_rc} in {stop_s:.2f} s, "
+                f"socket left {os.path.exists(sock)}: {log[-2000:]}")
+        restarts = re.findall(r"stopped after (\d+) restarts", log)
+        require(restarts and int(restarts[-1]) >= 2,
+                f"node: restarts {restarts}: {log[-2000:]}")
+        sources = sorted(set(re.findall(r"duty cycle of card \d+ from (\w+)",
+                                        log)))
+    finally:
+        if call is not None:
+            call.cancel()
+        if channel is not None:
+            channel.close()
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        if plugin.alive():
+            plugin.stop(NODE_STOP_S)
+        kubelet.stop()
+        pod_resources.stop()
+        session.close()
+    result = {
+        "phase": "node", "nvidia_smi": nvidia_smi_line(),
+        "nvml": {"driver_version": driver,
+                 "cards": {m: {"name": c.name, "uuid": c.uuid,
+                               "pci_address": c.pci_address}
+                           for m, c in cards.items()}},
+        "nodes": nodes, "torch_card_minor": minor, "trouble": trouble,
+        "dev_root": root, "chip_generation": generation,
+        "registration_s": t_reg - t_start, "allocate_ms": allocate_ms,
+        "preferred": preferred,
+        "allocate": {"devices": specs, "mounts": mounts, "envs": envs},
+        "container": ran, "metrics": {"busy": busy, "idle": idle,
+                                      "duty_cycle_sources": sources},
+        "flip_s": flip_s, "health_poll_s": health_poll_s,
+        "socket_reregister_s": socket_reregister_s,
+        "kubelet_reregister_s": kubelet_reregister_s,
+        "restarts": int(restarts[-1]), "stop_s": stop_s,
+        "partition_listing": listing, "runtime_ready_rc": ready_rc,
+        "host_runtime_ready_rc": host_ready_rc,
+        "driver_version": {"read": read, "library": lib,
+                           "nvidia_smi": smi_driver},
+        "launches": {"flash_fwd": ran["launches"]},
+    }
+    emit(result)
+    return result
+
+
 def time_roots(sub: str, flags: list[str], roots: list[str],
                timeout: float) -> int:
     """Run `chip_smoke.py SUB FLAGS` once for each ROOT, in order, each in
@@ -4164,6 +4829,28 @@ def training_main(torch, dev, np) -> int:
     return 0
 
 
+def node_main(torch) -> int:
+    """`chip_smoke.py node`: the build (the container's K4 loads it) and
+    the node phase alone."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    kernels.build()
+    seconds = {"build": time.perf_counter() - t0}
+    try:
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            t0 = time.perf_counter()
+            node_phase(torch, torch.device("cuda", 0), tmp_dir)
+            seconds["node"] = time.perf_counter() - t0
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    emit({"phase_seconds": seconds})
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4192,6 +4879,8 @@ def main() -> int:
         return k2_main(torch, sys.argv[2:])
     if sys.argv[1:2] == ["training"]:
         return training_main(torch, torch.device("cuda", 0), np)
+    if sys.argv[1:2] == ["node"]:
+        return node_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -4243,6 +4932,8 @@ def main() -> int:
         tr = training_phases(torch, dev, np, timed)
         with tempfile.TemporaryDirectory() as tmp_dir:
             health = timed("health", health_phase, torch, dev, tmp_dir)
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            timed("node", node_phase, torch, dev, tmp_dir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

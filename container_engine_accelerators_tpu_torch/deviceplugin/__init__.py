@@ -1,6 +1,7 @@
-"""Device plugin of the port (its discovery, advertised devices and
-health fan-out): the counterpart of the JAX package's deviceplugin/,
-over NVIDIA cards (`/dev/nvidia<N>`)."""
+"""Kubelet device plugin of the port (L1): advertises `nvidia.com/gpu`,
+hands each container its `/dev/nvidia<N>` nodes, the driver's control
+nodes, the driver tree and its cards' UUIDs. The counterpart of the JAX
+package's deviceplugin/, over NVIDIA cards."""
 
 from container_engine_accelerators_tpu_torch.deviceplugin.config import (
     SharingConfig,
@@ -15,8 +16,10 @@ from container_engine_accelerators_tpu_torch.deviceplugin.devutil import (
 from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
     HEALTHY,
     UNHEALTHY,
-    Device,
     TPUManager,
+)
+from container_engine_accelerators_tpu_torch.deviceplugin.plugin_service import (
+    DevicePluginService,
 )
 
 __all__ = [
@@ -28,6 +31,6 @@ __all__ = [
     "SysfsDeviceInfo",
     "HEALTHY",
     "UNHEALTHY",
-    "Device",
     "TPUManager",
+    "DevicePluginService",
 ]

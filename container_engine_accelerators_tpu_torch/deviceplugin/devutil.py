@@ -6,17 +6,25 @@ module's other nodes (`nvidiactl`, `nvidia-uvm`, `nvidia-modeset`, ...)
 are not cards. The module lists each card under
 `/proc/driver/nvidia/gpus/<pci>/`, whose `information` file names its
 minor number (`Device Minor:`) and model (`Model:`); NUMA comes from
-`/sys/bus/pci/devices/<pci>/numa_node`.
+`/sys/bus/pci/devices/<pci>/numa_node`. Where `/proc/driver/nvidia/gpus`
+is absent (in a container, or on a host that hides it), each card's PCI
+address, UUID and model come from NVML (utils/nvml.py), keyed by minor
+number.
 Every root is configurable, so tests build fake trees in temporary
-directories.
+directories, and the NVML session is injectable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import re
 import stat
+
+from container_engine_accelerators_tpu_torch.utils import nvml as nvml_mod
+
+log = logging.getLogger(__name__)
 
 CHIP_RE = re.compile(r"^nvidia(\d+)$")
 DEFAULT_DEV_ROOT = "/dev"
@@ -30,6 +38,9 @@ class Chip:
     dev_path: str            # /dev/nvidia0
     numa_node: int | None    # None if unknown / single-node host
     pci_address: str | None  # 0000:18:00.0
+    # GPU-<uuid>, where the driver or NVML names it. Metadata: two
+    # discoveries of one node compare equal whatever it holds.
+    uuid: str | None = dataclasses.field(default=None, compare=False)
 
 
 class DeviceInfo:
@@ -76,19 +87,48 @@ def _read_information(path: str) -> dict[str, str]:
 
 
 class SysfsDeviceInfo(DeviceInfo):
+    """Discovery over a dev root. Card metadata (PCI address, UUID,
+    model) comes from the driver's /proc files, or, where those are
+    absent, from `nvml`: an open utils.nvml.Nvml, or None to open one on
+    first need. A host without NVML then has no metadata, as a host
+    without the /proc files had before."""
+
     def __init__(self, dev_root: str = DEFAULT_DEV_ROOT,
                  proc_gpus_root: str = DEFAULT_PROC_GPUS_ROOT,
-                 sysfs_pci_root: str = DEFAULT_SYSFS_PCI_ROOT):
+                 sysfs_pci_root: str = DEFAULT_SYSFS_PCI_ROOT,
+                 nvml=None):
         self.dev_root = dev_root
         self.proc_gpus_root = proc_gpus_root
         self.sysfs_pci_root = sysfs_pci_root
+        self._nvml = nvml
+        self._nvml_tried = nvml is not None
 
-    def _driver_cards(self) -> dict[int, tuple[str, dict[str, str]]]:
-        """Device minor -> (PCI address, fields of its information file)."""
+    def nvml(self):
+        """The NVML session, opened on first call; None (NVML's error
+        logged once) where NVML cannot be loaded or initialised."""
+        if not self._nvml_tried:
+            self._nvml_tried = True
+            try:
+                self._nvml = nvml_mod.Nvml()
+            except nvml_mod.NvmlError as e:
+                log.warning("no card metadata from NVML: %s", e)
+        return self._nvml
+
+    def _driver_cards(self) -> dict[int, tuple[str | None, dict[str, str]]]:
+        """Device minor -> (PCI address, fields of its information
+        file), from /proc/driver/nvidia/gpus; where that is absent, the
+        same fields from NVML ('Model', 'GPU UUID')."""
         try:
             entries = sorted(os.listdir(self.proc_gpus_root))
         except OSError:
-            return {}
+            entries = None
+        if entries is None:
+            session = self.nvml()
+            if session is None:
+                return {}
+            return {minor: (card.pci_address,
+                            {"Model": card.name, "GPU UUID": card.uuid})
+                    for minor, card in session.cards().items()}
         cards = {}
         for pci in entries:
             info = _read_information(
@@ -104,10 +144,11 @@ class SysfsDeviceInfo(DeviceInfo):
         for idx, path in _chip_nodes(self.dev_root):
             if not _is_device_node(path):
                 continue
-            pci = cards[idx][0] if idx in cards else None
+            pci, info = cards.get(idx, (None, {}))
             chips.append(Chip(index=idx, dev_path=path,
                               numa_node=self._numa_node(pci),
-                              pci_address=pci))
+                              pci_address=pci,
+                              uuid=info.get("GPU UUID") or None))
         return chips
 
     def _numa_node(self, pci: str | None) -> int | None:
@@ -143,8 +184,33 @@ class MockDeviceInfo(DeviceInfo):
     def discover(self) -> list[Chip]:
         return [Chip(index=idx, dev_path=path,
                      numa_node=self.numa_nodes.get(idx),
-                     pci_address=f"0000:{idx:02x}:00.0")
+                     pci_address=f"0000:{idx:02x}:00.0",
+                     uuid=mock_uuid(idx))
                 for idx, path in _chip_nodes(self.dev_root)]
 
     def chip_generation(self) -> str:
         return self.generation
+
+
+def mock_uuid(index: int) -> str:
+    """The UUID MockDeviceInfo gives card `index`."""
+    return f"GPU-{index:08x}-0000-4000-8000-000000000000"
+
+
+def torch_card_minor(torch, ordinal: int, cards: dict) -> int | None:
+    """The minor number of torch's card `ordinal`: the card in `cards`
+    ({minor: utils.nvml.CardIdentity}) with its UUID, else its PCI
+    address; None where neither matches. torch's ordinal is its own
+    (renumbered from 0 under CUDA_VISIBLE_DEVICES, fastest first by
+    default), never the /dev/nvidia<N> minor."""
+    props = torch.cuda.get_device_properties(ordinal)
+    uuid = f"GPU-{props.uuid}"
+    for minor, card in cards.items():
+        if card.uuid == uuid:
+            return minor
+    pci = "{:04x}:{:02x}:{:02x}.0".format(
+        props.pci_domain_id, props.pci_bus_id, props.pci_device_id)
+    for minor, card in cards.items():
+        if card.pci_address == pci:
+            return minor
+    return None

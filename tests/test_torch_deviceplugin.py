@@ -171,14 +171,10 @@ def _managers(tmp_path, chips, layout, numa=None):
 
 
 def _devices(m, rename=False):
-    out = {}
-    for d in m.snapshot():
-        numa = getattr(d, "numa", None)
-        if numa is None and hasattr(d, "topology"):
-            nodes = [n.ID for n in d.topology.nodes]
-            numa = nodes[0] if nodes else None
-        out[_rename(d.ID) if rename else d.ID] = (d.health, numa)
-    return out
+    """ID -> (health, NUMA nodes) of the manager's Device messages."""
+    return {_rename(d.ID) if rename else d.ID:
+            (d.health, [n.ID for n in d.topology.nodes])
+            for d in m.snapshot()}
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
@@ -267,7 +263,12 @@ def test_sysfs_discovery_on_a_fake_nvidia_tree(tmp_path):
     m = manager.TPUManager(config.TPUConfig(), info)
     m.discover()
     assert sorted(m.devices) == ["nvidia0", "nvidia3"]
-    assert m.devices["nvidia0"].numa == 0
+    # Advertised devices are the kubelet API's Device messages, as in
+    # the JAX package: the NUMA node sits in their topology.
+    assert [n.ID for n in m.devices["nvidia0"].topology.nodes] == [0]
+    assert not m.devices["nvidia3"].HasField("topology")
+    assert [c.uuid for c in info.discover()] == ["GPU-00000000",
+                                                 "GPU-00000003"]
 
 
 def test_sysfs_discovery_without_proc_driver_nvidia(tmp_path):

@@ -149,9 +149,12 @@ def test_train_jsonl_source_waits_for_the_train_recorder(tmp_path):
             "train/badput"} <= set(names)
 
 
-def test_dump_now_and_the_exit_hook_target(tmp_path):
+def test_dump_now_and_the_exit_hook_target(tmp_path, monkeypatch):
     # enable(dump_path=) arms the same dump path; signals stay off off the
-    # main thread (the smoke's observe phase runs there).
+    # main thread (the smoke's observe phase runs there). A test file
+    # that ran before in this process may have installed the handler
+    # from its main thread: start from the flag unset.
+    monkeypatch.setattr(tevents, "_SIGNAL_INSTALLED", False)
     out = {}
 
     def arm():

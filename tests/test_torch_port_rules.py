@@ -31,11 +31,22 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-# Modules the scan must reach, the speculative path's among them.
+# Modules the scan must reach, the speculative path's and the node
+# layer's among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/generate.py", "metrics/request_metrics.py",
             "metrics/train_metrics.py", "training/checkpoint.py",
-            "models/convert.py", "cli/eval.py", "cli/train.py")
+            "models/convert.py", "cli/eval.py", "cli/train.py",
+            "utils/nvml.py", "deviceplugin/devutil.py",
+            "deviceplugin/manager.py", "deviceplugin/plugin_service.py",
+            "deviceplugin/version_visibility.py",
+            "deviceplugin/api/__init__.py",
+            "deviceplugin/api/deviceplugin_grpc.py",
+            "deviceplugin/api/deviceplugin_pb2.py", "k8s/__init__.py",
+            "k8s/client.py", "metrics/podresources_pb2.py",
+            "metrics/devices.py", "metrics/sampler.py", "metrics/metrics.py",
+            "cli/device_plugin_main.py", "cli/partition_tpu.py",
+            "cli/runtime_ready.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -143,6 +154,30 @@ def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):
                           env={k: v for k, v in os.environ.items()
                                if k != "PYTHONPATH"})
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_device_plugin_refuses_metrics_without_nvml(tmp_path, monkeypatch,
+                                                    caplog):
+    """--enable-metrics on a host without NVML exits non-zero with
+    NVML's own error; nothing serves zeros in its place."""
+    from container_engine_accelerators_tpu_torch.cli import (
+        device_plugin_main,
+    )
+    from container_engine_accelerators_tpu_torch.utils import nvml
+
+    monkeypatch.setattr(nvml, "LIBRARY", "libnvidia-ml-absent.so.1")
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    for name in ("nvidiactl", "nvidia0"):
+        (dev / name).touch()
+    (tmp_path / "dp").mkdir()
+    rc = device_plugin_main.main([
+        "--dev-root", str(dev), "--device-plugin-path", str(tmp_path / "dp"),
+        "--config-file", str(tmp_path / "absent.json"), "--enable-metrics",
+        "--metrics-port", "0", "--wait-for-devices-timeout", "1"])
+    assert rc == 1
+    assert "NVML Shared Library Not Found" in caplog.text
+    assert not (tmp_path / "dp" / "nvidiaGPU.sock").exists()
 
 
 def test_card_tests_skip_cleanly_without_cuda():
