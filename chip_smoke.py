@@ -10,6 +10,7 @@ health paths on one GPU.
   python3 chip_smoke.py k2 [--int8] [ROOT ...]
   python3 chip_smoke.py training
   python3 chip_smoke.py node
+  python3 chip_smoke.py doctor
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -32,7 +33,8 @@ parent unpacked under checkout_proof/, is timed in a process of its own
 that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
 card. `training` runs the build and the training path's phases alone
-(train through serve_ckpt below), `node` the build and the node phase.
+(train through serve_ckpt below), `node` the build and the node phase,
+`doctor` the build and the doctor phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -176,7 +178,42 @@ Phases, one JSON line each:
            plus 5 s); re-registration after the socket is removed and after a
            kubelet restart (10 s each); partition_tpu and runtime_ready
            on the served root; read_driver_version beside nvidia-smi;
-           SIGTERM (10 s, socket removed).
+           SIGTERM (10 s, socket removed);
+  doctor   the doctor and the fleet plane, modelled on the JAX package's
+           chaos scenarios (its schedules declared here). Each fault goes
+           through cli/inject_fault (a process) into a FaultListener and
+           a live Doctor in this process (chaos timescales: the
+           scenario's window, 0.25 s period, episode re-arm off, SLOs
+           off), with no incident allowed in the clean warmup before it.
+           On llama3_8b at full width and depth (bf16, random weights
+           from the seed), behind make_server, with a ServeMetricsExporter
+           polling the card's memory every 0.25 s and cli/loadgen as a
+           process: engine-hang (the continuous engine, K1: `--kind
+           hang` 5 s against hang_after_s 2 s, engine_hang once, every
+           stream finishes); worker-kill (the supervised paged engine,
+           K3: structured errors, no hung stream, pages back to 0, no
+           incident); prefill-pool-kill (2 prefill workers, page 32, a
+           4-tenant mix: every request answers, the worker replaced, no
+           incident); hbm-exhaustion twice on the idle engine (`--kind
+           hbm-climb` on injected:0; then this process allocating 4 GiB
+           of card memory every 0.5 s until an allocation fails:
+           oom_precursor once for cuda:0, its projected time to
+           exhaustion beside the real one); health-storm (`--kind
+           health-tail` over a feed `inject_fault --kind health`
+           fills: health_storm once for HBM_ECC_UNCORRECTABLE). Then the
+           8B weights freed: data-stall (fit at full width and 2 layers,
+           K4-K6, `--kind data-stall` 4 s: the steps done, >= 3 s
+           stalled, data/stall on the timeline, no incident); straggler
+           (two cli/train processes, RANK 0 and 1, full width, 2 layers,
+           one heartbeat dir, rank 1 slowed 12 s every batch: rank 0's
+           `--doctor` names process-1 once, never process-0; both
+           finish); replica-kill (cli/fleet.py --replicas 2 serving an HF
+           export of the weights' first 8 layers from /dev/shm, fleetmon
+           --doctor over both, loadgen --targets, r1 SIGKILLed
+           mid-stream: replica_down once for r1, up 1 / down 1, the
+           survivor answers, the card's memory back, and fleetmon's dump
+           through `trace merge` and `trace doctor` gives the live
+           verdicts). The subprocesses' kernel launches are not counted.
 Then each phase's seconds, the kernels line (launches on the main path,
 errors, times and bounds) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before that line. Without CUDA, or outside a
@@ -4396,6 +4433,989 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
     return result
 
 
+# ---------------------------------------------------------------- doctor
+
+DOCTOR_POLL_S = 0.25            # the in-process doctors' evaluation period
+DOCTOR_HANG_AFTER_S = 2.0       # engine_hang's threshold in the scenario
+DOCTOR_HANG_S = 5.0             # the injected hang, well past it
+FLEETMON_INTERVAL_S = 0.25      # fleetmon's scrape period
+FLEETMON_DOWN_AFTER_S = 1.0     # ... and its stale -> down limit
+FLEETMON_DOCTOR_S = 0.5         # ... and its doctor's period
+# The card's sizes; the CPU rehearsal (tests/test_torch_smoke_report.py)
+# passes llama_tiny ones.
+DOCTOR_SIZES = {
+    "hang_new_tokens": 128,     # loadgen streams through the hang
+    "kill_new_tokens": 128,     # ... through the worker kill
+    "pool_new_tokens": 48,      # ... the prefill-pool kill's mix
+    "fan_new_tokens": 128,      # ... the fleet's fanned streams
+    "hbm_step_bytes": 4 << 30,  # the real climb: 4 GiB a step
+    "hbm_step_s": 0.5,          # ... every 0.5 s
+    "fit": {"batch": 1, "seq": 1024, "steps": 8},
+    "stall_s": 4.0,             # the injected data stall
+    # Two cli/train processes at full width and 2 layers.
+    "trainer": ["--preset", "8b", "--n-layers", "2", "--batch-size", "1",
+                "--seq-len", "512"],
+    "trainer_steps": (100, 2),  # rank 0 (healthy), rank 1 (slowed)
+    "watchdog_s": 8.0,          # the shared heartbeat threshold
+    "straggler_delay_s": 12.0,  # rank 1's sleep before every batch
+    # The replicas' depth: the f32 HF export and two replicas reading it
+    # into host memory must fit the host (see fleet_room).
+    "fleet_layers": 8,
+    "ready_timeout_s": 600.0,
+}
+DOCTOR_INJECT = "container_engine_accelerators_tpu_torch.cli.inject_fault"
+
+
+def _run_port(root: str, module: str, *args: str, timeout: float = 600,
+              env: dict | None = None) -> subprocess.CompletedProcess:
+    """`python -m <module> ARGS` from the checkout at `root`."""
+    return subprocess.run(
+        [sys.executable, "-m", module, *args], capture_output=True,
+        text=True, timeout=timeout, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+
+
+def _popen_port(root: str, module: str, *args: str, env: dict | None = None,
+                stdout=subprocess.PIPE, stderr=None):
+    """`python -m <module> ARGS` as a process of its own, in a session of
+    its own so that _stop_procs reaches what it starts."""
+    return subprocess.Popen(
+        [sys.executable, "-m", module, *args], cwd=root, text=True,
+        stdout=stdout, stderr=stderr, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+
+
+def _stop_procs(procs: list) -> None:
+    """SIGTERM each process's session, then SIGKILL what is left."""
+    for p in procs:
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGTERM)
+    deadline = time.monotonic() + 30
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=30)
+
+
+def _json_line(stream, kind: str, timeout_s: float) -> dict:
+    """The first JSON object line of `kind` on `stream`; a thread keeps
+    draining the stream after it, so the writer never blocks."""
+    import queue
+
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in stream:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            raise SmokeFailure(f"no {kind} line in {timeout_s} s") from None
+        require(line is not None, f"the process ended before its {kind} "
+                "line")
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict) and rec.get("kind") == kind:
+            return rec
+
+
+def _loadgen(root: str, url: str, requests: int, concurrency: int,
+             new_tokens: int, *flags: str, wait: bool = True):
+    """cli/loadgen as a process (streamed requests); with `wait`, its
+    (summary, exit code), else the process."""
+    args = ["--targets" if "," in url else "--url", url,
+            "--requests", str(requests), "--concurrency", str(concurrency),
+            "--max-new-tokens", str(new_tokens), "--stream",
+            "--timeout", "600", *flags]
+    module = "container_engine_accelerators_tpu_torch.cli.loadgen"
+    if not wait:
+        return _popen_port(root, module, *args)
+    proc = _run_port(root, module, *args)
+    return _loadgen_result(proc.stdout, proc.returncode, proc.stderr)
+
+
+def _loadgen_result(out: str, rc: int, err: str = "") -> tuple[dict, int]:
+    lines = [line for line in (out or "").splitlines()
+             if line.startswith("{")]
+    require(lines, f"loadgen printed no summary (rc {rc}): "
+            f"{(out or '')[-1500:]} {(err or '')[-1500:]}")
+    return json.loads(lines[-1]), rc
+
+
+def _wait_loadgen(proc, timeout_s: float = 600) -> tuple[dict, int]:
+    out, err = proc.communicate(timeout=timeout_s)
+    return _loadgen_result(out, proc.returncode, err or "")
+
+
+class DoctorRun:
+    """One scenario's live diagnosis in this process: a fresh flight
+    recorder, a Doctor at chaos timescales (the scenario's window, a
+    DOCTOR_POLL_S period, episode re-arm off, SLOs off, as the JAX
+    package's chaos harness replays them) and a FaultListener on the
+    scenario's own fault log. inject() runs cli/inject_fault as a
+    process; finish() reads the verdicts and holds them to the
+    scenario's expectation."""
+
+    def __init__(self, root: str, tmp_dir: str, name: str,
+                 window_s: float = 6.0, engine=None, request_recorder=None,
+                 train_recorder=None, **config):
+        from prometheus_client import CollectorRegistry
+
+        from container_engine_accelerators_tpu_torch.metrics import (
+            doctor,
+            events,
+        )
+
+        self.root, self.name = root, name
+        self.dir = os.path.join(tmp_dir, name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.fault_log = os.path.join(self.dir, "faults.jsonl")
+        events.get_bus().clear()
+        self.bus = events.enable(capacity=1 << 18,
+                                 process_name=f"doctor-{name}")
+        self.config = doctor.DoctorConfig(
+            poll_interval_s=DOCTOR_POLL_S, fast_window_s=window_s,
+            slow_window_s=window_s * 5, hang_after_s=DOCTOR_HANG_AFTER_S,
+            clear_after_s=1e9, slos=[], **config)
+        self.doctor = doctor.Doctor(
+            config=self.config, registry=CollectorRegistry(),
+            request_recorder=request_recorder,
+            train_recorder=train_recorder,
+            out_dir=os.path.join(self.dir, "incidents"))
+        self.listener = doctor.FaultListener(self.fault_log, engine=engine,
+                                             interval_s=0.05)
+        self.t_start = time.monotonic()
+        self.t_fault: float | None = None
+        self.doctor.start()
+        self.listener.start()
+
+    def inject(self, *args: str, log_flag: str = "--fault-log") -> None:
+        """cli/inject_fault ARGS as a process, writing to this scenario's
+        fault log (or, for the health kind, to the feed named in ARGS)."""
+        if self.t_fault is None:
+            self.t_fault = time.monotonic()
+        argv = list(args)
+        if log_flag:
+            argv += [log_flag, self.fault_log]
+        proc = _run_port(self.root, DOCTOR_INJECT, *argv, timeout=120)
+        require(proc.returncode == 0,
+                f"{self.name}: inject_fault {argv}: {proc.stderr[-1500:]}")
+
+    def incidents(self, cls: str | None = None) -> list[dict]:
+        return [i for i in list(self.doctor.incidents)
+                if cls is None or i["class"] == cls]
+
+    def wait_for(self, cls: str, timeout_s: float = 30.0) -> None:
+        _wait_for(lambda: self.incidents(cls), f"{self.name}: {cls}",
+                  timeout_s)
+
+    def finish(self, expect: dict, allow: tuple = (),
+               timeline: tuple = ("fault/injected",)) -> dict:
+        """Stop the listener and the doctor (after two more periods, so
+        the tail is evaluated) and check: each expected class exactly
+        once with its subject, nothing else but `allow`, nothing before
+        the first fault, and each `timeline` event on the ring."""
+        from container_engine_accelerators_tpu_torch.metrics import events
+
+        time.sleep(2 * DOCTOR_POLL_S + 0.1)
+        tap = self.doctor.debugz()["tap"]
+        self.listener.stop()
+        self.doctor.stop()
+        names = {ev[3] for ev in self.bus.snapshot() if ev is not None}
+        dropped, emitted = self.bus.dropped, self.bus.emitted
+        events.disable(clear=True)
+        incs = self.incidents()
+        t_ref = self.t_fault if self.t_fault is not None else self.t_start
+        got = [(i["class"], i["subject"]) for i in incs]
+        for cls, subject in expect.items():
+            mine = [s for c, s in got if c == cls]
+            require(len(mine) == 1 and (subject is None
+                                        or mine[0] == subject),
+                    f"{self.name}: want one {cls} for {subject}, got {got}")
+        unexpected = [c for c, _ in got if c not in expect and c not in allow]
+        require(not unexpected, f"{self.name}: unexpected incidents {got}")
+        early = [(i["class"], i["ts_monotonic"] - t_ref) for i in incs
+                 if i["class"] not in allow
+                 and i["ts_monotonic"] < t_ref - 0.5]
+        require(not early, f"{self.name}: incidents in the clean warmup "
+                f"before the first fault: {early}")
+        missing = [n for n in timeline if n not in names]
+        require(not missing, f"{self.name}: not on the timeline: {missing}")
+        return {"incidents": [
+                    {"class": i["class"], "subject": i["subject"],
+                     "summary": i["summary"],
+                     "confidence": i["confidence"],
+                     "after_fault_s": i["ts_monotonic"] - t_ref}
+                    for i in incs],
+                "window_s": self.config.fast_window_s,
+                "clean_warmup_s": t_ref - self.t_start,
+                "ring_emitted": emitted, "ring_dropped": dropped,
+                "tap_received": tap["received"] if tap else None,
+                "tap_dropped": tap["dropped"] if tap else None}
+
+
+def hbm_poller(registry):
+    """The serving exporters' memory poller (its own function so that the
+    CPU rehearsal can give it a card)."""
+    from container_engine_accelerators_tpu_torch.metrics.introspection import (  # noqa: E501
+        HbmPoller,
+    )
+
+    return HbmPoller(registry=registry)
+
+
+@contextlib.contextmanager
+def _exporter(engine):
+    """A ServeMetricsExporter over the engine's recorder, polling the
+    card's memory every DOCTOR_POLL_S (the hbm/<device> tracks the
+    oom_precursor detector reads), as `serve --metrics-port` runs it."""
+    from container_engine_accelerators_tpu_torch.metrics.request_metrics import (  # noqa: E501
+        ServeMetricsExporter,
+    )
+
+    exp = ServeMetricsExporter(engine.recorder, port=0, host="127.0.0.1",
+                               interval=DOCTOR_POLL_S,
+                               hbm_poller=hbm_poller(
+                                   engine.recorder.registry))
+    exp.start_background()
+    try:
+        yield exp
+    finally:
+        exp.stop()
+
+
+def _slots_busy(engine) -> bool:
+    return (engine.recorder.registry.get_sample_value("serve_active_slots")
+            or 0) >= 1
+
+
+def _gauges_at_rest(engine, what: str) -> None:
+    reg = engine.recorder.registry
+    _wait_for(lambda: not reg.get_sample_value("serve_active_slots")
+              and not reg.get_sample_value("serve_queue_depth"),
+              f"{what}: slots and queue back to 0", 60)
+
+
+def doctor_hang(root, tmp_dir, model, cfg, sz) -> dict:
+    """engine-hang: the continuous engine (2 slots, K1) behind make_server;
+    loadgen streams 3 requests, 2 at a time, and `inject_fault --kind
+    hang` wedges the worker DOCTOR_HANG_S: engine_hang once, the streams
+    resume with no error and no hung stream."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        ContinuousEngine,
+    )
+
+    engine = ContinuousEngine(model, cfg, max_slots=2, max_len=512,
+                              prefill_chunk=0)
+    n = sz["hang_new_tokens"]
+    with serving(engine) as url, _exporter(engine):
+        _loadgen(root, url, 2, 2, 8)                     # prime the shapes
+        run = DoctorRun(root, tmp_dir, "engine_hang", 6.0, engine=engine,
+                        request_recorder=engine.recorder)
+        warm, rc = _loadgen(root, url, 2, 1, 4)
+        require(rc == 0, f"engine_hang: warmup {warm}")
+        bg = _loadgen(root, url, 3, 2, n, "--stall-timeout-s",
+                      str(DOCTOR_HANG_S + 30), wait=False)
+        _wait_for(lambda: _slots_busy(engine), "engine_hang: streams", 120)
+        run.inject("--kind", "hang", "--seconds", str(DOCTOR_HANG_S))
+        run.wait_for("engine_hang", DOCTOR_HANG_S + 10)
+        summary, rc = _wait_loadgen(bg)
+        require(rc == 0 and summary["requests_ok"] == 3
+                and summary["errors"] == 0,
+                f"engine_hang: loadgen rc {rc}: {summary}")
+        _gauges_at_rest(engine, "engine_hang")
+        out = run.finish({"engine_hang": "serve"})
+    out.update(hang_s=DOCTOR_HANG_S, hang_after_s=DOCTOR_HANG_AFTER_S,
+               loadgen=summary, tpot_ms=summary.get("tpot_ms"))
+    return out
+
+
+def doctor_worker_kill(root, tmp_dir, model, cfg, sz) -> dict:
+    """worker-kill: the paged engine (2 slots, K3) under EngineSupervisor;
+    `inject_fault --kind worker-kill` mid-stream: structured errors, no
+    hung stream, the restarted worker answers, pages back to 0, and no
+    incident (a supervised recovery is not a hang)."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        EngineSupervisor,
+        PagedContinuousEngine,
+    )
+
+    engine = PagedContinuousEngine(model, cfg, max_slots=2, max_len=512,
+                                   page=128, prefill_chunk=0, prefix_cap=0)
+    sup = EngineSupervisor(engine, backoff_base_s=0.5)
+    with serving(engine) as url, _exporter(engine):
+        try:
+            sup.start()
+            _loadgen(root, url, 2, 2, 8)
+            run = DoctorRun(root, tmp_dir, "worker_kill", 6.0,
+                            engine=engine, request_recorder=engine.recorder)
+            warm, rc = _loadgen(root, url, 2, 1, 4)
+            require(rc == 0, f"worker_kill: warmup {warm}")
+            bg = _loadgen(root, url, 4, 2, sz["kill_new_tokens"],
+                          "--stall-timeout-s", "60", wait=False)
+            _wait_for(lambda: _slots_busy(engine), "worker_kill: streams",
+                      120)
+            run.inject("--kind", "worker-kill")
+            victims, rc = _wait_loadgen(bg)
+            require(rc == 3 and victims["structured_errors"] >= 1
+                    and victims["hung_streams"] == 0
+                    and victims["transport_errors"] == 0,
+                    f"worker_kill: loadgen rc {rc}: {victims}")
+            time.sleep(2.0)
+            after, rc = _loadgen(root, url, 3, 2, 8)
+            require(rc == 0 and after["requests_ok"] == 3,
+                    f"worker_kill: after the restart {after}")
+            health = healthz(url)
+            require(health["worker_alive"] and health["worker_restarts"] >= 1,
+                    f"worker_kill: healthz {health}")
+            _gauges_at_rest(engine, "worker_kill")
+            require(engine.pages_in_use == 0,
+                    f"worker_kill: {engine.pages_in_use} pages in use")
+            out = run.finish({}, timeline=(
+                "fault/injected", "supervisor/worker_death",
+                "supervisor/worker_restart"))
+        finally:
+            sup.stop()
+    out.update(loadgen=victims, after_restart=after,
+               worker_restarts=health["worker_restarts"])
+    return out
+
+
+def doctor_pool_and_node(root, tmp_dir, torch, dev, model, cfg, sz) -> dict:
+    """On one supervised paged engine with 2 prefill workers (page 32,
+    32-token chunks, a 64-page prefix cache): prefill-pool-kill (a
+    multi-tenant mix, one prefill worker killed: every request answers,
+    the worker is replaced, no incident); then, the engine idle,
+    hbm-exhaustion twice (`inject_fault --kind hbm-climb`'s fabricated
+    track, then a real climb: this process allocating card memory in
+    steps until an allocation fails) and health-storm (`--kind
+    health-tail` over a feed that `inject_fault --kind health` fills)."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        EngineSupervisor,
+        PagedContinuousEngine,
+    )
+
+    # The pool holds every slot's 512 tokens and a full prefix cache
+    # (129 pages, 0.5 GiB at 8B, not the default 33): on the default the
+    # cache's 64 pages crowd the slots out, the 4-tenant mix evicts
+    # prefix pages it re-references at once, and the doctor rightly
+    # names kv_thrash, which is not this scenario's fault.
+    engine = PagedContinuousEngine(model, cfg, max_slots=4, max_len=512,
+                                   page=32, pool_pages=4 * 512 // 32 + 65,
+                                   prefill_chunk=32, prefix_cap=64,
+                                   prefill_workers=2)
+    sup = EngineSupervisor(engine, backoff_base_s=0.5)
+    mix = ["--tenants", "4", "--tenant-prefix-len", "64", "--prompt-len",
+           "96", "--long-prompt-len", "192"]
+    out = {}
+    with serving(engine) as url, _exporter(engine) as exp:
+        try:
+            sup.start()
+            _wait_for(lambda: engine.prefill_workers_alive() == 2,
+                      "the prefill pool")
+            _loadgen(root, url, 8, 4, 4, *mix)
+            run = DoctorRun(root, tmp_dir, "prefill_pool_kill", 6.0,
+                            engine=engine, request_recorder=engine.recorder)
+            warm, rc = _loadgen(root, url, 2, 1, 4)
+            require(rc == 0, f"prefill_pool_kill: warmup {warm}")
+            bg = _loadgen(root, url, 16, 4, sz["pool_new_tokens"], *mix,
+                          "--stall-timeout-s", "60", wait=False)
+            time.sleep(0.3)
+            run.inject("--kind", "prefill-kill")
+            summary, rc = _wait_loadgen(bg)
+            require(rc == 0 and summary["requests_ok"] == 16
+                    and summary["errors"] == 0,
+                    f"prefill_pool_kill: loadgen rc {rc}: {summary}")
+            time.sleep(2.0)
+            after, rc = _loadgen(root, url, 4, 2, 8, *mix)
+            require(rc == 0 and after["requests_ok"] == 4,
+                    f"prefill_pool_kill: after {after}")
+            health = healthz(url)
+            require(health["worker_alive"]
+                    and health["prefill_worker_restarts"] >= 1
+                    and health["prefill_workers_alive"] >= 2,
+                    f"prefill_pool_kill: healthz {health}")
+            _gauges_at_rest(engine, "prefill_pool_kill")
+            require(engine.pages_in_use == engine.prefix_index.pages_held(),
+                    "prefill_pool_kill: leaked pages")
+            out["prefill_pool_kill"] = {
+                **run.finish({}, timeline=(
+                    "fault/injected", "supervisor/prefill_worker_death",
+                    "supervisor/prefill_worker_restart")),
+                "loadgen": summary,
+                "prefill_worker_restarts": health["prefill_worker_restarts"]}
+
+            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_fabricated", 8.0,
+                            engine=engine, request_recorder=engine.recorder)
+            time.sleep(1.5)
+            run.inject("--kind", "hbm-climb", "--device", "injected:0",
+                       "--seconds", "3", "--start-frac", "0.5",
+                       "--end-frac", "0.97")
+            run.wait_for("oom_precursor", 20)
+            time.sleep(1.0)
+            out["hbm_exhaustion_fabricated"] = run.finish(
+                {"oom_precursor": "injected:0"})
+
+            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_real", 8.0,
+                            engine=engine, request_recorder=engine.recorder)
+            time.sleep(1.5)
+            climb = real_hbm_climb(torch, dev, run, exp.hbm_poller, sz)
+            out["hbm_exhaustion_real"] = {
+                **run.finish({"oom_precursor": climb["device"]},
+                             timeline=()),
+                **climb}
+
+            feed = os.path.join(tmp_dir, "health_feed.jsonl")
+            run = DoctorRun(root, tmp_dir, "health_storm", 8.0,
+                            engine=engine, request_recorder=engine.recorder,
+                            health_storm_n=3)
+            time.sleep(1.5)
+            run.inject("--kind", "health-tail", "--path", feed,
+                       "--seconds", "10")
+            time.sleep(1.0)
+            run.inject("--chip", "0", "--error-class",
+                       "HBM_ECC_UNCORRECTABLE", "--repeat", "4",
+                       "--interval", "0.3", "--error-log", feed,
+                       log_flag="")
+            run.wait_for("health_storm", 20)
+            out["health_storm"] = run.finish(
+                {"health_storm": "HBM_ECC_UNCORRECTABLE"},
+                timeline=("fault/injected", "health/HBM_ECC_UNCORRECTABLE"))
+        finally:
+            sup.stop()
+    return out
+
+
+def card_alloc(torch, dev, n_bytes: int):
+    """n_bytes of the card's memory, held until the tensor is dropped
+    (cudaMalloc commits it: mem_get_info counts it at once)."""
+    return torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+
+
+def real_hbm_climb(torch, dev, run: DoctorRun, poller, sz) -> dict:
+    """While the engine idles, allocate sz["hbm_step_bytes"] of card
+    memory every sz["hbm_step_s"] until an allocation fails, then free
+    it all: the poller's hbm/<device> track climbs for real. Returns the
+    device, the first oom_precursor's projected time to exhaustion and
+    the headroom it saw, and the seconds from that verdict to the failed
+    allocation (the real time to exhaustion at that rate)."""
+    held, fired, t_fail = [], None, None
+    run.t_fault = time.monotonic()
+    try:
+        while time.monotonic() - run.t_fault < 300:
+            try:
+                held.append(card_alloc(torch, dev, sz["hbm_step_bytes"]))
+            except torch.cuda.OutOfMemoryError:
+                t_fail = time.monotonic()
+                break
+            if fired is None:
+                found = run.incidents("oom_precursor")
+                if found:
+                    fired = found[0]
+            time.sleep(sz["hbm_step_s"])
+        rows = poller.poll_once()
+    finally:
+        n_held = len(held)
+        del held
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    require(t_fail is not None, "hbm_exhaustion_real: no allocation failed")
+    if fired is None:
+        _wait_for(lambda: run.incidents("oom_precursor"),
+                  "hbm_exhaustion_real: oom_precursor", 10)
+        fired = run.incidents("oom_precursor")[0]
+    ev = fired["evidence"]
+    return {"device": ev["device"], "step_bytes": sz["hbm_step_bytes"],
+            "step_s": sz["hbm_step_s"], "steps_held": n_held,
+            "projected_tte_s": ev["tte_s"],
+            "utilization_at_verdict": ev["utilization"],
+            "headroom_bytes_at_verdict": ev["bytes_limit"]
+            - ev["bytes_in_use"],
+            "slope_bytes_per_s": ev["slope_bytes_per_s"],
+            "verdict_after_climb_start_s": fired["ts_monotonic"]
+            - run.t_fault,
+            "actual_tte_s": t_fail - fired["ts_monotonic"],
+            "bytes_in_use_at_failure": rows[0]["bytes_in_use"] if rows
+            else None}
+
+
+def doctor_data_stall(root, tmp_dir, torch, dev, cfg, sz) -> dict:
+    """data-stall: fit at full width and 2 layers (K4-K6) with the train
+    recorder and a live doctor; after step 3's batch `inject_fault --kind
+    data-stall` arms a sleep in the next fetch: the run reaches its step
+    target, the stall lands in the `stalled` goodput bucket with
+    `data/stall` on the timeline, and no incident."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+    )
+    from container_engine_accelerators_tpu_torch.training import dataset
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+    )
+
+    f = sz["fit"]
+    rec = TrainRecorder()
+    run = DoctorRun(root, tmp_dir, "data_stall", 6.0, train_recorder=rec)
+
+    def stream():
+        for i, b in enumerate(synthetic_batches(cfg.vocab_size, f["batch"],
+                                                f["seq"], seed=SEED)):
+            yield b
+            if i == 2:
+                run.inject("--kind", "data-stall", "--seconds",
+                           str(sz["stall_s"]))
+                _wait_for(lambda: dataset._STALL["once_s"] > 0,
+                          "data_stall: the stall armed", 30)
+
+    kernels.reset_launches()
+    try:
+        state, _ = fit(cfg, make_optimizer(), stream(), device=dev,
+                       max_steps=f["steps"], seed=SEED, log_every=1,
+                       log_fn=lambda m: None, recorder=rec)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        summary = rec.summary()
+        step = state.step
+        del state
+    finally:
+        dataset.clear_stall()
+        rec.close()
+    out = run.finish({}, timeline=("fault/injected", "data/stall"))
+    _free_card(torch)
+    # The bucket also holds what the recorder never saw a step report
+    # (fit building the model before step 1), as the JAX recorder's does;
+    # the stalled step's own data wait is the stall plus the command.
+    stalled = summary["goodput"]["stalled"]
+    wait = max(rec.samples["data_wait"])
+    require(step == f["steps"], f"data_stall: reached step {step}")
+    require(stalled >= sz["stall_s"] - 1.0 and wait >= sz["stall_s"],
+            f"data_stall: {stalled} s in the stalled bucket, the longest "
+            f"data wait {wait} s")
+    out.update(n_layers=cfg.n_layers, steps=step, stall_s=sz["stall_s"],
+               stalled_s=stalled, stall_step_data_wait_s=wait,
+               goodput=summary["goodput"], launches=launches)
+    return out
+
+
+def doctor_straggler(root, tmp_dir, sz, device_flags: list) -> dict:
+    """straggler: two cli/train processes on the one card (RANK 0 and 1),
+    one heartbeat dir; rank 1 listens for faults and a straggler command
+    (every batch fetch sleeps sz["straggler_delay_s"]) waits in its log
+    before it starts; rank 0 starts once rank 1's heartbeat exists and
+    runs `--doctor`: its watchdog sees rank 1's heartbeat age past the
+    threshold, and its doctor names process-1 once, never process-0.
+    Both finish."""
+    d = os.path.join(tmp_dir, "straggler")
+    hb, flog = os.path.join(d, "hb"), os.path.join(d, "faults-rank1.jsonl")
+    inc = os.path.join(d, "incidents")
+    os.makedirs(d, exist_ok=True)
+    delay, threshold = sz["straggler_delay_s"], sz["watchdog_s"]
+    proc = _run_port(root, DOCTOR_INJECT, "--kind", "straggler", "--delay",
+                     str(delay), "--seconds", "0", "--fault-log", flog,
+                     timeout=120)
+    require(proc.returncode == 0, f"straggler: inject {proc.stderr}")
+    module = "container_engine_accelerators_tpu_torch.cli.train"
+    common = [*sz["trainer"], *device_flags, "--heartbeat-dir", hb,
+              "--watchdog-threshold", str(threshold), "--log-every", "10"]
+    n0, n1 = sz["trainer_steps"]
+    procs = []
+    try:
+        with open(os.path.join(d, "rank1.err"), "w") as err1, \
+                open(os.path.join(d, "rank0.err"), "w") as err0:
+            t1 = time.monotonic()
+            procs.append(_popen_port(
+                root, module, *common, "--steps", str(n1), "--fault-listen",
+                flog, "--trace-dump", os.path.join(d, "train-1.json"),
+                env={"RANK": "1"}, stderr=err1))
+            _wait_for(lambda: os.path.exists(os.path.join(hb, "hb-1")),
+                      "straggler: rank 1's heartbeat", 300)
+            t0 = time.monotonic()
+            procs.append(_popen_port(
+                root, module, *common, "--steps", str(n0), "--doctor",
+                "--doctor-dir", inc, "--trace-dump",
+                os.path.join(d, "train-0.json"), env={"RANK": "0"},
+                stderr=err0))
+            outs = {}
+            for rank, p in ((1, procs[0]), (0, procs[1])):
+                out, _ = p.communicate(timeout=600)
+                with open(os.path.join(d, f"rank{rank}.err")) as fh:
+                    tail = fh.read()[-2000:]
+                require(p.returncode == 0,
+                        f"straggler: rank {rank} rc {p.returncode}: {tail}")
+                outs[rank] = json.loads(out.strip().splitlines()[-1])
+            t_end = time.monotonic()
+    finally:
+        _stop_procs(procs)
+    incs = []
+    for name in sorted(os.listdir(inc)) if os.path.isdir(inc) else ():
+        with open(os.path.join(inc, name)) as fh:
+            incs.append(json.load(fh))
+    incs.sort(key=lambda i: i["seq"])
+    got = [(i["class"], i["subject"]) for i in incs]
+    s0, s1 = outs[0], outs[1]
+    require(got.count(("straggler", "process-1")) == 1
+            and ("straggler", "process-0") not in got
+            and all(c in ("straggler", "recompile_storm") for c, _ in got),
+            f"straggler: rank 0's doctor {got}")
+    require(s0["doctor_incidents"] == len(incs),
+            f"straggler: summary {s0['doctor_incidents']}, {len(incs)} "
+            "bundles")
+    require(s0["final_step"] == n0 and s1["final_step"] == n1,
+            f"straggler: steps {s0['final_step']}, {s1['final_step']}")
+    stalled = s1["goodput"]["stalled"]
+    require(stalled >= n1 * delay * 0.9,
+            f"straggler: rank 1's stalled bucket {stalled} s")
+    strag = incs[got.index(("straggler", "process-1"))]
+    return {"incidents": [{"class": i["class"], "subject": i["subject"],
+                           "summary": i["summary"],
+                           "after_rank0_start_s": i["ts_monotonic"] - t0}
+                          for i in incs],
+            "watchdog_s": threshold, "delay_s": delay,
+            "heartbeat_age_at_verdict_s": strag["evidence"].get("age_s"),
+            "rank1_started_before_rank0_s": t0 - t1,
+            "rank0": {"final_step": s0["final_step"],
+                      "tokens_per_sec": s0["tokens_per_sec"],
+                      "step_ms": s0["step_ms"]},
+            "rank1": {"final_step": s1["final_step"], "stalled_s": stalled},
+            "both_done_after_s": t_end - t1}
+
+
+def fleet_room(cfg, layers: int, shm: str) -> dict:
+    """Room for the fleet's HF export at `layers` of cfg's depth: the file
+    holds f32 weights (save_hf_checkpoint), and each replica reads it
+    whole into host memory and copies the transposed weights once more
+    before moving them to the card, so the host needs about five times
+    the file while both replicas load (the file, and twice it in each)."""
+    import dataclasses
+
+    file_bytes = dataclasses.replace(cfg, n_layers=layers).num_params() * 4
+    room = {"n_layers": layers, "of": cfg.n_layers, "where": shm,
+            "file_bytes": file_bytes, "swept": sweep_ckpt_roots(shm),
+            "shm_free_bytes": (shutil.disk_usage(shm).free
+                               if os.path.isdir(shm) else 0),
+            "mem_available_bytes": _mem_available_bytes()}
+    require(room["shm_free_bytes"] >= file_bytes
+            and room["mem_available_bytes"] >= 5 * file_bytes,
+            f"replica_kill: no room for the export: {room}")
+    return room
+
+
+def _fleet_gauges(url: str) -> dict:
+    s = _scrape(_get(url + "/metrics"))
+    return {k: v for k, v in s.items() if k.startswith(
+        ("fleet_replicas{", "fleet_replica_state{"))}
+
+
+def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
+                        device_flags: list, sz) -> dict:
+    """replica-kill: cli/fleet.py --replicas 2 (--keep-survivors) serving
+    the HF export on the one card, each replica with --doctor; fleetmon
+    --doctor scrapes both; loadgen --targets fans streams over both and
+    replica r1 is SIGKILLed mid-stream: replica_down once for r1, the
+    fleet gauges at up 1 / down 1, the survivor answers, the card's
+    memory comes back; then fleetmon's dump through `trace merge` and
+    `trace doctor` gives the live verdicts."""
+    d = os.path.join(tmp_dir, "replica_kill")
+    os.makedirs(d, exist_ok=True)
+    dump = os.path.join(d, "fleetmon.json")
+    procs = []
+    cuda = torch.cuda.is_available()
+
+    def used():
+        if not cuda:
+            return None
+        free, total = torch.cuda.mem_get_info()
+        return total - free
+
+    try:
+        t_launch = time.monotonic()
+        fleet = _popen_port(
+            root, "container_engine_accelerators_tpu_torch.cli.fleet",
+            "--replicas", "2", "--ready-timeout", str(sz["ready_timeout_s"]),
+            "--keep-survivors", "--", "--checkpoint", export_dir,
+            "--engine", "paged", "--max-batch", "2", "--max-len", "512",
+            "--prefill-chunk", "0", "--prefix-cache-cap", "0", "--doctor",
+            "--doctor-dir", os.path.join(d, "replica-incidents"),
+            *device_flags)
+        procs.append(fleet)
+        reps = {r["id"]: r for r in _json_line(
+            fleet.stdout, "fleet", sz["ready_timeout_s"] + 60)["replicas"]}
+        ready_s = time.monotonic() - t_launch
+        require(sorted(reps) == ["r0", "r1"], f"replica_kill: {reps}")
+        fm = _popen_port(
+            root, "container_engine_accelerators_tpu_torch.cli.fleetmon",
+            "--endpoints", ",".join(reps[r]["metrics_url"]
+                                    for r in ("r0", "r1")),
+            "--replica-ids", "r0,r1", "--interval",
+            str(FLEETMON_INTERVAL_S), "--down-after",
+            str(FLEETMON_DOWN_AFTER_S), "--timeout", "1.0", "--doctor",
+            "--doctor-interval", str(FLEETMON_DOCTOR_S), "--doctor-dir",
+            os.path.join(d, "fleet-incidents"), "--trace-dump", dump)
+        procs.append(fm)
+        fm_url = f"http://127.0.0.1:{_json_line(fm.stdout, 'fleetmon', 120)['port']}"  # noqa: E501
+        targets = ",".join(reps[r]["url"] for r in ("r0", "r1"))
+        warm, rc = _loadgen(root, targets, 4, 2, 8)
+        require(rc == 0 and warm["requests_ok"] == 4,
+                f"replica_kill: warmup {warm}")
+        _wait_for(lambda: _fleet_gauges(fm_url).get(
+            "fleet_replicas{state=up}") == 2, "replica_kill: 2 up", 30)
+        # Two processes time-slice the card: the stall limit follows the
+        # warmup's measured TPOT, not a CPU run's.
+        tpot_s = warm["tpot_ms"]["p99"] / 1e3
+        stall_s = max(5.0, 100 * tpot_s)
+        used_before = used()
+        fan = _loadgen(root, targets, 6, 2, sz["fan_new_tokens"],
+                       "--stall-timeout-s", str(stall_s), wait=False)
+        want = {"fleet_replicas{state=up}": 1.0,
+                "fleet_replicas{state=down}": 1.0,
+                "fleet_replica_state{replica=r0}": 2.0,
+                "fleet_replica_state{replica=r1}": 0.0}
+        converged: list = []
+
+        def watch_gauges():
+            # From before the kill, every 0.1 s: the first scrape of
+            # fleetmon's /metrics that shows up 1 / down 1.
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                if all(_fleet_gauges(fm_url).get(k) == v
+                       for k, v in want.items()):
+                    converged.append(time.monotonic())
+                    return
+                time.sleep(0.1)
+
+        # Kill mid-stream: once the victim decodes a fanned request.
+        victim = reps["r1"]["metrics_url"] + "/metrics"
+        _wait_for(lambda: _scrape(_get(victim)).get("serve_active_slots",
+                                                     0) >= 1,
+                  "replica_kill: a stream on r1", 120)
+        watcher = threading.Thread(target=watch_gauges, daemon=True)
+        t_kill = time.monotonic()
+        os.kill(reps["r1"]["pid"], signal.SIGKILL)
+        watcher.start()
+        fanned, rc = _wait_loadgen(fan)
+        require(rc == 1 and fanned["requests_ok"] >= 2
+                and fanned["hung_streams"] == 0
+                and fanned["transport_errors"] >= 1,
+                f"replica_kill: fanned loadgen rc {rc}: {fanned}")
+        watcher.join(timeout=35)
+        require(converged, "replica_kill: the fleet gauges never read "
+                "up 1 / down 1")
+        gauges_s = converged[0] - t_kill
+
+        def verdicts(url):
+            return json.loads(_get(url + "/debugz?n=0&doctor=1"))[
+                "doctor"].get("incidents", [])
+
+        _wait_for(lambda: verdicts(fm_url), "replica_kill: a verdict", 15)
+        survivor, rc = _loadgen(root, reps["r0"]["url"], 3, 2, 8)
+        require(rc == 0 and survivor["requests_ok"] == 3
+                and survivor["errors"] == 0,
+                f"replica_kill: survivor {survivor}")
+        freed = None
+        if used_before is not None:
+            _wait_for(lambda: used() < used_before - (2 << 30),
+                      "replica_kill: the victim's card memory back", 30)
+            freed = used_before - used()
+        replica_verdicts = verdicts(reps["r0"]["metrics_url"])
+        time.sleep(2 * FLEETMON_DOCTOR_S)
+        live = verdicts(fm_url)
+        os.killpg(fm.pid, signal.SIGTERM)   # fleetmon dumps its ring
+        fm.wait(timeout=60)
+    finally:
+        _stop_procs(procs)
+    got = [(i["class"], i["subject"]) for i in live]
+    require(got.count(("replica_down", "r1")) == 1
+            and all(c in ("replica_down", "engine_hang") for c, _ in got)
+            and all(s == "r1" for c, s in got if c == "replica_down"),
+            f"replica_kill: fleetmon's doctor {got}")
+    early = [i["class"] for i in live if i["ts_monotonic"] < t_kill - 0.5
+             and i["class"] != "engine_hang"]
+    require(not early, f"replica_kill: incidents before the kill {early}")
+    merged = os.path.join(d, "merged.json")
+    trace = "container_engine_accelerators_tpu_torch.cli.trace"
+    proc = _run_port(root, trace, "merge", dump, "-o", merged, timeout=120)
+    require(proc.returncode == 0, f"replica_kill: merge {proc.stderr}")
+    proc = _run_port(root, trace, "doctor", merged, "--json", "--interval",
+                     str(FLEETMON_DOCTOR_S), timeout=300)
+    require(proc.returncode == 0, f"replica_kill: trace doctor "
+            f"{proc.stderr[-1500:]}")
+    replay = [json.loads(line) for line in proc.stdout.splitlines()
+              if line.startswith("{")]
+    replayed = [(i["class"], i["subject"]) for i in replay]
+    require(sorted(replayed) == sorted(got),
+            f"replica_kill: replay {replayed}, live {got}")
+    with open(merged) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    missing = [n for n in ("fleet/scrape_error", "fleet/replica_state",
+                           "doctor/replica_down") if n not in names]
+    require(not missing, f"replica_kill: not in fleetmon's dump {missing}")
+    down = [i for i in live if i["class"] == "replica_down"][0]
+    return {"incidents": [{"class": c, "subject": s} for c, s in got],
+            "replayed": [{"class": c, "subject": s} for c, s in replayed],
+            "replica_down_after_kill_s": down["ts_monotonic"] - t_kill,
+            "gauges_converged_after_kill_s": gauges_s,
+            "fleetmon": {"interval_s": FLEETMON_INTERVAL_S,
+                         "down_after_s": FLEETMON_DOWN_AFTER_S,
+                         "doctor_interval_s": FLEETMON_DOCTOR_S},
+            "replicas_ready_s": ready_s, "stall_timeout_s": stall_s,
+            "warmup": warm, "fanned": fanned, "survivor": survivor,
+            "survivor_tpot_ms": [warm.get("tpot_ms"),
+                                 survivor.get("tpot_ms")],
+            "card_bytes_freed_by_kill": freed,
+            "survivor_doctor": [{"class": i["class"],
+                                 "subject": i["subject"],
+                                 "summary": i["summary"]}
+                                for i in replica_verdicts]}
+
+
+def doctor_phase(torch, dev, np, tmp_dir: str, model=None, cfg=None,
+                 sizes: dict | None = None, shm: str = CKPT_SHM) -> dict:
+    """The doctor and the fleet plane on the card (the module docstring's
+    `doctor`): llama3_8b at full width and depth unless a model is given,
+    the scenarios in order, the model freed before the training ones."""
+    import dataclasses
+
+    import container_engine_accelerators_tpu_torch as port
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        save_hf_checkpoint,
+    )
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        init_params,
+        llama3_8b,
+    )
+    from container_engine_accelerators_tpu_torch.models.spec import (
+        truncate_params,
+    )
+
+    sz = {**DOCTOR_SIZES, **(sizes or {})}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+    device_flags = ["--device", "cpu"] if dev.type == "cpu" else []
+    if model is None:
+        cfg = llama3_8b()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+    scen, launches, seconds = {}, {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        for key, n in kernels.launches.items():
+            launches[key] = launches.get(key, 0) + n
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": f"doctor_{name}", **{k: v for k, v in out.items()
+                                            if k != "launches"}})
+        return out
+
+    scen["engine_hang"] = timed("engine_hang", doctor_hang, root, tmp_dir,
+                                model, cfg, sz)
+    scen["worker_kill"] = timed("worker_kill", doctor_worker_kill, root,
+                                tmp_dir, model, cfg, sz)
+    scen.update(timed("pool_and_node", doctor_pool_and_node, root, tmp_dir,
+                      torch, dev, model, cfg, sz))
+    room = fleet_room(cfg, sz["fleet_layers"], shm)
+    export = tempfile.mkdtemp(
+        prefix=f"{CKPT_ROOT_PREFIX}{os.getpid()}-fleet-", dir=shm)
+    try:
+        t0 = time.perf_counter()
+        cut = truncate_params(model, sz["fleet_layers"])
+        save_hf_checkpoint(cut, cut.cfg, export)
+        room["export_s"] = time.perf_counter() - t0
+        del cut, model
+        _free_card(torch)
+        scen["data_stall"] = timed(
+            "data_stall", doctor_data_stall, root, tmp_dir, torch, dev,
+            dataclasses.replace(cfg, n_layers=2), sz)
+        scen["straggler"] = timed("straggler", doctor_straggler, root,
+                                  tmp_dir, sz, device_flags)
+        scen["replica_kill"] = timed("replica_kill", doctor_replica_kill,
+                                     root, tmp_dir, torch, export,
+                                     device_flags, sz)
+    finally:
+        shutil.rmtree(export, ignore_errors=True)
+    for name in ("decode_attention", "paged_decode_attention",
+                 *FLASH_REPLACES):
+        require(launches.get(name, 0) > 0, f"doctor: no {name} launch")
+    result = {"phase": "doctor", "model": "llama3_8b",
+              "n_layers": cfg.n_layers, "fleet": room,
+              "scenarios": scen, "seconds": seconds, "launches": launches,
+              "launches_not_counted": "the subprocesses' (trainers and "
+              "replicas)", "nvidia_smi": nvidia_smi_line()}
+    emit({"phase": "doctor_summary", **doctor_summary(result)})
+    return result
+
+
+def doctor_summary(res: dict) -> dict:
+    """The numbers PERF.md keeps: each scenario's verdicts and their
+    latency, the ring's and the taps' drops, and the real climb's
+    projection beside its outcome."""
+    out = {}
+    for name, s in res["scenarios"].items():
+        out[name] = {
+            "verdicts": [(i["class"], i["subject"])
+                         for i in s.get("incidents", [])],
+            "latency_s": [i.get("after_fault_s",
+                                i.get("after_rank0_start_s"))
+                          for i in s.get("incidents", [])],
+            **{k: s[k] for k in ("ring_dropped", "tap_dropped",
+                                 "projected_tte_s", "actual_tte_s",
+                                 "headroom_bytes_at_verdict",
+                                 "replica_down_after_kill_s",
+                                 "gauges_converged_after_kill_s",
+                                 "card_bytes_freed_by_kill",
+                                 "survivor_doctor", "stalled_s",
+                                 "stall_step_data_wait_s",
+                                 "heartbeat_age_at_verdict_s")
+               if k in s}}
+    return out
+
+
+def doctor_main(torch) -> int:
+    """`chip_smoke.py doctor`: the build and the doctor phase alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    kernels.build()
+    kernels.load()
+    seconds = {"build": time.perf_counter() - t0}
+    try:
+        with tempfile.TemporaryDirectory() as tmp_dir, \
+                _removed_on_sigterm():
+            t0 = time.perf_counter()
+            doctor_phase(torch, torch.device("cuda", 0), np, tmp_dir)
+            seconds["doctor"] = time.perf_counter() - t0
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    emit({"phase_seconds": seconds})
+    return 0
+
+
 def time_roots(sub: str, flags: list[str], roots: list[str],
                timeout: float) -> int:
     """Run `chip_smoke.py SUB FLAGS` once for each ROOT, in order, each in
@@ -4881,6 +5901,8 @@ def main() -> int:
         return training_main(torch, torch.device("cuda", 0), np)
     if sys.argv[1:2] == ["node"]:
         return node_main(torch)
+    if sys.argv[1:2] == ["doctor"]:
+        return doctor_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -4934,6 +5956,9 @@ def main() -> int:
             health = timed("health", health_phase, torch, dev, tmp_dir)
         with tempfile.TemporaryDirectory() as tmp_dir:
             timed("node", node_phase, torch, dev, tmp_dir)
+        with tempfile.TemporaryDirectory() as tmp_dir, \
+                _removed_on_sigterm():
+            doc = timed("doctor", doctor_phase, torch, dev, np, tmp_dir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4942,12 +5967,14 @@ def main() -> int:
     def launches(name):
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
-                                 obs, spec, pools, sup, tr["serve_ckpt"]))
+                                 obs, spec, pools, sup, tr["serve_ckpt"],
+                                 doc))
 
     def flash_launches(name):
         return sum(tr[phase]["launches"].get(name, 0)
                    for phase in ("train", "train_save_attn", "ckpt",
-                                 "observe_train", "eval"))
+                                 "observe_train", "eval")) + doc[
+                                     "launches"].get(name, 0)
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""

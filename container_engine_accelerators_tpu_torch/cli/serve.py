@@ -64,6 +64,18 @@ and no request fails.
   python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
       --engine paged --speculate ngram --prefill-workers 2 --supervise
 
+Diagnosis and the fleet (metrics/doctor.py, metrics/fleet.py):
+`--doctor` runs the streaming doctor over the flight recorder and the
+recorder (`--doctor-dir` for its incident bundles; `/debugz?doctor=1`
+serves its verdicts), `--fault-listen PATH` trips the faults
+`inject_fault --kind ... --fault-log PATH` writes (chaos and tests
+only), and `--replica-id` (or TPU_REPLICA_ID) names this replica on the
+timeline, the spans, `serve_replica_info` and `/healthz`; `/debugz?state=1`
+serves the snapshot fleetmon scrapes.
+
+  python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
+      --engine paged --metrics-port 9100 --doctor --replica-id r0
+
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back.
 """
@@ -75,9 +87,11 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -2008,7 +2022,30 @@ class EngineSupervisor:
                                 "backoff_s": round(delay, 3)})
 
 
-def make_server(engine, port: int) -> ThreadingHTTPServer:
+def engine_state_snapshot(engine, recorder, replica_id: str,
+                          engine_kind: str) -> dict:
+    """/debugz?state=1: the fleet scraper's machine-readable snapshot,
+    the recorder's state_snapshot() plus the engine's liveness and
+    counters, with the JAX package's keys (the fabric block, which JAX
+    adds only while a fabric monitor runs, is never present here)."""
+    snap = recorder.state_snapshot()
+    alive_fn = getattr(engine, "prefill_workers_alive", None)
+    snap.update({
+        "replica_id": replica_id,
+        "pid": os.getpid(),
+        "engine": engine_kind,
+        "worker_alive": engine.thread.is_alive(),
+        "worker_restarts": engine.worker_restarts,
+        "requests_served": engine.requests_served,
+        "batches_run": engine.batches_run,
+        "prefill_workers": getattr(engine, "prefill_workers", 0),
+        "prefill_workers_alive": alive_fn() if alive_fn else 0,
+    })
+    return snap
+
+
+def make_server(engine, port: int,
+                replica_id: str | None = None) -> ThreadingHTTPServer:
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):
             pass
@@ -2026,6 +2063,7 @@ def make_server(engine, port: int) -> ThreadingHTTPServer:
                 alive_fn = getattr(engine, "prefill_workers_alive", None)
                 return self._send({
                     "ok": True,
+                    "replica_id": replica_id,
                     "batches": engine.batches_run,
                     "requests": engine.requests_served,
                     # A dead worker behind a green /healthz is the wedge
@@ -2200,6 +2238,14 @@ def main(argv=None) -> int:
     p.add_argument("--thermal-interval-s", type=float, default=1.0,
                    help="paged engine: seconds between KV thermal "
                         "census snapshots (O(pages) host work each)")
+    p.add_argument("--replica-id", default=None,
+                   help="fleet replica identity: stamped into the "
+                        "EventBus anchor and process track name, every "
+                        "request trace span, the serve_replica_info "
+                        "metric and /healthz, so N replicas' dumps merge "
+                        "into distinct per-replica timeline tracks. "
+                        "Default: the TPU_REPLICA_ID env var, else "
+                        "pid-<pid>")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve request-lifecycle Prometheus metrics "
                         "(TTFT/TPOT/queue-wait histograms, slot and KV "
@@ -2236,11 +2282,35 @@ def main(argv=None) -> int:
                         "(continuous/paged) t+1 while t runs on the "
                         "device and fetch one behind; sync = fetch each "
                         "at once (the token-identity reference)")
+    p.add_argument("--doctor", action="store_true",
+                   help="run the streaming doctor (metrics/doctor.py): "
+                        "detectors over the flight recorder and the "
+                        "request recorder emit deduplicated incident "
+                        "bundles (engine hang, OOM precursor, queue "
+                        "collapse, SLO burn ...), doctor/<class> "
+                        "timeline instants, and "
+                        "tpu_doctor_incidents_total / tpu_slo_burn_rate "
+                        "on the metrics port; /debugz?doctor=1 serves "
+                        "live verdicts. Enables the EventBus if no "
+                        "--trace-dump armed it")
+    p.add_argument("--doctor-dir", default=None,
+                   help="directory for doctor incident bundles "
+                        "(default: TPU_DOCTOR_DIR env, else next to the "
+                        "trace dump, else the cwd)")
+    p.add_argument("--fault-listen", default=None,
+                   help="CHAOS/TEST ONLY: tail this JSONL fault-command "
+                        "file (written by `inject_fault --kind ... "
+                        "--fault-log`) and inject the faults into this "
+                        "process: engine hangs and worker deaths, "
+                        "fabricated HBM/queue telemetry, health-checker "
+                        "storms")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if not (args.tiny or args.checkpoint):
         p.error("pass --checkpoint DIR or --tiny")
     logging.basicConfig(level=logging.INFO)
+    replica_id = (args.replica_id or os.environ.get("TPU_REPLICA_ID")
+                  or f"pid-{os.getpid()}")
     if args.trace_dump:
         events.enable(dump_path=args.trace_dump, signals=True,
                       process_name="serve")
@@ -2248,12 +2318,17 @@ def main(argv=None) -> int:
                  "on demand)", args.trace_dump)
     else:
         events.configure_from_env(process_name="serve")
+    # After enable(): enable re-anchors the bus, and the replica stamp
+    # must land on the anchor it leaves.
+    events.set_replica_id(replica_id)
     if args.trace_jsonl:
         events.stream_jsonl(args.trace_jsonl)
         log.info("streaming EventBus JSONL -> %s", args.trace_jsonl)
     # Always configured: with the bus off, start() returns None and the
-    # request path stays span-free.
-    trace.configure(sample_rate=args.trace_sample_rate)
+    # request path stays span-free; arming the bus later (--doctor)
+    # picks the sample rate up as it is.
+    trace.configure(sample_rate=args.trace_sample_rate,
+                    base_tags={"replica": replica_id})
 
     from container_engine_accelerators_tpu_torch.models.convert import (
         load_model,
@@ -2281,6 +2356,15 @@ def main(argv=None) -> int:
                    draft_layers=args.draft_layers,
                    engine_core=args.engine_core)
     recorder = RequestRecorder()
+    # Replica identity on the scrape surface as an info-style gauge: ONE
+    # labeled family carrying the id, rather than a replica label on
+    # every serve_* family, so unlabeled-scrape consumers keep working
+    # and the fleet exporter owns the per-replica label space.
+    from prometheus_client import Gauge
+    Gauge("serve_replica_info",
+          "Constant 1; the replica_id label names this replica",
+          ["replica_id"],
+          registry=recorder.registry).labels(replica_id).set(1)
     if args.engine == "paged":
         engine = PagedContinuousEngine(
             model, cfg, max_slots=args.max_batch, max_len=args.max_len,
@@ -2301,12 +2385,31 @@ def main(argv=None) -> int:
         engine = BatchingEngine(model, cfg, max_batch=args.max_batch,
                                 window_ms=args.batch_window_ms,
                                 recorder=recorder, **spec_kw)
+    doc = None
+    if args.doctor:
+        from container_engine_accelerators_tpu_torch.metrics import doctor
+        if not events.enabled():
+            # The detectors read the flight recorder; --doctor without a
+            # dump path still needs the ring live.
+            events.enable(process_name="serve")
+        doc = doctor.Doctor(
+            registry=recorder.registry, request_recorder=recorder,
+            out_dir=args.doctor_dir if args.doctor_dir else "auto")
+        doc.start()
+        doctor.set_active(doc)
     sup = None
     if args.supervise:
         sup = EngineSupervisor(
             engine, backoff_base_s=args.supervise_backoff,
             max_restarts=args.supervise_max_restarts)
         sup.start()
+    listener = None
+    if args.fault_listen:
+        from container_engine_accelerators_tpu_torch.metrics.doctor import (
+            FaultListener,
+        )
+        listener = FaultListener(args.fault_listen, engine=engine)
+        listener.start()
     exporter = None
     if args.metrics_port is not None:
         # The poller reads the serving card only, and none for --device
@@ -2318,16 +2421,23 @@ def main(argv=None) -> int:
         exporter = ServeMetricsExporter(recorder, port=args.metrics_port,
                                         host=args.metrics_host,
                                         hbm_poller=poller)
+        exporter.state_provider = functools.partial(
+            engine_state_snapshot, engine, recorder, replica_id,
+            args.engine)
         if args.engine == "paged":
             exporter.kv_provider = engine.thermal_census
         exporter.start_background()
         log.info("request metrics on :%d/metrics", exporter.bound_port)
-    server = make_server(engine, args.port)
+    server = make_server(engine, args.port, replica_id=replica_id)
     log.info("serving on :%d (/generate, /healthz) on %s, %s engine",
              server.server_address[1], model.device, args.engine)
     try:
         server.serve_forever()
     finally:
+        if listener is not None:
+            listener.stop()
+        if doc is not None:
+            doc.stop()
         if sup is not None:
             sup.stop()
         engine.stop()

@@ -27,14 +27,21 @@ port's copy of the JAX package's.
                the error, per-device memory, the largest live blocks
                and the kernel library's build record.
 
-  trace doctor Not ported yet: the doctor (metrics/doctor.py of the JAX
-               package) comes later; the subcommand exits with a
-               message saying so.
+  trace doctor Replay a merged timeline (or one raw dump, of either
+               package) through the doctor's detector registry
+               (metrics/doctor.py): the incidents a live `--doctor`
+               would have raised, one line each (--json: one JSON
+               incident per line); --fail-on-incident exits 1 if any
+               fired, --window shrinks the detection windows for short
+               traces, --out-dir also writes each incident bundle.
+
+                 trace doctor merged.json --window 10 --fail-on-incident
 
   python -m container_engine_accelerators_tpu_torch.cli.trace merge \\
       /tmp/traces/trace-1234.json -o merged.json
 
-Exit code 0 on success; 2 on bad usage or a part not ported yet.
+Exit code 0 on success; 1 when `doctor --fail-on-incident` found an
+incident; 2 on bad usage or an unreadable input.
 """
 
 from __future__ import annotations
@@ -152,11 +159,41 @@ def cmd_oom(args) -> int:
 
 
 def cmd_doctor(args) -> int:
-    print("trace doctor: the doctor is not ported yet (ROADMAP queue 1, "
-          "item 15); replay the timeline with the JAX package's "
-          "`trace doctor`, which reads this package's dumps",
-          file=sys.stderr)
-    return 2
+    from container_engine_accelerators_tpu_torch.metrics import doctor
+
+    try:
+        with open(args.trace) as f:
+            trace = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"trace doctor: cannot read {args.trace}: {e}",
+              file=sys.stderr)
+        return 2
+    cfg = doctor.DoctorConfig()
+    if args.window is not None:
+        cfg.fast_window_s = args.window
+        cfg.slow_window_s = args.window * 5
+        cfg.hang_after_s = min(cfg.hang_after_s, args.window)
+        cfg.clear_after_s = min(cfg.clear_after_s, args.window)
+    if args.interval is not None:
+        cfg.poll_interval_s = args.interval
+    incidents = doctor.replay(trace, config=cfg, out_dir=args.out_dir)
+    if args.json:
+        for inc in incidents:
+            print(json.dumps(inc))
+    else:
+        n_ev = sum(1 for e in trace.get("traceEvents", ())
+                   if e.get("ph") != "M")
+        print(f"trace doctor: {len(incidents)} incident(s) over "
+              f"{n_ev} events")
+        for inc in incidents:
+            print(f"  [{inc['class']}] {inc['subject']} "
+                  f"(confidence {inc['confidence']:.2f}): "
+                  f"{inc['summary']}")
+            if inc.get("bundle_path"):
+                print(f"      bundle: {inc['bundle_path']}")
+    if args.fail_on_incident and incidents:
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
@@ -196,9 +233,25 @@ def main(argv=None) -> int:
                    help="live-array census rows to show")
     o.set_defaults(fn=cmd_oom)
 
-    dr = sub.add_parser("doctor", help="not ported yet: exits with a "
-                                       "message")
-    dr.add_argument("rest", nargs=argparse.REMAINDER)
+    dr = sub.add_parser("doctor", help="replay a merged timeline "
+                                       "through the tpu-doctor "
+                                       "detector registry")
+    dr.add_argument("trace", help="merged timeline (trace merge) or "
+                                  "raw EventBus dump JSON")
+    dr.add_argument("--window", type=float, default=None,
+                    help="fast detection window seconds (slow = 5x; "
+                         "also caps hang/clear thresholds) — shrink "
+                         "for short traces")
+    dr.add_argument("--interval", type=float, default=None,
+                    help="replay clock step seconds (default: the "
+                         "doctor poll interval)")
+    dr.add_argument("--json", action="store_true",
+                    help="print one JSON incident per line")
+    dr.add_argument("--out-dir", default=None,
+                    help="also write each verdict as an incident "
+                         "bundle under this directory")
+    dr.add_argument("--fail-on-incident", action="store_true",
+                    help="exit 1 if any incident fires (CI gate)")
     dr.set_defaults(fn=cmd_doctor)
 
     args = p.parse_args(argv)

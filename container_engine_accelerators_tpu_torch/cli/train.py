@@ -21,12 +21,20 @@ over synthetic data (or a token file from `training/dataset.py`,
                     stalled process trips `train_stalled` with its id
   --trace-dump      the flight recorder's ring as a Chrome trace on
                     exit, crash and SIGUSR2
+  --doctor          the streaming doctor (metrics/doctor.py) over this
+                    process, with the train recorder and the heartbeat
+                    dir: straggler, goodput-burn and OOM-precursor
+                    verdicts as incident bundles (--doctor-dir) and
+                    tpu_doctor_* families on the metrics port
+  --fault-listen    chaos/test runs: tail a fault-command file written
+                    by `inject_fault --kind data-stall|straggler|...`
 
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back. Prints one JSON line at the end:
 the recorder's summary (steps and tokens of this run, tokens_per_sec
 over productive time without the first step, MFU, step percentiles,
-the goodput split), final_step and the last step's loss. The remat
+the goodput split), final_step, the last step's loss and, with
+--doctor, doctor_incidents. The remat
 policy comes with the preset's config ('dots'); multi-device meshes are
 not ported yet.
 """
@@ -42,15 +50,17 @@ log = logging.getLogger(__name__)
 PRESETS = ("tiny", "1b", "8b")
 
 
-def build_config(preset: str, vocab_size: int | None):
+def build_config(preset: str, vocab_size: int | None,
+                 n_layers: int | None = None):
     from container_engine_accelerators_tpu_torch.models import llama
 
+    depth = {"n_layers": n_layers} if n_layers else {}
     if preset == "tiny":
         return llama.llama_tiny(
-            **({"vocab_size": vocab_size} if vocab_size else {}))
+            **({"vocab_size": vocab_size} if vocab_size else {}), **depth)
     if preset == "1b":
-        return llama.llama3_1b()
-    return llama.llama3_8b()
+        return llama.llama3_1b(**depth)
+    return llama.llama3_8b(**depth)
 
 
 def main(argv=None) -> int:
@@ -59,6 +69,9 @@ def main(argv=None) -> int:
     p.add_argument("--vocab-size", type=int, default=None,
                    help="tiny preset only: override vocab (synthetic "
                         "data draws tokens below it)")
+    p.add_argument("--n-layers", type=int, default=None,
+                   help="cut the preset's depth to this many layers, "
+                        "its widths kept (a full-width run on one card)")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=128)
@@ -95,6 +108,24 @@ def main(argv=None) -> int:
                         "exit/crash and on SIGUSR2 (a directory gets a "
                         "per-pid file); TPU_TRACE_DUMP env is the "
                         "flagless equivalent")
+    p.add_argument("--doctor", action="store_true",
+                   help="run the streaming doctor (metrics/doctor.py) "
+                        "over this process: straggler / OOM-precursor / "
+                        "goodput-burn detectors emit deduplicated "
+                        "incident bundles and tpu_doctor_incidents_total "
+                        "/ tpu_slo_burn_rate on the metrics port; "
+                        "enables the EventBus if --trace-dump didn't")
+    p.add_argument("--doctor-dir", default=None,
+                   help="directory for doctor incident bundles "
+                        "(default: TPU_DOCTOR_DIR env, else next to the "
+                        "trace dump, else the cwd)")
+    p.add_argument("--fault-listen", default=None,
+                   help="CHAOS/TEST ONLY: tail this JSONL fault-command "
+                        "file (written by `inject_fault --kind "
+                        "data-stall|straggler|... --fault-log`) and "
+                        "inject the faults into this process: data-"
+                        "loader stalls, slow-straggler delays, health-"
+                        "pipeline storms")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -115,7 +146,7 @@ def main(argv=None) -> int:
         make_optimizer,
     )
 
-    cfg = build_config(args.preset, args.vocab_size)
+    cfg = build_config(args.preset, args.vocab_size, args.n_layers)
     if args.data:
         from container_engine_accelerators_tpu_torch.training.dataset import (
             token_file_batches,
@@ -129,10 +160,34 @@ def main(argv=None) -> int:
         batches = synthetic_batches(cfg.vocab_size, args.batch_size,
                                     args.seq_len, seed=args.seed)
 
+    # Asking for CUDA without it raises here, before any thread starts.
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        resolve_device,
+    )
+    resolve_device(args.device)
     # The CLI owns the recorder (fit would build one too) so the summary
     # can be printed after fit returns.
     recorder = TrainRecorder(log_path=args.metrics_log,
                              heartbeat_dir=args.heartbeat_dir)
+    doc = listener = None
+    if args.doctor:
+        from container_engine_accelerators_tpu_torch.metrics import (
+            doctor as doctor_mod,
+        )
+        if not events.enabled():
+            events.enable(process_name="train")
+        doc = doctor_mod.Doctor(
+            registry=recorder.registry, train_recorder=recorder,
+            heartbeat_dir=args.heartbeat_dir,
+            out_dir=args.doctor_dir if args.doctor_dir else "auto")
+        doc.start()
+        doctor_mod.set_active(doc)
+    if args.fault_listen:
+        from container_engine_accelerators_tpu_torch.metrics.doctor import (
+            FaultListener,
+        )
+        listener = FaultListener(args.fault_listen)
+        listener.start()
     try:
         state, metrics = fit(
             cfg, make_optimizer(), batches, device=args.device,
@@ -144,7 +199,14 @@ def main(argv=None) -> int:
             heartbeat_dir=args.heartbeat_dir,
             watchdog_threshold_s=args.watchdog_threshold)
         summary = recorder.summary()
+        if doc is not None:
+            doc.poll_once()  # a final evaluation over the run's tail
+            summary["doctor_incidents"] = len(doc.incidents)
     finally:
+        if listener is not None:
+            listener.stop()
+        if doc is not None:
+            doc.stop()
         recorder.close()
     summary["final_step"] = state.step
     summary["loss"] = (float(metrics["loss"]) if metrics is not None

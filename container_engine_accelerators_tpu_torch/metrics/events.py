@@ -149,6 +149,10 @@ class EventBus:
         self._lock = threading.Lock()
         self._threads: dict[int, str] = {}
         self._taps: list[EventTap] = []
+        # Fleet replica identity: stamped into the anchor (so dumps and
+        # JSONL headers carry it into merge_traces) and the process
+        # track name. None outside a fleet.
+        self.replica: str | None = None
         self.anchor = _now_anchor(self.process_name)
 
     # ---------- emission (hot path) ----------
@@ -270,8 +274,12 @@ class EventBus:
 
     def _meta_events(self) -> list[dict]:
         pid = self.anchor["pid"]
+        # Replica-stamped track name: N replicas' dumps merge into
+        # per-replica track groups instead of anonymous pid tracks.
+        name = (f"{self.process_name}[{self.replica}]" if self.replica
+                else self.process_name)
         meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
-                 "args": {"name": f"{self.process_name} "
+                 "args": {"name": f"{name} "
                                   f"({self.anchor['host']} pid {pid})"}}]
         with self._lock:
             threads = dict(self._threads)
@@ -397,8 +405,11 @@ def enable(capacity: int | None = None, dump_path: str | None = None,
     if process_name:
         bus.process_name = process_name
     # Re-anchor at enable time: the pairing should reflect the clocks
-    # when recording starts, not module import.
+    # when recording starts, not module import. The replica stamp
+    # survives the re-anchor (set_replica_id may run first).
     bus.anchor = _now_anchor(bus.process_name)
+    if bus.replica:
+        bus.anchor["replica"] = bus.replica
     bus.enabled = True
     if dump_path:
         _DUMP_PATH = dump_path
@@ -406,6 +417,19 @@ def enable(capacity: int | None = None, dump_path: str | None = None,
         if signals:
             _install_signal_hook()
     return bus
+
+
+def set_replica_id(rid) -> None:
+    """Stamp this process's fleet replica id onto the bus: the anchor
+    (and so every dump, JSONL header and merge source) and the Perfetto
+    process track name carry it. Survives a later enable() re-anchor;
+    idempotent. cli/serve.py calls this right after arming the bus."""
+    bus = _BUS
+    bus.replica = str(rid) if rid is not None else None
+    if bus.replica:
+        bus.anchor["replica"] = bus.replica
+    else:
+        bus.anchor.pop("replica", None)
 
 
 def disable(clear: bool = False) -> None:
@@ -492,6 +516,8 @@ def _reset_for_tests() -> None:
     _BUS.clear()
     with _BUS._lock:
         _BUS._taps.clear()
+    _BUS.replica = None
+    _BUS.anchor.pop("replica", None)
     _DUMP_PATH = None
 
 

@@ -21,8 +21,11 @@ The recorder also keeps the raw samples (bounded deques), so offline
 harnesses (chip_smoke.py's observe phase) derive p50/p95/p99 from the
 same observations the scrape exports.
 
-Not here yet: the fleet scraper's `state_snapshot`, which comes with
-the fleet plane.
+`state_snapshot()` publishes the routing inputs (queue depth, KV-page
+headroom, prefix hit rate) and rolling SLO windows as one dict, served
+on `/debugz?state=1` for the fleet scraper (metrics/fleet.py);
+`window_counts()` feeds the doctor's SLO burn engine
+(metrics/doctor.py).
 
 All methods take an optional `now` (monotonic seconds) so tests can
 drive a synthetic timeline; production callers omit it. Thread-safe:
@@ -74,6 +77,14 @@ SAMPLE_KINDS = ("ttft", "tpot", "queue_wait", "prefill", "decode_step")
 # `host_gap_fraction`.
 HOST_PHASES = ("admit", "schedule", "sample", "stream", "fetch")
 
+# Rolling SLO window published by state_snapshot() for the fleet
+# scraper. The thresholds mirror doctor.default_slos() (ttft_p99 2.0 s,
+# tpot_p99 0.25 s) but stay local constants: the snapshot path must not
+# import the detector stack.
+STATE_SLO_WINDOW_S = 60.0
+STATE_SLO_TTFT_S = 2.0
+STATE_SLO_TPOT_S = 0.25
+
 
 def percentile(xs, p):
     """Nearest-rank percentile (inclusive): the smallest sample with at
@@ -103,6 +114,12 @@ class RequestRecorder:
         self._queued = 0
         self.samples = {k: collections.deque(maxlen=max_samples)
                         for k in SAMPLE_KINDS}
+        # Timestamped twin of `samples` ((monotonic ts, value)), so
+        # windowed consumers (the doctor's multi-window SLO burn engine)
+        # can count threshold violations over "the last N seconds"
+        # instead of "the last N samples".
+        self.timed = {k: collections.deque(maxlen=max_samples)
+                      for k in SAMPLE_KINDS}
         # Host-phase attribution: per-phase durations kept
         # apart from SAMPLE_KINDS so histogram-driven consumers are
         # untouched, plus a rolling (exposed_s, wall_s) window per tick
@@ -278,6 +295,14 @@ class RequestRecorder:
         self._spec_committed = 0
         self._prefix_lookups = 0
         self._prefix_hits = 0
+        # Shadow copies of the occupancy gauges (prometheus Gauges are
+        # write-only from here), so state_snapshot() can publish them
+        # machine-readably for the fleet scraper.
+        self._last_slots = (0, 0)
+        self._last_kv = (0, 0)
+        self._last_pools = (0, 0)
+        self._last_prefix_pages = 0
+        self._last_thermal: dict | None = None
 
     # ---------- lifecycle edges ----------
 
@@ -286,6 +311,8 @@ class RequestRecorder:
         value = max(value, 0.0)
         getattr(self, kind).observe(value)  # histogram attrs match kinds
         self.samples[kind].append(value)
+        self.timed[kind].append(
+            (time.monotonic() if now is None else now, value))
 
     def enqueue(self, rid, now: float | None = None) -> None:
         now = time.monotonic() if now is None else now
@@ -429,6 +456,7 @@ class RequestRecorder:
     # ---------- occupancy gauges (set by the worker loop) ----------
 
     def set_slots(self, active: int, total: int) -> None:
+        self._last_slots = (active, total)
         self.active_slots.set(active)
         self.slots_total.set(total)
         if events.enabled():
@@ -436,6 +464,7 @@ class RequestRecorder:
                                            "total": total})
 
     def set_kv_pages(self, used: int, total: int) -> None:
+        self._last_kv = (used, total)
         self.kv_pages_in_use.set(used)
         self.kv_pages_total.set(total)
         if events.enabled():
@@ -443,15 +472,30 @@ class RequestRecorder:
                                               "total": total})
 
     def set_prefix_cache_pages(self, pages: int) -> None:
+        self._last_prefix_pages = pages
         self.prefix_cache_pages.set(pages)
 
     def set_kv_thermal(self, census: dict) -> None:
         """Publish one PageAllocator.thermal_census() snapshot: the
         temperature/WSS/tenant gauge families, the per-page idle
-        histogram and the flight-recorder counter tracks."""
+        histogram, the flight-recorder counter tracks the doctor's
+        kv_cold_waste detector reads, and the state_snapshot() shadow
+        the fleet scraper rolls up."""
         buckets = census.get("buckets") or {}
         tenants = census.get("tenants") or {}
         wss = census.get("working_set_pages")
+        with self._lock:
+            self._last_thermal = {
+                "buckets": {b: int(buckets.get(b, 0))
+                            for b in ("hot", "warm", "cold")},
+                "working_set_pages": wss,
+                "cold_evictable": census.get("cold_evictable"),
+                "cold_orphan": census.get("cold_orphan"),
+                "tenants": {t: int(info.get("pages", 0))
+                            for t, info in tenants.items()},
+                "tenants_cold": {t: int(info.get("cold", 0))
+                                 for t, info in tenants.items()},
+            }
         for b in ("hot", "warm", "cold"):
             self.kv_pages_by_temperature.labels(bucket=b).set(
                 buckets.get(b, 0))
@@ -475,8 +519,10 @@ class RequestRecorder:
                 events.counter("serve/kv_tenant_cold", tenant_cold)
 
     def set_pool_depths(self, prefill: int, decode: int) -> None:
-        """Per-pool depth gauges (disaggregated layout), and their twin
-        flight-recorder counter."""
+        """Per-pool depth gauges (disaggregated layout); the twin
+        flight-recorder counter is what the doctor's two-queue
+        queue_collapse detector reads (metrics/doctor.py)."""
+        self._last_pools = (prefill, decode)
         self.pool_queue_depth.labels(pool="prefill").set(prefill)
         self.pool_queue_depth.labels(pool="decode").set(decode)
         if events.enabled():
@@ -597,6 +643,68 @@ class RequestRecorder:
         """Same, in rounded milliseconds (None entries dropped)."""
         return {k: round(v * 1e3, 3)
                 for k, v in self.pct(kind, ps).items() if v is not None}
+
+    def window_counts(self, kind: str, since: float,
+                      threshold: float | None = None
+                      ) -> tuple[int, int]:
+        """(observations, observations over `threshold`) among samples
+        with monotonic ts >= `since`: the windowed error-rate input the
+        doctor's SLO burn engine consumes (metrics/doctor.py)."""
+        with self._lock:
+            pts = [v for ts, v in self.timed[kind] if ts >= since]
+        if threshold is None:
+            return len(pts), 0
+        return len(pts), sum(1 for v in pts if v > threshold)
+
+    # ---------- fleet state snapshot ----------
+
+    def state_snapshot(self, now: float | None = None) -> dict:
+        """Machine-readable engine-state snapshot for the fleet scraper,
+        served on /debugz?state=1 (metrics/serving.py `state_provider`):
+        the routing inputs (queue depth, KV-page headroom, prefix hit
+        rate) plus the rolling SLO windows the fleet_slo_burn detector
+        aggregates across replicas. The keys are the JAX package's."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            queued = self._queued
+            active, total = self._last_slots
+            kv_used, kv_total = self._last_kv
+            prefill_d, decode_d = self._last_pools
+            prefix_pages = self._last_prefix_pages
+            lookups, hits = self._prefix_lookups, self._prefix_hits
+            thermal = self._last_thermal
+        since = now - STATE_SLO_WINDOW_S
+        ttft_n, ttft_bad = self.window_counts("ttft", since,
+                                              STATE_SLO_TTFT_S)
+        tpot_n, tpot_bad = self.window_counts("tpot", since,
+                                              STATE_SLO_TPOT_S)
+        out = {
+            # An epoch stamp for cross-process alignment, not a duration.
+            "t": round(time.time(), 3),
+            "ts_monotonic": round(now, 6),
+            "queued": queued,
+            "slots": {"active": active, "total": total},
+            "kv_pages": {"used": kv_used, "total": kv_total,
+                         "headroom": max(kv_total - kv_used, 0)},
+            "prefix_cache": {"lookups": lookups, "hits": hits,
+                             "hit_rate": (hits / lookups
+                                          if lookups else None),
+                             "pages": prefix_pages},
+            "pool_depth": {"prefill": prefill_d, "decode": decode_d},
+            "host_gap_fraction": self.host_gap(),
+            "slo_windows": {
+                "window_s": STATE_SLO_WINDOW_S,
+                "ttft": {"n": ttft_n, "bad": ttft_bad,
+                         "threshold_s": STATE_SLO_TTFT_S},
+                "tpot": {"n": tpot_n, "bad": tpot_bad,
+                         "threshold_s": STATE_SLO_TPOT_S},
+            },
+        }
+        if thermal is not None:
+            # Absent on non-paged engines; the fleet scrape parser
+            # tolerates the missing key.
+            out["kv_thermal"] = thermal
+        return out
 
 
 class ServeMetricsExporter(ExporterBase):

@@ -71,6 +71,11 @@ class ExporterBase:
     _stop: threading.Event
     name = "exporter"
     host = ""  # all interfaces, like the reference's :2112 listener
+    # Optional /debugz providers (callables returning JSON-able dicts):
+    # `?kv=1` and `?state=1` serve them when a subclass instance sets
+    # them.
+    kv_provider = None
+    state_provider = None
 
     def poll_once(self) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
@@ -83,8 +88,15 @@ class ExporterBase:
         allocator's live-block census (top-N by size; `census=<k>` with
         k>1 sets N), per-device memory stats and the kernel library's
         build record (metrics/introspection.py, kernels.build_record).
-        `?kv=1` embeds the paged engine's KV thermal census when the
-        exporter has a `kv_provider` callable (cli/serve.py sets it)."""
+        `?doctor=1` embeds the streaming doctor's live verdicts (active
+        incidents, recent incident history, SLO burn rates:
+        metrics/doctor.py) when a doctor runs in this process. `?kv=1`
+        embeds the paged engine's KV thermal census when the exporter
+        has a `kv_provider` callable (cli/serve.py sets it). `?state=1`
+        embeds the machine-readable engine-state snapshot, the fleet
+        scraper's structured half of the scrape, when the exporter has
+        a `state_provider` callable (cli/serve.py wires the recorder and
+        engine snapshot; cli/fleetmon.py the FleetState table)."""
         prom = make_wsgi_app(self.registry)
 
         def app(environ, start_response):
@@ -101,11 +113,7 @@ class ExporterBase:
         return app
 
     def _debugz(self, qs: dict) -> dict:
-        from container_engine_accelerators_tpu_torch import kernels
-        from container_engine_accelerators_tpu_torch.metrics import (
-            events,
-            introspection,
-        )
+        from container_engine_accelerators_tpu_torch.metrics import events
 
         try:
             limit = int(qs.get("n", [DEBUGZ_DEFAULT_LIMIT])[0])
@@ -117,6 +125,12 @@ class ExporterBase:
         except (TypeError, ValueError):
             census_n = 0
         if census_n > 0:
+            # Imported here: they import torch, which fleetmon's
+            # exporter (the same base) never needs.
+            from container_engine_accelerators_tpu_torch import kernels
+            from container_engine_accelerators_tpu_torch.metrics import (
+                introspection,
+            )
             try:
                 payload["census"] = introspection.live_array_census(
                     census_n if census_n > 1 else DEBUGZ_DEFAULT_CENSUS)
@@ -125,14 +139,27 @@ class ExporterBase:
                 payload["kernel_build"] = kernels.build_record()
             except Exception:
                 log.exception("/debugz census failed")
+        if qs.get("doctor", ["0"])[0] not in ("", "0"):
+            from container_engine_accelerators_tpu_torch.metrics import (
+                doctor,
+            )
+            d = doctor.get_active()
+            payload["doctor"] = (d.debugz() if d is not None
+                                 else {"active": False})
         if qs.get("kv", ["0"])[0] not in ("", "0"):
-            provider = getattr(self, "kv_provider", None)
-            if provider is not None:
+            if self.kv_provider is not None:
                 try:
-                    payload["kv"] = provider()
+                    payload["kv"] = self.kv_provider()
                 except Exception:
                     log.exception("/debugz kv provider failed")
                     payload["kv"] = {"error": "kv provider failed"}
+        if qs.get("state", ["0"])[0] not in ("", "0"):
+            if self.state_provider is not None:
+                try:
+                    payload["state"] = self.state_provider()
+                except Exception:
+                    log.exception("/debugz state provider failed")
+                    payload["state"] = {"error": "state provider failed"}
         return payload
 
     def start_background(self) -> None:

@@ -387,8 +387,16 @@ def test_inject_fault_writes_what_jax_writes(tmp_path, argv, capsys):
     assert paths[0].read_text() == paths[1].read_text()
     with pytest.raises(SystemExit):
         inject_fault.main(["--error-class", "NOPE"])
-    with pytest.raises(SystemExit):
-        inject_fault.main(["--kind", "hang"])
+    # A doctor kind without --fault-log: both packages refuse it alike
+    # (argparse's usage error, exit code 2, the same message).
+    codes = []
+    for mod in (inject_fault, jinject):
+        with pytest.raises(SystemExit) as exc:
+            mod.main(["--kind", "hang"])
+        codes.append((exc.value.code,
+                      capsys.readouterr().err.splitlines()[-1]))
+    assert codes[0] == codes[1]
+    assert codes[0][0] == 2 and "requires --fault-log" in codes[0][1]
 
 
 def test_injected_critical_fault_turns_the_card_unhealthy(tmp_path):

@@ -168,8 +168,17 @@ def test_loadgen_summary_keys_match_jax_against_the_port(server, tmp_path,
 
 
 def test_trace_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    assert ttrace_cli.main(["doctor", "x.json", "--window", "3"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    # `trace doctor` is ported: on an unreadable trace it answers as the
+    # JAX package's does, exit code and message alike.
+    from container_engine_accelerators_tpu.cli import trace as jtrace_cli
+
+    missing = str(tmp_path / "x.json")
+    answers = []
+    for cli in (ttrace_cli, jtrace_cli):
+        rc = cli.main(["doctor", missing, "--window", "3"])
+        answers.append((rc, capsys.readouterr().err))
+    assert answers[0] == answers[1]
+    assert answers[0][0] == 2 and "cannot read" in answers[0][1]
     # Train step logs are ported: merge takes one.
     log = tmp_path / "steps.jsonl"
     log.write_text(json.dumps({"kind": "step", "step": 1, "t": 10.0,

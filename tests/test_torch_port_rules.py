@@ -46,7 +46,8 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "k8s/client.py", "metrics/podresources_pb2.py",
             "metrics/devices.py", "metrics/sampler.py", "metrics/metrics.py",
             "cli/device_plugin_main.py", "cli/partition_tpu.py",
-            "cli/runtime_ready.py")
+            "cli/runtime_ready.py", "metrics/doctor.py",
+            "metrics/fleet.py", "cli/fleet.py", "cli/fleetmon.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

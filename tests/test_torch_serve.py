@@ -106,8 +106,10 @@ def test_healthz_and_bad_requests(server):
     with urllib.request.urlopen(url + "/healthz", timeout=10) as resp:
         health = json.loads(resp.read())
     # The window engine has no prefill pool: its pool fields read 0, as
-    # the JAX server's do.
-    assert health == {"ok": True, "batches": 0, "requests": 0,
+    # the JAX server's do; make_server without a replica id serves
+    # replica_id null, as JAX's make_server does.
+    assert health == {"ok": True, "replica_id": None, "batches": 0,
+                      "requests": 0,
                       "worker_alive": True, "worker_restarts": 0,
                       "prefill_workers": 0, "prefill_workers_alive": 0,
                       "prefill_worker_restarts": 0}
