@@ -11,6 +11,7 @@ health paths on one GPU.
   python3 chip_smoke.py training
   python3 chip_smoke.py node
   python3 chip_smoke.py doctor
+  python3 chip_smoke.py vision
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -34,7 +35,8 @@ that imports the port from there, in the order given (parent, change,
 change, parent), so that two versions compare within one call on one
 card. `training` runs the build and the training path's phases alone
 (train through serve_ckpt below), `node` the build and the node phase,
-`doctor` the build and the doctor phase.
+`doctor` the build and the doctor phase, `vision` the build and the
+vision phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -178,7 +180,32 @@ Phases, one JSON line each:
            plus 5 s); re-registration after the socket is removed and after a
            kubelet restart (10 s each); partition_tpu and runtime_ready
            on the served root; read_driver_version beside nvidia-smi;
-           SIGTERM (10 s, socket removed);
+           SIGTERM (10 s, socket removed); then the NRI device injector
+           (nri/daemon.py) as a process against a fake runtime on a
+           socket of the run's: RegisterPlugin (timed), Configure,
+           Synchronize, CreateContainer for a pod annotated with
+           /dev/nvidia<N> (torch's card), /dev/nvidiactl and
+           /dev/nvidia-uvm (each a char device with os.stat's major,
+           minor, uid and gid), and an absent node (an RPC error); and
+           the topology scheduler, which touches no device: the labeler
+           from a local metadata stub onto this machine's node in a
+           local API stub (nvidia.com/gpu: the plugin's cards), two
+           labelled fake nodes beside it, run_once ungating a gang of 2
+           (this node and its slice neighbour);
+  vision   the vision training demos: mnist.train 200 steps (accuracy >
+           0.9) and resnet.train on resnet_tiny 60 steps (> 0.5), the
+           demo Jobs' contracts; resnet50() in f32 at batch 2, 224^2 on
+           the card against the CPU on the same variables, TF32 off
+           (logits within 1e-3 of max |logit|, eval and train mode), and
+           the card's bf16 logits beside its f32 ones; then ResNet-50
+           v1.5 at full width and depth (stages 3/4/6/3, width 64,
+           bottlenecks, 1000 classes, bf16 compute, f32 BN statistics and
+           masters, channels_last) trained by Adam at batch 256 x 224^2
+           on 4 batches staged on the card: 2 warmup and 10 timed steps
+           (median ms, images/s, MFU from the conv and fc FLOPs with the
+           backward at twice the forward), a torch.profiler step (busy
+           share, top kernels), peak memory, every running statistic
+           moved and finite, finite eval logits;
   doctor   the doctor and the fleet plane, modelled on the JAX package's
            chaos scenarios (its schedules declared here). Each fault goes
            through cli/inject_fault (a process) into a FaultListener and
@@ -3797,6 +3824,10 @@ NODE_CHILD_SECONDS = 6.0        # its K4 loop
 NODE_METRICS_INTERVAL = 0.5     # the daemon's NVML sampling period, s
 NODE_DUTY_MIN = 50.0            # % the busy card's duty cycle must pass
 NODE_DUTY_GAP = 15.0            # points between /metrics and nvidia-smi
+# The busy reading is taken once the loop has run longer than NVML's
+# longest utilisation period (1 s) plus one of the daemon's refreshes, so
+# neither /metrics nor nvidia-smi averages over the idle time before it.
+NODE_DUTY_SETTLE_S = 1.0 + NODE_METRICS_INTERVAL
 # Bytes between /metrics and nvidia-smi: nvmlDeviceGetMemoryInfo (the
 # reference's call) counts the driver's reserve as used, nvidia-smi does
 # not (480 MiB on an H100 with driver 580.159.03: NVML 503316480 bytes
@@ -4045,10 +4076,330 @@ def _next_snapshot(q, timeout_s: float, what: str):
     return t, snap
 
 
+NRI_REGISTER_S = 30.0           # the injector's start -> RegisterPlugin
+NRI_PLUGIN = ("tpu-device-injector", "10")   # nri/daemon.py's defaults
+
+
+def nri_step(tmp_dir: str, nodes: list[str]) -> dict:
+    """The port's NRI device injector (nri/daemon.py) as a process on a
+    socket in tmp_dir, against this process's fake runtime on the port's
+    ttrpc transport: RegisterPlugin (timed from the start), Configure
+    (CreateContainer subscribed), Synchronize, CreateContainer for a pod
+    whose devices.gke.io/container.sidecar annotation lists `nodes` (each
+    must come back as a char device with the type, major, minor, uid and
+    gid os.stat gives), then one listing a node that is not there (an
+    RPC error, as in the JAX package)."""
+    import queue
+    import socket
+    import stat
+
+    from container_engine_accelerators_tpu_torch.nri import (
+        ANNOTATION_PREFIX,
+        ttrpc,
+    )
+    from container_engine_accelerators_tpu_torch.nri import (
+        nri_api_pb2 as api,
+    )
+    from container_engine_accelerators_tpu_torch.nri.daemon import (
+        CREATE_CONTAINER_MASK,
+        PLUGIN_SERVICE,
+        RUNTIME_SERVICE,
+    )
+
+    sock_path = os.path.join(tmp_dir, "nri.sock")
+    listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    listener.bind(sock_path)
+    listener.listen(1)
+    listener.settimeout(NRI_REGISTER_S)
+    registered: queue.Queue = queue.Queue()
+
+    def register(payload):
+        registered.put((time.monotonic(),
+                        api.RegisterPluginRequest.FromString(payload)))
+        return api.Empty().SerializeToString()
+
+    log_path = os.path.join(tmp_dir, "nri.log")
+    t_start = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.nri.daemon",
+             "--nri-socket", sock_path], cwd=port_root(), stdout=log,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=port_root()))
+    mux = server = None
+    try:
+        try:
+            conn, _ = listener.accept()
+        except TimeoutError:
+            raise SmokeFailure(f"nri: the injector did not connect in "
+                               f"{NRI_REGISTER_S} s") from None
+        mux = ttrpc.Mux(conn)
+        server = ttrpc.TtrpcServer(mux.conn(ttrpc.RUNTIME_SERVICE_CONN), {
+            RUNTIME_SERVICE: {"RegisterPlugin": register}})
+        client = ttrpc.TtrpcClient(mux.conn(ttrpc.PLUGIN_SERVICE_CONN))
+        try:
+            t_reg, req = registered.get(timeout=NRI_REGISTER_S)
+        except queue.Empty:
+            raise SmokeFailure("nri: no RegisterPlugin") from None
+        require((req.plugin_name, req.plugin_idx) == NRI_PLUGIN,
+                f"nri: registered {req}")
+        conf = api.ConfigureResponse.FromString(client.call(
+            PLUGIN_SERVICE, "Configure", api.ConfigureRequest(
+                runtime_name="chip_smoke", runtime_version="0")
+            .SerializeToString()))
+        require(conf.events & CREATE_CONTAINER_MASK,
+                f"nri: Configure subscribed {conf.events}")
+        client.call(PLUGIN_SERVICE, "Synchronize",
+                    api.SynchronizeRequest().SerializeToString())
+
+        def create(paths):
+            pod = api.PodSandbox(name="train", namespace="ml")
+            pod.annotations[ANNOTATION_PREFIX + "sidecar"] = "".join(
+                f"- path: {p}\n" for p in paths)
+            return client.call(PLUGIN_SERVICE, "CreateContainer",
+                               api.CreateContainerRequest(
+                                   pod=pod,
+                                   container=api.Container(name="sidecar"))
+                               .SerializeToString())
+
+        t0 = time.perf_counter()
+        try:
+            resp = api.CreateContainerResponse.FromString(create(nodes))
+        except RuntimeError as e:
+            raise SmokeFailure(f"nri: CreateContainer for {nodes}: {e}") \
+                from None
+        create_ms = (time.perf_counter() - t0) * 1e3
+        injected = []
+        for d, path in zip(resp.adjust.linux.devices, nodes):
+            st = os.stat(path)
+            injected.append({
+                "path": d.path, "type": d.type, "major": d.major,
+                "minor": d.minor, "uid": d.uid.value, "gid": d.gid.value,
+                "file_mode": d.file_mode.value
+                if d.HasField("file_mode") else None,
+                "stat_mode": oct(st.st_mode)})
+            require(stat.S_ISCHR(st.st_mode) and d.path == path
+                    and d.type == "c"
+                    and (d.major, d.minor) == (os.major(st.st_rdev),
+                                               os.minor(st.st_rdev))
+                    and (d.uid.value, d.gid.value) == (st.st_uid,
+                                                       st.st_gid),
+                    f"nri: {path} injected as {d}, stat {st}")
+        require(len(injected) == len(nodes),
+                f"nri: {len(injected)} devices for {nodes}")
+        absent = os.path.join(tmp_dir, "nvidia-absent")
+        try:
+            create([absent])
+            raise SmokeFailure(f"nri: {absent} injected without an error")
+        except RuntimeError as e:
+            missing_error = str(e)
+        require("rpc error 13" in missing_error
+                and "cannot inject" in missing_error,
+                f"nri: the absent node gave {missing_error}")
+    finally:
+        if server is not None:
+            server.stop()
+        if mux is not None:
+            mux.close()
+        listener.close()
+        proc.terminate()
+        try:
+            proc.wait(10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return {"registration_s": t_reg - t_start, "plugin": list(NRI_PLUGIN),
+            "create_container_ms": create_ms, "injected": injected,
+            "absent_node_error": missing_error}
+
+
+class _JsonStub:
+    """An HTTP server on 127.0.0.1 in a thread; `handle(method, path,
+    query, body)` answers (status, JSON body)."""
+
+    def __init__(self, handle):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _answer(self):
+                url = urlparse(self.path)
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n)) if n else None
+                status, out = handle(self.command, url.path,
+                                     parse_qs(url.query), body,
+                                     dict(self.headers))
+                data = (out if isinstance(out, bytes)
+                        else json.dumps(out).encode())
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_PUT = do_PATCH = do_DELETE = _answer
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = "http://127.0.0.1:%d" % self.server.server_address[1]
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class ApiStub(_JsonStub):
+    """The Kubernetes API calls the scheduler and the labeler make, over
+    an object store of nodes and pods: list (pods by status.phase), get,
+    replace and delete a pod, merge-patch a node."""
+
+    def __init__(self):
+        self.nodes: dict = {}
+        self.pods: dict = {}
+        self.requests: list = []
+        super().__init__(self._handle)
+
+    def _handle(self, method, path, query, body, headers):
+        self.requests.append((method, path))
+        parts = path.strip("/").split("/")
+        if path == "/api/v1/nodes" and method == "GET":
+            return 200, {"items": list(self.nodes.values())}
+        if parts[:3] == ["api", "v1", "nodes"] and method == "PATCH":
+            node = self.nodes.setdefault(parts[3], {
+                "metadata": {"name": parts[3]}, "status": {}})
+            node["metadata"].setdefault("labels", {}).update(
+                body.get("metadata", {}).get("labels", {}))
+            return 200, node
+        if path == "/api/v1/pods" and method == "GET":
+            phase = [c.split("=", 1)[1] for c in query.get(
+                "fieldSelector", [""])[0].split(",")
+                if c.startswith("status.phase=")]
+            return 200, {"items": [
+                p for p in self.pods.values()
+                if not phase or p["status"]["phase"] == phase[0]]}
+        if parts[:3] == ["api", "v1", "namespaces"] and parts[4:5] == [
+                "pods"] and len(parts) == 6:
+            key = (parts[3], parts[5])
+            if key not in self.pods:
+                return 404, {"message": "not found"}
+            if method == "GET":
+                return 200, self.pods[key]
+            if method == "PUT":
+                self.pods[key] = body
+                return 200, body
+            if method == "DELETE":
+                return 200, self.pods.pop(key)
+        return 404, {"message": f"{method} {path}"}
+
+
+class MetadataStub(_JsonStub):
+    """The GCE metadata server's instance attributes (403 without the
+    Metadata-Flavor header, 404 for an attribute it does not have)."""
+
+    def __init__(self, attrs: dict):
+        def handle(method, path, query, body, headers):
+            value = attrs.get(path.rsplit("/", 1)[-1])
+            if headers.get("Metadata-Flavor") != "Google":
+                return 403, b""
+            return (200, value.encode()) if value is not None else (404,
+                                                                     b"")
+
+        super().__init__(handle)
+
+
+def scheduler_step(n_cards: int) -> dict:
+    """The topology scheduler, which touches no device: the labeler's
+    topology_labels from a local metadata stub patched onto this machine's
+    node in a local API stub (nvidia.com/gpu allocatable: the device
+    plugin's `n_cards`), two labelled fake nodes beside it (one in its
+    slice, one in another rack), and schedule_daemon.run_once ungating a
+    gang of 2 pods of `n_cards` cards each: this node and its slice
+    neighbour, the gates gone, the placement annotated."""
+    import socket
+
+    from container_engine_accelerators_tpu_torch import GPU_RESOURCE_NAME
+    from container_engine_accelerators_tpu_torch.k8s import K8sClient
+    from container_engine_accelerators_tpu_torch.scheduler import (
+        label_nodes,
+    )
+    from container_engine_accelerators_tpu_torch.scheduler import (
+        schedule_daemon as sd,
+    )
+    from container_engine_accelerators_tpu_torch.scheduler import (
+        topology as t,
+    )
+
+    host = socket.gethostname() or "smoke-node"
+    md = MetadataStub({"physical_host": f"/smoke-cluster/rack-0/{host}",
+                       "tpu-env-slice-id": "slice-0",
+                       "tpu-env-host-coords": "0,0,0"})
+    api = ApiStub()
+    gate = sd.GATE_PREFIX + "smoke"
+
+    def node(name, labels):
+        return {"metadata": {"name": name, "labels": labels},
+                "status": {"allocatable": {GPU_RESOURCE_NAME: str(n_cards),
+                                           "cpu": "8", "memory": "64Gi"},
+                           "conditions": [{"type": "Ready",
+                                           "status": "True"}]}}
+
+    try:
+        api.nodes[host] = node(host, {})
+        k8s = K8sClient(api.url)
+        labels = label_nodes.update_node_labels(k8s, host, md.url)
+        want = {t.LABEL_CLUSTER: "smoke-cluster", t.LABEL_RACK: "rack-0",
+                t.LABEL_HOST: host, t.LABEL_SLICE: "slice-0",
+                t.LABEL_ICI_COORDS: "0-0-0"}
+        require(labels == want
+                and api.nodes[host]["metadata"]["labels"] == want,
+                f"scheduler: labels {labels}, want {want}")
+        api.nodes["fake-near"] = node("fake-near", {
+            **want, t.LABEL_HOST: "fake-near", t.LABEL_ICI_COORDS: "1-0-0"})
+        api.nodes["fake-far"] = node("fake-far", {
+            t.LABEL_CLUSTER: "smoke-cluster", t.LABEL_RACK: "rack-1",
+            t.LABEL_HOST: "fake-far"})
+        for i in range(2):
+            api.pods[("default", f"smoke-{i}")] = {
+                "metadata": {"name": f"smoke-{i}", "namespace": "default",
+                             "labels": {"job-name": "smoke"},
+                             "annotations": {}},
+                "spec": {"schedulingGates": [{"name": gate}],
+                         "containers": [{"name": "main", "resources": {
+                             "requests": {GPU_RESOURCE_NAME:
+                                          str(n_cards)}}}]},
+                "status": {"phase": "Pending"}}
+        t0 = time.perf_counter()
+        scheduled = sd.run_once(k8s)
+        run_once_ms = (time.perf_counter() - t0) * 1e3
+        placed = {name: sd.assigned_node(p)
+                  for (_, name), p in api.pods.items()}
+        require(scheduled == 2 and sorted(placed.values()) == sorted(
+            [host, "fake-near"]), f"scheduler: run_once {scheduled}, "
+            f"placed {placed}")
+        for (_, name), p in api.pods.items():
+            require(p["spec"]["schedulingGates"] == []
+                    and p["metadata"]["annotations"].get(
+                        sd.PLACED_ANNOTATION) == gate,
+                    f"scheduler: {name} left as {p}")
+        puts = sum(1 for m, _ in api.requests if m == "PUT")
+        require(puts == 2, f"scheduler: {puts} pod replaces")
+    finally:
+        md.stop()
+        api.stop()
+    return {"node": host, "n_cards": n_cards, "labels": labels,
+            "placed": placed, "run_once": scheduled,
+            "run_once_ms": run_once_ms, "requests": len(api.requests)}
+
+
 def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
                child_code: str = NODE_CHILD,
                child_seconds: float = NODE_CHILD_SECONDS,
-               child_bytes: int = NODE_CHILD_BYTES) -> dict:
+               child_bytes: int = NODE_CHILD_BYTES,
+               nri_nodes: list[str] | None = None) -> dict:
     """The node layer on the card: discovery through NVML and torch's
     card among the /dev nodes; the device plugin daemon
     (cli/device_plugin_main.py, metrics and health on) registering with
@@ -4057,7 +4408,9 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
     duty cycle and memory on /metrics, attributed through a PodResources
     stub, beside nvidia-smi; an injected HBM_ECC_UNCORRECTABLE on the
     open ListAndWatch stream; both restart triggers; partition_tpu,
-    runtime_ready and the driver version; SIGTERM."""
+    runtime_ready and the driver version; SIGTERM; then the NRI injector
+    granting torch's card's nodes (nri_step; `nri_nodes` in their place
+    for a rehearsal) and the topology scheduler (scheduler_step)."""
     import io
     import queue
 
@@ -4228,7 +4581,7 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
         threading.Thread(target=_lines, args=(child.stdout, lines),
                          daemon=True).start()
         try:
-            _, line = lines.get(timeout=300)
+            t_loop, line = lines.get(timeout=300)
         except queue.Empty:
             raise SmokeFailure("node: the container did not start its "
                                "loop in 300 s") from None
@@ -4255,6 +4608,7 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
                                            NODE_POD)}
 
         deadline = time.monotonic() + child_seconds
+        time.sleep(max(0.0, t_loop + NODE_DUTY_SETTLE_S - time.monotonic()))
         while True:
             text, busy = scrape()
             smi = gpu_query("utilization.gpu,memory.used", card.uuid)
@@ -4406,6 +4760,10 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
         kubelet.stop()
         pod_resources.stop()
         session.close()
+    nri = nri_step(tmp_dir, nri_nodes or [
+        os.path.join(dev_root, name)
+        for name in (dev_id, "nvidiactl", "nvidia-uvm")])
+    sched = scheduler_step(len(want_devices))
     result = {
         "phase": "node", "nvidia_smi": nvidia_smi_line(),
         "nvml": {"driver_version": driver,
@@ -4427,23 +4785,234 @@ def node_phase(torch, dev, tmp_dir: str, dev_root: str = "/dev",
         "host_runtime_ready_rc": host_ready_rc,
         "driver_version": {"read": read, "library": lib,
                            "nvidia_smi": smi_driver},
+        "nri": nri, "scheduler": sched,
         "launches": {"flash_fwd": ran["launches"]},
     }
     emit(result)
     return result
 
 
+# ---------------------------------------------------------------- vision
+
+# The demo Jobs' contracts (demo/tpu-training/mnist-tpu.yaml,
+# resnet-tpu.yaml): MNIST past 0.9 after 200 steps, the tiny ResNet past
+# 0.5 after 60.
+MNIST_STEPS, MNIST_MIN_ACC = 200, 0.9
+RESNET_TINY_STEPS, RESNET_TINY_MIN_ACC = 60, 0.5
+# ResNet-50's f32 logits on the card against the CPU's on the same
+# variables and images, TF32 off: within 1e-3 of the largest |logit|
+# (cuDNN and the CPU sum each convolution in other orders, in f32).
+RESNET_CARD_CPU_RTOL = 1e-3
+# ResNet-50 v1.5 at its published size (torchvision's, MLPerf's): 224^2
+# RGB, batch 256 a step (it fits the card), Adam, 2 warmup steps and 10
+# timed ones on 4 batches staged on the card before the clock starts.
+RESNET_BATCH, RESNET_HW = 256, 224
+RESNET_WARMUP, RESNET_STEPS, RESNET_STAGED = 2, 10, 4
+
+
+def resnet_forward_flops(cfg, hw: int) -> int:
+    """One image's forward FLOPs (2 a multiply-add) in ResNet `cfg`'s
+    convolutions and fc at hw x hw, from their shapes (BN, ReLU, pools
+    and adds left out)."""
+    def conv(h, k, cin, cout, stride):
+        out = -(-h // stride)
+        return out, 2 * out * out * k * k * cin * cout
+
+    h, flops = conv(hw, 7 if cfg.stem_pool else 3, 3, cfg.width,
+                    2 if cfg.stem_pool else 1)
+    if cfg.stem_pool:
+        h = -(-h // 2)
+    cin = cfg.width
+    for si, n_blocks in enumerate(cfg.stage_sizes):
+        planes = cfg.width * 2 ** si
+        cout = planes * cfg.block_expansion
+        for bi in range(n_blocks):
+            stride = 2 if si > 0 and bi == 0 else 1
+            shapes = ([(1, cin, planes, 1), (3, planes, planes, stride),
+                       (1, planes, cout, 1)] if cfg.bottleneck else
+                      [(3, cin, planes, stride), (3, planes, cout, 1)])
+            out = h
+            for k, ci, co, st in shapes:
+                out, f = conv(out, k, ci, co, st)
+                flops += f
+            if stride != 1 or cin != cout:
+                flops += conv(h, 1, cin, cout, stride)[1]
+            h, cin = out, cout
+    return flops + 2 * cin * cfg.num_classes
+
+
+def resnet_card_vs_cpu(torch, dev, cfg=None, batch: int = 2,
+                       hw: int = RESNET_HW) -> dict:
+    """resnet50() (or `cfg`) in f32 on the card and on the CPU, the same
+    variables (drawn from the seed on the CPU) and images, eval and train
+    mode, TF32 off: the max |diff| of the logits against the bound; and
+    the card's bf16 eval logits' distance from its f32 ones."""
+    import copy
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import resnet
+
+    cfg16 = cfg or resnet.resnet50()
+    cfg = dataclasses.replace(cfg16, dtype=torch.float32)
+    cpu_model = resnet.init_variables(torch.Generator().manual_seed(SEED),
+                                      cfg, "cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    images = next(resnet.synthetic_images(cfg, batch, hw, 1, seed=SEED))[
+        "images"]
+    out = {"batch": batch, "hw": hw, "rtol": RESNET_CARD_CPU_RTOL}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            # The same draws in bf16 compute: its eval logits' distance
+            # from the f32 ones, before a train pass moves the statistics.
+            bf16 = resnet.init_variables(
+                torch.Generator().manual_seed(SEED), cfg16, "cpu").to(dev)
+            got16, _ = resnet.apply(bf16, images.to(dev), train=False)
+            for train in (False, True):
+                want, _ = resnet.apply(cpu_model, images, train=train)
+                got, _ = resnet.apply(card_model, images.to(dev),
+                                      train=train)
+                err = (got.cpu() - want).abs().max().item()
+                scale = want.abs().max().item()
+                mode = "train" if train else "eval"
+                require(math.isfinite(err) and err <= RESNET_CARD_CPU_RTOL
+                        * scale, f"vision: resnet50 f32 {mode} logits, card "
+                        f"against CPU, max |diff| {err} > "
+                        f"{RESNET_CARD_CPU_RTOL} x {scale}")
+                out[mode] = {"max_abs_diff": err, "max_abs_logit": scale,
+                             "rel": err / scale}
+                if not train:
+                    out["bf16_vs_f32_eval_rel"] = (
+                        (got16 - got).abs().max() / got.abs().max()).item()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    del cpu_model, card_model, bf16
+    _free_card(torch)
+    return out
+
+
+def resnet_train_timing(torch, dev, np, cfg=None, batch: int = RESNET_BATCH,
+                        hw: int = RESNET_HW, warmup: int = RESNET_WARMUP,
+                        steps: int = RESNET_STEPS) -> dict:
+    """ResNet-50 (or `cfg`) trained with Adam on RESNET_STAGED batches of
+    synthetic_images staged on the card: each step's synchronised wall
+    ms after `warmup` steps, images/s and MFU from the median, a
+    torch.profiler capture of one more step (busy share, top kernels),
+    peak memory, the running statistics' move, eval logits."""
+    from container_engine_accelerators_tpu_torch.models import resnet
+
+    cfg = cfg or resnet.resnet50()
+    t0 = time.perf_counter()
+    batches = list(resnet.synthetic_images(cfg, batch, hw, RESNET_STAGED,
+                                           seed=SEED, device=dev))
+    stage_s = time.perf_counter() - t0
+    model = resnet.init_variables(torch.Generator(device=dev).manual_seed(
+        SEED), cfg, dev)
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    step = resnet.make_train_step(model, resnet.make_optimizer(model, 1e-3))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        metrics = step(batches[i % len(batches)])
+        loss = float(metrics["loss"])       # the step's fence
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        require(math.isfinite(loss), f"vision: resnet loss {loss} at step "
+                f"{i}")
+    timed = step_ms[warmup:]
+    median_ms = float(np.median(timed))
+    images_per_s = batch / (median_ms / 1e3)
+    flops = 3 * resnet_forward_flops(cfg, hw)   # backward 2x the forward
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    profile = profile_steps(torch, lambda: step(batches[0]), steps=1,
+                            top=10)
+    busy = profile["busy_ms_per_step"]
+    moved, finite = 0, True
+    for name, buf in model.named_buffers():
+        moved += int(not torch.equal(buf, before[name]))
+        finite = finite and bool(torch.isfinite(buf).all())
+    n_bufs = len(before)
+    require(finite and moved == n_bufs, f"vision: running statistics "
+            f"moved in {moved} of {n_bufs} buffers, finite {finite}")
+    with torch.no_grad():
+        logits, _ = resnet.apply(model, batches[1]["images"], train=False)
+    require(bool(torch.isfinite(logits).all()),
+            "vision: resnet eval logits not finite")
+    stem = model.stem.bn
+    del model, step, batches
+    _free_card(torch)
+    return {"batch": batch, "hw": hw, "stage_s": stage_s,
+            "warmup_steps": warmup, "steps": steps, "losses": losses,
+            "step_ms": timed, "median_step_ms": median_ms,
+            "images_per_s": images_per_s,
+            "train_flops_per_image": flops,
+            "mfu": images_per_s * flops / PEAK_FLOPS["bf16"],
+            "device_busy_ms_per_step": busy,
+            "device_busy_share": None if busy is None else busy / median_ms,
+            "top_kernels_ms_per_step": profile["top"],
+            "max_memory_allocated_bytes": peak,
+            "running_stats_moved": f"{moved}/{n_bufs}",
+            "stem_running_mean_abs_max": stem.mean.abs().max().item(),
+            "stem_running_var_mean": stem.var.mean().item(),
+            "eval_logits_finite": True}
+
+
+def vision_phase(torch, dev, np, cfg=None, batch: int = RESNET_BATCH,
+                 hw: int = RESNET_HW) -> dict:
+    """The vision training demos on the card: the two demo contracts
+    (mnist.train, resnet.train on resnet_tiny), ResNet-50's f32 logits on
+    the card against the CPU's, and ResNet-50 v1.5 trained at full width
+    and depth (resnet_train_timing). `cfg`, `batch` and `hw` shrink the
+    ResNet-50 parts for a rehearsal."""
+    from container_engine_accelerators_tpu_torch.models import mnist, resnet
+
+    out = {"phase": "vision", "nvidia_smi": nvidia_smi_line()}
+    t0 = time.perf_counter()
+    acc = mnist.train(steps=MNIST_STEPS, device=dev)
+    require(acc > MNIST_MIN_ACC, f"vision: mnist accuracy {acc} after "
+            f"{MNIST_STEPS} steps, want > {MNIST_MIN_ACC}")
+    out["mnist"] = {"steps": MNIST_STEPS, "accuracy": acc,
+                    "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    acc = resnet.train(steps=RESNET_TINY_STEPS, device=dev)
+    require(acc > RESNET_TINY_MIN_ACC, f"vision: resnet_tiny accuracy {acc} "
+            f"after {RESNET_TINY_STEPS} steps, want > {RESNET_TINY_MIN_ACC}")
+    out["resnet_tiny"] = {"steps": RESNET_TINY_STEPS, "accuracy": acc,
+                          "seconds": time.perf_counter() - t0}
+    out["resnet50_card_vs_cpu"] = resnet_card_vs_cpu(
+        torch, dev, cfg, hw=hw)
+    cfg = cfg or resnet.resnet50()
+    out["resnet50"] = {
+        "stage_sizes": list(cfg.stage_sizes), "width": cfg.width,
+        "bottleneck": cfg.bottleneck, "num_classes": cfg.num_classes,
+        "dtype": str(cfg.dtype), "memory_format": "channels_last",
+        **resnet_train_timing(torch, dev, np, cfg, batch, hw)}
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------- doctor
 
 DOCTOR_POLL_S = 0.25            # the in-process doctors' evaluation period
-DOCTOR_HANG_AFTER_S = 2.0       # engine_hang's threshold in the scenario
-DOCTOR_HANG_S = 5.0             # the injected hang, well past it
 FLEETMON_INTERVAL_S = 0.25      # fleetmon's scrape period
 FLEETMON_DOWN_AFTER_S = 1.0     # ... and its stale -> down limit
 FLEETMON_DOCTOR_S = 0.5         # ... and its doctor's period
-# The card's sizes; the CPU rehearsal (tests/test_torch_smoke_report.py)
-# passes llama_tiny ones.
+# The card's sizes; the CPU rehearsal (tests/test_torch_smoke_doctor.py)
+# passes llama_tiny ones, and the thresholds that a CPU run on a loaded
+# host needs: the in-process doctors' hang threshold, and fleetmon's
+# SLOs ("fleet_slos", SloSpec fields; absent here, so fleetmon keeps its
+# defaults).
 DOCTOR_SIZES = {
+    "hang_after_s": 2.0,        # engine_hang's threshold in the scenarios
+    "hang_s": 5.0,              # the injected hang, well past it
     "hang_new_tokens": 128,     # loadgen streams through the hang
     "kill_new_tokens": 128,     # ... through the worker kill
     "pool_new_tokens": 48,      # ... the prefill-pool kill's mix
@@ -4476,13 +5045,30 @@ def _run_port(root: str, module: str, *args: str, timeout: float = 600,
 
 
 def _popen_port(root: str, module: str, *args: str, env: dict | None = None,
-                stdout=subprocess.PIPE, stderr=None):
-    """`python -m <module> ARGS` as a process of its own, in a session of
-    its own so that _stop_procs reaches what it starts."""
+                stdout=subprocess.PIPE, stderr=None, code: str | None = None):
+    """`python -m <module> ARGS` (or `python -c <code> ARGS`) as a process
+    of its own, in a session of its own so that _stop_procs reaches what
+    it starts."""
+    run = ["-c", code] if code is not None else ["-m", module]
     return subprocess.Popen(
-        [sys.executable, "-m", module, *args], cwd=root, text=True,
+        [sys.executable, *run, *args], cwd=root, text=True,
         stdout=stdout, stderr=stderr, start_new_session=True,
         env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+
+
+# cli/fleetmon.py with its doctor on the SloSpecs given as JSON in
+# argv[1], the rest of argv its own flags: fleetmon has no SLO flag (nor
+# has the JAX package's), so a run that needs other SLOs than the
+# defaults, as the CPU rehearsal's loaded replicas do, starts it here.
+FLEETMON_WITH_SLOS = r"""
+import json, sys
+from container_engine_accelerators_tpu_torch.cli import fleetmon
+from container_engine_accelerators_tpu_torch.metrics import doctor
+slos = [doctor.SloSpec(**s) for s in json.loads(sys.argv[1])]
+config = doctor.DoctorConfig
+doctor.DoctorConfig = lambda **kw: config(**{"slos": slos, **kw})
+sys.exit(fleetmon.main(sys.argv[2:]))
+"""
 
 
 def _stop_procs(procs: list) -> None:
@@ -4567,7 +5153,7 @@ class DoctorRun:
     process; finish() reads the verdicts and holds them to the
     scenario's expectation."""
 
-    def __init__(self, root: str, tmp_dir: str, name: str,
+    def __init__(self, root: str, tmp_dir: str, name: str, sz: dict,
                  window_s: float = 6.0, engine=None, request_recorder=None,
                  train_recorder=None, **config):
         from prometheus_client import CollectorRegistry
@@ -4586,7 +5172,7 @@ class DoctorRun:
                                  process_name=f"doctor-{name}")
         self.config = doctor.DoctorConfig(
             poll_interval_s=DOCTOR_POLL_S, fast_window_s=window_s,
-            slow_window_s=window_s * 5, hang_after_s=DOCTOR_HANG_AFTER_S,
+            slow_window_s=window_s * 5, hang_after_s=sz["hang_after_s"],
             clear_after_s=1e9, slos=[], **config)
         self.doctor = doctor.Doctor(
             config=self.config, registry=CollectorRegistry(),
@@ -4710,7 +5296,7 @@ def _gauges_at_rest(engine, what: str) -> None:
 def doctor_hang(root, tmp_dir, model, cfg, sz) -> dict:
     """engine-hang: the continuous engine (2 slots, K1) behind make_server;
     loadgen streams 3 requests, 2 at a time, and `inject_fault --kind
-    hang` wedges the worker DOCTOR_HANG_S: engine_hang once, the streams
+    hang` wedges the worker sz["hang_s"]: engine_hang once, the streams
     resume with no error and no hung stream."""
     from container_engine_accelerators_tpu_torch.cli.serve import (
         ContinuousEngine,
@@ -4721,22 +5307,22 @@ def doctor_hang(root, tmp_dir, model, cfg, sz) -> dict:
     n = sz["hang_new_tokens"]
     with serving(engine) as url, _exporter(engine):
         _loadgen(root, url, 2, 2, 8)                     # prime the shapes
-        run = DoctorRun(root, tmp_dir, "engine_hang", 6.0, engine=engine,
-                        request_recorder=engine.recorder)
+        run = DoctorRun(root, tmp_dir, "engine_hang", sz, 6.0,
+                        engine=engine, request_recorder=engine.recorder)
         warm, rc = _loadgen(root, url, 2, 1, 4)
         require(rc == 0, f"engine_hang: warmup {warm}")
         bg = _loadgen(root, url, 3, 2, n, "--stall-timeout-s",
-                      str(DOCTOR_HANG_S + 30), wait=False)
+                      str(sz["hang_s"] + 30), wait=False)
         _wait_for(lambda: _slots_busy(engine), "engine_hang: streams", 120)
-        run.inject("--kind", "hang", "--seconds", str(DOCTOR_HANG_S))
-        run.wait_for("engine_hang", DOCTOR_HANG_S + 10)
+        run.inject("--kind", "hang", "--seconds", str(sz["hang_s"]))
+        run.wait_for("engine_hang", sz["hang_s"] + 10)
         summary, rc = _wait_loadgen(bg)
         require(rc == 0 and summary["requests_ok"] == 3
                 and summary["errors"] == 0,
                 f"engine_hang: loadgen rc {rc}: {summary}")
         _gauges_at_rest(engine, "engine_hang")
         out = run.finish({"engine_hang": "serve"})
-    out.update(hang_s=DOCTOR_HANG_S, hang_after_s=DOCTOR_HANG_AFTER_S,
+    out.update(hang_s=sz["hang_s"], hang_after_s=sz["hang_after_s"],
                loadgen=summary, tpot_ms=summary.get("tpot_ms"))
     return out
 
@@ -4758,7 +5344,7 @@ def doctor_worker_kill(root, tmp_dir, model, cfg, sz) -> dict:
         try:
             sup.start()
             _loadgen(root, url, 2, 2, 8)
-            run = DoctorRun(root, tmp_dir, "worker_kill", 6.0,
+            run = DoctorRun(root, tmp_dir, "worker_kill", sz, 6.0,
                             engine=engine, request_recorder=engine.recorder)
             warm, rc = _loadgen(root, url, 2, 1, 4)
             require(rc == 0, f"worker_kill: warmup {warm}")
@@ -4825,7 +5411,7 @@ def doctor_pool_and_node(root, tmp_dir, torch, dev, model, cfg, sz) -> dict:
             _wait_for(lambda: engine.prefill_workers_alive() == 2,
                       "the prefill pool")
             _loadgen(root, url, 8, 4, 4, *mix)
-            run = DoctorRun(root, tmp_dir, "prefill_pool_kill", 6.0,
+            run = DoctorRun(root, tmp_dir, "prefill_pool_kill", sz, 6.0,
                             engine=engine, request_recorder=engine.recorder)
             warm, rc = _loadgen(root, url, 2, 1, 4)
             require(rc == 0, f"prefill_pool_kill: warmup {warm}")
@@ -4856,8 +5442,9 @@ def doctor_pool_and_node(root, tmp_dir, torch, dev, model, cfg, sz) -> dict:
                 "loadgen": summary,
                 "prefill_worker_restarts": health["prefill_worker_restarts"]}
 
-            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_fabricated", 8.0,
-                            engine=engine, request_recorder=engine.recorder)
+            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_fabricated", sz,
+                            8.0, engine=engine,
+                            request_recorder=engine.recorder)
             time.sleep(1.5)
             run.inject("--kind", "hbm-climb", "--device", "injected:0",
                        "--seconds", "3", "--start-frac", "0.5",
@@ -4867,7 +5454,7 @@ def doctor_pool_and_node(root, tmp_dir, torch, dev, model, cfg, sz) -> dict:
             out["hbm_exhaustion_fabricated"] = run.finish(
                 {"oom_precursor": "injected:0"})
 
-            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_real", 8.0,
+            run = DoctorRun(root, tmp_dir, "hbm_exhaustion_real", sz, 8.0,
                             engine=engine, request_recorder=engine.recorder)
             time.sleep(1.5)
             climb = real_hbm_climb(torch, dev, run, exp.hbm_poller, sz)
@@ -4877,7 +5464,7 @@ def doctor_pool_and_node(root, tmp_dir, torch, dev, model, cfg, sz) -> dict:
                 **climb}
 
             feed = os.path.join(tmp_dir, "health_feed.jsonl")
-            run = DoctorRun(root, tmp_dir, "health_storm", 8.0,
+            run = DoctorRun(root, tmp_dir, "health_storm", sz, 8.0,
                             engine=engine, request_recorder=engine.recorder,
                             health_storm_n=3)
             time.sleep(1.5)
@@ -4972,7 +5559,7 @@ def doctor_data_stall(root, tmp_dir, torch, dev, cfg, sz) -> dict:
 
     f = sz["fit"]
     rec = TrainRecorder()
-    run = DoctorRun(root, tmp_dir, "data_stall", 6.0, train_recorder=rec)
+    run = DoctorRun(root, tmp_dir, "data_stall", sz, 6.0, train_recorder=rec)
 
     def stream():
         for i, b in enumerate(synthetic_batches(cfg.vocab_size, f["batch"],
@@ -5160,26 +5747,36 @@ def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
             fleet.stdout, "fleet", sz["ready_timeout_s"] + 60)["replicas"]}
         ready_s = time.monotonic() - t_launch
         require(sorted(reps) == ["r0", "r1"], f"replica_kill: {reps}")
+        slos = sz.get("fleet_slos")
         fm = _popen_port(
             root, "container_engine_accelerators_tpu_torch.cli.fleetmon",
+            *([json.dumps(slos)] if slos is not None else []),
             "--endpoints", ",".join(reps[r]["metrics_url"]
                                     for r in ("r0", "r1")),
             "--replica-ids", "r0,r1", "--interval",
             str(FLEETMON_INTERVAL_S), "--down-after",
             str(FLEETMON_DOWN_AFTER_S), "--timeout", "1.0", "--doctor",
             "--doctor-interval", str(FLEETMON_DOCTOR_S), "--doctor-dir",
-            os.path.join(d, "fleet-incidents"), "--trace-dump", dump)
+            os.path.join(d, "fleet-incidents"), "--trace-dump", dump,
+            code=FLEETMON_WITH_SLOS if slos is not None else None)
         procs.append(fm)
         fm_url = f"http://127.0.0.1:{_json_line(fm.stdout, 'fleetmon', 120)['port']}"  # noqa: E501
         targets = ",".join(reps[r]["url"] for r in ("r0", "r1"))
-        warm, rc = _loadgen(root, targets, 4, 2, 8)
-        require(rc == 0 and warm["requests_ok"] == 4,
+        # Each replica warmed at once, 2 streams each: its own TPOT.
+        warming = {r: _loadgen(root, reps[r]["url"], 2, 2, 8, wait=False)
+                   for r in ("r0", "r1")}
+        warm = {r: _wait_loadgen(p) for r, p in warming.items()}
+        require(all(rc == 0 and w["requests_ok"] == 2
+                    for w, rc in warm.values()),
                 f"replica_kill: warmup {warm}")
+        warm = {r: w for r, (w, _) in warm.items()}
+        warm_tpot = {r: {k: w["tpot_ms"][k] for k in ("p50", "p99")}
+                     for r, w in warm.items()}
         _wait_for(lambda: _fleet_gauges(fm_url).get(
             "fleet_replicas{state=up}") == 2, "replica_kill: 2 up", 30)
         # Two processes time-slice the card: the stall limit follows the
         # warmup's measured TPOT, not a CPU run's.
-        tpot_s = warm["tpot_ms"]["p99"] / 1e3
+        tpot_s = max(t["p99"] for t in warm_tpot.values()) / 1e3
         stall_s = max(5.0, 100 * tpot_s)
         used_before = used()
         fan = _loadgen(root, targets, 6, 2, sz["fan_new_tokens"],
@@ -5245,7 +5842,9 @@ def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
     require(got.count(("replica_down", "r1")) == 1
             and all(c in ("replica_down", "engine_hang") for c, _ in got)
             and all(s == "r1" for c, s in got if c == "replica_down"),
-            f"replica_kill: fleetmon's doctor {got}")
+            f"replica_kill: fleetmon's doctor {got}; the replicas' warmup "
+            f"TPOT ms {warm_tpot}, fleetmon's SLOs "
+            f"{slos if slos is not None else 'the defaults'}")
     early = [i["class"] for i in live if i["ts_monotonic"] < t_kill - 0.5
              and i["class"] != "engine_hang"]
     require(not early, f"replica_kill: incidents before the kill {early}")
@@ -5275,9 +5874,11 @@ def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
             "fleetmon": {"interval_s": FLEETMON_INTERVAL_S,
                          "down_after_s": FLEETMON_DOWN_AFTER_S,
                          "doctor_interval_s": FLEETMON_DOCTOR_S},
+            "fleet_slos": slos or "defaults",
             "replicas_ready_s": ready_s, "stall_timeout_s": stall_s,
-            "warmup": warm, "fanned": fanned, "survivor": survivor,
-            "survivor_tpot_ms": [warm.get("tpot_ms"),
+            "warmup": warm, "warmup_tpot_ms": warm_tpot, "fanned": fanned,
+            "survivor": survivor,
+            "survivor_tpot_ms": [warm["r0"].get("tpot_ms"),
                                  survivor.get("tpot_ms")],
             "card_bytes_freed_by_kill": freed,
             "survivor_doctor": [{"class": i["class"],
@@ -5871,6 +6472,28 @@ def node_main(torch) -> int:
     return 0
 
 
+def vision_main(torch) -> int:
+    """`chip_smoke.py vision`: the build and the vision phase alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    kernels.build()
+    seconds = {"build": time.perf_counter() - t0}
+    try:
+        t0 = time.perf_counter()
+        vision_phase(torch, torch.device("cuda", 0), np)
+        seconds["vision"] = time.perf_counter() - t0
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    emit({"phase_seconds": seconds})
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5903,6 +6526,8 @@ def main() -> int:
         return node_main(torch)
     if sys.argv[1:2] == ["doctor"]:
         return doctor_main(torch)
+    if sys.argv[1:2] == ["vision"]:
+        return vision_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -5956,6 +6581,7 @@ def main() -> int:
             health = timed("health", health_phase, torch, dev, tmp_dir)
         with tempfile.TemporaryDirectory() as tmp_dir:
             timed("node", node_phase, torch, dev, tmp_dir)
+        timed("vision", vision_phase, torch, dev, np)
         with tempfile.TemporaryDirectory() as tmp_dir, \
                 _removed_on_sigterm():
             doc = timed("doctor", doctor_phase, torch, dev, np, tmp_dir)

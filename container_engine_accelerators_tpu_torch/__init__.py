@@ -11,7 +11,11 @@ hand-written Hopper kernels live in `kernels/` and are built with nvcc on
 first use (`kernels.load()`). The node health path (`deviceplugin/`,
 `healthcheck/`, `cli/inject_fault.py`) and the rest of the node layer
 (the kubelet device plugin, `metrics/metrics.py`, `cli/partition_tpu.py`,
-`cli/runtime_ready.py`) are host code; the card metrics read NVML.
+`cli/runtime_ready.py`, the NRI device injector in `nri/` and the
+topology scheduler in `scheduler/`) are host code; the card metrics read
+NVML. The vision training demos, `models/mnist.py` and
+`models/resnet.py` (ResNet v1.5 up to ResNet-50), train on the card
+through PyTorch's own convolutions.
 """
 
 # Resource name advertised to the kubelet: the reference's

@@ -2217,6 +2217,8 @@ def main(argv=None) -> int:
                    help="consecutive worker deaths after which the "
                         "supervisor gives up loudly (the engine stays "
                         "recovered but stopped)")
+    p.add_argument("--quantize-int8", action="store_true",
+                   help="deprecated alias for --weight-dtype int8")
     p.add_argument("--weight-dtype", choices=("bf16", "int8"),
                    default="bf16",
                    help="int8: per-output-channel int8 weight storage, "
@@ -2344,6 +2346,8 @@ def main(argv=None) -> int:
         # allocation (init_cache, init_slot_cache, init_paged_cache).
         cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
         log.info("serving an %s KV cache", args.kv_dtype)
+    if args.quantize_int8:  # the deprecated alias
+        args.weight_dtype = "int8"
     if args.weight_dtype == "int8":
         model = quantize_llama_params(model)
         log.info("serving int8-quantized weights")

@@ -106,3 +106,93 @@ def params_to_numpy(model: Llama) -> dict:
         "final_norm": arr(model.final_norm),
         "lm_head": arr(model.lm_head),
     }
+
+
+# ---------- the vision demos ----------
+
+def mnist_params_from_jax(tree: dict, device: str | torch.device = "cpu"
+                          ) -> dict:
+    """The JAX MLP's {w1, b1, w2, b2} as f32 tensors on `device` that
+    require grad (models/mnist.py's layout is the JAX package's)."""
+    return {k: to_torch(v).to(device).requires_grad_()
+            for k, v in tree.items()}
+
+
+def _resnet_leaves(cfg):
+    """(JAX tree path, module name, kind) of every leaf of a ResNet:
+    kind 'conv' (HWIO in the tree, OIHW in the module), 'param' or
+    'stat'."""
+    def conv_bn(path, name):
+        return [(("params", *path, "conv"), f"{name}.conv", "conv"),
+                (("params", *path, "bn", "scale"), f"{name}.bn.scale",
+                 "param"),
+                (("params", *path, "bn", "bias"), f"{name}.bn.bias",
+                 "param"),
+                (("batch_stats", *path, "mean"), f"{name}.bn.mean", "stat"),
+                (("batch_stats", *path, "var"), f"{name}.bn.var", "stat")]
+
+    out = conv_bn(("stem",), "stem")
+    cin = cfg.width
+    for si, n_blocks in enumerate(cfg.stage_sizes):
+        cout = cfg.width * (2 ** si) * cfg.block_expansion
+        for bi in range(n_blocks):
+            base = f"stages.{si}.{bi}"
+            for ci in range(3 if cfg.bottleneck else 2):
+                out += conv_bn(("stages", si, bi, "convs", ci),
+                               f"{base}.convs.{ci}")
+            if (si > 0 and bi == 0) or cin != cout:
+                out += conv_bn(("stages", si, bi, "proj"), f"{base}.proj")
+            cin = cout
+    out += [(("params", "fc", "w"), "fc.w", "param"),
+            (("params", "fc", "b"), "fc.b", "param")]
+    return out
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def resnet_variables_from_jax(variables: dict, cfg,
+                              device: str | torch.device = "cpu"):
+    """The JAX {'params', 'batch_stats'} tree of models/resnet.py (after
+    jax.device_get) as a models.resnet.ResNet on `device`, bit for bit:
+    HWIO convolutions become OIHW (channels_last), the stage lists the
+    module's `stages.<s>.<b>` names."""
+    from container_engine_accelerators_tpu_torch.models.resnet import ResNet
+
+    model = ResNet(cfg, None, device)
+    named = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    with torch.no_grad():
+        for path, name, kind in _resnet_leaves(cfg):
+            arr = to_torch(_at(variables, path))
+            if kind == "conv":
+                arr = arr.permute(3, 2, 0, 1)
+            named[name].copy_(arr)
+    return model
+
+
+def resnet_variables_to_numpy(model) -> dict:
+    """A ResNet's parameters and running statistics as the JAX tree
+    {'params': {stem, stages[s][b]{convs[i], proj}, fc}, 'batch_stats':
+    ...} of numpy arrays, convolutions back in HWIO."""
+    named = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    tree: dict = {}
+    for path, name, kind in _resnet_leaves(model.cfg):
+        arr = named[name].detach().cpu().float()
+        if kind == "conv":
+            arr = arr.permute(2, 3, 1, 0)
+        node = tree
+        for key, nxt in zip(path[:-1], path[1:]):
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append(None)
+                if node[key] is None:
+                    node[key] = [] if isinstance(nxt, int) else {}
+                node = node[key]
+            else:
+                node = node.setdefault(key, [] if isinstance(nxt, int)
+                                       else {})
+        node[path[-1]] = arr.contiguous().numpy().copy()
+    return tree

@@ -314,9 +314,20 @@ def test_fleet_exporter_serves_the_rollup_and_its_table():
             fx.start_background()
             try:
                 base = f"http://127.0.0.1:{fx.bound_port}"
-                with urllib.request.urlopen(base + "/metrics",
-                                            timeout=10) as r:
-                    text = r.read().decode()
+                # The poll thread scrapes once as it starts: read after
+                # that second scrape, so that both packages' texts count
+                # two however the host schedules the thread.
+                deadline = time.monotonic() + 10
+                while True:
+                    with urllib.request.urlopen(base + "/metrics",
+                                                timeout=10) as r:
+                        text = r.read().decode()
+                    if any(line.startswith("fleet_scrapes_total")
+                           and line.endswith(" 2.0")
+                           for line in text.splitlines()) \
+                            or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.02)
                 with urllib.request.urlopen(base + "/debugz?n=0&state=1",
                                             timeout=10) as r:
                     table = json.loads(r.read())["state"]

@@ -31,8 +31,8 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-# Modules the scan must reach, the speculative path's and the node
-# layer's among them.
+# Modules the scan must reach, the speculative path's, the node layer's,
+# the NRI injector's, the scheduler's and the vision demos' among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/generate.py", "metrics/request_metrics.py",
             "metrics/train_metrics.py", "training/checkpoint.py",
@@ -47,7 +47,13 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "metrics/devices.py", "metrics/sampler.py", "metrics/metrics.py",
             "cli/device_plugin_main.py", "cli/partition_tpu.py",
             "cli/runtime_ready.py", "metrics/doctor.py",
-            "metrics/fleet.py", "cli/fleet.py", "cli/fleetmon.py")
+            "metrics/fleet.py", "cli/fleet.py", "cli/fleetmon.py",
+            "nri/__init__.py", "nri/daemon.py", "nri/injector.py",
+            "nri/ttrpc.py", "nri/nri_api_pb2.py",
+            "nri/ttrpc_messages_pb2.py", "scheduler/__init__.py",
+            "scheduler/topology.py", "scheduler/label_nodes.py",
+            "scheduler/schedule_daemon.py", "models/mnist.py",
+            "models/resnet.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

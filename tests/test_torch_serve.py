@@ -124,3 +124,34 @@ def test_sampled_request_is_in_vocab(server, weights):
     toks = json.loads(body)["tokens"]
     assert toks[:2] == [3, 1] and len(toks) == 8
     assert all(0 <= t < weights[3].vocab_size for t in toks)
+
+
+@pytest.mark.parametrize("flags,quantized", [
+    ([], False), (["--quantize-int8"], True),
+    (["--weight-dtype", "int8"], True),
+    (["--quantize-int8", "--weight-dtype", "bf16"], True)])
+def test_quantize_int8_is_the_weight_dtype_int8_alias(monkeypatch, flags,
+                                                      quantized):
+    """--quantize-int8, the JAX package's deprecated alias, serves int8
+    weights as --weight-dtype int8 does (and wins over an explicit bf16,
+    as in the JAX package, which sets weight_dtype from it after
+    parsing)."""
+    from container_engine_accelerators_tpu_torch.ops import quant
+
+    class Served(Exception):
+        pass
+
+    calls = []
+
+    def quantize(model):
+        calls.append(model)
+        return model
+
+    def stop(*a, **k):
+        raise Served
+
+    monkeypatch.setattr(quant, "quantize_llama_params", quantize)
+    monkeypatch.setattr(serve, "BatchingEngine", stop)
+    with pytest.raises(Served):
+        serve.main(["--tiny", "--device", "cpu", "--port", "0", *flags])
+    assert len(calls) == int(quantized)
