@@ -12,6 +12,7 @@ health paths on one GPU.
   python3 chip_smoke.py node
   python3 chip_smoke.py doctor
   python3 chip_smoke.py vision
+  python3 chip_smoke.py telemetry
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -36,7 +37,7 @@ change, parent), so that two versions compare within one call on one
 card. `training` runs the build and the training path's phases alone
 (train through serve_ckpt below), `node` the build and the node phase,
 `doctor` the build and the doctor phase, `vision` the build and the
-vision phase.
+vision phase, `telemetry` the build and the telemetry phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -132,8 +133,8 @@ Phases, one JSON line each:
   train_cli  cli.train --preset tiny --steps 3 on the card;
   ckpt     checkpoint and resume at full width, 2 layers in /dev/shm
            (ckpt_room: the machine caps a call's disk writes), batch
-           2 x 1024: fit for 4 steps saving every 2, a second fit
-           resuming at 4 to 6, held against an uninterrupted 6-step run
+           2 x 1024: fit for 2 steps saving every 2, a second fit
+           resuming at 2 to 4, held against an uninterrupted 4-step run
            (CKPT_RESUME_RTOL); the same with async saves (the steps'
            extra seconds against the uninterrupted run's, beside the sync
            save's; bytes, save and restore GB/s);
@@ -206,6 +207,36 @@ Phases, one JSON line each:
            backward at twice the forward), a torch.profiler step (busy
            share, top kernels), peak memory, every running statistic
            moved and finite, finite eval logits;
+  telemetry  device telemetry, the card only: (a) cli/collective_bench
+           --collective all -b 1M -e 512M -f 2 -w 5 --iters 20 --json as
+           a process on a one-rank NCCL group (JAX's keys on every line,
+           time_us > 0, busBW exactly 0 for the four collectives whose
+           factor is 0 at n = 1, ppermute's time at 512 MiB beside the
+           copy's byte bound) and each probe's output against its plain
+           version; (b) cli/serve.py as a process, llama3_8b at full width
+           and depth on the paged engine at 8 slots on int8 weights (K2,
+           K3), with --fabric-health (0.5 s sweeps), --doctor,
+           --fault-listen and --metrics-port: requests answered while 16
+           sweeps build the baseline, no incident; `inject_fault --kind
+           fabric-slow --axis dp --rank 0 --factor 8 --seconds 15`:
+           fabric_health_score{dp} <= 0.2 and fabric_degraded 1 on
+           /metrics, the /debugz?state=1 fabric block degraded with
+           slow_rank 0, fabric_degraded once for dp (its latency from the
+           command), requests answered; the window over, the verdict
+           clears; `--kind hbm-climb`: oom_precursor carries the launch's
+           plan_serving budget; the plan beside the process's peak
+           allocation, the NCCL group's start time and memory; (c)
+           cli/train.py at full width, 2 layers, 6 steps with
+           --fabric-health --fabric-health-every 2 and TPU_PROFILE_DIR:
+           sweeps at steps 2, 4, 6, the capture's train/step and
+           train/fabric_sweep regions and K4-K6 by name, the flight
+           recorder's train/* spans and profile/start|stop; (d)
+           metrics.fabric --health as a process, one scrape: each NIC's
+           counters, tpu_ici_error_count from NVML (or NVML's answer),
+           the probe hook's busBW gauge; (e) annotate's µs a region with
+           the bus off and on beside the paged tick at 8 slots. The
+           subprocesses' launches are read from them (serve's state
+           snapshot, train's last line);
   doctor   the doctor and the fleet plane, modelled on the JAX package's
            chaos scenarios (its schedules declared here). Each fault goes
            through cli/inject_fault (a process) into a FaultListener and
@@ -235,7 +266,8 @@ Phases, one JSON line each:
            one heartbeat dir, rank 1 slowed 12 s every batch: rank 0's
            `--doctor` names process-1 once, never process-0; both
            finish); replica-kill (cli/fleet.py --replicas 2 serving an HF
-           export of the weights' first 8 layers from /dev/shm, fleetmon
+           export of the weights' first 4 layers from /dev/shm, started
+           before data-stall so that the replicas load meanwhile; fleetmon
            --doctor over both, loadgen --targets, r1 SIGKILLed
            mid-stream: replica_down once for r1, up 1 / down 1, the
            survivor answers, the card's memory back, and fleetmon's dump
@@ -334,6 +366,9 @@ TRAIN_LAUNCHES_PER_STEP = {
 # allocator rounds up) and some room (ckpt_room).
 CKPT_N_LAYERS, CKPT_SHM = 2, "/dev/shm"
 CKPT_BYTES_PER_PARAM, CKPT_PEAK_STEPS, CKPT_HOST_STEPS = 12, 2.7, 4.2
+# Steps a ckpt run saves after (and the resumed run runs on to twice
+# that): 5 saves in the phase, each a full-width step.
+CKPT_STEPS = 2
 CKPT_ROOT_PREFIX = "chip_smoke_ckpt-"
 # A resumed run against the uninterrupted one: identical bits expected
 # (every kernel on the step is deterministic); the bound holds the last
@@ -1975,7 +2010,7 @@ def observe_phase(torch, dev, np, model, cfg) -> dict:
 # ------------------------------------------- spec, pools and supervise
 
 SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
-SPEC_SLOTS, SPEC_NEW_TOKENS = 16, 64
+SPEC_SLOTS, SPEC_NEW_TOKENS = 16, 32
 POOLS_NEW_TOKENS = 32
 
 
@@ -2102,7 +2137,7 @@ def divergence_rule(plain: list, got: list, prompts: list, margins: list,
 
 def spec_generate_run(torch, dev, np, model, cfg) -> dict:
     """(a): generate at batch 2 on prompts of a repeated 16-token
-    pattern, 64 new tokens, speculation off, ngram and draft (k 4, 2
+    pattern, 32 new tokens, speculation off, ngram and draft (k 4, 2
     draft layers): wall and device-busy ms, the speculative counts, and
     the speculative tokens held to the plain run by the divergence
     rule."""
@@ -2236,7 +2271,7 @@ def _count_bodies(decode, da):
 def spec_engine_run(torch, dev, np, model, cfg, speculate: str) -> dict:
     """(b) and (c): PagedContinuousEngine at 16 slots, page 128, max_len
     2048 behind make_server on 16 concurrent requests of a repeated
-    16-token pattern (128 tokens, 64 new), with speculation off and then
+    16-token pattern (128 tokens, 32 new), with speculation off and then
     `speculate`: the tokens held by the divergence rule, no page leaked,
     the serve_spec_* scrape against the engine's own counts, the
     engine's tick beside the plain engine's, and K3 launches by body."""
@@ -3226,14 +3261,14 @@ def _step_path_extra(run: dict, ref: dict) -> float:
 
 def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
                batch: int = 2, seq: int = 1024) -> dict:
-    """Checkpoint and resume: fit for 4 steps saving every 2, a second
-    fit on the same directory resuming at 4 and running to 6, held
-    against an uninterrupted 6-step run; the same with async saves;
-    then the newest step torn, quarantined, and the run resumed from the
-    step before. Steps go under `ckpt_root` (the caller's, from
-    ckpt_room), logs under `tmp_dir`; the last checkpoint is left at
-    `<ckpt_root>/ckpt`. A step no later run reads is removed once it is
-    checked, so at most CKPT_PEAK_STEPS are held."""
+    """Checkpoint and resume: fit for CKPT_STEPS steps saving every
+    CKPT_STEPS, a second fit on the same directory resuming there and
+    running to twice that, held against an uninterrupted run as long;
+    the same with async saves; then the newest step torn, quarantined,
+    and the run resumed from the step before. Steps go under
+    `ckpt_root` (the caller's, from ckpt_room), logs under `tmp_dir`;
+    the last checkpoint is left at `<ckpt_root>/ckpt`. At most
+    CKPT_PEAK_STEPS are held."""
     from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
         TrainRecorder,
         read_metrics_jsonl,
@@ -3256,6 +3291,8 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
             restores.append(dict(self.last_restore_info))
         return out
 
+    k = CKPT_STEPS
+
     def run(steps, ckpt_dir=None, ckpt_async=False):
         """One fit; every run after the first (the uninterrupted one)
         is held against it, and keeps only that comparison."""
@@ -3264,7 +3301,7 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
         try:
             out = _fit_run(torch, dev, cfg, batch, seq, steps,
                            ref=runs[0] if runs else None,
-                           ckpt_dir=ckpt_dir, save_every=2,
+                           ckpt_dir=ckpt_dir, save_every=k,
                            ckpt_async=ckpt_async, recorder=rec)
         finally:
             rec.close()
@@ -3273,7 +3310,7 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
         return out
 
     runs: list = []
-    ref = run(6)
+    ref = run(2 * k)
     results = {}
     checkpoint.CheckpointManager._commit = spy_commit
     checkpoint.CheckpointManager.restore = spy_restore
@@ -3282,16 +3319,15 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
             d = os.path.join(ckpt_root, "ckpt")
             shutil.rmtree(d, ignore_errors=True)
             n_saves = len(saves)
-            first = run(4, d, is_async)
-            require(checkpoint.step_dirs(d) == [2, 4],
-                    f"ckpt {mode}: steps {checkpoint.step_dirs(d)} after 4")
-            shutil.rmtree(os.path.join(d, "2"))   # the resume reads 4
-            second = run(6, d, is_async)
-            require(second["logs"][0] == "resumed from step 4",
+            first = run(k, d, is_async)
+            require(checkpoint.step_dirs(d) == [k],
+                    f"ckpt {mode}: steps {checkpoint.step_dirs(d)} after {k}")
+            second = run(2 * k, d, is_async)
+            require(second["logs"][0] == f"resumed from step {k}",
                     f"ckpt {mode}: {second['logs'][:1]}")
-            require(second["logs"][1:] == ref["logs"][4:],
+            require(second["logs"][1:] == ref["logs"][k:],
                     f"ckpt {mode}: resumed losses {second['logs'][1:]} "
-                    f"against {ref['logs'][4:]}")
+                    f"against {ref['logs'][k:]}")
             diff = second["diff"]
             require(diff["max_param_rel_diff"] <= CKPT_RESUME_RTOL and
                     diff["last_loss_rel_diff"] <= CKPT_RESUME_RTOL,
@@ -3319,19 +3355,20 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
                 "launches": [first["launches"], second["launches"]]}
             del first, second
         # The torn step: cut the newest step's optimizer state in half.
-        torn = os.path.join(d, "6", "state", checkpoint.OPTIMIZER_FILE)
+        torn = os.path.join(d, str(2 * k), "state",
+                            checkpoint.OPTIMIZER_FILE)
         with open(torn, "r+b") as f:
             f.truncate(os.path.getsize(torn) // 2)
-        again = run(6, d)
-        require(again["logs"][0] == "resumed from step 4" and
-                os.path.isdir(os.path.join(d, "6.corrupt")),
+        again = run(2 * k, d)
+        require(again["logs"][0] == f"resumed from step {k}" and
+                os.path.isdir(os.path.join(d, f"{2 * k}.corrupt")),
                 f"ckpt torn: {again['logs'][:1]}, "
                 f"{sorted(os.listdir(d))}")
         torn_diff = again["diff"]
         require(torn_diff["max_param_rel_diff"] <= CKPT_RESUME_RTOL,
                 f"ckpt torn: {torn_diff}")
         torn_steps = sorted(os.listdir(d))
-        shutil.rmtree(os.path.join(d, "6.corrupt"))
+        shutil.rmtree(os.path.join(d, f"{2 * k}.corrupt"))
     finally:
         checkpoint.CheckpointManager._commit = commit
         checkpoint.CheckpointManager.restore = restore
@@ -3348,7 +3385,7 @@ def ckpt_phase(torch, dev, np, tmp_dir: str, ckpt_root: str, cfg,
         "sync": results["sync"], "async": results["async"],
         "async_step_path_over_sync": (results["async"]["step_path_s"]
                                       / results["sync"]["step_path_s"]),
-        "torn": {"quarantined": "6.corrupt", "resumed_from": 4,
+        "torn": {"quarantined": f"{2 * k}.corrupt", "resumed_from": k,
                  **torn_diff, "steps_on_disk": torn_steps},
         "ckpt_dir": d, "launches": launches}
     emit(result)
@@ -4999,6 +5036,593 @@ def vision_phase(torch, dev, np, cfg=None, batch: int = RESNET_BATCH,
     return out
 
 
+# ---------------------------------------------------------------- telemetry
+
+# The card's sizes; the CPU rehearsal (tests/test_torch_smoke_telemetry.py)
+# passes llama_tiny and gloo ones.
+TELEMETRY_SIZES = {
+    "preset": "8b",             # the served model: llama3_8b, full depth
+    "backend": "nccl",
+    "device_flags": [],
+    "bench": ["-b", "1M", "-e", "512M", "-f", "2", "-w", "5",
+              "--iters", "20"],
+    "bench_top": 512 << 20,     # the sweep's largest size (ppermute's bound)
+    # The paged engine at 8 slots on int8 weights (K2 and K3).
+    "serve": ["--engine", "paged", "--max-batch", "8", "--max-len", "2048",
+              "--page-size", "128", "--weight-dtype", "int8"],
+    "max_batch": 8, "max_len": 2048, "weight_dtype": "int8",
+    "interval_s": 0.5,          # --fabric-health-interval
+    "warm_sweeps": 16,          # sweeps before the fault (>= 4 build it)
+    "slow": {"factor": 8.0, "seconds": 15.0},
+    "score_max": 0.2,           # fabric_health_score{dp} under the fault
+    "requests": 8, "new_tokens": 16,
+    "ready_timeout_s": 600.0,
+    "verdict_timeout_s": 30.0,  # serve's doctor polls every 5 s
+    "trainer": ["--preset", "8b", "--n-layers", "2", "--batch-size", "2",
+                "--seq-len", "1024"],
+    "train_steps": 6, "sweep_every": 2,
+    "annotate_n": 200_000,
+    "allow": (),                # incident classes the run may also name
+    "fake_busbw": None,         # a constant probe busBW (the rehearsal's)
+}
+# What each collective returns at n = 1 (one rank): its input.
+TELEMETRY_ZERO_BUS = ("all_reduce", "all_gather", "reduce_scatter",
+                      "all_to_all")
+TRACE_REGIONS = ("train/step", "train/fabric_sweep")
+TRACE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+BENCH_JSON_KEYS = ("collective", "size_bytes", "time_us", "alg_bw_gbps",
+                   "bus_bw_gbps", "axis", "devices")
+
+# cli/serve.py with random weights of the preset in argv[1] (serve's
+# --tiny loads llama_tiny; the smoke serves llama3_8b at full width and
+# depth without writing a checkpoint), and the process's kernel launch
+# counts in its /debugz?state=1 snapshot. argv[2] "-" leaves the fabric
+# monitor's probes real; a number makes them read that busBW (the CPU
+# rehearsal: a loaded host's timing noise is not the fault it checks).
+SERVE_WITH_PRESET = r"""
+import functools, sys, torch
+from container_engine_accelerators_tpu_torch import kernels
+from container_engine_accelerators_tpu_torch.cli import serve
+from container_engine_accelerators_tpu_torch.metrics import fabric_health
+from container_engine_accelerators_tpu_torch.models import convert, llama
+preset = {"8b": llama.llama3_8b, "tiny": llama.llama_tiny}[sys.argv[1]]
+if sys.argv[2] != "-":
+    fabric_health.FabricHealthMonitor = functools.partial(
+        fabric_health.FabricHealthMonitor,
+        probe_fn=lambda axis, coll, bw=float(sys.argv[2]): bw)
+
+def load_model(checkpoint=None, seed=0, device="cuda"):
+    dev = convert.resolve_device(device)
+    cfg = preset()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return llama.init_params(cfg, gen, dev), cfg
+
+snapshot = serve.engine_state_snapshot
+
+def with_launches(*args, **kw):
+    return {**snapshot(*args, **kw), "kernel_launches": dict(kernels.launches)}
+
+convert.load_model = load_model
+serve.engine_state_snapshot = with_launches
+sys.exit(serve.main(sys.argv[3:]))
+"""
+
+# cli/train.py, then the process's kernel launch counts as a last line.
+TRAIN_WITH_LAUNCHES = r"""
+import json, sys
+from container_engine_accelerators_tpu_torch import kernels
+from container_engine_accelerators_tpu_torch.cli import train
+rc = train.main(sys.argv[1:])
+print(json.dumps({"kernel_launches": dict(kernels.launches)}), flush=True)
+sys.exit(rc)
+"""
+
+
+def collective_outputs(torch, dev, backend: str) -> dict:
+    """Each collective's probe on a one-rank group in this process against
+    its plain torch version on the same input: at n = 1 every collective
+    gives back its input (all_reduce a sum of one, all_gather and
+    reduce_scatter one shard, all_to_all and ppermute one chunk)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.ops import collectives
+    from container_engine_accelerators_tpu_torch.parallel import distributed
+
+    out = {}
+    group = distributed.default_group(backend, dev)
+    try:
+        x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(
+            SEED)).to(distributed.group_device(group))
+        for name in collectives.COLLECTIVES:
+            fn, n = collectives.build_probe(group, "ici", name)
+            got = fn(x.clone())
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            want = x.clone()   # the plain version at n = 1
+            out[name] = {"n": n, "equal": bool(torch.equal(got, want)),
+                         "max_abs_err": (got - want).abs().max().item()}
+            require(out[name]["equal"], f"telemetry: {name} on the "
+                    f"{backend} group differs from its plain version")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def telemetry_bench(torch, dev, root: str, sz: dict) -> dict:
+    """(a): cli/collective_bench --collective all as a process on a
+    one-rank group: every line parses with JAX's keys, time_us > 0,
+    busBW 0 exactly for the four factor-0 collectives; ppermute's time at
+    the top size beside the copy's byte bound; the probes' outputs
+    against their plain versions in this process."""
+    t0 = time.perf_counter()
+    proc = _run_port(root, "container_engine_accelerators_tpu_torch.cli."
+                     "collective_bench", "--collective", "all",
+                     *sz["bench"], "--json", "--backend", sz["backend"],
+                     timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"telemetry: collective_bench rc "
+            f"{proc.returncode}: {proc.stderr[-1500:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    require(rows and all(tuple(r) == BENCH_JSON_KEYS for r in rows),
+            f"telemetry: collective_bench keys {[tuple(r) for r in rows]}")
+    require(all(r["time_us"] > 0 and r["devices"] == 1 for r in rows),
+            "telemetry: a non-positive time or another device count")
+    zero = [r for r in rows if r["collective"] in TELEMETRY_ZERO_BUS]
+    require(all(r["bus_bw_gbps"] == 0.0 for r in zero)
+            and all(r["bus_bw_gbps"] > 0 for r in rows
+                    if r["collective"] == "ppermute"),
+            "telemetry: busBW not 0 exactly where n = 1 gives factor 0")
+    by = {(r["collective"], r["size_bytes"]): r for r in rows}
+    top = by[("ppermute", sz["bench_top"])]
+    bound_ms, bound_by = bound_ms_copy(sz["bench_top"])
+    return {"seconds": seconds, "rows": len(rows),
+            "collectives": sorted({r["collective"] for r in rows}),
+            "time_us": {f"{c}@{s}": r["time_us"] for (c, s), r in by.items()
+                        if s in (1 << 20, sz["bench_top"])},
+            "ppermute_top": {"size_bytes": sz["bench_top"],
+                             "ms": top["time_us"] / 1e3,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "alg_bw_gbps": top["alg_bw_gbps"]},
+            "plain": collective_outputs(torch, dev, sz["backend"])}
+
+
+def bound_ms_copy(n_bytes: int) -> tuple[float, str]:
+    """A copy of n_bytes reads them once and writes them once."""
+    return bound_ms(2 * n_bytes, 0, "bf16")
+
+
+def _incidents(url: str) -> list[dict]:
+    return json.loads(_get(url + "/debugz?n=0&doctor=1"))["doctor"].get(
+        "incidents", [])
+
+
+def _fabric_state(url: str) -> dict:
+    return json.loads(_get(url + "/debugz?n=0&state=1"))["state"]
+
+
+def telemetry_serve(dev, np, root: str, tmp_dir: str, sz: dict) -> dict:
+    """(b): cli/serve.py as a process, the preset's model on the paged
+    engine, with --fabric-health (0.5 s sweeps), --doctor, --fault-listen
+    and --metrics-port. Requests answered while the baseline builds (no
+    incident); `inject_fault --kind fabric-slow --axis dp --rank 0
+    --factor 8 --seconds 15`: fabric_health_score{dp} <= 0.2 and
+    fabric_degraded 1 on /metrics, the state's fabric block degraded 1
+    with slow_rank 0, fabric_degraded once for dp (its latency from the
+    command), requests answered; the window over: the verdict clears and
+    slow_rank is null; then `--kind hbm-climb`: oom_precursor carries the
+    plan_serving budget of this launch. The plan's total beside the
+    process's peak allocation, and the NCCL group's start time and
+    memory from its log."""
+    from container_engine_accelerators_tpu_torch.models import llama
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_serving,
+    )
+
+    d = os.path.join(tmp_dir, "serve")
+    os.makedirs(d, exist_ok=True)
+    flog, err_path = os.path.join(d, "faults.jsonl"), os.path.join(
+        d, "serve.err")
+    open(flog, "w").close()
+    port, mport = _free_port(), _free_port()
+    url, murl = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{mport}"
+    preset = sz["preset"]
+    cfg = {"8b": llama.llama3_8b, "tiny": llama.llama_tiny}[preset]()
+    args = ["--tiny", *sz["serve"], "--port", str(port), "--metrics-port",
+            str(mport), "--metrics-host", "127.0.0.1", "--fabric-health",
+            "--fabric-health-interval", str(sz["interval_s"]),
+            "--fabric-health-history", os.path.join(d, "history.jsonl"),
+            "--doctor", "--doctor-dir", os.path.join(d, "incidents"),
+            "--fault-listen", flog, *sz["device_flags"]]
+    prompts = _prompts(np, cfg, SEED + 30)
+
+    def requests(n):
+        reqs = [{"tokens": prompts(64), "max_new_tokens": sz["new_tokens"]}
+                for _ in range(n)]
+        answers, t0, t1 = burst(url, reqs)
+        _check_burst(reqs, answers, cfg.vocab_size, "telemetry serve")
+        return {"requests": n, "seconds": t1 - t0}
+
+    def inject(*argv):
+        proc = _run_port(root, DOCTOR_INJECT, *argv, "--fault-log", flog,
+                         timeout=120)
+        require(proc.returncode == 0,
+                f"telemetry: inject_fault {argv}: {proc.stderr[-1500:]}")
+
+    def gauges():
+        s = _scrape(_get(murl + "/metrics"))
+        return (s.get("fabric_health_score{axis=dp}"),
+                s.get("fabric_degraded{axis=dp}"), s)
+
+    out = {"preset": preset, "interval_s": sz["interval_s"]}
+    t_fault = None
+    with open(err_path, "w") as err:
+        t_launch = time.monotonic()
+        fake = sz["fake_busbw"]
+        proc = _popen_port(root, None, preset,
+                           "-" if fake is None else str(fake), *args,
+                           stderr=err, stdout=subprocess.DEVNULL,
+                           code=SERVE_WITH_PRESET)
+    try:
+        def ready():
+            require(proc.poll() is None, f"telemetry: serve exited "
+                    f"{proc.returncode}: {_tail(err_path)}")
+            try:
+                return healthz(url) and _fabric_state(murl).get("fabric")
+            except OSError:
+                return False
+
+        _wait_for(ready, "telemetry: serve ready", sz["ready_timeout_s"])
+        out["ready_s"] = time.monotonic() - t_launch
+        out["warmup_requests"] = requests(sz["requests"])
+        _wait_for(lambda: _fabric_state(murl)["fabric"]["sweeps"]
+                  >= sz["warm_sweeps"], "telemetry: warm sweeps", 120)
+        warm = _fabric_state(murl)["fabric"]
+        early = [i for i in _incidents(murl) if i["class"] not in sz["allow"]]
+        require(not early, f"telemetry: incidents in the clean warmup "
+                f"{[(i['class'], i['subject']) for i in early]}")
+        out["warm"] = {"sweeps": warm["sweeps"], "score": warm["score"],
+                       "degraded": warm["degraded"]}
+
+        slow = sz["slow"]
+        t_fault = time.monotonic()
+        inject("--kind", "fabric-slow", "--axis", "dp", "--rank", "0",
+               "--factor", str(slow["factor"]), "--seconds",
+               str(slow["seconds"]))
+        _wait_for(lambda: (lambda g: g[0] is not None and g[0]
+                           <= sz["score_max"] and g[1] == 1.0)(gauges()),
+                  "telemetry: fabric_health_score and fabric_degraded",
+                  slow["seconds"])
+        out["gauges_after_fault_s"] = time.monotonic() - t_fault
+        score, degraded, _ = gauges()
+        fab = _fabric_state(murl)["fabric"]
+        require(fab["degraded"] == 1 and fab["slow_rank"] == 0,
+                f"telemetry: fabric block under the fault {fab}")
+        out["under_fault"] = {"score": score, "degraded": degraded,
+                              "fabric": fab,
+                              **requests(sz["requests"])}
+        _wait_for(lambda: any(i["class"] == "fabric_degraded"
+                              for i in _incidents(murl)),
+                  "telemetry: fabric_degraded", sz["verdict_timeout_s"])
+        verdict = [i for i in _incidents(murl)
+                   if i["class"] == "fabric_degraded"][0]
+        out["fabric_degraded_after_fault_s"] = (verdict["ts_monotonic"]
+                                                - t_fault)
+        out["fabric_degraded_evidence"] = {
+            k: verdict["evidence"].get(k)
+            for k in ("axis", "fabric", "score_last", "slow_rank",
+                      "localization")}
+        # The window ends; the next clean sweeps clear the verdict.
+        time.sleep(max(0.0, t_fault + slow["seconds"] - time.monotonic()))
+        _wait_for(lambda: (lambda f: f["degraded"] == 0
+                           and f["slow_rank"] is None)(
+                      _fabric_state(murl)["fabric"]),
+                  "telemetry: the verdict clears", 30)
+        out["cleared_after_window_s"] = (time.monotonic() - t_fault
+                                         - slow["seconds"])
+
+        t_climb = time.monotonic()
+        inject("--kind", "hbm-climb", "--device", "injected:0",
+               "--seconds", "3", "--start-frac", "0.5", "--end-frac", "0.97")
+        _wait_for(lambda: any(i["class"] == "oom_precursor"
+                              for i in _incidents(murl)),
+                  "telemetry: oom_precursor", sz["verdict_timeout_s"])
+        oom = [i for i in _incidents(murl)
+               if i["class"] == "oom_precursor"][0]
+        out["oom_precursor_after_climb_s"] = oom["ts_monotonic"] - t_climb
+        plan = oom["evidence"].get("hbm_plan")
+        want = (plan_serving(cfg, tp=1, max_slots=sz["max_batch"],
+                             max_len=sz["max_len"], pool_fraction=0.5,
+                             weight_dtype=sz["weight_dtype"], device=dev)
+                if dev.type == "cuda" else None)
+        require(plan == want, f"telemetry: oom_precursor's hbm_plan {plan}, "
+                f"plan_serving gives {want}")
+        state = _fabric_state(murl)
+        launches = state.get("kernel_launches", {})
+        _, _, scrape = gauges()
+        peak = scrape.get("tpu_hbm_peak_bytes_in_use{device=cuda:0}")
+        steps = (scrape.get("serve_decode_step_seconds_sum", 0),
+                 scrape.get("serve_decode_step_seconds_count", 0))
+        incs = _incidents(murl)
+        out["after_requests"] = requests(sz["requests"])
+    except SmokeFailure as e:
+        try:
+            state = _fabric_state(murl).get("fabric")
+        except OSError:
+            state = None
+        raise SmokeFailure(f"{e}; the fabric block {state}; ppermute's "
+                           f"(s from the fault, GB/s, ratio) by sweep "
+                           f"{_ppermute_series(d, t_fault)}; serve's log: "
+                           f"{_tail(err_path, 3000)}") from None
+    finally:
+        _stop_procs([proc])
+    out["ppermute_by_sweep"] = _ppermute_series(d, t_fault)
+    got = [(i["class"], i["subject"]) for i in incs]
+    require(got.count(("fabric_degraded", "dp")) == 1
+            and got.count(("oom_precursor", "injected:0")) == 1
+            and all(c in ("fabric_degraded", "oom_precursor", *sz["allow"])
+                    for c, _ in got), f"telemetry: the doctor named {got}")
+    for name in ("int8_matmul", "paged_decode_attention"):
+        require(dev.type != "cuda" or launches.get(name, 0) > 0,
+                f"telemetry: no {name} launch in serve ({launches})")
+    group = None
+    with open(err_path) as fh:
+        for line in fh:
+            if "fabric health group:" in line:
+                group = json.loads(line.split("fabric health group:", 1)[1])
+    require(group is not None or sz["fake_busbw"] is not None,
+            "telemetry: no fabric group line in serve's log")
+    out.update({
+        "incidents": got, "plan": plan,
+        "plan_total_gb": plan["total_gb"] if plan else None,
+        "peak_allocated_gb": peak / 1e9 if peak is not None else None,
+        "plan_minus_peak_gb": (plan["total_gb"] - peak / 1e9
+                               if plan and peak is not None else None),
+        "nccl_group": group,
+        "decode_step_mean_ms": steps[0] / steps[1] * 1e3 if steps[1] else None,
+        "launches": {k: launches.get(k, 0) for k in (
+            "decode_attention", "int8_matmul", "paged_decode_attention")}})
+    return out
+
+
+def _ppermute_series(d: str, t_fault) -> list:
+    """(seconds from the fault, GB/s, ratio to the baseline) of each
+    sweep's ppermute row in serve's history."""
+    path = os.path.join(d, "history.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh]
+    t0 = (time.time() - time.monotonic() + t_fault) if t_fault else 0.0
+    return [(round(r["t"] - t0, 2), round(r["busbw_bytes_per_second"] / 1e9,
+                                          1), r["ratio"])
+            for r in rows if r["collective"] == "ppermute"]
+
+
+def _tail(path: str, n: int = 1500) -> str:
+    with open(path) as fh:
+        return fh.read()[-n:]
+
+
+def telemetry_train(dev, root: str, tmp_dir: str, sz: dict) -> dict:
+    """(c): cli/train.py at the trainer's width and depth for
+    sz["train_steps"] steps with --fabric-health --fabric-health-every N
+    and TPU_PROFILE_DIR: sweeps at the steps maybe_sweep_step picks (N,
+    2N, ...), the capture holds the train/step and train/fabric_sweep
+    regions and K4-K6 by name, the flight recorder the train/* B/E spans
+    and profile/start and profile/stop."""
+    d = os.path.join(tmp_dir, "train")
+    prof, dump = os.path.join(d, "profile"), os.path.join(d, "train.json")
+    hist = os.path.join(d, "history.jsonl")
+    os.makedirs(d, exist_ok=True)
+    steps, every = sz["train_steps"], sz["sweep_every"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_WITH_LAUNCHES, *sz["trainer"],
+         "--steps", str(steps), "--fabric-health", "--fabric-health-every",
+         str(every), "--fabric-health-history", hist, "--trace-dump", dump,
+         "--log-every", "1", *sz["device_flags"]],
+        capture_output=True, text=True, timeout=900, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, TPU_PROFILE_DIR=prof))
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"telemetry: train rc {proc.returncode}: "
+            f"{proc.stderr[-1500:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    summary, launches = lines[-2], lines[-1]["kernel_launches"]
+    want = [s for s in range(1, steps + 1) if s % every == 0]
+    with open(hist) as fh:
+        rows = [json.loads(line) for line in fh]
+    require(summary["fabric_sweeps"] == len(want)
+            and len(rows) == 3 * len(want),
+            f"telemetry: {summary['fabric_sweeps']} sweeps and {len(rows)} "
+            f"rows, want sweeps at steps {want}")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    require(len(traces) == 1, f"telemetry: profile dir {traces}")
+    with open(traces[0]) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    regions = {r: names.count(r) for r in TRACE_REGIONS}
+    found = {k: sum(1 for n in names if k in n) for k in TRACE_KERNELS}
+    # A region is a CPU range, and on the card its device range too.
+    require(all(n >= steps for n in regions.values())
+            and (dev.type != "cuda" or all(found.values())),
+            f"telemetry: the capture's regions {regions}, kernels {found}")
+    with open(dump) as fh:
+        ring = [(e.get("name"), e.get("ph"))
+                for e in json.load(fh)["traceEvents"]]
+    spans = {n: (ring.count((n, "B")), ring.count((n, "E")))
+             for n in ("train/data_wait", "train/step",
+                       "train/fabric_sweep")}
+    marks = [n for n, ph in ring if n in ("profile/start", "profile/stop")]
+    require(all(b == e == steps for b, e in spans.values())
+            and marks == ["profile/start", "profile/stop"],
+            f"telemetry: the flight recorder's spans {spans}, marks {marks}")
+    return {"seconds": seconds, "steps": steps, "sweep_steps": want,
+            "capture_regions": regions, "capture_kernels": found,
+            "capture_bytes": os.path.getsize(traces[0]),
+            "ring_spans": spans, "tokens_per_sec": summary["tokens_per_sec"],
+            "launches": launches}
+
+
+def nvlink_answer() -> dict:
+    """NVML's answer for each card's NVLink counters, read here as the
+    exporter reads them."""
+    from container_engine_accelerators_tpu_torch.utils import nvml
+
+    try:
+        session = nvml.Nvml()
+    except nvml.NvmlError as e:
+        return {"*": str(e)}
+    out = {}
+    with session:
+        for minor, card in sorted(session.cards().items()):
+            try:
+                out[f"nvidia{minor}"] = session.nvlink_errors(
+                    session.handle(card.index))
+            except nvml.NvmlError as e:
+                out[f"nvidia{minor}"] = str(e)
+    return out
+
+
+def telemetry_exporter(root: str, tmp_dir: str, sz: dict) -> dict:
+    """(d): metrics.fabric --health as a process, one scrape once its
+    first poll is in: the NIC counters of this machine's interfaces,
+    tpu_ici_error_count from NVML (or NVML's answer where it gives none)
+    and the probe hook's busBW gauge."""
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}/metrics"
+    err_path = os.path.join(tmp_dir, "fabric.err")
+    with open(err_path, "w") as err:
+        proc = _popen_port(root, "container_engine_accelerators_tpu_torch."
+                           "metrics.fabric", "--health", "--port", str(port),
+                           "--interval", "1", "--health-interval", "1",
+                           "--backend", sz["backend"],
+                           stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        def scraped():
+            require(proc.poll() is None, "telemetry: the exporter exited: "
+                    f"{_tail(err_path)}")
+            try:
+                s = _scrape(_get(url))
+            except OSError:
+                return None
+            return s if any(k.startswith(
+                "fabric_collective_busbw_bytes_per_second") for k in s) \
+                and s.get("fabric_probe_sweeps_total", 0) >= 1 else None
+
+        _wait_for(scraped, "telemetry: the exporter's first poll", 60)
+        s = scraped()
+    finally:
+        _stop_procs([proc])
+    nic = {k: v for k, v in s.items() if k.startswith("tpu_dcn_nic_stat")}
+    ici = {k: v for k, v in s.items() if k.startswith("tpu_ici_error_count")}
+    hook = {k: v for k, v in s.items()
+            if k.startswith("fabric_collective_busbw_bytes_per_second")}
+    net = "/sys/class/net"
+    interfaces = sorted(
+        n for n in (os.listdir(net) if os.path.isdir(net) else ())
+        if n != "lo" and os.path.exists(os.path.join(net, n, "statistics",
+                                                     "tx_bytes")))
+    exported = sorted({k.split("{interface=")[1].split("}")[0] for k in nic})
+    require(exported == interfaces, f"telemetry: NIC counters for "
+            f"{exported}, interfaces {interfaces}")
+    return {"interfaces": interfaces, "nic_samples": len(nic),
+            "ici_error_count": ici, "nvlink_answer": nvlink_answer(),
+            "probe_hook_busbw": hook,
+            "health_score": s.get("fabric_health_score{axis=dp}")}
+
+
+def annotate_cost(n: int) -> dict:
+    """(e): µs a region of annotate() costs, with the bus off and on (no
+    profiler), beside the empty loop's."""
+    from container_engine_accelerators_tpu_torch.metrics import events
+    from container_engine_accelerators_tpu_torch.utils.profiling import (
+        annotate,
+    )
+
+    def loop(region):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with region("serve/decode_tick"):
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    events.disable()
+    empty = loop(lambda name: contextlib.nullcontext())
+    off = loop(annotate)
+    events.enable(capacity=1 << 12, process_name="telemetry")
+    try:
+        on = loop(annotate)
+    finally:
+        events.disable(clear=True)
+    return {"regions": n, "empty_us": empty, "bus_off_us": off,
+            "bus_on_us": on}
+
+
+def telemetry_phase(torch, dev, np, tmp_dir: str, tick_ms: float | None = None,
+                    sizes: dict | None = None) -> dict:
+    """Device telemetry on the card (the module docstring's `telemetry`):
+    (a) the collective bench, (b) serve with the fabric monitor, the
+    doctor and the plan, (c) train with the monitor and the profiler,
+    (d) the fabric exporter, (e) annotate's cost beside the paged tick.
+    The card only: it fails without CUDA unless sizes name the CPU."""
+    import container_engine_accelerators_tpu_torch as port
+
+    sz = {**TELEMETRY_SIZES, **(sizes or {})}
+    require(dev.type == "cuda" or sz["backend"] == "gloo",
+            "telemetry: the phase runs on the card")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+    seconds, out = {}, {"phase": "telemetry"}
+    for name, fn, *args in (
+            ("bench", telemetry_bench, torch, dev, root, sz),
+            ("serve", telemetry_serve, dev, np, root, tmp_dir, sz),
+            ("train", telemetry_train, dev, root, tmp_dir, sz),
+            ("exporter", telemetry_exporter, root, tmp_dir, sz),
+            ("annotate", annotate_cost, sz["annotate_n"])):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": f"telemetry_{name}", **out[name]})
+    ann, serve = out["annotate"], out["serve"]
+    ann["paged_tick_ms_8_slots"] = tick_ms
+    ann["serve_decode_step_mean_ms"] = serve["decode_step_mean_ms"]
+    ann["regions_a_tick"] = 3
+    launches: dict = {}
+    for part in (serve, out["train"]):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out.update(seconds=seconds, launches=launches,
+               nvidia_smi=nvidia_smi_line())
+    emit({"phase": "telemetry_summary", "seconds": seconds,
+          "launches": launches, "annotate": ann})
+    return out
+
+
+def telemetry_main(torch) -> int:
+    """`chip_smoke.py telemetry`: the build and the telemetry phase
+    alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    kernels.build()
+    seconds = {"build": time.perf_counter() - t0}
+    try:
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            t0 = time.perf_counter()
+            telemetry_phase(torch, torch.device("cuda", 0), np, tmp_dir)
+            seconds["telemetry"] = time.perf_counter() - t0
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    emit({"phase_seconds": seconds})
+    return 0
+
+
 # ---------------------------------------------------------------- doctor
 
 DOCTOR_POLL_S = 0.25            # the in-process doctors' evaluation period
@@ -5028,8 +5652,9 @@ DOCTOR_SIZES = {
     "watchdog_s": 8.0,          # the shared heartbeat threshold
     "straggler_delay_s": 12.0,  # rank 1's sleep before every batch
     # The replicas' depth: the f32 HF export and two replicas reading it
-    # into host memory must fit the host (see fleet_room).
-    "fleet_layers": 8,
+    # into host memory must fit the host (see fleet_room); 4 of the 32
+    # layers keep the export and the replicas' start short.
+    "fleet_layers": 4,
     "ready_timeout_s": 600.0,
 }
 DOCTOR_INJECT = "container_engine_accelerators_tpu_torch.cli.inject_fault"
@@ -5711,19 +6336,51 @@ def _fleet_gauges(url: str) -> dict:
         ("fleet_replicas{", "fleet_replica_state{"))}
 
 
-def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
-                        device_flags: list, sz) -> dict:
-    """replica-kill: cli/fleet.py --replicas 2 (--keep-survivors) serving
-    the HF export on the one card, each replica with --doctor; fleetmon
-    --doctor scrapes both; loadgen --targets fans streams over both and
-    replica r1 is SIGKILLed mid-stream: replica_down once for r1, the
-    fleet gauges at up 1 / down 1, the survivor answers, the card's
-    memory comes back; then fleetmon's dump through `trace merge` and
-    `trace doctor` gives the live verdicts."""
+class FleetLaunch:
+    """cli/fleet.py --replicas 2 (--keep-survivors) serving the HF export
+    on the one card, each replica with --doctor, started ahead of the
+    replica-kill scenario so that its replicas load while the training
+    scenarios run; `ready()` gives its `fleet` line and the seconds from
+    the launch to it."""
+
+    def __init__(self, root, d: str, export_dir: str, device_flags: list,
+                 sz: dict):
+        self.timeout_s = sz["ready_timeout_s"] + 60
+        self.t_launch = time.monotonic()
+        self.proc = _popen_port(
+            root, "container_engine_accelerators_tpu_torch.cli.fleet",
+            "--replicas", "2", "--ready-timeout", str(sz["ready_timeout_s"]),
+            "--keep-survivors", "--", "--checkpoint", export_dir,
+            "--engine", "paged", "--max-batch", "2", "--max-len", "512",
+            "--prefill-chunk", "0", "--prefix-cache-cap", "0", "--doctor",
+            "--doctor-dir", os.path.join(d, "replica-incidents"),
+            *device_flags)
+        self._pool = concurrent.futures.ThreadPoolExecutor(1)
+        self._line = self._pool.submit(self._wait)
+
+    def _wait(self):
+        line = _json_line(self.proc.stdout, "fleet", self.timeout_s)
+        return line, time.monotonic() - self.t_launch
+
+    def ready(self) -> tuple[dict, float]:
+        try:
+            return self._line.result(timeout=self.timeout_s + 10)
+        finally:
+            self._pool.shutdown(wait=False)
+
+
+def doctor_replica_kill(root, tmp_dir, torch, launch: FleetLaunch,
+                        sz) -> dict:
+    """replica-kill: the fleet `launch` started (its replicas' --doctor
+    on); fleetmon --doctor scrapes both; loadgen --targets fans streams
+    over both and replica r1 is SIGKILLed mid-stream: replica_down once
+    for r1, the fleet gauges at up 1 / down 1, the survivor answers, the
+    card's memory comes back; then fleetmon's dump through `trace merge`
+    and `trace doctor` gives the live verdicts."""
     d = os.path.join(tmp_dir, "replica_kill")
     os.makedirs(d, exist_ok=True)
     dump = os.path.join(d, "fleetmon.json")
-    procs = []
+    procs = [launch.proc]
     cuda = torch.cuda.is_available()
 
     def used():
@@ -5733,19 +6390,8 @@ def doctor_replica_kill(root, tmp_dir, torch, export_dir: str,
         return total - free
 
     try:
-        t_launch = time.monotonic()
-        fleet = _popen_port(
-            root, "container_engine_accelerators_tpu_torch.cli.fleet",
-            "--replicas", "2", "--ready-timeout", str(sz["ready_timeout_s"]),
-            "--keep-survivors", "--", "--checkpoint", export_dir,
-            "--engine", "paged", "--max-batch", "2", "--max-len", "512",
-            "--prefill-chunk", "0", "--prefix-cache-cap", "0", "--doctor",
-            "--doctor-dir", os.path.join(d, "replica-incidents"),
-            *device_flags)
-        procs.append(fleet)
-        reps = {r["id"]: r for r in _json_line(
-            fleet.stdout, "fleet", sz["ready_timeout_s"] + 60)["replicas"]}
-        ready_s = time.monotonic() - t_launch
+        line, ready_s = launch.ready()
+        reps = {r["id"]: r for r in line["replicas"]}
         require(sorted(reps) == ["r0", "r1"], f"replica_kill: {reps}")
         slos = sz.get("fleet_slos")
         fm = _popen_port(
@@ -5938,6 +6584,7 @@ def doctor_phase(torch, dev, np, tmp_dir: str, model=None, cfg=None,
     room = fleet_room(cfg, sz["fleet_layers"], shm)
     export = tempfile.mkdtemp(
         prefix=f"{CKPT_ROOT_PREFIX}{os.getpid()}-fleet-", dir=shm)
+    launch = None
     try:
         t0 = time.perf_counter()
         cut = truncate_params(model, sz["fleet_layers"])
@@ -5945,15 +6592,20 @@ def doctor_phase(torch, dev, np, tmp_dir: str, model=None, cfg=None,
         room["export_s"] = time.perf_counter() - t0
         del cut, model
         _free_card(torch)
+        # The replicas load while data-stall and straggler run.
+        fleet_dir = os.path.join(tmp_dir, "replica_kill")
+        os.makedirs(fleet_dir, exist_ok=True)
+        launch = FleetLaunch(root, fleet_dir, export, device_flags, sz)
         scen["data_stall"] = timed(
             "data_stall", doctor_data_stall, root, tmp_dir, torch, dev,
             dataclasses.replace(cfg, n_layers=2), sz)
         scen["straggler"] = timed("straggler", doctor_straggler, root,
                                   tmp_dir, sz, device_flags)
         scen["replica_kill"] = timed("replica_kill", doctor_replica_kill,
-                                     root, tmp_dir, torch, export,
-                                     device_flags, sz)
+                                     root, tmp_dir, torch, launch, sz)
     finally:
+        if launch is not None:
+            _stop_procs([launch.proc])
         shutil.rmtree(export, ignore_errors=True)
     for name in ("decode_attention", "paged_decode_attention",
                  *FLASH_REPLACES):
@@ -6528,6 +7180,8 @@ def main() -> int:
         return doctor_main(torch)
     if sys.argv[1:2] == ["vision"]:
         return vision_main(torch)
+    if sys.argv[1:2] == ["telemetry"]:
+        return telemetry_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -6582,6 +7236,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp_dir:
             timed("node", node_phase, torch, dev, tmp_dir)
         timed("vision", vision_phase, torch, dev, np)
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            tele = timed("telemetry", telemetry_phase, torch, dev, np,
+                         tmp_dir, paged["paged_decode_tick_ms_8_slots"])
         with tempfile.TemporaryDirectory() as tmp_dir, \
                 _removed_on_sigterm():
             doc = timed("doctor", doctor_phase, torch, dev, np, tmp_dir)
@@ -6594,13 +7251,14 @@ def main() -> int:
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
                                  obs, spec, pools, sup, tr["serve_ckpt"],
-                                 doc))
+                                 tele, doc))
 
     def flash_launches(name):
         return sum(tr[phase]["launches"].get(name, 0)
                    for phase in ("train", "train_save_attn", "ckpt",
-                                 "observe_train", "eval")) + doc[
-                                     "launches"].get(name, 0)
+                                 "observe_train", "eval")) + sum(
+                                     phase["launches"].get(name, 0)
+                                     for phase in (tele, doc))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""

@@ -46,10 +46,11 @@ exercised end to end:
                          health --error-log <path>` records flow
                          through the production health pipeline in
                          the target process
-  --kind fabric-slow     the JAX package's fabric-probe throttle
-                         (--axis, --rank, --factor, --seconds); the
-                         port has no fabric monitor, so its listener
-                         logs the command and trips nothing
+  --kind fabric-slow     throttle the fabric health monitor's probes
+                         (metrics/fabric_health.inject_slow): probes
+                         over --axis whose group holds --rank sleep
+                         inside their timed window and read --factor
+                         slower for --seconds
 
   python -m container_engine_accelerators_tpu_torch.cli.inject_fault \
       --kind hang --seconds 5 --fault-log /tmp/faults.jsonl

@@ -76,6 +76,16 @@ serves the snapshot fleetmon scrapes.
   python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
       --engine paged --metrics-port 9100 --doctor --replica-id r0
 
+Device telemetry: `--fabric-health` runs the fabric health monitor
+(metrics/fabric_health.py) over this process's group, its gauges on
+`--metrics-port` and its block on `/debugz?state=1` (`inject_fault
+--kind fabric-slow` throttles it); the continuous and paged engines
+record the utils/hbm_plan budget of the launch, which the doctor's
+oom_precursor verdicts and OOM bundles carry; TPU_PROFILE_DIR wraps the
+session in a torch.profiler capture whose serve/admit,
+serve/prefill_chunk and serve/decode_tick regions (utils/profiling.py)
+also land on the flight recorder.
+
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back.
 """
@@ -126,6 +136,10 @@ from container_engine_accelerators_tpu_torch.models.decode import (
     prefill_suffix_slot,
     set_slot_pages,
     verify_step,
+)
+from container_engine_accelerators_tpu_torch.utils.profiling import (
+    annotate,
+    maybe_profile,
 )
 
 log = logging.getLogger("torch-serve")
@@ -453,7 +467,8 @@ class BatchingEngine:
             n_new, temp = batch[0][1], batch[0][2]
             t_batch = time.monotonic()
             try:
-                with clock.phase("schedule"):
+                with annotate("serve/decode_tick"), \
+                        clock.phase("schedule"):
                     tokens = _to_device([list(item[0]) for item in batch],
                                         torch.long, self.device)
                     gen = None
@@ -946,17 +961,21 @@ class ContinuousEngine:
             self._pump_queue()
             with self._mu:
                 clock.start_tick()
-                with clock.phase("admit"):
+                with annotate("serve/admit"), clock.phase("admit"):
                     self._admit_phase()
                 self._record_occupancy()
                 if all(sl is None for sl in self._slots):
                     continue
-                with clock.phase("schedule"):
+                with annotate("serve/prefill_chunk"), \
+                        clock.phase("schedule"):
                     self._prefill_tick()
                 with clock.phase("schedule"):
                     ok = self._pre_step()
-                if ok and self._decode_tick():
-                    clock.commit_tick()
+                if not ok:
+                    continue
+                with annotate("serve/decode_tick"):
+                    if self._decode_tick():
+                        clock.commit_tick()
 
     def _pump_queue(self):
         # No timed queue-get: drain without blocking and park on an
@@ -991,7 +1010,8 @@ class ContinuousEngine:
             self._work.clear()
             with self._mu:
                 self._drain_queue()
-                self._admit_phase()
+                with annotate("serve/admit"):
+                    self._admit_phase()
                 self._record_occupancy()
                 n_prefilling = sum(sl is not None and bool(sl["pending"])
                                    for sl in self._slots)
@@ -1013,7 +1033,8 @@ class ContinuousEngine:
             with self._mu:
                 if not self._pre_step():
                     continue
-                self._decode_tick()
+                with annotate("serve/decode_tick"):
+                    self._decode_tick()
                 self._chunks_this_tick = 0  # the tick paid: a new grant
             if n_prefilling:
                 self._prefill_work.set()
@@ -1029,7 +1050,8 @@ class ContinuousEngine:
                 if self.fault_kill_prefill:
                     self._maybe_killed_prefill()
                 with self._mu:
-                    did = self._prefill_tick()
+                    with annotate("serve/prefill_chunk"):
+                        did = self._prefill_tick()
                 if not did:
                     self._prefill_work.wait(0.01)
                     self._prefill_work.clear()
@@ -2023,11 +2045,12 @@ class EngineSupervisor:
 
 
 def engine_state_snapshot(engine, recorder, replica_id: str,
-                          engine_kind: str) -> dict:
+                          engine_kind: str, fabric_mon=None) -> dict:
     """/debugz?state=1: the fleet scraper's machine-readable snapshot,
     the recorder's state_snapshot() plus the engine's liveness and
-    counters, with the JAX package's keys (the fabric block, which JAX
-    adds only while a fabric monitor runs, is never present here)."""
+    counters, with the JAX package's keys, and the fabric block while a
+    fabric health monitor runs (absent otherwise: the fleet scraper's
+    mixed-version contract)."""
     snap = recorder.state_snapshot()
     alive_fn = getattr(engine, "prefill_workers_alive", None)
     snap.update({
@@ -2041,6 +2064,8 @@ def engine_state_snapshot(engine, recorder, replica_id: str,
         "prefill_workers": getattr(engine, "prefill_workers", 0),
         "prefill_workers_alive": alive_fn() if alive_fn else 0,
     })
+    if fabric_mon is not None:
+        snap["fabric"] = fabric_mon.snapshot()
     return snap
 
 
@@ -2130,6 +2155,31 @@ def make_server(engine, port: int,
                 return self._send({"error": str(e)}, 500)
 
     return ThreadingHTTPServer(("", port), Handler)
+
+
+def expect_serving_plan(args, cfg, engine, device) -> dict | None:
+    """Record the utils/hbm_plan budget of this launch
+    (introspection.set_expected_hbm): the continuous engine's full slots
+    x max_len reservation, or the paged pool's share of it, at the
+    card's capacity. None, and nothing recorded, off the card (a plan
+    needs a capacity)."""
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_serving,
+    )
+    if device.type != "cuda":
+        log.info("no hbm_plan expectation off the card")
+        return None
+    if args.engine == "paged":
+        frac = (args.pool_pages / (args.max_batch * max(engine.max_pages, 1))
+                if args.pool_pages else 0.5)
+    else:
+        frac = 1.0  # full slots x max_len reservation
+    plan = plan_serving(cfg, tp=1, max_slots=args.max_batch,
+                        max_len=args.max_len, pool_fraction=frac,
+                        kv_dtype=args.kv_dtype,
+                        weight_dtype=args.weight_dtype, device=device)
+    introspection.set_expected_hbm(plan)
+    return plan
 
 
 def main(argv=None) -> int:
@@ -2306,6 +2356,23 @@ def main(argv=None) -> int:
                         "process: engine hangs and worker deaths, "
                         "fabricated HBM/queue telemetry, health-checker "
                         "storms")
+    p.add_argument("--fabric-health", action="store_true",
+                   help="run a FabricHealthMonitor in-process "
+                        "(metrics/fabric_health.py) over this process's "
+                        "group (one NCCL rank on the card, gloo with "
+                        "--device cpu): scheduled low-rate collective "
+                        "probe sweeps, learned busBW baselines, fabric_"
+                        "degraded verdicts and slow-rank localization, "
+                        "gauges co-served on --metrics-port and a fabric "
+                        "block on /debugz?state=1")
+    p.add_argument("--fabric-health-interval", type=float, default=30.0,
+                   help="seconds between probe sweeps")
+    p.add_argument("--fabric-health-baseline", default=None,
+                   help="FABRIC_BASELINE.json to seed the busBW "
+                        "baselines from (and re-save on shutdown)")
+    p.add_argument("--fabric-health-history", default=None,
+                   help="append probe-history JSONL rows here "
+                        "(tools/fabric_report.py input)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if not (args.tiny or args.checkpoint):
@@ -2389,6 +2456,8 @@ def main(argv=None) -> int:
         engine = BatchingEngine(model, cfg, max_batch=args.max_batch,
                                 window_ms=args.batch_window_ms,
                                 recorder=recorder, **spec_kw)
+    if args.engine in ("continuous", "paged"):
+        expect_serving_plan(args, cfg, engine, model.device)
     doc = None
     if args.doctor:
         from container_engine_accelerators_tpu_torch.metrics import doctor
@@ -2414,6 +2483,32 @@ def main(argv=None) -> int:
         )
         listener = FaultListener(args.fault_listen, engine=engine)
         listener.start()
+    fabric_mon = None
+    if args.fabric_health:
+        from container_engine_accelerators_tpu_torch.metrics import (
+            fabric_health,
+        )
+        # The process's own group: one rank on the serving card (NCCL),
+        # or gloo for --device cpu. Gauges co-serve on the request
+        # metrics registry; only the sweep thread is started here. A
+        # sweep holds the engine's lock (continuous and paged engines),
+        # so no tick shares the card with a probe (the engine pauses ~2
+        # ms a sweep); on the card a probe copies 64 MiB ten times, ~0.5
+        # ms, well above its timing events' resolution.
+        cuda = model.device.type == "cuda"
+        fabric_mon = fabric_health.FabricHealthMonitor(
+            interval=args.fabric_health_interval,
+            size_bytes=(1 << 26) if cuda else (1 << 14),
+            warmup=1, iters=10 if cuda else 2,
+            baseline_path=args.fabric_health_baseline,
+            history_path=args.fabric_health_history,
+            registry=recorder.registry,
+            backend="nccl" if cuda else "gloo", device=model.device,
+            sweep_lock=getattr(engine, "_mu", None))
+        fabric_mon.start_poll_only()
+        fabric_health.set_active(fabric_mon)
+        log.info("fabric health monitor on (sweep every %.1fs)",
+                 args.fabric_health_interval)
     exporter = None
     if args.metrics_port is not None:
         # The poller reads the serving card only, and none for --device
@@ -2427,7 +2522,7 @@ def main(argv=None) -> int:
                                         hbm_poller=poller)
         exporter.state_provider = functools.partial(
             engine_state_snapshot, engine, recorder, replica_id,
-            args.engine)
+            args.engine, fabric_mon=fabric_mon)
         if args.engine == "paged":
             exporter.kv_provider = engine.thermal_census
         exporter.start_background()
@@ -2436,8 +2531,14 @@ def main(argv=None) -> int:
     log.info("serving on :%d (/generate, /healthz) on %s, %s engine",
              server.server_address[1], model.device, args.engine)
     try:
-        server.serve_forever()
+        # TPU_PROFILE_DIR set: the whole serving session is one
+        # torch.profiler capture whose serve/* regions line up with the
+        # request metrics; unset: no capture.
+        with maybe_profile():
+            server.serve_forever()
     finally:
+        if fabric_mon is not None:
+            fabric_mon.stop()
         if listener is not None:
             listener.stop()
         if doc is not None:

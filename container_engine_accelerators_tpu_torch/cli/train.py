@@ -28,6 +28,15 @@ over synthetic data (or a token file from `training/dataset.py`,
                     tpu_doctor_* families on the metrics port
   --fault-listen    chaos/test runs: tail a fault-command file written
                     by `inject_fault --kind data-stall|straggler|...`
+  --fabric-health   the fabric health monitor (metrics/fabric_health.py)
+                    over this process's group, its probe sweeps every
+                    --fabric-health-every steps from the step loop (every
+                    rank of a job sweeps in lockstep)
+  TPU_PROFILE_DIR   a torch.profiler capture of the run (utils/
+                    profiling.py) with its train/* regions
+
+On the card the run records the utils/hbm_plan budget it should fit
+(plan_training), which OOM bundles and oom_precursor verdicts carry.
 
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back. Prints one JSON line at the end:
@@ -126,6 +135,19 @@ def main(argv=None) -> int:
                         "inject the faults into this process: data-"
                         "loader stalls, slow-straggler delays, health-"
                         "pipeline storms")
+    p.add_argument("--fabric-health", action="store_true",
+                   help="run a FabricHealthMonitor over this process's "
+                        "group (metrics/fabric_health.py): probe sweeps "
+                        "every --fabric-health-every steps, driven from "
+                        "the step loop so every rank probes in lockstep")
+    p.add_argument("--fabric-health-every", type=int, default=20,
+                   help="steps between fabric probe sweeps")
+    p.add_argument("--fabric-health-baseline", default=None,
+                   help="FABRIC_BASELINE.json to seed busBW baselines "
+                        "from")
+    p.add_argument("--fabric-health-history", default=None,
+                   help="append probe-history JSONL rows here "
+                        "(tools/fabric_report.py input)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -164,7 +186,19 @@ def main(argv=None) -> int:
     from container_engine_accelerators_tpu_torch.models.convert import (
         resolve_device,
     )
-    resolve_device(args.device)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # The budget this run should fit under, embedded in any OOM
+        # bundle and the doctor's oom_precursor evidence.
+        from container_engine_accelerators_tpu_torch.metrics import (
+            introspection,
+        )
+        from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+            plan_training,
+        )
+        introspection.set_expected_hbm(plan_training(
+            cfg, batch_size=args.batch_size, seq_len=args.seq_len,
+            device=dev))
     # The CLI owns the recorder (fit would build one too) so the summary
     # can be printed after fit returns.
     recorder = TrainRecorder(log_path=args.metrics_log,
@@ -188,6 +222,24 @@ def main(argv=None) -> int:
         )
         listener = FaultListener(args.fault_listen)
         listener.start()
+    fmon = None
+    if args.fabric_health:
+        from container_engine_accelerators_tpu_torch.metrics import (
+            fabric_health,
+        )
+        # No poll thread: the probes of a job of several ranks are
+        # matched collectives, so sweeps run in step lockstep; fit's
+        # loop drives maybe_sweep_step through the active registry.
+        fmon = fabric_health.FabricHealthMonitor(
+            size_bytes=1 << 14, warmup=1, iters=2,
+            baseline_path=args.fabric_health_baseline,
+            history_path=args.fabric_health_history,
+            registry=recorder.registry,
+            backend="gloo" if dev.type == "cpu" else "nccl", device=dev)
+        fmon.train_every = max(args.fabric_health_every, 1)
+        fabric_health.set_active(fmon)
+        log.info("fabric health monitor on (sweep every %d steps)",
+                 fmon.train_every)
     try:
         state, metrics = fit(
             cfg, make_optimizer(), batches, device=args.device,
@@ -202,7 +254,11 @@ def main(argv=None) -> int:
         if doc is not None:
             doc.poll_once()  # a final evaluation over the run's tail
             summary["doctor_incidents"] = len(doc.incidents)
+        if fmon is not None:
+            summary["fabric_sweeps"] = fmon.sweeps
     finally:
+        if fmon is not None:
+            fmon.stop()
         if listener is not None:
             listener.stop()
         if doc is not None:

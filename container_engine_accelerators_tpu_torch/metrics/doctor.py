@@ -51,9 +51,9 @@ Detectors (each yields Findings; the registry is extensible):
   queue_storm, page_stall, kv_cold_waste, kv_thrash
                    span- and census-derived serving verdicts
   fabric_degraded, fabric_flap
-                   fabric/* verdicts; quiet in the port's processes
-                   (no fabric monitor is ported), they fire on replayed
-                   JAX dumps
+                   fabric/* verdicts over the fabric health monitor's
+                   health samples (metrics/fabric_health.py: serve or
+                   train --fabric-health)
   replica_down, fleet_imbalance, fleet_slo_burn
                    fleet verdicts over fleetmon's fleet/* stream
                    (metrics/fleet.py)
@@ -873,9 +873,8 @@ class FabricDegradedDetector(Detector):
     band sweep after sweep, not one noisy probe. Evidence carries the
     probe rows behind the verdict and the localization pass's slow
     rank (the node-problem-detector role: the incident NAMES the
-    rank to drain). Reads only fabric/* events, which no port module
-    emits yet (no fabric monitor is ported): quiet in the port's
-    processes, it fires on replayed JAX dumps."""
+    rank to drain). Reads only the fabric/* events of
+    metrics/fabric_health.py's monitor."""
 
     cls = "fabric_degraded"
 
@@ -948,8 +947,7 @@ class FabricFlapDetector(Detector):
     fabric_flap_n times inside the slow window. No single episode
     sustains long enough for fabric_degraded, but a link bouncing in
     and out of its baseline band is failing — retrain routing or
-    drain it before it hard-fails mid-collective. Like
-    fabric_degraded, quiet in the port's processes."""
+    drain it before it hard-fails mid-collective."""
 
     cls = "fabric_flap"
 
@@ -1044,12 +1042,15 @@ def _heartbeat_ages(hb_dir: str) -> dict[int, float]:
 
 
 def _expected_hbm():
-    """The hbm_plan expectation recorded at launch, for oom_precursor
-    evidence. Always None in the port: `set_expected_hbm` and the plan
-    it records (the JAX package's tools/hbm_plan.plan_serving) are not
-    ported yet, so live incidents carry `"hbm_plan": null`, as the JAX
-    package's do when no plan was set."""
-    return None
+    """The hbm_plan expectation recorded at launch (introspection), for
+    oom_precursor evidence; None when no plan was set."""
+    try:
+        from container_engine_accelerators_tpu_torch.metrics import (
+            introspection,
+        )
+        return introspection.expected_hbm()
+    except Exception:
+        return None
 
 
 def slo_burn(sig: Signals, spec: SloSpec, window_s: float
@@ -1625,9 +1626,15 @@ class FaultListener:
         elif kind == "health_tail":
             self._health_tail(rec)
         elif kind == "fabric_slow":
-            log.warning("fabric_slow fault trips nothing here: the "
-                        "fabric health monitor whose probes it throttles "
-                        "is not ported")
+            from container_engine_accelerators_tpu_torch.metrics import (
+                fabric_health,
+            )
+            fabric_health.inject_slow(
+                axis=str(rec.get("axis", "dp")),
+                rank=int(rec.get("rank", 0)),
+                factor=float(rec.get("factor", 8.0)),
+                seconds=float(rec.get("seconds", 60.0)),
+                delay_s=float(rec.get("delay_s", 0.02)))
         else:
             log.warning("unknown fault kind %r", kind)
 

@@ -28,9 +28,16 @@ read without waiting for queued work. The poller names its devices
 explicitly (by default the process's current card, captured where it is
 built), so its thread never touches another card.
 
-Not ported: the XLA compile tracker (the port compiles no XLA programs;
-its kernels are built once by `kernels.build()`, whose record stands in
-its place) and the hbm_plan expectation (`set_expected_hbm`).
+**The plan.** `set_expected_hbm(plan)` records the budget the process
+was launched under (utils/hbm_plan.plan_serving or plan_training;
+cli/serve.py and cli/train.py set it); every OOM bundle embeds it beside
+the observed peak, and the doctor's live oom_precursor verdicts carry it
+(`expected_hbm()`). `snapshot_memory_to_bus(tag)` puts one memory sample
+on the EventBus (the profiler's start and stop marks use it).
+
+Not ported: the XLA compile tracker (`CompileTracker`, `watch`,
+`install`): the port compiles nothing at run time; its kernels are built
+once by `kernels.build()`, whose record stands in the tracker's place.
 """
 
 from __future__ import annotations
@@ -229,9 +236,45 @@ class HbmPoller:
             self._thread = None
 
 
+def snapshot_memory_to_bus(tag: str = "snapshot") -> None:
+    """One memory sample of each card onto the EventBus counter tracks
+    (hbm/<device>), as HbmPoller writes them: the profiler's start and
+    stop marks carry the memory around a capture window. Never raises."""
+    if not events.enabled():
+        return
+    try:
+        for r in device_memory_stats():
+            vals = {k: r[k] for k in
+                    ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")
+                    if k in r}
+            if vals:
+                events.counter(f"hbm/{r['device']}", vals, "hbm")
+    except Exception:
+        log.debug("memory snapshot (%s) failed", tag, exc_info=True)
+
+
 # ---------- OOM forensics ----------
 
+_EXPECTED_HBM: dict | None = None
 LAST_BUNDLE_PATH: str | None = None
+
+
+def set_expected_hbm(plan: dict | None) -> None:
+    """Record the utils/hbm_plan budget this process was launched under;
+    every OOM bundle embeds it next to the observed stats, so "the plan
+    said it fits" is checkable post-mortem."""
+    global _EXPECTED_HBM
+    _EXPECTED_HBM = plan
+    if plan:
+        log.info("hbm_plan expectation: %.2f GB of %.1f GB (%s)",
+                 plan.get("total_gb", 0.0), plan.get("hbm_gb", 0.0),
+                 "fits" if plan.get("fits") else "DOES NOT FIT")
+
+
+def expected_hbm() -> dict | None:
+    """The budget recorded by set_expected_hbm, read-only: the doctor's
+    oom_precursor verdicts attach it while the process is alive."""
+    return _EXPECTED_HBM
 
 
 def is_resource_exhausted(exc: BaseException) -> bool:
@@ -279,6 +322,21 @@ def build_oom_bundle(context: str, exc: BaseException | None = None,
     if exc is not None:
         bundle["error"] = {"type": type(exc).__name__,
                            "message": str(exc)[:2000]}
+    observed = [r for r in bundle["device_memory_stats"]
+                if r.get("stats_available")]
+    comparison = None
+    if _EXPECTED_HBM and observed:
+        worst = max(observed, key=lambda r: r.get("bytes_in_use", 0))
+        comparison = {
+            "expected_total_gb": _EXPECTED_HBM.get("total_gb"),
+            "expected_fits": _EXPECTED_HBM.get("fits"),
+            "observed_peak_gb": round(
+                worst.get("peak_bytes_in_use",
+                          worst.get("bytes_in_use", 0)) / 1e9, 3),
+            "observed_device": worst["device"],
+        }
+    bundle["hbm_plan"] = {"expected": _EXPECTED_HBM,
+                          "comparison": comparison}
     return bundle
 
 

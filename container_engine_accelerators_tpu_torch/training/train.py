@@ -35,6 +35,10 @@ from container_engine_accelerators_tpu_torch.training.fused_adamw import (
     FusedAdamW,
     grad_norm_metric,
 )
+from container_engine_accelerators_tpu_torch.utils.profiling import (
+    annotate,
+    maybe_profile,
+)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -151,14 +155,35 @@ def _host_token_count(batch) -> int:
     return int(np.sum(np.asarray(batch["targets"]) >= 0))
 
 
+def _fabric_sweep(step: int, log_fn) -> None:
+    """The active fabric health monitor's step-synchronized sweep
+    (metrics/fabric_health.py): every rank reaches the same step and
+    probes in lockstep, so the collectives stay matched. A failed sweep
+    is logged and training carries on."""
+    from container_engine_accelerators_tpu_torch.metrics import (
+        fabric_health,
+    )
+    mon = fabric_health.get_active()
+    if mon is None or mon.train_every <= 0:
+        return
+    with annotate("train/fabric_sweep"):
+        try:
+            mon.maybe_sweep_step(step)
+        except Exception as e:
+            log_fn(f"fabric sweep failed: {e}")
+
+
 def _run_steps(state: TrainState, it: Iterator, step_fn, *, cfg,
                max_steps: int | None, log_every: int, log_fn, recorder,
-               context: str, mngr=None, ckpt_async: bool = False):
+               context: str, mngr=None, ckpt_async: bool = False,
+               fabric_sweeps: bool = False):
     """The host loop shared by train_loop and fit: data wait, step
     dispatch, (checkpoint save), the loss fetch at log boundaries (the
     loop's only wait on the device besides a save), and the recorder's
     step edges; with `cfg`, the recorder's MFU and the saves' config
-    record. Returns (state, last metrics)."""
+    record; with `fabric_sweeps` (fit), the fabric monitor's sweeps.
+    The data wait, step and save are train/* regions (annotate).
+    Returns (state, last metrics)."""
     device = state.model.device
     metrics = None
     t_start = time.perf_counter()
@@ -166,7 +191,8 @@ def _run_steps(state: TrainState, it: Iterator, step_fn, *, cfg,
     while max_steps is None or state.step < max_steps:
         t0 = time.perf_counter()
         try:
-            batch = next(it)
+            with annotate("train/data_wait"):
+                batch = next(it)
         except StopIteration:
             break
         t1 = time.perf_counter()
@@ -179,16 +205,17 @@ def _run_steps(state: TrainState, it: Iterator, step_fn, *, cfg,
             recorder.configure_model(
                 cfg.train_flops_per_token(batch["targets"].shape[-1]),
                 peak_flops_per_chip=detect_peak_flops(device), n_chips=1)
-        with introspection.oom_forensics(context):
+        with annotate("train/step"), introspection.oom_forensics(context):
             metrics = step_fn(state.model, to_device(batch, device))
         t2 = time.perf_counter()
         state.step += 1
         state.tokens += tokens
         saved, save_dt = False, 0.0
         if mngr is not None:
-            ts = time.perf_counter()
-            saved = mngr.save(state.step, state, cfg=cfg)
-            save_dt = time.perf_counter() - ts
+            with annotate("train/ckpt_save"):
+                ts = time.perf_counter()
+                saved = mngr.save(state.step, state, cfg=cfg)
+                save_dt = time.perf_counter() - ts
         loss = None
         if log_every and i % log_every == 0:
             ts = time.perf_counter()
@@ -205,6 +232,8 @@ def _run_steps(state: TrainState, it: Iterator, step_fn, *, cfg,
             if saved:
                 recorder.record_checkpoint_save(save_dt,
                                                 async_mode=ckpt_async)
+        if fabric_sweeps:
+            _fabric_sweep(state.step, log_fn)
         i += 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -273,7 +302,14 @@ def fit(cfg: llama.LlamaConfig, optimizer: Callable[..., FusedAdamW],
     HangWatchdog watches (`heartbeat_dir`, `watchdog_threshold_s`).
     `metrics_port` serves it on /metrics (0 = ephemeral; the bound port
     goes through `log_fn`). A resume is a `train/resume` instant on the
-    flight recorder. What fit builds, fit closes."""
+    flight recorder. What fit builds, fit closes.
+
+    Telemetry: TPU_PROFILE_DIR captures the step loop with
+    torch.profiler (utils/profiling.maybe_profile), its train/data_wait,
+    train/step, train/ckpt_save and train/fabric_sweep regions also on
+    the flight recorder; an active fabric health monitor
+    (fabric_health.set_active, `train --fabric-health`) sweeps at the
+    steps its maybe_sweep_step picks."""
     from container_engine_accelerators_tpu_torch.metrics import (
         train_metrics,
     )
@@ -331,11 +367,12 @@ def fit(cfg: llama.LlamaConfig, optimizer: Callable[..., FusedAdamW],
             if rec is not None:
                 rec.record_fast_forward(time.perf_counter() - t0,
                                         batches=skipped)
-        state, metrics = _run_steps(
-            state, it, make_train_step(cfg, state.optimizer), cfg=cfg,
-            max_steps=max_steps, log_every=log_every, log_fn=log_fn,
-            recorder=rec, context="fit/step", mngr=mngr,
-            ckpt_async=ckpt_async)
+        with maybe_profile():
+            state, metrics = _run_steps(
+                state, it, make_train_step(cfg, state.optimizer), cfg=cfg,
+                max_steps=max_steps, log_every=log_every, log_fn=log_fn,
+                recorder=rec, context="fit/step", mngr=mngr,
+                ckpt_async=ckpt_async, fabric_sweeps=True)
         if mngr is not None:
             # An in-flight async save must land before latest_step can
             # say whether the last step still needs saving, and the last

@@ -1,6 +1,8 @@
 """A small ctypes binding over NVML (`libnvidia-ml.so.1`), holding only
 the calls the node layer uses: the driver version, each card's minor
-number, PCI address, UUID, name and memory, and its utilisation.
+number, PCI address, UUID, name and memory, and its utilisation; and
+the NVLink state and error counters the fabric exporter reads
+(metrics/fabric.py).
 
 The reference reaches NVML through go-nvml plus a cgo shim for the
 sample buffer (reference pkg/gpu/nvidia/metrics/util.go:17-88); ctypes
@@ -19,11 +21,18 @@ import dataclasses
 LIBRARY = "libnvidia-ml.so.1"
 
 SUCCESS = 0
+ERROR_INVALID_ARGUMENT = 2
 ERROR_NOT_SUPPORTED = 3
 ERROR_NOT_FOUND = 6
 ERROR_LIBRARY_NOT_FOUND = 12
 
 GPU_UTILIZATION_SAMPLES = 1     # nvmlSamplingType_t
+
+NVLINK_MAX_LINKS = 18           # NVML_NVLINK_MAX_LINKS (Hopper's 18)
+# nvmlNvLinkErrorCounter_t: replays, recoveries, CRC flit and data errors
+# and ECC data errors of the data link layer.
+NVLINK_ERROR_COUNTERS = {"dl_replay": 0, "dl_recovery": 1, "dl_crc_flit": 2,
+                         "dl_crc_data": 3, "dl_ecc_data": 4}
 
 # nvmlValueType_t -> the nvmlValue_t member it selects.
 VALUE_FIELDS = {0: "dVal", 1: "uiVal", 2: "ulVal", 3: "ullVal", 4: "sllVal",
@@ -87,6 +96,9 @@ SIGNATURES = {
                              _P(ctypes.c_int), _P(ctypes.c_uint),
                              _P(Sample)],
     "nvmlDeviceGetUtilizationRates": [_HANDLE, _P(Utilization)],
+    "nvmlDeviceGetNvLinkState": [_HANDLE, ctypes.c_uint, _P(ctypes.c_int)],
+    "nvmlDeviceGetNvLinkErrorCounter": [_HANDLE, ctypes.c_uint, ctypes.c_int,
+                                        _P(ctypes.c_ulonglong)],
 }
 
 
@@ -216,6 +228,41 @@ class Nvml:
         self._call("nvmlDeviceGetUtilizationRates", handle,
                    ctypes.byref(util))
         return util.gpu, util.memory
+
+    def nvlink_active(self, handle, link: int) -> bool:
+        """Whether `link` is up (nvmlDeviceGetNvLinkState)."""
+        state = ctypes.c_int()
+        self._call("nvmlDeviceGetNvLinkState", handle, link,
+                   ctypes.byref(state))
+        return bool(state.value)
+
+    def nvlink_error_counter(self, handle, link: int, counter: int) -> int:
+        """One of `link`'s error counters (NVLINK_ERROR_COUNTERS)."""
+        value = ctypes.c_ulonglong()
+        self._call("nvmlDeviceGetNvLinkErrorCounter", handle, link, counter,
+                   ctypes.byref(value))
+        return value.value
+
+    def nvlink_errors(self, handle) -> int:
+        """The sum of every error counter of every active link. Raises
+        NvmlError where NVML does not answer for the card (Not Supported
+        on a card without NVLink, or where the driver keeps the counters
+        from the process); a link past the card's last is the end of
+        the walk."""
+        total, any_link = 0, False
+        for link in range(NVLINK_MAX_LINKS):
+            try:
+                active = self.nvlink_active(handle, link)
+            except NvmlError as e:
+                if e.code == ERROR_INVALID_ARGUMENT and any_link:
+                    break
+                raise
+            any_link = True
+            if not active:
+                continue
+            for counter in NVLINK_ERROR_COUNTERS.values():
+                total += self.nvlink_error_counter(handle, link, counter)
+        return total
 
     def samples(self, handle, sampling_type: int,
                 last_seen_us: int) -> list[tuple[int, float]]:

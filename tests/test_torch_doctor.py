@@ -452,13 +452,31 @@ def test_listener_trips_what_jax_trips(tmp_path, rec):
 @pytest.mark.parametrize("kind", ["recompile_storm", "fabric_slow"])
 def test_listener_kinds_without_a_counterpart_trip_nothing(tmp_path,
                                                            caplog, kind):
+    """recompile_storm has no counterpart in the port and trips nothing;
+    fabric_slow has one since the fabric health monitor was ported: it
+    arms the monitor's throttle and touches no engine (its arguments are
+    held to JAX's in tests/test_torch_telemetry_wiring.py)."""
+    from container_engine_accelerators_tpu_torch.metrics import (
+        fabric_health,
+    )
+
     tevents.enable(process_name="torch", capacity=tevents.DEFAULT_CAPACITY)
     engine = _Engine()
-    with caplog.at_level(logging.WARNING, logger=tdoctor.__name__):
-        _listener(tdoctor, tmp_path, engine)._apply({"kind": kind, "n": 4})
-    assert [e[1] for e in _bus_events(tevents)] == ["fault/injected"]
-    assert vars(engine) == {}
-    assert any("trips nothing" in r.getMessage() for r in caplog.records)
+    try:
+        with caplog.at_level(logging.WARNING, logger=tdoctor.__name__):
+            _listener(tdoctor, tmp_path, engine)._apply({"kind": kind,
+                                                         "n": 4})
+        names = [e[1] for e in _bus_events(tevents)]
+        assert vars(engine) == {}
+        if kind == "fabric_slow":
+            assert names == ["fault/injected", "fabric/inject_slow"]
+            assert fabric_health.injected_factor("dp", (0,)) == 8.0
+        else:
+            assert names == ["fault/injected"]
+            assert any("trips nothing" in r.getMessage()
+                       for r in caplog.records)
+    finally:
+        fabric_health.clear_injection()
 
 
 def test_listener_health_tail_runs_the_real_pipeline(tmp_path):

@@ -214,7 +214,8 @@ def test_binding_declares_every_call_and_the_struct_layouts():
         "nvmlDeviceGetCount_v2", "nvmlDeviceGetHandleByIndex_v2",
         "nvmlDeviceGetMinorNumber", "nvmlDeviceGetPciInfo_v3",
         "nvmlDeviceGetUUID", "nvmlDeviceGetName", "nvmlDeviceGetMemoryInfo",
-        "nvmlDeviceGetSamples", "nvmlDeviceGetUtilizationRates"}
+        "nvmlDeviceGetSamples", "nvmlDeviceGetUtilizationRates",
+        "nvmlDeviceGetNvLinkState", "nvmlDeviceGetNvLinkErrorCounter"}
 
 
 def _no_library(monkeypatch):

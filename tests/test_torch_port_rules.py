@@ -14,7 +14,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "container_engine_accelerators_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "container_engine_accelerators_tpu")
+FORBIDDEN = ("jax", "jaxlib", "container_engine_accelerators_tpu", "tools")
 
 
 def _port_files():
@@ -32,7 +32,8 @@ def _imported_roots(path: Path):
 
 
 # Modules the scan must reach, the speculative path's, the node layer's,
-# the NRI injector's, the scheduler's and the vision demos' among them.
+# the NRI injector's, the scheduler's, the vision demos' and device
+# telemetry's among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/generate.py", "metrics/request_metrics.py",
             "metrics/train_metrics.py", "training/checkpoint.py",
@@ -53,7 +54,11 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "nri/ttrpc_messages_pb2.py", "scheduler/__init__.py",
             "scheduler/topology.py", "scheduler/label_nodes.py",
             "scheduler/schedule_daemon.py", "models/mnist.py",
-            "models/resnet.py")
+            "models/resnet.py", "ops/collectives.py",
+            "parallel/__init__.py", "parallel/distributed.py",
+            "cli/collective_bench.py", "metrics/fabric.py",
+            "metrics/fabric_health.py", "metrics/introspection.py",
+            "utils/hbm_plan.py", "utils/profiling.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -53,8 +53,8 @@ def test_training_phase_reports_hold_their_keys(counted_kernels, tmp_path,
     for mode in ("sync", "async"):
         assert set(ck[mode]) == CKPT_MODE_KEYS, mode
         assert ck[mode]["bit_identical"] and ck[mode]["steps_on_disk"] == [
-            4, 6]
-    assert ck["torn"]["steps_on_disk"] == ["4", "6", "6.corrupt"]
+            2, 4]
+    assert ck["torn"]["steps_on_disk"] == ["2", "4", "4.corrupt"]
     assert ck["launches"]["flash_fwd"] > 0
     ob = chip_smoke.observe_train_phase(torch, dev, np, str(tmp_path), cfg,
                                         batch=1, seq=256, threshold_s=0.5,
