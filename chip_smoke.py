@@ -13,6 +13,7 @@ health paths on one GPU.
   python3 chip_smoke.py doctor
   python3 chip_smoke.py vision
   python3 chip_smoke.py telemetry
+  python3 chip_smoke.py moe
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -37,7 +38,8 @@ change, parent), so that two versions compare within one call on one
 card. `training` runs the build and the training path's phases alone
 (train through serve_ckpt below), `node` the build and the node phase,
 `doctor` the build and the doctor phase, `vision` the build and the
-vision phase, `telemetry` the build and the telemetry phase.
+vision phase, `telemetry` the build and the telemetry phase, `moe` the
+build and the moe phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -108,6 +110,26 @@ Phases, one JSON line each:
            size. One line a run: TTFT, TPOT and queue-wait p50/p99,
            tokens/s, host_gap_fraction, each host phase's p50, the
            thermal census's ms a call at the full pool, nvidia-smi;
+  moe      (after the serving phases, the 8B weights freed) a mixture of
+           experts: Llama-3-8B's attention and vocabulary with
+           Mixtral-8x7B's FFN (8 experts of d_ff 14336, top-2, dropless),
+           random bf16 weights from the seed, cut to 16 of 32 layers (32
+           need ~95 GB). (a) The window, continuous and paged engines,
+           then the paged one with ngram speculation (k 4), each behind
+           make_server answering 8 requests of 64-512 tokens, 32 greedy
+           new tokens, held against decode.generate at batch 1 by the
+           divergence rule with D and R (a row may also part where a
+           router's k-th and (k+1)-th probabilities lie within 2 R, R
+           measured as D is); K1 and K3 launched; the prefill logits
+           against forward (K4) row by row; the paged tick at 8 slots
+           and a 512-token prefill, wall and busy ms and the MoE FFN's
+           share; plan_serving beside the peak. (b) plan_training, then
+           2 layers trained 4 steps at B 2 x 1024 under 'dots', dropless
+           and with capacity: losses, aux, dropped_fraction, step ms,
+           MFU (one FFN a token), busy share, K4-K6 launched. (c) A
+           4-expert llama_tiny fit 2 steps with a checkpoint, served by
+           cli/serve.py --checkpoint as a process (2 requests against
+           generate in this process), and --weight-dtype int8 refused;
   k4_*, k5_*, k6_*  kernels/flash_attention.cu (forward, dq, dk/dv)
            against flash_fwd_plain, flash_bwd_dq_plain and
            flash_bwd_dkv_plain at the training shapes (B 4, S 2048, 32 q
@@ -1078,7 +1100,7 @@ def profile_steps(torch, step, steps: int = 4, top: int = 6,
                               + e.self_device_time_total / steps / 1e3)
     if not sum(kernels.values()):
         return {"busy_ms_per_step": None, "top": None, "spans": None,
-                "kernels": None}
+                "span_kernels": None, "kernels": None}
     # Names cut to 60 characters, summed: many kernels share a prefix.
     short: dict = {}
     for name, ms in kernels.items():
@@ -1087,6 +1109,13 @@ def profile_steps(torch, step, steps: int = 4, top: int = 6,
             "top": dict(sorted(short.items(), key=lambda kv: -kv[1])[:top]),
             "spans": {e.key[:60]: e.device_time_total / steps / 1e3
                       for e in spans},
+            # A span's device time runs from its first kernel's start to
+            # its last's end, gaps included; the host side of the same
+            # range sums the kernels launched inside it.
+            "span_kernels": {e.key[:60]: e.device_time_total / steps / 1e3
+                             for e in prof.key_averages()
+                             if e.device_type == DeviceType.CPU
+                             and e.key in {s.key for s in spans}},
             "kernels": kernels}
 
 
@@ -1396,7 +1425,8 @@ def paged_tick(torch, dev, np, model, cfg, ticks: int = 16) -> dict:
             "tick_cache_lengths": [128 + 4, 128 + 4 + ticks + 4],
             "device_busy_ms_per_tick": busy,
             "device_idle_share": None if busy is None else 1 - busy / tick_ms,
-            "top_kernels_ms_per_tick": profile["top"]}
+            "top_kernels_ms_per_tick": profile["top"],
+            "span_kernels_ms_per_tick": profile["span_kernels"]}
 
 
 def _paged_requests(np, cfg) -> tuple[dict, list, list]:
@@ -2045,6 +2075,14 @@ def verify_drift(torch, dev, model, cfg, prefix, window,
     body), so their logits part in the last bits; the tokens may part
     only where the plain run's top two lie within 2 D. A contiguous slot
     cache, or a page pool at 128."""
+    verify, single = verify_and_steps(torch, dev, model, cfg, prefix,
+                                      window, paged)
+    return (verify - single).abs().max().item()
+
+
+def verify_and_steps(torch, dev, model, cfg, prefix, window, paged: bool):
+    """verify_drift's two runs: (the verify logits, the single steps'
+    logits), each [B, k+1, vocab]."""
     from container_engine_accelerators_tpu_torch.models import decode
 
     b, t0 = prefix.shape
@@ -2073,7 +2111,7 @@ def verify_drift(torch, dev, model, cfg, prefix, window,
         logits, steps = decode.decode_step(model, steps, window[:, j:j + 1],
                                            cfg, active=on)
         single.append(logits[:, 0])
-    return (verify - torch.stack(single, dim=1)).abs().max().item()
+    return verify, torch.stack(single, dim=1)
 
 
 def plain_margins(torch, dev, model, cfg, prompts: list,
@@ -2111,12 +2149,17 @@ def plain_margins(torch, dev, model, cfg, prompts: list,
 
 
 def divergence_rule(plain: list, got: list, prompts: list, margins: list,
-                    d: float, what: str) -> dict:
+                    d: float, what: str, flips: list | None = None,
+                    r: float | None = None) -> dict:
     """Hold `got` to the plain run's tokens: where a row first parts from
     them, the plain run's top-two margin there must lie within 2 D (a
     near tie the two summation orders may resolve either way); after
-    that the contexts differ and nothing more is compared. Every
-    divergence is reported with its margin."""
+    that the contexts differ and nothing more is compared. For a mixture
+    of experts, `flips[i]` lists the primary routing flips on row i's
+    path before it parts (moe_route_check, which holds each within 2 R):
+    a row may also part after one, since a flipped expert moves the
+    logits by far more than D. Every divergence is reported with its
+    margin and the first flip before it."""
     diverged = []
     for i, (ref, out) in enumerate(zip(plain, got)):
         n0 = len(prompts[i])
@@ -2125,14 +2168,24 @@ def divergence_rule(plain: list, got: list, prompts: list, margins: list,
         for j in range(n0, len(ref)):
             if out[j] != ref[j]:
                 m = margins[i][j - n0]
-                diverged.append({"row": i, "token": j - n0, "margin": m})
-                require(m <= 2 * d,
-                        f"{what}: row {i} parts from the plain run at "
+                at = {"row": i, "token": j - n0, "margin": m}
+                ok = m <= 2 * d
+                if flips is not None:
+                    before = [f for f in flips[i] if f["position"] < j]
+                    at["flip"] = before[0] if before else None
+                    ok = ok or bool(before)
+                diverged.append(at)
+                require(ok, f"{what}: row {i} parts from the plain run at "
                         f"generated token {j - n0}, where its top-two "
-                        f"margin {m} exceeds 2 D = {2 * d}")
+                        f"margin {m} exceeds 2 D = {2 * d}" + (
+                            "" if flips is None else
+                            " and no routing on its path flipped"))
                 break
-    return {"D": d, "two_D": 2 * d, "rows": len(plain),
-            "divergences": len(diverged), "diverged_at": diverged}
+    out = {"D": d, "two_D": 2 * d, "rows": len(plain),
+           "divergences": len(diverged), "diverged_at": diverged}
+    if r is not None:
+        out.update({"R": r, "two_R": 2 * r})
+    return out
 
 
 def spec_generate_run(torch, dev, np, model, cfg) -> dict:
@@ -2672,6 +2725,828 @@ def supervise_phase(torch, dev, np, model, cfg) -> dict:
 
 # ---------------------------------------------------------------- K4-K6
 
+# ---------- moe: a mixture of experts at Mixtral-8x7B's FFN widths ----------
+
+# Llama-3-8B's attention and vocabulary with Mixtral-8x7B's FFN: 8
+# experts of d_ff 14336, top-2, routed dropless. A layer is 2.82 GB of
+# bf16 experts and 0.08 GB of attention, so 32 layers (~95 GB) do not
+# fit the card: the serving model is cut to 16 layers (~49.6 GB with
+# the f32 lm_head), the training one to 2 (~64 GB of f32 masters,
+# gradients and AdamW moments).
+MOE_KW = dict(n_experts=8, moe_top_k=2, moe_dropless=True)
+MOE_SERVE_LAYERS = 16
+MOE_TRAIN_LAYERS = 2
+MOE_PROMPT_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+MOE_NEW_TOKENS = 32
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 1024, 4
+MOE_CLI_NEW_TOKENS = 16
+MOE_SERVE = "container_engine_accelerators_tpu_torch.cli.serve"
+MOE_INT8_REFUSAL = "not supported for MoE"
+MOE_FFN_TOKENS = (8, 40, 80, 128, 256, 384, 512)
+MOE_FFN_RTOL = 1e-2     # bf16 FFN against f32, relative to max |out|
+
+
+@contextlib.contextmanager
+def route_recorder(torch, cfg):
+    """Every decode.decode_step call's routings, in any thread: a call
+    of all cfg.n_layers layers records its rows' positions [B, T] (as
+    decode_step places them), tokens [B, T] and live rows [B], and for
+    each layer the chosen experts [B*T, k] and router probabilities
+    [B*T, E] that moe._gating returned. Tensors stay on the device:
+    nothing syncs. A call of fewer layers (a self-draft) is left out."""
+    from container_engine_accelerators_tpu_torch.models import decode, moe
+
+    calls, local = [], threading.local()
+    orig_step, orig_gating = decode.decode_step, moe._gating
+
+    def gating(logits, top_k):
+        out = orig_gating(logits, top_k)
+        layers = getattr(local, "layers", None)
+        if layers is not None:
+            layers.append((out[2].detach(), out[0].detach()))
+        return out
+
+    def step(model, cache, tokens, *args, **kw):
+        b, t = tokens.shape
+        if isinstance(cache.length, torch.Tensor):
+            max_len = (cache.tables.shape[1] * cache.page
+                       if isinstance(cache, decode.PagedKVCache)
+                       else cache.k.shape[2])
+            start = cache.length.clamp(max=max_len - t).long()
+        else:
+            start = torch.full((b,), cache.length, device=tokens.device)
+        active = kw.get("active", args[1] if len(args) > 1 else None)
+        rec = {"positions": start[:, None] + torch.arange(
+                   t, device=tokens.device),
+               "tokens": tokens.clone(),
+               "live": (torch.ones(b, dtype=torch.bool) if active is None
+                        else active.clone())}
+        local.layers = layers = []
+        try:
+            out = orig_step(model, cache, tokens, *args, **kw)
+        finally:
+            local.layers = None
+        if len(layers) == cfg.n_layers:
+            rec["experts"], rec["probs"] = map(list, zip(*layers))
+            calls.append(rec)
+        return out
+
+    decode.decode_step, moe._gating = step, gating
+    try:
+        yield calls
+    finally:
+        decode.decode_step, moe._gating = orig_step, orig_gating
+
+
+def routes_of(torch, calls: list, seqs: list, prompt_lens: list | None,
+              by_row: bool = False) -> list:
+    """route_recorder's calls by request: routes[i][(position, layer)]
+    lists (experts, sorted; the k-th less the (k+1)-th router
+    probability; the probabilities) of each routing of request i's token
+    there. A live row belongs to request i where its tokens continue
+    seqs[i] at its positions (a one-token row is a decode step, so it
+    lies past i's prompt), up to the first that does not (padding, a
+    rejected draft); a row that fits no request or two is left out.
+    `by_row`: every call's row i is request i, whole."""
+    out = [{} for _ in seqs]
+    for c in calls:
+        pos, tok = c["positions"].tolist(), c["tokens"].tolist()
+        live = c["live"].tolist()
+        b, t = len(tok), len(tok[0])
+        probs = torch.stack(c["probs"]).float()
+        n_layers, k = len(c["experts"]), c["experts"][0].shape[-1]
+        experts = torch.stack(c["experts"]).sort(dim=-1).values.view(
+            n_layers, b, t, k).tolist()
+        top = probs.topk(k + 1, dim=-1).values
+        margin = (top[..., k - 1] - top[..., k]).view(
+            n_layers, b, t).tolist()
+        probs = probs.view(n_layers, b, t, -1).tolist()
+        for row in range(b):
+            p0 = pos[row][0]
+            fits = [(row, t)] if by_row else []
+            for i, (seq, n0) in enumerate(zip(seqs, prompt_lens or [])):
+                n = 0
+                while (n < t and p0 + n < len(seq)
+                       and tok[row][n] == seq[p0 + n]):
+                    n += 1
+                if n and not (t == 1 and p0 < n0):
+                    fits.append((i, n))
+            if not live[row] or len(fits) != 1:
+                continue
+            i, n = fits[0]
+            for j in range(n):
+                for li in range(n_layers):
+                    out[i].setdefault((p0 + j, li), []).append((
+                        tuple(experts[li][row][j]), margin[li][row][j],
+                        probs[li][row][j]))
+    return out
+
+
+def route_flips(plain: dict, got: dict, upto: int) -> dict:
+    """One request's routings on the engine (`got`) against the plain
+    run's (`plain`; routes_of's form) at positions below `upto`, where
+    both runs saw the same tokens. A flip is a routing whose experts
+    differ. A flip at (p, l) changes the input of every layer above l at
+    p and after it, so a flip is primary where no flip lies at an
+    earlier-or-equal position in a lower layer: only a primary flip
+    comes from rounding alone. `max_prob_gap` is the largest router
+    probability change among the routings that no flip reaches."""
+    pairs = [(p, li, want, eng) for (p, li), engs in got.items()
+             if p < upto and (p, li) in plain
+             for want in plain[(p, li)][:1] for eng in engs]
+    flips = [(p, li, want, eng) for p, li, want, eng in pairs
+             if want[0] != eng[0]]
+    first: dict = {}
+    for p, li, _, _ in flips:
+        first[li] = min(first.get(li, p), p)
+
+    def reached(p, li):
+        return any(pf <= p for lf, pf in first.items() if lf < li)
+
+    primary = sorted({(p, li): {
+        "position": p, "layer": li, "margin": want[1],
+        "engine_margin": eng[1], "experts": list(want[0]),
+        "engine_experts": list(eng[0])}
+        for p, li, want, eng in flips if not reached(p, li)}.values(),
+        key=lambda f: (f["position"], f["layer"]))
+    gap = max((max(abs(a - b) for a, b in zip(want[2], eng[2]))
+               for p, li, want, eng in pairs
+               if want[0] == eng[0] and not reached(p, li)), default=0.0)
+    return {"compared": len(pairs), "flips": len(flips), "primary": primary,
+            "max_prob_gap": gap}
+
+
+def moe_route_check(torch, cfg, plain_calls: list, calls: list,
+                    plain: list, got: list, prompts: list, r: float,
+                    what: str) -> tuple[list, dict]:
+    """Each request's engine routings against the plain run's, up to
+    where its tokens part (route_flips); at least its prompt's must have
+    been seen. Every primary flip must lie at a plain-run router margin
+    within 2 R, R measured as D is: else the engine chose other experts
+    than rounding explains. Returns (the primary flips by request, for
+    divergence_rule; a summary)."""
+    lens = [len(p) for p in prompts]
+    plain_routes = routes_of(torch, plain_calls, plain, lens)
+    got_routes = routes_of(torch, calls, got, lens)
+    flips, summary = [], {"routings_compared": 0, "flips": 0,
+                          "primary_flips": [], "max_prob_gap": 0.0}
+    for i, (ref, out) in enumerate(zip(plain, got)):
+        upto = next((j for j, (a, b) in enumerate(zip(ref, out)) if a != b),
+                    len(ref))
+        f = route_flips(plain_routes[i], got_routes[i], upto)
+        require(f["compared"] >= lens[i] * cfg.n_layers,
+                f"{what}: row {i}: {f['compared']} routings compared")
+        for flip in f["primary"]:
+            require(flip["margin"] <= 2 * r,
+                    f"{what}: row {i} routes position {flip['position']} "
+                    f"layer {flip['layer']} to {flip['engine_experts']} "
+                    f"where the plain run chose {flip['experts']} at a "
+                    f"router margin {flip['margin']} above 2 R = {2 * r}")
+        flips.append(f["primary"])
+        summary["routings_compared"] += f["compared"]
+        summary["flips"] += f["flips"]
+        summary["primary_flips"] += [{"row": i, **x} for x in f["primary"]]
+        summary["max_prob_gap"] = max(summary["max_prob_gap"],
+                                      f["max_prob_gap"])
+    return flips, summary
+
+
+def moe_references(torch, dev, model, cfg, prompts: list, n_new: int
+                   ) -> tuple[list, list, list]:
+    """(tokens, logit margins, route_recorder's calls): greedy_margins'
+    loop at batch 1 (generate's bits) for each prompt."""
+    with route_recorder(torch, cfg) as calls:
+        refs, margins = zip(*(greedy_margins(torch, dev, model, cfg, p,
+                                             n_new) for p in prompts))
+    return list(refs), list(margins), calls
+
+
+def moe_drift(torch, dev, model, cfg, prefix, window) -> dict:
+    """D and R measured as verify_drift measures D (a slot cache), from
+    what no routing flip between the verify pass and the single steps
+    reaches (route_flips): a flip moves everything above and after it by
+    far more than rounding. D is the largest |logit change| at a row's
+    positions before its first flip, R the largest router probability
+    change among the routings no flip reaches."""
+    b, t0 = prefix.shape
+    with route_recorder(torch, cfg) as calls:
+        verify, single = verify_and_steps(torch, dev, model, cfg, prefix,
+                                          window, paged=False)
+    seqs = torch.cat([prefix, window], dim=1).tolist()
+    steps = routes_of(torch, calls[2:], seqs, None, by_row=True)
+    verified = routes_of(torch, calls[1:2], seqs, None, by_row=True)
+    diff = (verify - single).abs().amax(dim=-1).tolist()       # [B, k+1]
+    d, r, n_pos, flips = 0.0, 0.0, 0, 0
+    for i in range(b):
+        f = route_flips(steps[i], verified[i], len(seqs[i]))
+        clean = min([x["position"] for x in f["primary"]]
+                    + [len(seqs[i])]) - t0
+        d = max([d] + diff[i][:clean])
+        r = max(r, f["max_prob_gap"])
+        n_pos += clean
+        flips += len(f["primary"])
+    # A position before a row's first flip has none of its routings
+    # reached, so n_pos > 0 also measured R.
+    require(n_pos > 0, f"moe drift: every position of {b} rows is "
+            f"reached by a routing flip")
+    return {"D": d, "R": r, "rows": b, "positions_measured": n_pos,
+            "primary_flips": flips}
+
+
+@contextlib.contextmanager
+def forced_routing(torch, experts: list):
+    """moe._gating with its i-th call's experts replaced by experts[i]
+    (the gates renormalized from that call's own probabilities); yields
+    the list of each call's own (experts, probabilities)."""
+    from container_engine_accelerators_tpu_torch.models import moe
+
+    own, orig = [], moe._gating
+
+    def forced(logits, top_k):
+        probs, _, idx = orig(logits, top_k)
+        own.append((idx.detach(), probs.detach()))
+        idx = experts[len(own) - 1].view_as(idx)
+        gates = probs.gather(-1, idx)
+        return probs, gates / gates.sum(dim=-1, keepdim=True).clamp(
+            min=1e-9), idx
+
+    moe._gating = forced
+    try:
+        yield own
+    finally:
+        moe._gating = orig
+
+
+def moe_forward_check(torch, dev, model, cfg, prompt: list, r: float
+                      ) -> dict:
+    """decode_step's prefill logits against llama.forward's (K4 engages
+    at S a multiple of 128 from 256), with forward's routing held to the
+    prefill's experts, so a near-tie resolved otherwise moves no row:
+    every row agrees within LOGITS_RTOL of the largest |logit| (bf16).
+    Every routing where forward's own choice differs must lie at a
+    prefill router margin within twice the larger of R and the largest
+    router probability change among the routings where both agree (the
+    two attention kernels round apart by more than verify and decode
+    do)."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import decode, llama
+
+    p = torch.tensor([prompt], device=dev)
+    k = cfg.moe_top_k
+    with torch.no_grad():
+        with route_recorder(torch, cfg) as calls:
+            dec, _ = decode.decode_step(model, decode.init_cache(
+                cfg, 1, p.shape[1], dev), p, cfg)
+        with forced_routing(torch, calls[0]["experts"]) as own:
+            fwd = llama.forward(model, p, dataclasses.replace(
+                cfg, remat_policy="none"))
+    require(len(own) == cfg.n_layers, f"moe: forward routed {len(own)} "
+            f"of {cfg.n_layers} layers")
+    dec_experts = torch.stack(calls[0]["experts"]).sort(-1).values
+    dec_probs = torch.stack(calls[0]["probs"])                 # [L, S, E]
+    fwd_experts = torch.stack([e.view(-1, k) for e, _ in own]).sort(
+        -1).values
+    fwd_probs = torch.stack([q.view(-1, q.shape[-1]) for _, q in own])
+    top = dec_probs.topk(k + 1, dim=-1).values
+    margin = top[..., k - 1] - top[..., k]
+    differ = (dec_experts != fwd_experts).any(dim=-1)          # [L, S]
+    gap = (dec_probs - fwd_probs).abs().amax(dim=-1)[~differ]
+    r_used = max(r, gap.max().item() if gap.numel() else 0.0)
+    scale = fwd.abs().max().item()
+    row_err = (dec - fwd)[0].abs().amax(dim=-1) / scale
+    out = {"tokens": p.shape[1], "logits_rtol": LOGITS_RTOL,
+           "max_abs_logit": scale, "R": r, "R_used": r_used,
+           "max_row_rel_err": row_err.max().item(),
+           "rows_within": int((row_err <= LOGITS_RTOL).sum().item()),
+           "routings": differ.numel(),
+           "routings_differing": int(differ.sum().item()),
+           "max_differing_margin": (margin[differ].max().item()
+                                    if differ.any() else None)}
+    require(out["rows_within"] == p.shape[1]
+            and (out["max_differing_margin"] or 0.0) <= 2 * r_used,
+            f"moe: prefill logits part from forward: {out}")
+    return out
+
+
+def moe_ffn_paths(torch, dev, cfg, layer) -> list:
+    """The decode FFN's two paths at MOE_FFN_TOKENS tokens, on one
+    layer's weights and seeded unit-normal activations: every expert
+    for every token (decode.moe_ffn_every_expert) and the routed pairs
+    alone (moe.dropless_ffn, one host sync), each held within
+    MOE_FFN_RTOL of the largest |out| against an f32 FFN that weights
+    every expert's output by its gate (0 where unchosen, the JAX
+    package's form), and each timed in wall ms a call over 10 calls."""
+    from container_engine_accelerators_tpu_torch.models import decode, moe
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    xs, routes = {}, {}
+    for n in MOE_FFN_TOKENS:
+        xs[n] = torch.randn(n, cfg.d_model, generator=gen, device=dev,
+                            dtype=torch.float32).to(cfg.dtype)
+        routes[n] = moe._gating(moe._router_logits(xs[n], layer),
+                                cfg.moe_top_k)[1:]
+    want = {n: torch.zeros(n, cfg.d_model, device=dev) for n in xs}
+    for e in range(cfg.n_experts):
+        w_gate, w_up, w_down = (w[e].float() for w in (
+            layer.w_gate, layer.w_up, layer.w_down))
+        for n, x in xs.items():
+            gates, idx = routes[n]
+            weight = (gates * (idx == e)).sum(dim=-1, keepdim=True)
+            xf = x.float()
+            want[n] += weight * ((torch.nn.functional.silu(xf @ w_gate)
+                                  * (xf @ w_up)) @ w_down)
+        del w_gate, w_up, w_down
+    paths = {"every_expert": decode.moe_ffn_every_expert,
+             "routed": lambda x, lp, g, i: moe.dropless_ffn(
+                 x, lp, cfg.n_experts, g, i)}
+    out = []
+    for n, x in xs.items():
+        row = {"tokens": n}
+        scale = want[n].abs().max().item()
+        for name, fn in paths.items():
+            got = fn(x, layer, *routes[n])
+            err = (got.float() - want[n]).abs().max().item() / scale
+            require(err <= MOE_FFN_RTOL, f"moe ffn {name} at {n} tokens: "
+                    f"{err} of max |out| exceeds {MOE_FFN_RTOL}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(x, layer, *routes[n])
+            torch.cuda.synchronize()
+            row[f"{name}_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+            row[f"{name}_rel_err"] = err
+        out.append(row)
+    return out
+
+
+@contextlib.contextmanager
+def moe_ffn_span(torch):
+    """decode._moe_ffn_decode inside a `moe/ffn` profiler range."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    orig = decode._moe_ffn_decode
+
+    def spanned(*a, **kw):
+        with torch.profiler.record_function("moe/ffn"):
+            return orig(*a, **kw)
+
+    decode._moe_ffn_decode = spanned
+    try:
+        yield
+    finally:
+        decode._moe_ffn_decode = orig
+
+
+def _ffn_share(profile: dict) -> float | None:
+    """The kernels launched inside the `moe/ffn` ranges, as a share of
+    the busy time."""
+    busy, spans = profile["busy_ms_per_step"], profile["span_kernels"] or {}
+    return None if not busy or "moe/ffn" not in spans else (
+        spans["moe/ffn"] / busy)
+
+
+def _launches_into(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def moe_serve(torch, dev, np, before_timing=None) -> dict:
+    """(a): the 16-layer model behind the window, continuous and paged
+    engines (then the paged one with ngram speculation, k 4), each
+    answering 8 requests of 64-512 tokens, 32 greedy new tokens, held
+    against decode.generate at batch 1 by the divergence rule with D,
+    and their routings against its routings with R; prefill logits
+    against forward; the decode FFN's two paths against f32; the paged
+    decode tick at 8 slots and a 512-token prefill, with the MoE FFN's
+    share of each. `before_timing` runs before the first timed burst.
+    Only the engines' launches count toward the kernels line; those of
+    the reference runs, the checks and the timed tick and prefill are
+    reported apart."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        BatchingEngine,
+        ContinuousEngine,
+        PagedContinuousEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models import decode, llama
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_serving,
+    )
+
+    cfg = llama.llama3_8b(n_layers=MOE_SERVE_LAYERS, **MOE_KW)
+    # The continuous engine's slots are the largest cache of the phase.
+    plan = plan_serving(cfg, max_slots=8, max_len=2048, pool_fraction=1.0,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.num_params(), "MoE parameter count")
+    rs = np.random.RandomState(SEED + 40)
+    prompts = [rs.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in MOE_PROMPT_LENS]
+    launches, check_launches = {}, {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    refs, margins, ref_calls = moe_references(torch, dev, model, cfg,
+                                              prompts, MOE_NEW_TOKENS)
+    ref_s = time.perf_counter() - t0
+    # Every prompt past 128 + k + 1 tokens.
+    long = [p for p in prompts if len(p) > 128 + SPEC_K]
+    drift = moe_drift(torch, dev, model, cfg, torch.tensor(
+        [p[:128] for p in long], device=dev), torch.tensor(
+            [p[128:128 + SPEC_K + 1] for p in long], device=dev))
+    d, r = drift["D"], drift["R"]
+    _launches_into(check_launches, kernels.launches)
+    if before_timing is not None:
+        before_timing()
+
+    requests = [{"tokens": p, "max_new_tokens": MOE_NEW_TOKENS}
+                for p in prompts]
+    engines = {
+        "window": lambda: BatchingEngine(model, cfg, max_batch=8,
+                                         window_ms=250.0,
+                                         engine_core="async"),
+        "continuous": lambda: ContinuousEngine(
+            model, cfg, max_slots=8, max_len=2048, prefill_chunk=512,
+            engine_core="async"),
+        "paged": lambda: paged_engine(model, cfg),
+        "paged_ngram": lambda: PagedContinuousEngine(
+            model, cfg, max_slots=8, max_len=2048, page=128,
+            prefill_chunk=512, engine_core="async", speculate="ngram",
+            spec_k=SPEC_K),
+    }
+    runs = {}
+    for name, make in engines.items():
+        engine = make()
+        with serving(engine) as url:
+            kernels.reset_launches()
+            with route_recorder(torch, cfg) as calls:
+                answers, t_start, t_end = burst(url, requests)
+                torch.cuda.synchronize()
+            run_launches = dict(kernels.launches)
+        _launches_into(launches, run_launches)
+        generated = _check_burst(requests, answers, cfg.vocab_size,
+                                 f"moe {name}")
+        got = [_answer_tokens(q, a) for q, (a, _, _) in zip(requests,
+                                                            answers)]
+        flips, routes = moe_route_check(torch, cfg, ref_calls, calls, refs,
+                                        got, prompts, r, f"moe {name}")
+        runs[name] = {
+            "burst_s": t_end - t_start,
+            "generated_tokens_per_s": generated / (t_end - t_start),
+            **divergence_rule(refs, got, prompts, margins, d, f"moe {name}",
+                              flips=flips, r=r),
+            "routes": routes, "launches": run_launches}
+        if name.startswith("paged"):
+            require(engine.pages_in_use == engine.prefix_index.pages_held(),
+                    f"moe {name}: leaked pages")
+        if name == "paged_ngram":
+            runs[name]["spec_ticks"] = engine.spec_ticks_run
+            require(engine.spec_ticks_run > 0, "moe: no verify tick ran")
+        del calls
+    del ref_calls
+    for name, kernel in (("window", "decode_attention"),
+                         ("continuous", "decode_attention"),
+                         ("paged", "paged_decode_attention"),
+                         ("paged_ngram", "paged_decode_attention")):
+        require(runs[name]["launches"].get(kernel, 0) > 0,
+                f"moe {name}: no {kernel} launch")
+
+    kernels.reset_launches()
+    fwd_check = moe_forward_check(torch, dev, model, cfg, prompts[3], r)
+    require(kernels.launches.get("flash_fwd", 0) > 0,
+            "moe: forward launched no flash_fwd")
+    _launches_into(check_launches, kernels.launches)
+    ffn_paths = moe_ffn_paths(torch, dev, cfg, model.layers[0])
+
+    with moe_ffn_span(torch):
+        kernels.reset_launches()
+        tick = paged_tick(torch, dev, np, model, cfg)
+        _launches_into(check_launches, kernels.launches)
+        long = torch.tensor([prompts[-1]], device=dev)
+        cache = decode.init_cache(cfg, 1, long.shape[1], dev)
+
+        def prefill():
+            decode.decode_step(model, cache, long, cfg)
+
+        prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            prefill()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+        prefill_prof = profile_steps(torch, prefill, steps=2)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_tokens = long.shape[1]
+    # The engines hold the model in reference cycles (threads, bound
+    # methods): drop them before the collection frees its 49.6 GB.
+    del model, cache, long, engine, engines
+    _free_card(torch)
+    tick_ms = tick["paged_decode_tick_ms_8_slots"]
+    return {
+        "model": "llama3_8b widths, Mixtral-8x7B FFN", "n_layers":
+        cfg.n_layers, "n_experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+        "params": n_params, "init_s": init_s,
+        "plan_serving": plan, "max_memory_allocated_bytes": peak,
+        "prompt_lens": list(MOE_PROMPT_LENS), "new_tokens": MOE_NEW_TOKENS,
+        "reference_s": ref_s, "drift": drift, "engines": runs,
+        "prefill_vs_forward": fwd_check, "ffn_paths": ffn_paths,
+        "tick_wall_ms_8_slots": tick_ms,
+        "tick_busy_ms_8_slots": tick["device_busy_ms_per_tick"],
+        "tick_idle_share": tick["device_idle_share"],
+        "tick_top_kernels_ms": tick["top_kernels_ms_per_tick"],
+        "tick_launches": tick["launches_per_tick"],
+        "ffn_share_of_tick": _ffn_share({
+            "busy_ms_per_step": tick["device_busy_ms_per_tick"],
+            "span_kernels": tick["span_kernels_ms_per_tick"]}),
+        "prefill_tokens": prefill_tokens, "prefill_wall_ms": prefill_ms,
+        "prefill_busy_ms": prefill_prof["busy_ms_per_step"],
+        "prefill_top_kernels_ms": prefill_prof["top"],
+        "ffn_share_of_prefill": _ffn_share(prefill_prof),
+        "launches": launches, "check_launches": check_launches,
+    }
+
+
+def moe_train_run(torch, dev, np, dropless: bool, n_layers: int) -> dict:
+    """(b), one routing: fit for MOE_TRAIN_STEPS steps at batch 2 x 1024
+    under 'dots' remat; losses, the aux and dropped_fraction of a forward
+    on the first batch, step ms, MFU (one FFN a token), busy share of one
+    more step, peak memory and the flash launches."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models import llama, moe
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+        make_train_step,
+        to_device,
+    )
+
+    cfg = llama.llama3_8b(n_layers=n_layers, remat_policy="dots",
+                          **{**MOE_KW, "moe_dropless": dropless})
+    b, s = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
+    logs = []
+    _free_card(torch)
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, _ = fit(cfg, make_optimizer(),
+                   synthetic_batches(cfg.vocab_size, b, s, seed=SEED),
+                   device=dev, max_steps=MOE_TRAIN_STEPS, seed=SEED,
+                   log_every=1,
+                   log_fn=lambda m: logs.append((time.perf_counter(), m)))
+    launches = dict(kernels.launches)
+    losses = [float(m.split()[3]) for _, m in logs]
+    require(len(losses) == MOE_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"moe train: losses {losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launches.get(name, 0) > 0, f"moe train: no {name} launch")
+    times = [t for t, _ in logs]
+    gaps = sorted((b2 - a) * 1e3 for a, b2 in zip(times, times[1:]))
+    mfu = _wall_mfu(cfg, times, b * s, s, set(), PEAK_FLOPS["bf16"])
+
+    batch = to_device(next(synthetic_batches(cfg.vocab_size, b, s,
+                                             seed=SEED)), dev)
+    dropped = []
+    orig = moe.moe_mlp_dropless if dropless else moe.moe_mlp
+    name = orig.__name__
+
+    def recorded(*a, **kw):
+        out, metrics = orig(*a, **kw)
+        dropped.append(metrics.dropped_fraction)
+        return out, metrics
+
+    setattr(moe, name, recorded)
+    try:
+        with torch.no_grad():
+            _, aux = llama.forward(state.model, batch["inputs"], cfg,
+                                   return_aux=True)
+    finally:
+        setattr(moe, name, orig)
+    step = make_train_step(cfg, state.optimizer)
+    step(state.model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state.model, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_steps(torch, lambda: step(state.model, batch), steps=1)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, batch
+    _free_card(torch)
+    return {"routing": "dropless" if dropless else "capacity",
+            "capacity_factor": None if dropless else cfg.moe_capacity_factor,
+            "losses": losses, "aux": aux.item(),
+            "dropped_fraction": [x.item() for x in dropped],
+            "step_ms_median_fit": gaps[len(gaps) // 2],
+            "step_ms": step_ms,
+            "busy_ms": prof["busy_ms_per_step"],
+            "busy_share": (None if prof["busy_ms_per_step"] is None
+                           else prof["busy_ms_per_step"] / step_ms),
+            "top_kernels_ms": prof["top"],
+            "mfu_one_ffn_a_token": mfu,
+            "allocated_before_bytes": allocated_before,
+            "max_memory_allocated_bytes": peak, "launches": launches}
+
+
+def moe_train(torch, dev, np) -> dict:
+    """(b): plan_training printed before the steps (a plan that does not
+    fit drops the depth to 1 layer), then both routings."""
+    from container_engine_accelerators_tpu_torch.models import llama
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_training,
+    )
+
+    n_layers = MOE_TRAIN_LAYERS
+    plan = plan_training(llama.llama3_8b(n_layers=n_layers, **MOE_KW),
+                         batch_size=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+                         device=dev)
+    emit({"phase": "moe_train_plan", "plan_training": plan})
+    cut = None
+    if not plan["fits"]:
+        n_layers, cut = 1, f"plan_training does not fit at 2 layers: {plan}"
+    runs = {key: moe_train_run(torch, dev, np, dropless, n_layers)
+            for key, dropless in (("dropless", True), ("capacity", False))}
+    launches: dict = {}
+    for run in runs.values():
+        _launches_into(launches, run["launches"])
+    return {"n_layers": n_layers, "cut": cut, "batch": MOE_TRAIN_BATCH,
+            "seq": MOE_TRAIN_SEQ, "steps": MOE_TRAIN_STEPS,
+            "plan_training": plan, **runs, "launches": launches}
+
+
+@contextlib.contextmanager
+def moe_cli_launch(torch, dev, tmp_dir: str, serve_flags=()):
+    """(c), first: fit a 4-expert llama_tiny for 2 steps with a
+    checkpoint, then start `cli.serve --checkpoint DIR --engine paged`
+    and the same command with --weight-dtype int8, each a process. They
+    load during (a)'s reference runs (moe_cli_ready); both are stopped
+    on exit. Yields what moe_cli needs."""
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.models import llama
+    from container_engine_accelerators_tpu_torch.training.data import (
+        synthetic_batches,
+    )
+    from container_engine_accelerators_tpu_torch.training.train import (
+        fit,
+        make_optimizer,
+    )
+
+    cfg = llama.llama_tiny(**{**MOE_KW, "n_experts": 4})
+    ckpt = os.path.join(tmp_dir, "moe_ckpt")
+    kernels.reset_launches()
+    fit(cfg, make_optimizer(warmup_steps=1, decay_steps=4),
+        synthetic_batches(cfg.vocab_size, 4, 128, seed=SEED), device=dev,
+        max_steps=2, log_every=0, ckpt_dir=ckpt, save_every=1)
+    launch = {"cfg": cfg, "ckpt": ckpt, "launches": dict(kernels.launches),
+              "port": _free_port(),
+              "err_path": os.path.join(tmp_dir, "moe_serve.err")}
+    root = port_root()
+    with open(launch["err_path"], "w") as err:
+        launch["serve"] = _popen_port(
+            root, MOE_SERVE, "--checkpoint", ckpt, "--engine", "paged",
+            "--port", str(launch["port"]), *serve_flags,
+            stdout=subprocess.DEVNULL, stderr=err)
+    launch["int8"] = _popen_port(
+        root, MOE_SERVE, "--checkpoint", ckpt, "--weight-dtype", "int8",
+        "--port", str(_free_port()), *serve_flags, stderr=subprocess.PIPE)
+    launch["t_launch"] = time.monotonic()
+    try:
+        yield launch
+    finally:
+        _stop_procs([launch["serve"], launch["int8"]])
+
+
+def moe_cli_ready(launch: dict) -> None:
+    """(c), waited for before (a)'s timed runs: the served process
+    answers /healthz and the int8 command has exited, so no process
+    loads beside a timed run (the served one then sits idle)."""
+    proc = launch["serve"]
+    url = f"http://127.0.0.1:{launch['port']}"
+
+    def ready():
+        require(proc.poll() is None, f"moe cli: serve exited "
+                f"{proc.returncode}: {_tail(launch['err_path'])}")
+        try:
+            return healthz(url)
+        except OSError:
+            return False
+
+    _wait_for(ready, "moe cli: serve --checkpoint ready", 300)
+    launch["ready_s"] = time.monotonic() - launch["t_launch"]
+    _, launch["int8_err"] = launch["int8"].communicate(timeout=300)
+
+
+def moe_cli(torch, dev, np, launch: dict) -> dict:
+    """(c), then: the served process answers 2 requests over HTTP, held
+    against generate on load_model's weights in this process by the
+    divergence rule with the tiny model's D (its routings cannot be
+    seen from here); the int8 command has exited non-zero with the MoE
+    message."""
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        load_model,
+    )
+
+    cfg, proc, int8 = launch["cfg"], launch["serve"], launch["int8"]
+    url = f"http://127.0.0.1:{launch['port']}"
+    model, cfg2 = load_model(launch["ckpt"], device=dev)
+    require(cfg2 == cfg, f"moe cli: checkpoint config {cfg2}")
+    rs = np.random.RandomState(SEED + 41)
+    prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
+               for _ in range(2)]
+    refs, margins = zip(*(greedy_margins(torch, dev, model, cfg2, p,
+                                         MOE_CLI_NEW_TOKENS)
+                          for p in prompts))
+    d = moe_drift(torch, dev, model, cfg2, torch.tensor(prompts, device=dev),
+                  torch.tensor([t[128:128 + SPEC_K + 1] for t in refs],
+                               device=dev))["D"]
+    require(proc.poll() is None, f"moe cli: serve exited "
+            f"{proc.returncode}: {_tail(launch['err_path'])}")
+    requests = [{"tokens": p, "max_new_tokens": MOE_CLI_NEW_TOKENS}
+                for p in prompts]
+    answers, _, _ = burst(url, requests)
+    got = [_answer_tokens(q, a) for q, (a, _, _) in zip(requests, answers)]
+    rule = divergence_rule(list(refs), got, prompts, list(margins), d,
+                           "moe cli serve --checkpoint")
+    int8_err = launch["int8_err"]
+    require(int8.returncode not in (0, None)
+            and MOE_INT8_REFUSAL in int8_err,
+            f"moe cli: --weight-dtype int8 exited {int8.returncode}: "
+            f"{int8_err[-1500:]}")
+    del model
+    _free_card(torch)
+    return {"model": "llama_tiny, 4 experts, top-2, dropless",
+            "fit_steps": 2, "serve_ready_s": launch["ready_s"],
+            "tokens_equal_generate": got == list(refs), **rule,
+            "int8_exit_code": int8.returncode,
+            "int8_message": int8_err.strip().splitlines()[-1],
+            "launches": launch["launches"]}
+
+
+def moe_phase(torch, dev, np, serve_flags=()) -> dict:
+    """The mixture of experts on the card: (a) serve, (b) train, (c) the
+    serve CLI on a checkpoint of fit (`serve_flags` added to its
+    command), whose processes start first and load during (a)'s
+    reference runs; (a) waits for them before its timed runs."""
+    parts, seconds, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_dir, \
+            moe_cli_launch(torch, dev, tmp_dir, serve_flags) as launch:
+        seconds["cli_launch"] = time.perf_counter() - t0
+        for part, fn in (
+                ("serve", functools.partial(moe_serve, before_timing=(
+                    functools.partial(moe_cli_ready, launch)))),
+                ("train", moe_train),
+                ("cli", functools.partial(moe_cli, launch=launch))):
+            t0 = time.perf_counter()
+            parts[part] = fn(torch, dev, np)
+            seconds[part] = time.perf_counter() - t0
+            _launches_into(launches, parts[part]["launches"])
+            emit({"phase": f"moe_{part}", **parts[part]})
+    result = {"phase": "moe", "seconds": seconds, "launches": launches}
+    emit(result)
+    return {**result, **parts}
+
+
+def moe_main(torch) -> int:
+    """`chip_smoke.py moe`: the build and the moe phase alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    try:
+        dev = torch.device("cuda", 0)
+        smi = nvidia_smi_line()
+        emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+              "nvidia_smi": smi})
+        require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+        t0 = time.perf_counter()
+        kernels.build()
+        kernels.load()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_phase(torch, dev, np)
+        emit({"phase_seconds": {"build": build_s,
+                                "moe": time.perf_counter() - t0}})
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def ptxas_report(kernel: str, *parts: str) -> dict:
     """Registers and spill bytes of a kernel function (the first whose
     mangled name holds `kernel` and every one of `parts`), from ptxas's
@@ -3095,14 +3970,16 @@ def greedy_margins(torch, dev, model, cfg, prompt: list, n_new: int
 
     cache = decode.init_cache(cfg, 1, len(prompt) + n_new, dev)
     tok = torch.tensor([prompt], dtype=torch.long, device=dev)
-    out, margins = list(prompt), []
+    toks, margins = [], []
     for _ in range(n_new):
         logits, cache = decode.decode_step(model, cache, tok, cfg)
         top = logits[0, -1].topk(2).values
-        margins.append((top[0] - top[1]).item())
+        margins.append(top[0] - top[1])
         tok = logits[:, -1].argmax(dim=-1)[:, None]
-        out.append(int(tok[0, 0]))
-    return out, margins
+        toks.append(tok[0, 0])
+    # Read once at the end, as generate's caller does: no step waits.
+    return (list(prompt) + torch.stack(toks).tolist(),
+            torch.stack(margins).tolist())
 
 
 def _fit_run(torch, dev, cfg, batch: int, seq: int, steps: int,
@@ -7182,6 +8059,8 @@ def main() -> int:
         return vision_main(torch)
     if sys.argv[1:2] == ["telemetry"]:
         return telemetry_main(torch)
+    if sys.argv[1:2] == ["moe"]:
+        return moe_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -7229,6 +8108,7 @@ def main() -> int:
         del model   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
+        moe = timed("moe", moe_phase, torch, dev, np)
         flash = timed("flash", flash_phase, torch, dev)
         tr = training_phases(torch, dev, np, timed)
         with tempfile.TemporaryDirectory() as tmp_dir:
@@ -7250,15 +8130,15 @@ def main() -> int:
     def launches(name):
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
-                                 obs, spec, pools, sup, tr["serve_ckpt"],
-                                 tele, doc))
+                                 obs, spec, pools, sup, moe,
+                                 tr["serve_ckpt"], tele, doc))
 
     def flash_launches(name):
         return sum(tr[phase]["launches"].get(name, 0)
                    for phase in ("train", "train_save_attn", "ckpt",
                                  "observe_train", "eval")) + sum(
                                      phase["launches"].get(name, 0)
-                                     for phase in (tele, doc))
+                                     for phase in (moe, tele, doc))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""

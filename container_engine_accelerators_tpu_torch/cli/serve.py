@@ -2416,6 +2416,10 @@ def main(argv=None) -> int:
     if args.quantize_int8:  # the deprecated alias
         args.weight_dtype = "int8"
     if args.weight_dtype == "int8":
+        if cfg.n_experts:
+            p.error("--weight-dtype int8 is not supported for MoE "
+                    "models (expert weights have no int8 decode path "
+                    "yet)")
         model = quantize_llama_params(model)
         log.info("serving int8-quantized weights")
     if args.speculate != "off":

@@ -19,10 +19,10 @@ from container_engine_accelerators_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
     LlamaLayer,
+    decode_dtype,
+    layer_weights,
 )
 from container_engine_accelerators_tpu_torch.ops.quant import QuantWeight
-
-_NORMS = ("attn_norm", "mlp_norm")
 
 
 def to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -54,15 +54,15 @@ def _weight(leaf, dtype: torch.dtype, device, index=None):
 def params_from_jax(tree: dict, cfg: LlamaConfig,
                     device: str | torch.device = "cpu") -> Llama:
     """The JAX tree {embed, layers{...}[L, ...], final_norm, lm_head} as
-    a Llama on `device`, each weight in its decode-path dtype."""
+    a Llama on `device`, each weight in its decode-path dtype (a mixture
+    of experts' w_router too, and its [E, D, F] and [E, F, D] stacks)."""
     stacked = tree["layers"]
     layers = []
     for i in range(cfg.n_layers):
         layers.append(LlamaLayer(**{
-            name: _weight(stacked[name],
-                          torch.float32 if name in _NORMS else cfg.dtype,
-                          device, index=i)
-            for name in LlamaLayer.WEIGHTS}))
+            name: _weight(stacked[name], decode_dtype(cfg, name), device,
+                          index=i)
+            for name in layer_weights(cfg)}))
     return Llama(cfg,
                  embed=_weight(tree["embed"], cfg.dtype, device),
                  layers=layers,
@@ -81,7 +81,7 @@ def train_params_from_jax(tree: dict, cfg: LlamaConfig,
 
     stacked = tree["layers"]
     layers = [LlamaLayer(**{name: param(stacked[name][i])
-                            for name in LlamaLayer.WEIGHTS})
+                            for name in layer_weights(cfg)})
               for i in range(cfg.n_layers)]
     return Llama(cfg, embed=param(tree["embed"]), layers=layers,
                  final_norm=param(tree["final_norm"]),
@@ -102,7 +102,7 @@ def params_to_numpy(model: Llama) -> dict:
         "embed": arr(model.embed),
         "layers": {name: np.stack([arr(getattr(layer, name))
                                    for layer in model.layers])
-                   for name in LlamaLayer.WEIGHTS},
+                   for name in layer_weights(model.cfg)},
         "final_norm": arr(model.final_norm),
         "lm_head": arr(model.lm_head),
     }

@@ -32,6 +32,7 @@ from container_engine_accelerators_tpu_torch.models.llama import (
     LlamaLayer,
     decode_dtype,
     init_params,
+    layer_weights,
     llama_tiny,
 )
 from container_engine_accelerators_tpu_torch.utils import safetensors
@@ -173,7 +174,14 @@ def load_hf_checkpoint(path: str) -> tuple[dict[str, torch.Tensor],
 
 def save_hf_checkpoint(model: Llama, cfg: LlamaConfig, path: str) -> None:
     """Export a model as `config.json` + `model.safetensors` (f32), which
-    transformers' LlamaForCausalLM.from_pretrained reads."""
+    transformers' LlamaForCausalLM.from_pretrained reads. A mixture of
+    experts has no HF Llama form: serve it from its training
+    checkpoint."""
+    if cfg.n_experts:
+        raise ValueError(
+            "MoE models have no HF Llama export (HF Llama has no router "
+            "or expert stacks); serve a mixture of experts from its "
+            "training checkpoint (load_model on the checkpoint dir)")
     os.makedirs(path, exist_ok=True)
     weights = {name: p for name, p in model.named_parameters()}
     with open(os.path.join(path, "model.safetensors"), "wb") as f:
@@ -194,7 +202,7 @@ def serving_model(weights: dict[str, torch.Tensor], cfg: LlamaConfig,
             ".", 1)[-1]))
 
     layers = [LlamaLayer(**{n: w(f"layers.{i}.{n}")
-                            for n in LlamaLayer.WEIGHTS})
+                            for n in layer_weights(cfg)})
               for i in range(cfg.n_layers)]
     return Llama(cfg, embed=w("embed"), layers=layers,
                  final_norm=w("final_norm"), lm_head=w("lm_head"))

@@ -34,13 +34,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from container_engine_accelerators_tpu_torch.models import spec
+from container_engine_accelerators_tpu_torch.models import moe, spec
 from container_engine_accelerators_tpu_torch.models.llama import (
+    MOE_DECODE_EP_TODO,
     Llama,
     LlamaConfig,
     check_kv_cache_dtype,
@@ -185,6 +187,77 @@ def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
     return h @ w
 
 
+_MOE_DECODE_SKEW_WARNED = False
+# A call of at most this many tokens computes every expert for every
+# token (no host sync, every expert's weights read once); a longer one
+# computes only the routed pairs (top_k / E of the FLOPs, one host sync
+# and a matmul a weight an expert). chip_smoke.py's moe phase times both
+# on one layer at Mixtral-8x7B's widths: on an H100 every expert is the
+# faster up to 256 tokens (0.95-1.19 ms against 1.39-1.60 at 8-256), the
+# routed pairs at 512 (1.58 ms against 2.12).
+MOE_ALL_EXPERTS_TOKENS = 256
+
+
+def _moe_ffn_decode(h2: torch.Tensor, layer, cfg: LlamaConfig
+                    ) -> torch.Tensor:
+    """The mixture-of-experts FFN at decode: h2 [B, T, D] normalized ->
+    [B, T, D] (the caller adds the residual).
+
+    Routing is per token, moe._gating's top-k with nothing dropped (the
+    dropless token-choice semantics), so a token's output does not
+    depend on what else the engine batched with it: capacity routing
+    cannot be reproduced incrementally. The JAX package computes every
+    expert for every token and weights the unchosen ones by exactly 0;
+    this computes the same function, over all experts up to
+    MOE_ALL_EXPERTS_TOKENS tokens and over the routed pairs alone above
+    (moe.dropless_ffn), and combines each token's k outputs in rank
+    order."""
+    global _MOE_DECODE_SKEW_WARNED
+    if cfg.moe_decode_ep:
+        raise NotImplementedError(MOE_DECODE_EP_TODO)
+    if (not cfg.moe_dropless and cfg.moe_router == "token_choice"
+            and not _MOE_DECODE_SKEW_WARNED):
+        # Once a process: a capacity-dropping training config decodes
+        # dropless, so any token training dropped is train/serve skew.
+        _MOE_DECODE_SKEW_WARNED = True
+        warnings.warn(
+            "decoding an n_experts config with moe_dropless=False: the "
+            "decode path always routes dropless per-token top-k, so "
+            "outputs match training only where training dropped no "
+            "tokens (capacity-factor cumsums cannot be reproduced "
+            "incrementally). Train with moe_dropless=True to make the "
+            "semantics identical.", stacklevel=2)
+    if isinstance(layer.w_gate, QuantWeight):
+        raise NotImplementedError(
+            "int8-quantized expert weights are not supported on the MoE "
+            "decode path")
+    b, t, d = h2.shape
+    x = h2.reshape(b * t, d)
+    _, gate_vals, expert_idx = moe._gating(moe._router_logits(x, layer),
+                                           cfg.moe_top_k)
+    if b * t > MOE_ALL_EXPERTS_TOKENS:
+        out = moe.dropless_ffn(x, layer, cfg.n_experts, gate_vals,
+                               expert_idx)
+    else:
+        out = moe_ffn_every_expert(x, layer, gate_vals, expert_idx)
+    return out.view(b, t, d)
+
+
+def moe_ffn_every_expert(x: torch.Tensor, layer, gate_vals: torch.Tensor,
+                         expert_idx: torch.Tensor) -> torch.Tensor:
+    """moe.dropless_ffn's function, computed as the JAX package does:
+    every expert's SwiGLU FFN over every token of x [N, D] (batched
+    matmuls over the [E] stacks, no host sync), then each token's k
+    chosen outputs combined by moe.sum_top_k."""
+    w_gate, w_up, w_down = (w.to(x.dtype) for w in (
+        layer.w_gate, layer.w_up, layer.w_down))
+    gate = F.silu(torch.matmul(x, w_gate))               # [E, N, F]
+    down = torch.matmul(gate * torch.matmul(x, w_up), w_down)
+    picked = down[expert_idx, torch.arange(x.shape[0], device=x.device)[
+        :, None]]                                        # [N, k, D]
+    return moe.sum_top_k(picked, gate_vals)
+
+
 def decode_step(model: Llama, cache: KVCache | PagedKVCache,
                 tokens: torch.Tensor, cfg: LlamaConfig,
                 active: torch.Tensor | None = None,
@@ -302,6 +375,9 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
         attn = attention(q.to(dt), k_cache, v_cache, att_len, ks, vs)
         x = x + _proj(attn.reshape(b, t, -1), layer.wo, plain)
         h2 = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+        if cfg.n_experts:
+            x = x + _moe_ffn_decode(h2, layer, cfg)
+            continue
         gate = F.silu(_proj(h2, layer.w_gate, plain))
         up = _proj(h2, layer.w_up, plain)
         x = x + _proj(gate * up, layer.w_down, plain)

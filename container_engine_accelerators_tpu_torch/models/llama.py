@@ -8,6 +8,11 @@ to cfg.dtype at use, which rounds the same way), the norm weights and the
 lm_head in f32. For training (`init_train_params`, `forward`), every
 weight is a trainable master in cfg.param_dtype, cast to cfg.dtype where
 it is used, as in the JAX package.
+
+A config with n_experts > 0 is a mixture-of-experts model
+(models/moe.py): each layer's FFN is a router w_router [D, E] and
+expert stacks w_gate, w_up [E, D, F] and w_down [E, F, D]. At decode
+the router is kept in f32, as the JAX package's serving params keep it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from container_engine_accelerators_tpu_torch.models import moe
 from container_engine_accelerators_tpu_torch.ops import (
     apply_rope,
     rms_norm,
@@ -52,6 +58,23 @@ class LlamaConfig:
     # Serving KV cache: 'bf16' (cfg.dtype), 'int8' or 'int4' (int8 storage
     # at head_dim / 2, two nibbles a byte), with per-(token, head) scales.
     kv_cache_dtype: str = "bf16"
+    # Mixture-of-experts FFN (models/moe.py); 0 experts is the dense MLP.
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    # 'token_choice' (tokens pick their top-k experts, capacity-dropped)
+    # or 'expert_choice' (experts pick their top-C tokens; non-causal).
+    moe_router: str = "token_choice"
+    # Token choice with no capacity: every routed token is computed.
+    moe_dropless: bool = False
+    # Expert parallelism's dispatch (ep > 1, ROADMAP item 12); carried
+    # so that a JAX config record round-trips.
+    moe_ep_buffer_factor: float = 2.0
+    moe_ep_dispatch: str = "bucket"
+    moe_aux_weight: float = 0.01
+    moe_z_weight: float = 0.001
+    # Experts sharded over tensor parallelism at decode (ROADMAP item 8).
+    moe_decode_ep: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -60,7 +83,9 @@ class LlamaConfig:
     def train_flops_per_token(self, seq_len: int) -> float:
         """Training (forward + backward) FLOPs per token: 6 per matmul
         parameter (the lm_head counted, the embedding gather not) plus
-        the causal attention term 6 * L * d_model * S."""
+        the causal attention term 6 * L * d_model * S. A mixture of
+        experts counts one FFN a token, not top_k, as the JAX package
+        does."""
         hd = self.head_dim
         attn = self.n_layers * self.d_model * hd * (
             2 * self.n_heads + 2 * self.n_kv_heads)
@@ -71,11 +96,15 @@ class LlamaConfig:
 
     def num_params(self) -> int:
         hd = self.head_dim
+        mlp = 3 * self.d_model * self.d_ff
+        if self.n_experts:
+            mlp = (self.n_experts * mlp                         # experts
+                   + self.d_model * self.n_experts)             # router
         per_layer = (2 * self.d_model                          # norms
                      + self.d_model * hd * self.n_heads         # wq
                      + 2 * self.d_model * hd * self.n_kv_heads  # wk, wv
                      + hd * self.n_heads * self.d_model         # wo
-                     + 3 * self.d_model * self.d_ff)            # mlp
+                     + mlp)
         return (self.vocab_size * self.d_model * 2              # embed, head
                 + self.n_layers * per_layer + self.d_model)
 
@@ -100,6 +129,10 @@ def llama_tiny(**overrides) -> LlamaConfig:
 
 _DTYPE_KEYS = ("dtype", "param_dtype")
 
+MOE_DECODE_EP_TODO = (
+    "moe_decode_ep (experts sharded over tensor parallelism at decode) "
+    "waits for the port's tensor parallelism (ROADMAP item 8)")
+
 
 def cfg_to_json_dict(cfg: LlamaConfig) -> dict:
     """LlamaConfig -> JSON-serializable dict; dtypes become their numpy
@@ -112,10 +145,10 @@ def cfg_to_json_dict(cfg: LlamaConfig) -> dict:
 
 def cfg_from_json_dict(d: dict) -> LlamaConfig:
     """Inverse of cfg_to_json_dict; also reads the JAX package's form.
-    Unknown keys are dropped, but a mixture-of-experts config raises:
-    this port runs dense models only."""
-    if d.get("n_experts"):
-        raise NotImplementedError("MoE configs are not ported yet")
+    Unknown keys are dropped. A config that shards its experts over
+    tensor parallelism at decode raises."""
+    if d.get("moe_decode_ep"):
+        raise NotImplementedError(MOE_DECODE_EP_TODO)
     d = dict(d)
     for key in _DTYPE_KEYS:
         if isinstance(d.get(key), str):
@@ -133,15 +166,27 @@ def _as_param(w):
 
 
 class LlamaLayer(nn.Module):
-    """One decoder layer's weights, each [in, out] (x @ w)."""
+    """One decoder layer's weights, each [in, out] (x @ w): those it is
+    given, in WEIGHTS' order (layer_weights(cfg) names a config's). A
+    mixture-of-experts layer's FFN weights are stacks with a leading [E]
+    axis."""
 
-    WEIGHTS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-               "w_up", "w_down")
+    WEIGHTS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_router",
+               "w_gate", "w_up", "w_down")
 
     def __init__(self, **weights):
         super().__init__()
         for name in self.WEIGHTS:
-            setattr(self, name, _as_param(weights[name]))
+            if name in weights:
+                setattr(self, name, _as_param(weights[name]))
+
+
+def layer_weights(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The names of a layer's weights under cfg: LlamaLayer.WEIGHTS, less
+    w_router for a dense model."""
+    if cfg.n_experts:
+        return LlamaLayer.WEIGHTS
+    return tuple(n for n in LlamaLayer.WEIGHTS if n != "w_router")
 
 
 class Llama(nn.Module):
@@ -174,11 +219,24 @@ def _random_llama(cfg: LlamaConfig, generator: torch.Generator, device,
                                        device=device,
                                        dtype=torch.float32).mul_(std))
 
-    def dense(name, shape):
-        return normal(name, shape, shape[0] ** -0.5)
+    def dense(name, shape, fan_in=None):
+        return normal(name, shape, (fan_in or shape[0]) ** -0.5)
 
     def ones(name):
         return param(name, torch.ones(d, dtype=torch.float32, device=device))
+
+    def ffn():
+        if not cfg.n_experts:
+            return dict(w_gate=dense("w_gate", (d, cfg.d_ff)),
+                        w_up=dense("w_up", (d, cfg.d_ff)),
+                        w_down=dense("w_down", (cfg.d_ff, d)))
+        # Each expert stack is drawn in f32 and cast before the next is
+        # drawn: one f32 stack is 1.88 GB at Mixtral-8x7B's widths.
+        e = cfg.n_experts
+        return dict(w_router=dense("w_router", (d, e)),
+                    w_gate=dense("w_gate", (e, d, cfg.d_ff), d),
+                    w_up=dense("w_up", (e, d, cfg.d_ff), d),
+                    w_down=dense("w_down", (e, cfg.d_ff, d), cfg.d_ff))
 
     layers = [LlamaLayer(
         attn_norm=ones("attn_norm"),
@@ -187,21 +245,20 @@ def _random_llama(cfg: LlamaConfig, generator: torch.Generator, device,
         wv=dense("wv", (d, cfg.n_kv_heads * hd)),
         wo=dense("wo", (cfg.n_heads * hd, d)),
         mlp_norm=ones("mlp_norm"),
-        w_gate=dense("w_gate", (d, cfg.d_ff)),
-        w_up=dense("w_up", (d, cfg.d_ff)),
-        w_down=dense("w_down", (cfg.d_ff, d)),
+        **ffn(),
     ) for _ in range(cfg.n_layers)]
     return Llama(cfg, embed=normal("embed", (cfg.vocab_size, d), 0.02),
                  layers=layers, final_norm=ones("final_norm"),
                  lm_head=dense("lm_head", (d, cfg.vocab_size)))
 
 
-_F32_WEIGHTS = ("attn_norm", "mlp_norm", "final_norm", "lm_head")
+_F32_WEIGHTS = ("attn_norm", "mlp_norm", "final_norm", "lm_head",
+                "w_router")
 
 
 def decode_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
-    """The decode path's dtype of weight `name`: f32 for the norms and
-    the lm_head, cfg.dtype for the rest."""
+    """The decode path's dtype of weight `name`: f32 for the norms, the
+    lm_head and the router, cfg.dtype for the rest."""
     return torch.float32 if name in _F32_WEIGHTS else cfg.dtype
 
 
@@ -295,6 +352,12 @@ def _check_train_config(cfg: LlamaConfig) -> None:
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                          f"valid: {REMAT_POLICIES}")
+    if cfg.n_experts and cfg.moe_dropless \
+            and cfg.moe_router != "token_choice":
+        raise ValueError(
+            "moe_dropless implements token-choice routing; it cannot "
+            "combine with moe_router='expert_choice' (which is already "
+            "dropless - drop the moe_dropless flag)")
     if cfg.flash_causal_grid not in ("rect", "tri"):
         raise ValueError(f"flash_causal_grid must be 'rect' or 'tri', got "
                          f"{cfg.flash_causal_grid!r}")
@@ -320,18 +383,26 @@ def _attention_core(q, k, v, cfg: LlamaConfig, plain: bool) -> torch.Tensor:
 
 
 def _attention_out_mlp(x: torch.Tensor, attn: torch.Tensor,
-                       layer: LlamaLayer, cfg: LlamaConfig) -> torch.Tensor:
+                       layer: LlamaLayer, cfg: LlamaConfig):
+    """wo, the residual and the FFN: (x, the router's aux loss). The aux
+    is moe_aux_weight * aux_loss + moe_z_weight * router_z_loss for a
+    mixture of experts, None for a dense layer."""
     b, s, _ = x.shape
     dt = cfg.dtype
     x = x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ layer.wo.to(dt)
     h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+    if cfg.n_experts:
+        mlp = moe.moe_mlp_dropless if cfg.moe_dropless else moe.moe_mlp
+        out, metrics = mlp(h, layer, cfg)
+        return x + out, (cfg.moe_aux_weight * metrics.aux_loss
+                         + cfg.moe_z_weight * metrics.router_z_loss)
     gate = F.silu(h @ layer.w_gate.to(dt))
     up = h @ layer.w_up.to(dt)
-    return x + (gate * up) @ layer.w_down.to(dt)
+    return x + (gate * up) @ layer.w_down.to(dt), None
 
 
 def _layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor, plain: bool) -> torch.Tensor:
+           cos: torch.Tensor, sin: torch.Tensor, plain: bool):
     q, k, v = _attention_qkv(x, layer, cfg, cos, sin)
     return _attention_out_mlp(x, _attention_core(q, k, v, cfg, plain),
                               layer, cfg)
@@ -343,8 +414,7 @@ def _saved_ops_context(policy: str):
 
 
 def _split_attn_layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-                      cos: torch.Tensor, sin: torch.Tensor,
-                      plain: bool) -> torch.Tensor:
+                      cos: torch.Tensor, sin: torch.Tensor, plain: bool):
     """'dots_save_attn': the pre half (norm, q/k/v, RoPE) and the post
     half (wo, residual, MLP) each under the 'dots' checkpoint, the
     attention core between them outside both."""
@@ -371,9 +441,11 @@ def _warn_if_flash_off(cfg: LlamaConfig, device: torch.device) -> None:
 
 
 def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, return_aux: bool = False):
     """tokens [B, S] -> logits [B, S, vocab] f32: the JAX package's
-    forward for a dense model on one device.
+    forward on one device. With `return_aux`, (logits, aux): the
+    routers' aux losses summed over layers (an f32 scalar, zero for a
+    dense model), which training adds to the loss.
 
     The embedding gathers from the table cast to cfg.dtype; each layer
     runs under cfg.remat_policy through torch.utils.checkpoint ('full'),
@@ -390,19 +462,23 @@ def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     x = F.embedding(tokens, model.embed.to(cfg.dtype))
     if cfg.remat_policy == REMAT_SPLIT_ATTN:
         _warn_if_flash_off(cfg, tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in model.layers:
         if cfg.remat_policy == "none":
-            x = _layer(x, layer, cfg, cos, sin, plain)
-            continue
-        if cfg.remat_policy == REMAT_SPLIT_ATTN:
-            x = _split_attn_layer(x, layer, cfg, cos, sin, plain)
-            continue
-        context_fn = ckpt.noop_context_fn
-        if cfg.remat_policy in _SAVED_OPS:
-            context_fn = _saved_ops_context(cfg.remat_policy)
-        x = ckpt.checkpoint(_layer, x, layer, cfg, cos, sin, plain,
-                            use_reentrant=False, context_fn=context_fn)
+            x, aux = _layer(x, layer, cfg, cos, sin, plain)
+        elif cfg.remat_policy == REMAT_SPLIT_ATTN:
+            x, aux = _split_attn_layer(x, layer, cfg, cos, sin, plain)
+        else:
+            context_fn = ckpt.noop_context_fn
+            if cfg.remat_policy in _SAVED_OPS:
+                context_fn = _saved_ops_context(cfg.remat_policy)
+            x, aux = ckpt.checkpoint(_layer, x, layer, cfg, cos, sin, plain,
+                                     use_reentrant=False,
+                                     context_fn=context_fn)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _logits(x.to(cfg.dtype).reshape(b * s, cfg.d_model),
                      model.lm_head.to(cfg.dtype))
-    return logits.view(b, s, cfg.vocab_size)
+    logits = logits.view(b, s, cfg.vocab_size)
+    return (logits, aux_total) if return_aux else logits

@@ -318,12 +318,13 @@ def quantize_llama_params(model):
     from container_engine_accelerators_tpu_torch.models.llama import (
         Llama,
         LlamaLayer,
+        layer_weights,
     )
 
     layers = []
     for layer in model.layers:
         weights = {name: getattr(layer, name)
-                   for name in LlamaLayer.WEIGHTS}
+                   for name in layer_weights(model.cfg)}
         weights.update({name: quantize_weights(weights[name])
                         for name in QUANT_KEYS})
         layers.append(LlamaLayer(**weights))
@@ -340,13 +341,14 @@ def dequantize_llama_params(model, dtype: torch.dtype = torch.float32):
     from container_engine_accelerators_tpu_torch.models.llama import (
         Llama,
         LlamaLayer,
+        layer_weights,
     )
 
     def dense(w):
         return dequantize(w, dtype) if isinstance(w, QuantWeight) else w
 
     layers = [LlamaLayer(**{name: dense(getattr(layer, name))
-                            for name in LlamaLayer.WEIGHTS})
+                            for name in layer_weights(model.cfg)})
               for layer in model.layers]
     return Llama(model.cfg, embed=model.embed, layers=layers,
                  final_norm=model.final_norm,

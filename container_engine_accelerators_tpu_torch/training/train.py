@@ -87,13 +87,15 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
 def loss_fn(model: llama.Llama, batch: dict, cfg: llama.LlamaConfig,
             plain: bool = False) -> torch.Tensor:
     """Next-token cross entropy in f32, averaged over the targets >= 0
-    (negative targets are padding)."""
-    logits = llama.forward(model, batch["inputs"], cfg, plain=plain)
+    (negative targets are padding), plus a mixture of experts' router
+    aux losses (models/llama.forward's aux; zero for a dense model)."""
+    logits, aux = llama.forward(model, batch["inputs"], cfg, plain=plain,
+                                return_aux=True)
     targets = batch["targets"].reshape(-1)
     mask = (targets >= 0).float()
     losses = F.cross_entropy(logits.view(-1, logits.shape[-1]),
                              targets.clamp(min=0).long(), reduction="none")
-    return (losses * mask).sum() / mask.sum().clamp(min=1.0)
+    return (losses * mask).sum() / mask.sum().clamp(min=1.0) + aux
 
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: torch.optim.Optimizer,

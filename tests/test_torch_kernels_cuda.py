@@ -13,7 +13,7 @@ import torch
 
 from container_engine_accelerators_tpu_torch import kernels
 from container_engine_accelerators_tpu_torch.cli import serve
-from container_engine_accelerators_tpu_torch.models import decode
+from container_engine_accelerators_tpu_torch.models import decode, moe
 from container_engine_accelerators_tpu_torch.models.llama import (
     init_params,
     init_train_params,
@@ -1120,6 +1120,36 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
     for gk, gp in zip(grads_k, grads_p):
         assert (gk - gp).norm() <= 5e-2 * gp.norm()
+
+
+@pytest.mark.parametrize("n_tok", [8, 300])
+def test_moe_ffns_on_the_card_match_the_cpu(cuda, n_tok):
+    # The MoE decode FFN (every expert up to MOE_ALL_EXPERTS_TOKENS
+    # tokens, the routed pairs above) and the training dropless FFN, f32
+    # with TF32 off: the card's products part from the CPU's in the last
+    # bits. The seeded router has no near tie, so both route alike, and
+    # the dropless combine (no atomics) repeats bit for bit on the card.
+    cfg = llama_tiny(n_experts=4, moe_top_k=2, moe_dropless=True,
+                     dtype=torch.float32)
+    layer = init_params(cfg, torch.Generator().manual_seed(0),
+                        "cpu").layers[0]
+    h = torch.randn(1, n_tok, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    probs = torch.softmax(h @ layer.w_router, dim=-1)
+    top = probs.topk(3, dim=-1).values
+    assert (top[..., 1] - top[..., 2]).min() > 1e-4
+    want_dec = decode._moe_ffn_decode(h, layer, cfg)
+    want, want_m = moe.moe_mlp_dropless(h, layer, cfg)
+    layer_c, h_c = layer.to(cuda), h.to(cuda)
+    got_dec = decode._moe_ffn_decode(h_c, layer_c, cfg)
+    got, got_m = moe.moe_mlp_dropless(h_c, layer_c, cfg)
+    again, _ = moe.moe_mlp_dropless(h_c, layer_c, cfg)
+    assert torch.equal(got, again)
+    for g, w in ((got_dec, want_dec), (got, want)):
+        assert (g.cpu() - w).abs().max() <= 1e-5 * w.abs().max()
+    for name in ("aux_loss", "router_z_loss"):
+        assert getattr(got_m, name).item() == pytest.approx(
+            getattr(want_m, name).item(), rel=1e-5)
 
 
 def test_dots_save_attn_launches_k4_once_a_layer(cuda):

@@ -101,8 +101,12 @@ def test_config_json_round_trips_both_ways():
     assert jc.d_model == 96 and jc.dtype == jnp.float32
     back = tllama.cfg_from_json_dict(jllama.cfg_to_json_dict(jc))
     assert back == tc
-    with pytest.raises(NotImplementedError):
-        tllama.cfg_from_json_dict({**d, "n_experts": 4})
+    # A mixture of experts loads; experts sharded over tensor
+    # parallelism at decode wait for the port's tensor parallelism.
+    assert tllama.cfg_from_json_dict({**d, "n_experts": 4}).n_experts == 4
+    with pytest.raises(NotImplementedError, match="moe_decode_ep"):
+        tllama.cfg_from_json_dict({**d, "n_experts": 4,
+                                   "moe_decode_ep": True})
 
 
 def test_params_from_jax_moves_bits_exactly():
@@ -112,7 +116,7 @@ def test_params_from_jax_moves_bits_exactly():
     model = interop.params_from_jax(tree, cfg_t)
     assert len(model.layers) == 3
     for li, layer in enumerate(model.layers):
-        for name in tllama.LlamaLayer.WEIGHTS:
+        for name in tllama.layer_weights(cfg_t):
             got = getattr(layer, name)
             want = np.asarray(tree["layers"][name][li])
             assert got.dtype == (torch.float32 if name.endswith("norm")

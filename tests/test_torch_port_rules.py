@@ -32,8 +32,8 @@ def _imported_roots(path: Path):
 
 
 # Modules the scan must reach, the speculative path's, the node layer's,
-# the NRI injector's, the scheduler's, the vision demos' and device
-# telemetry's among them.
+# the NRI injector's, the scheduler's, the vision demos', device
+# telemetry's and the mixture of experts' among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/generate.py", "metrics/request_metrics.py",
             "metrics/train_metrics.py", "training/checkpoint.py",
@@ -58,7 +58,7 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "parallel/__init__.py", "parallel/distributed.py",
             "cli/collective_bench.py", "metrics/fabric.py",
             "metrics/fabric_health.py", "metrics/introspection.py",
-            "utils/hbm_plan.py", "utils/profiling.py")
+            "utils/hbm_plan.py", "utils/profiling.py", "models/moe.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -67,7 +67,7 @@ def test_quantize_llama_params_covers_projections_and_head():
     model = tllama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     qmodel = quant.quantize_llama_params(model)
     for layer, qlayer in zip(model.layers, qmodel.layers):
-        for name in tllama.LlamaLayer.WEIGHTS:
+        for name in tllama.layer_weights(cfg):
             qw = getattr(qlayer, name)
             if name in quant.QUANT_KEYS:
                 assert isinstance(qw, quant.QuantWeight), name

@@ -92,7 +92,7 @@ def _grads_np(model):
 def _with_values(model, fn):
     """A shallow copy of `model` whose weights are fn(weight)."""
     layers = [tllama.LlamaLayer(**{n: fn(getattr(layer, n))
-                                   for n in tllama.LlamaLayer.WEIGHTS})
+                                   for n in tllama.layer_weights(model.cfg)})
               for layer in model.layers]
     return tllama.Llama(model.cfg, embed=fn(model.embed), layers=layers,
                         final_norm=fn(model.final_norm),
@@ -176,9 +176,10 @@ def test_unported_and_unknown_configs_raise():
                     ({"flash_causal_grid": "triangular"}, ValueError)):
         with pytest.raises(err):
             tllama.forward(model, tokens, dataclasses.replace(tcfg, **kw))
+    # Of the MoE fields only decode-time expert sharding is unported.
     with pytest.raises(NotImplementedError):
         tllama.cfg_from_json_dict({**tllama.cfg_to_json_dict(tcfg),
-                                   "n_experts": 4})
+                                   "n_experts": 4, "moe_decode_ep": True})
     # 'dots_save_attn' is ported: without flash it runs and warns, as the
     # JAX package does, since the hoisted attention keeps its S x S
     # probabilities.
