@@ -14,6 +14,7 @@ health paths on one GPU.
   python3 chip_smoke.py vision
   python3 chip_smoke.py telemetry
   python3 chip_smoke.py moe
+  python3 chip_smoke.py tp
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -39,7 +40,7 @@ card. `training` runs the build and the training path's phases alone
 (train through serve_ckpt below), `node` the build and the node phase,
 `doctor` the build and the doctor phase, `vision` the build and the
 vision phase, `telemetry` the build and the telemetry phase, `moe` the
-build and the moe phase.
+build and the moe phase, `tp` the build and the tp phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -110,10 +111,40 @@ Phases, one JSON line each:
            size. One line a run: TTFT, TPOT and queue-wait p50/p99,
            tokens/s, host_gap_fraction, each host phase's p50, the
            thermal census's ms a call at the full pool, nvidia-smi;
+  tp       (after the serving phases, the 8B weights freed)
+           tensor-parallel serving over two rank processes sharing
+           cuda:0 over gloo (models/decode_tp.py), llama3_8b at full
+           width **cut to 4 of 32 layers** (the phase's budget), from the
+           seed: which gloo collectives take CUDA bf16/f32 (a probe in
+           processes of its own); on every rank a 512-token prefill
+           chunk and an 8-slot decode step of the shard's first layers
+           held kernel by kernel (K1, K3, K2 on column, row and vocab
+           shards) against the plain versions at local shapes; the
+           first step's logits against tp 1 and D, the largest |logit
+           change| of a teacher-forced window, each held to twice what
+           bf16 moves tp 1 from its f32 twin (the same weights, f32
+           activations); the tick at 8 slots,
+           wall, busy and the collectives' host ms, tp 1 against tp 2;
+           `generate --checkpoint --tp 2` (an HF export of the same
+           weights) held to tp 1's batch-1 loop; the window, continuous,
+           paged, int8-weight and int8-KV engines over one group, 8
+           requests of 128-512 tokens, 32 new tokens, each held to the
+           tp 1 engine's tokens by the divergence rule with D (the int8
+           cases' own D, each held as above), tokens/s; `serve
+           --checkpoint --tp 2 --engine paged --speculate ngram` over
+           HTTP, held to the tp 1 paged engine (D plus the verify
+           drift), then its follower killed by SIGKILL: the request in
+           flight fails and the server exits non-zero within 10 s,
+           leaving no process; each rank's peak beside plan_serving; and
+           Mixtral-8x7B's FFN at 4 of 32 layers with its experts sharded
+           (moe_decode_ep, 4 a rank), D and R held to twice tp 1's
+           against its f32 twin, the tokens to tp 1 by the moe phase's
+           rules. The
+           followers' K1-K3 launches count;
   moe      (after the serving phases, the 8B weights freed) a mixture of
            experts: Llama-3-8B's attention and vocabulary with
            Mixtral-8x7B's FFN (8 experts of d_ff 14336, top-2, dropless),
-           random bf16 weights from the seed, cut to 16 of 32 layers (32
+           random bf16 weights from the seed, cut to 8 of 32 layers (32
            need ~95 GB). (a) The window, continuous and paged engines,
            then the paged one with ngram speculation (k 4), each behind
            make_server answering 8 requests of 64-512 tokens, 32 greedy
@@ -2040,7 +2071,7 @@ def observe_phase(torch, dev, np, model, cfg) -> dict:
 # ------------------------------------------- spec, pools and supervise
 
 SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
-SPEC_SLOTS, SPEC_NEW_TOKENS = 16, 32
+SPEC_SLOTS, SPEC_NEW_TOKENS = 16, 16
 POOLS_NEW_TOKENS = 32
 
 
@@ -2190,10 +2221,10 @@ def divergence_rule(plain: list, got: list, prompts: list, margins: list,
 
 def spec_generate_run(torch, dev, np, model, cfg) -> dict:
     """(a): generate at batch 2 on prompts of a repeated 16-token
-    pattern, 32 new tokens, speculation off, ngram and draft (k 4, 2
-    draft layers): wall and device-busy ms, the speculative counts, and
-    the speculative tokens held to the plain run by the divergence
-    rule."""
+    pattern, SPEC_NEW_TOKENS new tokens, speculation off, ngram and
+    draft (k 4, 2 draft layers): wall and device-busy ms, the
+    speculative counts, and the speculative tokens held to the plain run
+    by the divergence rule."""
     from container_engine_accelerators_tpu_torch import kernels
     from container_engine_accelerators_tpu_torch.models import decode
 
@@ -2324,7 +2355,8 @@ def _count_bodies(decode, da):
 def spec_engine_run(torch, dev, np, model, cfg, speculate: str) -> dict:
     """(b) and (c): PagedContinuousEngine at 16 slots, page 128, max_len
     2048 behind make_server on 16 concurrent requests of a repeated
-    16-token pattern (128 tokens, 32 new), with speculation off and then
+    16-token pattern (128 tokens, SPEC_NEW_TOKENS new), with speculation
+    off and then
     `speculate`: the tokens held by the divergence rule, no page leaked,
     the serve_spec_* scrape against the engine's own counts, the
     engine's tick beside the plain engine's, and K3 launches by body."""
@@ -2730,11 +2762,12 @@ def supervise_phase(torch, dev, np, model, cfg) -> dict:
 # Llama-3-8B's attention and vocabulary with Mixtral-8x7B's FFN: 8
 # experts of d_ff 14336, top-2, routed dropless. A layer is 2.82 GB of
 # bf16 experts and 0.08 GB of attention, so 32 layers (~95 GB) do not
-# fit the card: the serving model is cut to 16 layers (~49.6 GB with
-# the f32 lm_head), the training one to 2 (~64 GB of f32 masters,
-# gradients and AdamW moments).
+# fit the card: the serving model is cut to 8 layers (~26.4 GB with
+# the f32 lm_head; at 16 the whole smoke neared its time limit), the
+# training one to 2 (~64 GB of f32 masters, gradients and AdamW
+# moments).
 MOE_KW = dict(n_experts=8, moe_top_k=2, moe_dropless=True)
-MOE_SERVE_LAYERS = 16
+MOE_SERVE_LAYERS = 8
 MOE_TRAIN_LAYERS = 2
 MOE_PROMPT_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
 MOE_NEW_TOKENS = 32
@@ -7879,6 +7912,971 @@ def decode_main(torch, argv: list[str]) -> int:
     return time_roots("decode", flags, args.roots, 600)
 
 
+# ---------- tensor-parallel serving (the tp phase) ----------
+
+TP_RANKS = 2
+TP_PROMPT_LENS = (128, 128, 128, 128, 512, 512, 512, 512)
+TP_NEW_TOKENS = 32
+TP_KILL_WITHIN_S = 10.0
+TP_SERVE = "container_engine_accelerators_tpu_torch.cli.serve"
+TP_GENERATE = "container_engine_accelerators_tpu_torch.cli.generate"
+# Where the ranks go: the card here (a CPU rehearsal points them at the
+# CPU).
+TP_DEVICE = "cuda"
+# Rows of the kernel checks at local shapes: slots prefilled with a
+# 512-token chunk before the 8-slot decode step.
+TP_CHECK_SLOTS, TP_CHECK_CHUNK = 8, 512
+# llama3_8b at full width cut to 4 of its 32 layers, for everything the
+# phase runs over the group (and its tp 1 model): at 32 layers the phase
+# alone overran its 150 s budget on the H100, and with only the group,
+# the first step, D, the tick and generate --tp 2 kept at 32 the whole
+# smoke neared its 1200 s limit. Every layer runs the same sharded code,
+# so a fault in it shows at 4 as at 32. MoE: Mixtral-8x7B's FFN on
+# Llama-3-8B attention at 4 layers as well.
+TP_LAYERS = 4
+TP_MOE_LAYERS = 4
+# What may part tp 2 from tp 1 is bounded by tp 1 alone (tp_drift_limit):
+# the first step's logit gap and D between tp 1 and tp 2 (for MoE also R)
+# may be at most TP_DRIFT_FACTOR times the same readings between tp 1 and
+# its f32 twin (the same weights and cache modes, every activation in
+# f32). Where tp 1 rounds a layer's wo and w_down products once, tp 2
+# rounds both partials of each and then their sum: some four roundings a
+# layer more, against the dozen or so a layer that bf16 activations take,
+# so tp 2 should part from tp 1 by about as much as bf16 parts from f32
+# or less (0.8-1.06 of it in a narrow 2-layer rehearsal on the CPU), and
+# the factor leaves room for the rest. A reduction that a rank skips, or
+# a vocab gather out of order, moves the logits by their own size.
+TP_DRIFT_FACTOR = 2.0
+# The collectives the probe tries on the ranks' CUDA tensors, and the
+# dtypes; a case that ends its processes (gloo hands some CUDA tensors to
+# its socket as host memory) is reported, and fresh processes take the
+# cases after it, the others of a failed run stopped after
+# TP_PROBE_GRACE_S (they would wait until the group's timeout).
+TP_PROBED = ("all_reduce", "all_gather", "broadcast",
+             "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "send_recv")
+TP_PROBED_DTYPES = ("bfloat16", "float32")
+TP_PROBE_GRACE_S = 2.0
+
+# One rank of the probe: argv rank, tp, store port, backend, device,
+# timeout, log path, cases (JSON). Each case's start and answer go to the
+# log before the next begins, so a case that ends the process is the
+# last one started there.
+TP_PROBE_RANK = r"""
+import datetime, json, sys
+import torch, torch.distributed as dist
+from container_engine_accelerators_tpu_torch.parallel import distributed
+rank, tp, port, backend, device, timeout, log_path, cases = sys.argv[1:9]
+rank, tp = int(rank), int(tp)
+store = dist.TCPStore("127.0.0.1", int(port), tp, is_master=rank == 0,
+                      timeout=datetime.timedelta(seconds=float(timeout)))
+g = distributed.init_tp_group(rank, tp, store, backend, device,
+                              float(timeout))
+dev, w, n = g.device, tp, 8
+
+
+def full(value, size, dtype):
+    return torch.full((size,), float(value), dtype=dtype, device=dev)
+
+
+def case(name, dtype):
+    def in_order(o):
+        return bool((o.view(w, n) == torch.arange(
+            w, device=dev, dtype=dtype)[:, None]).all())
+    if name == "all_reduce":
+        x = full(rank + 1, n, dtype)
+        dist.all_reduce(x)
+        return bool((x == w * (w + 1) / 2).all())
+    if name == "all_gather":
+        parts = [full(-1, n, dtype) for _ in range(w)]
+        dist.all_gather(parts, full(rank, n, dtype))
+        return all(bool((p == i).all()) for i, p in enumerate(parts))
+    if name == "broadcast":
+        x = full(7 if rank == 0 else 0, n, dtype)
+        dist.broadcast(x, src=0)
+        return bool((x == 7).all())
+    if name == "all_gather_into_tensor":
+        o = full(-1, n * w, dtype)
+        dist.all_gather_into_tensor(o, full(rank, n, dtype))
+        return in_order(o)
+    if name == "reduce_scatter_tensor":
+        o = full(0, n, dtype)
+        dist.reduce_scatter_tensor(o, full(1, n * w, dtype))
+        return bool((o == w).all())
+    if name == "all_to_all_single":
+        o = full(-1, n * w, dtype)
+        dist.all_to_all_single(o, full(rank, n * w, dtype))
+        return in_order(o)
+    # send_recv: a ring, even ranks sending first.
+    x, got = full(rank, n, dtype), full(-1, n, dtype)
+    if rank % 2 == 0:
+        dist.send(x, (rank + 1) % w)
+        dist.recv(got, (rank - 1) % w)
+    else:
+        dist.recv(got, (rank - 1) % w)
+        dist.send(x, (rank + 1) % w)
+    return bool((got == (rank - 1) % w).all())
+
+
+def log(rec):
+    if rank == 0:
+        with open(log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+
+for name, key in json.loads(cases):
+    log({"case": name, "dtype": key})
+    try:
+        ok = case(name, getattr(torch, key))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        res = True if ok else "wrong result"
+    except Exception as e:
+        res = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    # The ranks agree on each answer before the next case: a case one
+    # rank refused must not leave another waiting inside it.
+    answers = [None] * w
+    dist.all_gather_object(answers, res)
+    bad = [a for a in answers if a is not True]
+    log({"case": name, "dtype": key, "result": bad[0] if bad else True})
+dist.destroy_process_group()
+"""
+
+
+def tp_probe(root: str, tp: int, device, timeout_s: float = 60.0) -> dict:
+    """Which collectives the placement's backend takes on its devices'
+    tensors, each TP_PROBED x TP_PROBED_DTYPES case in `tp` fresh
+    processes (TP_PROBE_RANK) placed by tp_placement: {"backend",
+    "devices", "results": {collective: {dtype: True or what went
+    wrong}}, "restarts"}."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+
+    backend, devices = distributed.tp_placement(tp, device)
+    todo = [(n, dt) for n in TP_PROBED for dt in TP_PROBED_DTYPES]
+    results: dict = {}
+    restarts = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        while todo:
+            log_path = os.path.join(tmp, f"probe{restarts}.jsonl")
+            errs = [os.path.join(tmp, f"rank{r}.{restarts}.err")
+                    for r in range(tp)]
+            port = _free_port()
+            procs = []
+            for r in range(tp):
+                with open(errs[r], "w") as err:
+                    procs.append(_popen_port(
+                        root, "", str(r), str(tp), str(port), backend,
+                        str(devices[r]), str(timeout_s), log_path,
+                        json.dumps(todo), code=TP_PROBE_RANK,
+                        stdout=subprocess.DEVNULL, stderr=err))
+            deadline = time.monotonic() + 4 * timeout_s
+            failed_at = None
+            while any(p.poll() is None for p in procs):
+                now = time.monotonic()
+                if failed_at is None and any(p.poll() not in (None, 0)
+                                             for p in procs):
+                    failed_at = now
+                if now > deadline or (failed_at is not None and now
+                                      - failed_at > TP_PROBE_GRACE_S):
+                    _stop_procs(procs)
+                time.sleep(0.05)
+            lines = []
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    lines = [json.loads(x) for x in f if x.strip()]
+            for x in lines:
+                if "result" in x:
+                    results.setdefault(x["case"], {})[x["dtype"]] = \
+                        x["result"]
+                    todo.remove((x["case"], x["dtype"]))
+            if not todo:
+                break
+            # The case the processes died in: the first not answered,
+            # named by the failing rank's own message (gloo's what(), or
+            # its transport's error) where there is one.
+            name, key = todo.pop(0)
+            text = "\n".join(_tail(p, 20000) for p in errs).splitlines()
+            why = ([t for t in text if "what()" in t or "pair.cc" in t]
+                   or [t for t in text if "Error" in t] or text[-1:]
+                   or ["no message"])
+            results.setdefault(name, {})[key] = (
+                "ended the processes: " + why[0].strip()[:200])
+            restarts += 1
+    return {"backend": backend, "devices": [str(x) for x in devices],
+            "results": {n: results.get(n, {}) for n in TP_PROBED},
+            "restarts": restarts}
+
+
+def k2_bound(x_dtype: str, max_abs_y: float) -> float:
+    """K2's bound relative to max |y| where y is a model's activation:
+    K2_TOL, but for a bf16 y never below one bf16 rounding of max |y|.
+    The kernel and int8_matmul_plain sum in f32 in different orders and
+    round once, so an element may land one bf16 step apart; on random
+    inputs (the k2_* cases) that step falls on elements far below max
+    |y|, on a model's activations it can fall on the largest, whose
+    step is 2^-8 to 2^-7 of it by where it sits in its binade."""
+    if x_dtype != "bf16" or max_abs_y <= 0:
+        return K2_TOL[x_dtype]
+    step = 2.0 ** (math.floor(math.log2(max_abs_y)) - 7)
+    return max(K2_TOL[x_dtype], step / max_abs_y)
+
+
+def tp_generate_cli(root: str, ckpt: str, prompt: list, err_path: str):
+    """`cli.generate --checkpoint CKPT --tp 2` on `prompt`, a process of
+    its own: (the process, where its stdout goes)."""
+    out_path = err_path + ".out"
+    with open(err_path, "w") as err, open(out_path, "w") as out:
+        proc = _popen_port(
+            root, TP_GENERATE, "--checkpoint", ckpt, "--tp", str(TP_RANKS),
+            "--max-new-tokens", str(TP_NEW_TOKENS),
+            "--prompt-ids", ",".join(str(t) for t in prompt),
+            "--device", TP_DEVICE, stdout=out, stderr=err)
+    return proc, out_path
+
+
+def tp_generate_result(out_path: str, err_path: str) -> tuple[list, float]:
+    """(the token ids generate printed, its seconds from its stderr)."""
+    with open(out_path) as f:
+        last = f.read().strip().splitlines()[-1]
+    require(last.startswith("token ids:"), f"tp generate --tp 2: "
+            f"{last[:200]}")
+    seconds = re.findall(r"^# \d+ tokens in ([0-9.]+)s", _tail(err_path),
+                         re.M)
+    return json.loads(last.removeprefix("token ids:")), (
+        float(seconds[-1]) if seconds else None)
+
+
+def tp_serve_launch(root: str, ckpt: str, tmp_dir: str):
+    """`serve --checkpoint CKPT --tp 2 --engine paged --speculate ngram`,
+    a process of its own: (the process, tp_serve_cli's launch record)."""
+    port, metrics_port = _free_port(), _free_port()
+    err_path = os.path.join(tmp_dir, "serve.err")
+    with open(err_path, "w") as err:
+        proc = _popen_port(
+            root, TP_SERVE, "--checkpoint", ckpt,
+            "--metrics-port", str(metrics_port),
+            "--tp", str(TP_RANKS), "--engine", "paged", "--page-size",
+            "128", "--prefill-chunk", "512", "--speculate", "ngram",
+            "--spec-k", str(SPEC_K), "--port", str(port), "--device",
+            TP_DEVICE, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, {"proc": proc, "url": f"http://127.0.0.1:{port}",
+                  "metrics": f"http://127.0.0.1:{metrics_port}",
+                  "err": err_path, "t_launch": time.monotonic()}
+
+
+def tp_requests(np, cfg) -> list:
+    rs = np.random.RandomState(SEED + 60)
+    return [{"tokens": rs.randint(0, cfg.vocab_size, size=n).tolist(),
+             "max_new_tokens": TP_NEW_TOKENS} for n in TP_PROMPT_LENS]
+
+
+def tp_engines(model, cfg, ops=None, kv_cfg=None) -> dict:
+    """The tp phase's engines over `ops` (None: this process alone):
+    window, continuous and paged, as the serving phases size them."""
+    from container_engine_accelerators_tpu_torch.cli.serve import (
+        BatchingEngine,
+        ContinuousEngine,
+        PagedContinuousEngine,
+    )
+
+    kw = dict(engine_core="async", ops=ops)
+    return {
+        "window": lambda: BatchingEngine(model, cfg, max_batch=8,
+                                         window_ms=250.0, **kw),
+        "continuous": lambda: ContinuousEngine(
+            model, cfg, max_slots=8, max_len=2048, prefill_chunk=512, **kw),
+        "paged": lambda: PagedContinuousEngine(
+            model, cfg, max_slots=8, max_len=2048, page=128,
+            prefill_chunk=512, **kw),
+        "int8_weights": lambda: ContinuousEngine(
+            model, cfg, max_slots=8, max_len=2048, prefill_chunk=512, **kw),
+        "int8_kv": lambda: PagedContinuousEngine(
+            model, kv_cfg, max_slots=8, max_len=2048, page=128,
+            prefill_chunk=512, **kw),
+    }
+
+
+def tp_engine_run(torch, engine, requests: list, what: str,
+                  rt=None) -> dict:
+    """The requests at once through engine.submit; the tokens, the
+    burst's seconds and tokens/s, and the kernel launches of every rank
+    (rank 0's counter and, under `rt`, each follower's)."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    if rt is not None:
+        rt.stats(reset_launches=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    futs = [engine.submit(r["tokens"], r["max_new_tokens"], 0.0)
+            for r in requests]
+    try:
+        got = [f.result(timeout=600) for f in futs]
+    finally:
+        engine.stop()
+        engine.thread.join(timeout=60)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rt is not None:
+        for s in rt.stats()[1:]:
+            _launches_into(launches, s["launches"])
+    for r, toks in zip(requests, got):
+        _check_answer(toks, r["tokens"], r["max_new_tokens"], 2 ** 31, what)
+    n = sum(r["max_new_tokens"] for r in requests)
+    return {"tokens": got, "burst_s": seconds,
+            "generated_tokens_per_s": n / seconds, "launches": launches}
+
+
+def tp_drift(torch, dev, model, cfg, ops, shard, prefix, window,
+             moe: bool = False, shard_cfg=None, plain: bool = False) -> dict:
+    """D (and R for a mixture of experts): the same teacher-forced pass
+    on tp 1 (`model`) and through `ops` on `shard` (over the group, or
+    tp 1's f32 twin under `shard_cfg` with `plain`): `prefix` [B, T0]
+    prefilled into a slot cache, then `window` [B, k+1] one token a
+    step. D is the largest |logit change| at the window's positions (for
+    a mixture of experts, before a row's first primary routing flip
+    between the two runs, R the largest router probability change among
+    the routings no flip reaches), as moe_drift measures them."""
+    from container_engine_accelerators_tpu_torch.models import decode_tp
+
+    b, t0 = prefix.shape
+    k1 = window.shape[1]
+    on = torch.ones(b, dtype=torch.bool, device=dev)
+
+    def run(o, m, c, plain):
+        cache = o.init_slot_cache(c, b, t0 + k1, dev)
+        _, cache = o.verify_step(m, cache, prefix, on, c, plain=plain)
+        cache = o.advance_lengths(cache, torch.full(
+            (b,), t0, dtype=torch.int32, device=dev), on)
+        logits = []
+        for j in range(k1):
+            lg, cache = o.decode_step(m, cache, window[:, j:j + 1], c,
+                                      active=on, plain=plain)
+            logits.append(lg[:, 0])
+        return torch.stack(logits, dim=1)
+
+    with route_recorder(torch, cfg) as plain_calls:
+        ref = run(decode_tp.LOCAL, model, cfg, False)
+    with route_recorder(torch, cfg) as tp_calls:
+        got = run(ops, shard, shard_cfg or cfg, plain)
+    diff = (got.float() - ref).abs().amax(dim=-1).tolist()   # [B, k+1]
+    if not moe:
+        return {"D": max(max(r) for r in diff), "rows": b}
+    seqs = torch.cat([prefix, window], dim=1).tolist()
+    a = routes_of(torch, plain_calls[1:], seqs, None, by_row=True)
+    g = routes_of(torch, tp_calls[1:], seqs, None, by_row=True)
+    d, r, n_pos, flips = 0.0, 0.0, 0, 0
+    for i in range(b):
+        f = route_flips(a[i], g[i], len(seqs[i]))
+        clean = min([x["position"] for x in f["primary"]]
+                    + [len(seqs[i])]) - t0
+        d = max([d] + diff[i][:max(clean, 0)])
+        r = max(r, f["max_prob_gap"])
+        n_pos += max(clean, 0)
+        flips += len(f["primary"])
+    require(n_pos > 0, "tp moe drift: every position is reached by a "
+            "routing flip")
+    return {"D": d, "R": r, "rows": b, "positions_measured": n_pos,
+            "primary_flips": flips}
+
+
+def f32_twin(torch, model):
+    """(tp 1's model with every weight but its int8 ones cast to f32, its
+    cfg with f32 activations): the same weights, rounded nowhere but in
+    f32 and where the model quantizes."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        Llama,
+        LlamaLayer,
+        layer_weights,
+    )
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        QuantWeight,
+    )
+
+    def f32(w):
+        return w if isinstance(w, QuantWeight) else w.detach().float()
+
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    layers = [LlamaLayer(**{n: f32(getattr(layer, n))
+                            for n in layer_weights(cfg)})
+              for layer in model.layers]
+    return Llama(cfg, embed=f32(model.embed), layers=layers,
+                 final_norm=f32(model.final_norm),
+                 lm_head=f32(model.lm_head)), cfg
+
+
+def tp_drift_limit(torch, dev, model, cfg, prefix, window,
+                   moe: bool = False) -> dict:
+    """What tp 1's own bf16 rounding moves, against its f32 twin
+    (f32_twin, the plain path: the kernels take bf16): D (and for MoE R)
+    over the teacher-forced window tp_drift reads, and for a dense model
+    the first step's logits (the prefill of `prefix`, every position);
+    the limits tp 2 is held to are TP_DRIFT_FACTOR times these."""
+    from container_engine_accelerators_tpu_torch.models import (
+        decode,
+        decode_tp,
+    )
+
+    import dataclasses
+
+    b, t0 = prefix.shape
+    twin, cfg32 = f32_twin(torch, model)
+    cfg32 = dataclasses.replace(cfg32, kv_cache_dtype=cfg.kv_cache_dtype)
+    own = tp_drift(torch, dev, model, cfg, decode_tp.LOCAL, twin, prefix,
+                   window, moe=moe, shard_cfg=cfg32, plain=True)
+    out = {"f32_drift": own, "factor": TP_DRIFT_FACTOR,
+           "limit": TP_DRIFT_FACTOR * own["D"]}
+    if moe:
+        # The first step's routings flip between bf16 and f32: the
+        # window's D and R, which leave flips out, are what is held.
+        out["limit_R"] = TP_DRIFT_FACTOR * own["R"]
+    else:
+        want, _ = decode.decode_step(
+            model, decode.init_cache(cfg, b, t0, dev), prefix, cfg)
+        f32, _ = decode.decode_step(
+            twin, decode.init_cache(cfg32, b, t0, dev), prefix, cfg32,
+            plain=True)
+        out["f32_first_step"] = (f32.float() - want).abs().max().item()
+        out["limit_first_step"] = TP_DRIFT_FACTOR * out["f32_first_step"]
+        del want, f32
+    del twin
+    _free_card(torch)
+    return out
+
+
+def tp_held(value: float, limit: float, what: str, detail: dict) -> None:
+    """Fails where `value` (a gap between tp 1 and tp 2) exceeds `limit`
+    (tp_drift_limit's)."""
+    require(value <= limit, f"{what}: {value} between tp 1 and tp 2 "
+            f"exceeds {TP_DRIFT_FACTOR} x what bf16 moves tp 1 from its "
+            f"f32 twin ({limit}; {detail}): a reduction, the vocab gather "
+            f"or the shard plan is off")
+
+
+def tp_tick(torch, dev, ops, model, cfg, ticks: int = 4) -> dict:
+    """The decode tick at 8 active slots of 128 cached tokens: wall ms a
+    tick (the host waits for each), the device-busy ms of this
+    process's kernels (torch.profiler; under tp, rank 0's share), and
+    under tp the host ms spent inside the collectives a tick."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    b = 8
+    on = torch.ones(b, dtype=torch.bool, device=dev)
+    prefix = torch.randint(0, cfg.vocab_size, (b, 128), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 61))
+    cache = ops.init_slot_cache(cfg, b, 128 + 2 * ticks + 8, dev)
+    _, cache = ops.verify_step(model, cache, prefix, on, cfg)
+    cache = ops.advance_lengths(cache, torch.full(
+        (b,), 128, dtype=torch.int32, device=dev), on)
+    tok = prefix[:, -1]
+    box = {"cache": cache}
+
+    def step():
+        logits, box["cache"] = ops.decode_step_slots(model, box["cache"],
+                                                     tok, on, cfg)
+        return logits
+
+    step()
+    torch.cuda.synchronize()
+    coll = {"s": 0.0, "n": 0}
+    real = {n: getattr(decode.dist, n) for n in ("all_reduce",
+                                                  "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                coll["s"] += time.perf_counter() - t0
+                coll["n"] += 1
+        return call
+
+    for n, fn in real.items():
+        setattr(decode.dist, n, timed(fn))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            step().argmax(dim=-1).tolist()
+        wall = (time.perf_counter() - t0) / ticks * 1e3
+    finally:
+        for n, fn in real.items():
+            setattr(decode.dist, n, fn)
+    busy = profile_steps(torch, step, steps=1, cpu=dev.type != "cuda")
+    return {"slots": b, "context": 128, "n_layers": cfg.n_layers,
+            "wall_ms": wall, "busy_ms": busy["busy_ms_per_step"],
+            "top_kernels_ms": busy["top"],
+            "collectives_a_tick": coll["n"] / ticks,
+            "collectives_host_ms": coll["s"] / ticks * 1e3}
+
+
+def tp_serve_cli(torch, np, cfg, requests, refs, margins, d, launch,
+                 what="tp serve --tp 2 paged ngram") -> dict:
+    """The CLI case: `serve --checkpoint CKPT --tp 2 --engine paged
+    --speculate ngram` (started by `launch`) answers `requests` over
+    HTTP, held to the tp 1 references by the divergence rule with D;
+    then its follower is killed by SIGKILL during a long request: the
+    request fails, the server exits non-zero, within TP_KILL_WITHIN_S,
+    and neither process is left."""
+    proc, url, err_path = launch["proc"], launch["url"], launch["err"]
+
+    def ready():
+        require(proc.poll() is None, f"{what}: serve exited "
+                f"{proc.returncode}: {_tail(err_path)}")
+        try:
+            return healthz(url)
+        except OSError:
+            return False
+
+    _wait_for(ready, f"{what}: ready", 300)
+    launch["ready_s"] = time.monotonic() - launch["t_launch"]
+    health = healthz(url)
+    require(health["tp"]["tp"] == TP_RANKS
+            and health["tp"]["backend"] == "gloo", f"{what}: {health}")
+    log_text = open(err_path).read()
+    require("tensor-parallel over" in log_text and "gloo" in log_text,
+            f"{what}: the group's backend is not in the log")
+    t0 = time.monotonic()
+    answers, t_start, t_end = burst(url, requests)
+    generated = _check_burst(requests, answers, cfg.vocab_size, what)
+    got = [_answer_tokens(q, a) for q, (a, _, _) in zip(requests, answers)]
+    rule = divergence_rule(refs, got, [r["tokens"] for r in requests],
+                           margins, d, what)
+    with urllib.request.urlopen(launch["metrics"] + "/debugz?state=1",
+                                timeout=60) as r:
+        state = json.loads(r.read())["state"]
+    follower = health["tp"]["pids"][1]
+    served = {"burst_s": t_end - t_start,
+              "generated_tokens_per_s": generated / (t_end - t_start),
+              "launch_to_ready_s": launch["ready_s"],
+              **rule, "state_tp": state.get("tp")}
+    used_before = torch.cuda.mem_get_info()
+    result = {}
+
+    def long_request():
+        t = time.monotonic()
+        try:
+            ans, _, _ = _post(url, {"tokens": requests[0]["tokens"],
+                                    "max_new_tokens": 1024})
+            result["answer"] = ans
+        except urllib.error.HTTPError as e:
+            result["status"] = e.code
+            result["error"] = e.read().decode()[:300]
+        except OSError as e:
+            result["error"] = repr(e)[:300]
+        result["s"] = time.monotonic() - t
+
+    thread = threading.Thread(target=long_request, daemon=True)
+    thread.start()
+    time.sleep(1.0)
+    t_kill = time.monotonic()
+    os.kill(follower, signal.SIGKILL)
+    thread.join(timeout=TP_KILL_WITHIN_S + 5)
+    require(not thread.is_alive(), f"{what}: the request in flight hung "
+            f"after the follower's SIGKILL")
+    t_failed = time.monotonic() - t_kill
+    require("answer" not in result, f"{what}: the request in flight "
+            f"answered after its follower died: {result}")
+    try:
+        rc = proc.wait(timeout=TP_KILL_WITHIN_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    t_exit = time.monotonic() - t_kill
+    require(rc not in (0, None), f"{what}: the server's exit code {rc} "
+            f"{t_exit:.1f} s after the follower's SIGKILL")
+    require(t_exit <= TP_KILL_WITHIN_S, f"{what}: the server took "
+            f"{t_exit:.1f} s to exit")
+    gone = [not os.path.exists(f"/proc/{pid}")
+            or open(f"/proc/{pid}/stat").read().split(")")[-1].split()[0]
+            == "Z" for pid in health["tp"]["pids"]]
+    require(all(gone), f"{what}: processes left {health['tp']['pids']}")
+    _wait_for(lambda: torch.cuda.mem_get_info()[0] > used_before[0],
+              f"{what}: the card's memory back", 30)
+    served["kill"] = {"request_failed_s": t_failed,
+                      "request_status": result.get("status"),
+                      "request_error": result.get("error"),
+                      "server_exit_code": rc, "server_exit_s": t_exit,
+                      "processes_left": 0,
+                      "card_free_bytes_before": used_before[0],
+                      "card_free_bytes_after":
+                          torch.cuda.mem_get_info()[0]}
+    served["setup_to_kill_s"] = time.monotonic() - t0
+    return served
+
+
+def tp_moe(torch, dev, np, rt) -> dict:
+    """Mixtral-8x7B's FFN on Llama-3-8B attention at TP_MOE_LAYERS
+    layers, experts sharded over the two ranks (moe_decode_ep, 4 a
+    rank): the continuous engine's tokens and routings held to tp 1's
+    (decode.generate at batch 1) with the moe phase's rules, D and R
+    measured between tp 1 and tp 2 as moe_drift measures them, and each
+    held to TP_DRIFT_FACTOR times the same between tp 1 and its f32
+    twin (tp_drift_limit)."""
+    from container_engine_accelerators_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(n_layers=TP_MOE_LAYERS, moe_decode_ep=True,
+                          **MOE_KW)
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    shard = rt.random_model(cfg, seed=SEED)
+    require(shard.layers[0].w_gate.shape[0] == cfg.n_experts // TP_RANKS,
+            f"tp moe: {shard.layers[0].w_gate.shape[0]} experts a rank")
+    rs = np.random.RandomState(SEED + 62)
+    prompts = [rs.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in TP_PROMPT_LENS]
+    refs, margins, ref_calls = moe_references(torch, dev, model, cfg,
+                                              prompts, TP_NEW_TOKENS)
+    prefix = torch.tensor([p[:128] for p in prompts], device=dev)
+    window = torch.tensor([r[128:128 + SPEC_K + 1] for r in refs],
+                          device=dev)
+    drift = tp_drift(torch, dev, model, cfg, rt, shard, prefix, window,
+                     moe=True)
+    limit = tp_drift_limit(torch, dev, model, cfg, prefix, window,
+                           moe=True)
+    tp_held(drift["D"], limit["limit"], "tp moe D", limit)
+    tp_held(drift["R"], limit["limit_R"], "tp moe R", limit)
+    requests = [{"tokens": p, "max_new_tokens": TP_NEW_TOKENS}
+                for p in prompts]
+    engine = tp_engines(shard, cfg, ops=rt)["continuous"]()
+    with route_recorder(torch, cfg) as calls:
+        run = tp_engine_run(torch, engine, requests, "tp moe", rt)
+    flips, routes = moe_route_check(torch, cfg, ref_calls, calls, refs,
+                                    run["tokens"], prompts, drift["R"],
+                                    "tp moe continuous")
+    rule = divergence_rule(refs, run["tokens"], prompts, margins,
+                           drift["D"], "tp moe continuous", flips=flips,
+                           r=drift["R"])
+    rt.drop_model(shard)
+    del model, engine
+    _free_card(torch)
+    run.pop("tokens")
+    return {"model": "llama3_8b widths, Mixtral-8x7B FFN, moe_decode_ep",
+            "n_layers": TP_MOE_LAYERS, "experts_a_rank":
+            cfg.n_experts // TP_RANKS, "drift": drift, "limit": limit,
+            **run, **rule, "routes": routes}
+
+
+def tp_phase(torch, dev, np) -> dict:
+    """Tensor-parallel serving on the card (see the module docstring):
+    two ranks on cuda:0 over gloo. llama3_8b at full width cut to
+    TP_LAYERS layers, from SEED: the tp 1 model in this process, each
+    rank's shard drawn from the same seed, and an HF export of the same
+    weights, written while the group starts, that `generate --tp 2` and
+    `serve --tp 2` read with --checkpoint (each of their ranks one
+    weight at a time) while the in-process cases run."""
+    from container_engine_accelerators_tpu_torch.models import (
+        decode_tp,
+        llama,
+    )
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        save_hf_checkpoint,
+    )
+
+    seconds, out = {}, {"phase": "tp"}
+    t_phase = time.perf_counter()
+    _free_card(torch)
+    root = port_root()
+    cfg = llama.llama3_8b(n_layers=TP_LAYERS)
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    requests = tp_requests(np, cfg)
+    prompts = [r["tokens"] for r in requests]
+    probe: dict = {}
+    probe_thread = threading.Thread(target=lambda: probe.update(
+        tp_probe(root, TP_RANKS, TP_DEVICE)), daemon=True)
+    tmp_dir = tempfile.mkdtemp(prefix="tp-smoke-")
+    procs: list = []
+    cli: dict = {}
+
+    def export_and_launch():
+        # The export, then the CLI processes on it; the group starts
+        # meanwhile.
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp_dir, "ckpt")
+        save_hf_checkpoint(model, cfg, ckpt)
+        cli["export_s"] = time.perf_counter() - t0
+        cli["gen_err"] = os.path.join(tmp_dir, "gen.err")
+        cli["gen"], cli["gen_out"] = tp_generate_cli(root, ckpt, prompts[0],
+                                                     cli["gen_err"])
+        procs.append(cli["gen"])
+        serve_proc, cli["launch"] = tp_serve_launch(root, ckpt, tmp_dir)
+        procs.append(serve_proc)
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    exporter = pool.submit(export_and_launch)
+    try:
+        t0 = time.perf_counter()
+        rt = decode_tp.TPRuntime(TP_RANKS, device=TP_DEVICE)
+        try:
+            runs = tp_phase_group(torch, dev, np, rt, model, cfg, requests,
+                                  exporter, cli, probe_thread, seconds, out,
+                                  t0)
+            del model
+            _free_card(torch)
+            t0 = time.perf_counter()
+            out["moe"] = tp_moe(torch, dev, np, rt)
+            _launches_into(out["launches"], out["moe"]["launches"])
+            emit({"phase": "tp_moe", **out["moe"]})
+            seconds["moe"] = time.perf_counter() - t0
+        finally:
+            rt.close()
+    finally:
+        with contextlib.suppress(Exception):
+            exporter.result(timeout=300)
+        pool.shutdown()
+        _stop_procs(procs)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    seconds["export"] = cli["export_s"]
+    probe_thread.join(timeout=120)
+    require(probe.get("results"), "tp: the collective probe did not finish")
+    for name, kernel in (("window", "decode_attention"),
+                         ("continuous", "decode_attention"),
+                         ("paged", "paged_decode_attention"),
+                         ("int8_weights", "int8_matmul")):
+        require(runs[name]["launches"].get(kernel, 0) > 0,
+                f"tp {name}: no {kernel} launch")
+    _free_card(torch)
+    out.update({"probe": probe, "seconds": seconds,
+                "phase_s": time.perf_counter() - t_phase})
+    emit({k: v for k, v in out.items()
+          if k not in ("moe", "serve_cli", "kernel_checks")})
+    out["engines"] = runs
+    return out
+
+
+def tp_phase_group(torch, dev, np, rt, model, cfg, requests, exporter,
+                   cli, probe_thread, seconds, out, t0) -> dict:
+    """tp_phase's cases over the group `rt`, in order: the shards, the
+    kernel checks at local shapes, the first step and D (each held to
+    tp 1's own drift), the tick, the five in-process engines, generate
+    --tp 2, the ranks' memory and serve --tp 2 with its follower's
+    SIGKILL; the CLI processes are `cli`'s, once `exporter` (the export
+    and their launch) is done. Fills `out` and `seconds`; returns the
+    engines' runs."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import (
+        decode,
+        decode_tp,
+    )
+    from container_engine_accelerators_tpu_torch.ops.quant import (
+        quantize_llama_params,
+    )
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_serving,
+    )
+
+    prompts = [r["tokens"] for r in requests]
+    shard = rt.random_model(cfg, seed=SEED)
+    rt.stats(reset_launches=True, reset_peak=True)
+    seconds["group_and_shards"] = time.perf_counter() - t0
+    out["group"] = {**rt.describe(), "start_s": rt.start_s}
+    emit({"phase": "tp_group", **out["group"]})
+
+    # Kernels at local shapes, on every rank: the shard's first 2 layers
+    # (every layer's calls take the same shapes).
+    t0 = time.perf_counter()
+    head = rt.truncate_params(shard, min(2, cfg.n_layers))
+    qhead = rt.quantize(head)
+    checks = rt.check_kernels(head, qhead, SEED + 63, TP_CHECK_SLOTS,
+                              TP_CHECK_CHUNK, K1_ROW_ATOL / K1_ROW_RTOL)
+    rt.drop_model(qhead)
+    rt.drop_model(head)
+    del qhead, head
+    for res in checks:
+        for case, c in res.items():
+            c["bound"] = (k2_bound(c["x_dtype"], c["max_abs_y"])
+                          if "x_dtype" in c else K1_ROW_RTOL)
+    for rank, res in enumerate(checks):
+        for case, c in res.items():
+            require(c["rel_err"] <= c["bound"], f"tp rank {rank} {case}: "
+                    f"{c}")
+    names = {k.split(":")[0] for res in checks for k in res}
+    require(names == {"decode_attention", "paged_decode_attention",
+                      "int8_matmul"}, f"tp kernel checks: {names}")
+    out["kernel_checks"] = checks
+    emit({"phase": "tp_kernel_checks", "ranks": [
+        {name: {"cases": sum(k.startswith(name + ":") for k in res),
+                "max_abs_err": max(c["max_abs_err"] for k, c in res.items()
+                                   if k.startswith(name + ":")),
+                "worst_over_bound": max(c["rel_err"] / c["bound"]
+                                        for k, c in res.items()
+                                        if k.startswith(name + ":"))}
+         for name in sorted(names)} for res in checks]})
+    seconds["kernel_checks"] = time.perf_counter() - t0
+
+    # Parity with tp 1: the first step's logits and D, each held to what
+    # tp 1 alone moves.
+    t0 = time.perf_counter()
+    p0 = torch.tensor(prompts[:4], device=dev)
+    window = torch.tensor([r[128:128 + SPEC_K + 1] for r in
+                           _greedy_windows(torch, dev, model, cfg,
+                                           prompts[:4])], device=dev)
+    limit = tp_drift_limit(torch, dev, model, cfg, p0, window)
+    want, _ = decode.decode_step(model, decode.init_cache(cfg, 4, 128, dev),
+                                 p0, cfg)
+    got, _ = rt.decode_step(shard, rt.init_cache(cfg, 4, 128), p0, cfg)
+    first = {"max_abs_diff": (got - want).abs().max().item(),
+             "max_abs_logit": want.abs().max().item()}
+    first["over_max_logit"] = first["max_abs_diff"] / first["max_abs_logit"]
+    del got, want
+    tp_held(first["max_abs_diff"], limit["limit_first_step"],
+            "tp first step's logits", limit)
+    drift = tp_drift(torch, dev, model, cfg, rt, shard, p0, window)
+    tp_held(drift["D"], limit["limit"], "tp D", limit)
+    d = drift["D"]
+    out.update({"n_layers": cfg.n_layers, "first_step_logits": first,
+                "drift": drift, "limit": limit})
+    emit({"phase": "tp_parity", "first_step_logits": first,
+          "drift": drift, "limit": limit})
+    seconds["parity"] = time.perf_counter() - t0
+
+    # The tick at 8 slots, tp 1 against tp 2; then the probe's processes
+    # start (none beside the timed ticks).
+    t0 = time.perf_counter()
+    out["tick"] = {"tp1": tp_tick(torch, dev, decode_tp.LOCAL, model, cfg),
+                   "tp2": tp_tick(torch, dev, rt, shard, cfg)}
+    emit({"phase": "tp_tick", **out["tick"]})
+    seconds["tick"] = time.perf_counter() - t0
+    probe_thread.start()
+
+    # The engines, tp 1 then tp 2, each case's tokens held to tp 1's by
+    # the divergence rule with its D, and each D to its tp 1 limit.
+    kv_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    runs, launches, margins_of, refs = {}, {}, {}, {}
+    for name in ("window", "continuous", "paged", "int8_weights",
+                 "int8_kv"):
+        t0 = time.perf_counter()
+        if name == "int8_weights":
+            m1, s2 = quantize_llama_params(model), rt.quantize(shard)
+        else:
+            m1, s2 = model, shard
+        c = kv_cfg if name == "int8_kv" else cfg
+        ref = tp_engine_run(torch, tp_engines(m1, c, kv_cfg=kv_cfg)[name](),
+                            requests, f"tp1 {name}")
+        # Engines of one numeric configuration that answer alike share
+        # the teacher-forced margins.
+        key = (name if name.startswith("int8") else "bf16",
+               json.dumps(ref["tokens"]))
+        if key not in margins_of:
+            margins_of[key] = plain_margins(torch, dev, m1, c, prompts,
+                                            ref["tokens"])
+        refs[name] = (ref["tokens"], margins_of[key])
+        held = {}
+        if name.startswith("int8"):
+            # Quantized weights or cache: a D and a limit of their own.
+            held["limit"] = tp_drift_limit(torch, dev, m1, c, p0, window)
+            dd = tp_drift(torch, dev, m1, c, rt, s2, p0, window)["D"]
+            tp_held(dd, held["limit"]["limit"], f"tp {name} D",
+                    held["limit"])
+        else:
+            dd = d
+        run = tp_engine_run(torch, tp_engines(
+            s2, c, ops=rt, kv_cfg=kv_cfg)[name](), requests, f"tp {name}",
+            rt)
+        rule = divergence_rule(ref["tokens"], run["tokens"], prompts,
+                               refs[name][1], dd, f"tp {name}")
+        _launches_into(launches, run["launches"])
+        runs[name] = {"tp1_tokens_per_s": ref["generated_tokens_per_s"],
+                      "tokens_per_s": run["generated_tokens_per_s"],
+                      "burst_s": run["burst_s"],
+                      "launches": run["launches"], **rule, **held,
+                      "seconds": time.perf_counter() - t0}
+        if name == "int8_weights":
+            rt.drop_model(s2)
+            del m1, s2
+            _free_card(torch)
+        emit({"phase": f"tp_{name}", **runs[name]})
+    seconds["engines"] = sum(r["seconds"] for r in runs.values())
+
+    # The generate CLI (loading meanwhile) against tp 1's batch-1 loop.
+    t0 = time.perf_counter()
+    exporter.result(timeout=300)
+    gen_proc, gen_out, gen_err = cli["gen"], cli["gen_out"], cli["gen_err"]
+    launch = cli["launch"]
+    gen_proc.wait(timeout=300)
+    require(gen_proc.returncode == 0, f"generate --tp 2 exited "
+            f"{gen_proc.returncode}: {_tail(gen_err)}")
+    gen_tokens, gen_s = tp_generate_result(gen_out, gen_err)
+    gen_ref, gen_margins = greedy_margins(torch, dev, model, cfg,
+                                          prompts[0], TP_NEW_TOKENS)
+    out["generate_cli"] = {"seconds": gen_s, **divergence_rule(
+        [gen_ref], [gen_tokens], [prompts[0]], [gen_margins], d,
+        "tp generate --tp 2")}
+    seconds["generate_cli"] = time.perf_counter() - t0
+    out["launches"] = launches
+    stats = rt.stats()
+    out["memory"] = {
+        "plan_serving": plan_serving(cfg, tp=TP_RANKS, max_slots=8,
+                                     max_len=2048, pool_fraction=1.0,
+                                     device=dev),
+        # Rank 0's peak also holds this process's tp 1 model.
+        "ranks": [{"rank": s["rank"], "pid": s["pid"],
+                   "max_memory_allocated_bytes":
+                       s.get("max_memory_allocated_bytes")}
+                  for s in stats]}
+    emit({"phase": "tp_memory", **out["memory"]})
+
+    # serve --tp 2, paged + ngram, over HTTP (the same weights, held to
+    # the tp 1 paged engine with D plus the verify drift), then its
+    # follower's SIGKILL.
+    t0 = time.perf_counter()
+    verify_d = verify_drift(torch, dev, model, cfg, p0, window, paged=True)
+    try:
+        out["serve_cli"] = tp_serve_cli(torch, np, cfg, requests,
+                                        *refs["paged"], d + verify_d, launch)
+    finally:
+        _stop_procs([launch["proc"]])
+    out["serve_cli"]["D_tp_plus_verify"] = d + verify_d
+    emit({"phase": "tp_serve_cli", **out["serve_cli"]})
+    seconds["serve_cli"] = time.perf_counter() - t0
+    rt.drop_model(shard)
+    return runs
+
+
+def _greedy_windows(torch, dev, model, cfg, prompts: list) -> list:
+    """decode.generate's greedy tokens for each 128-token prompt at batch
+    len(prompts), SPEC_K + 1 past the prompt (the drift's window)."""
+    from container_engine_accelerators_tpu_torch.models import decode
+
+    return decode.generate(model, torch.tensor(prompts, device=dev), cfg,
+                           SPEC_K + 1).tolist()
+
+
+def tp_main(torch) -> int:
+    """`chip_smoke.py tp`: the build and the tp phase alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    try:
+        dev = torch.device("cuda", 0)
+        smi = nvidia_smi_line()
+        emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+              "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        kernels.build()
+        kernels.load()
+        seconds = {"build": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        tp_phase(torch, dev, np)
+        seconds["tp"] = time.perf_counter() - t0
+        emit({"phase_seconds": seconds})
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def training_phases(torch, dev, np, timed) -> dict:
     """The training path's phases in order, the card's memory freed
     between them: train under 'dots' then 'dots_save_attn', train_parity,
@@ -8061,6 +9059,8 @@ def main() -> int:
         return telemetry_main(torch)
     if sys.argv[1:2] == ["moe"]:
         return moe_main(torch)
+    if sys.argv[1:2] == ["tp"]:
+        return tp_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -8108,6 +9108,7 @@ def main() -> int:
         del model   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
+        tp = timed("tp", tp_phase, torch, dev, np)
         moe = timed("moe", moe_phase, torch, dev, np)
         flash = timed("flash", flash_phase, torch, dev)
         tr = training_phases(torch, dev, np, timed)
@@ -8130,7 +9131,7 @@ def main() -> int:
     def launches(name):
         return sum(phase["launches"].get(name, 0)
                    for phase in (serve, int8, paged, preempt, cont, kvq,
-                                 obs, spec, pools, sup, moe,
+                                 obs, spec, pools, sup, tp, moe,
                                  tr["serve_ckpt"], tele, doc))
 
     def flash_launches(name):

@@ -86,6 +86,23 @@ session in a torch.profiler capture whose serve/admit,
 serve/prefill_chunk and serve/decode_tick regions (utils/profiling.py)
 also land on the flight recorder.
 
+Tensor parallelism (`--tp N`, models/decode_tp.py): this process is
+rank 0 of N and spawns ranks 1..N-1, each holding its shard of the
+weights (`--tiny` draws them from seed 0; under `--checkpoint` each
+rank reads the file one weight at a time and keeps its part) and of the
+KV cache; every engine operation
+goes to every rank, and rank 0 samples. Rank r takes cuda:r over NCCL
+where this process sees N cards, else every rank shares cuda:0 over
+gloo; `--device cpu` runs gloo on the CPU. `/healthz` and
+`/debugz?state=1` show the group. A follower that dies fails the
+requests in flight and `/healthz`, and the server exits with code 3.
+`--moe-decode-ep` splits an MoE model's experts over the ranks.
+`--prefill-workers`, `--supervise` and `--fabric-health` do not run
+under `--tp > 1` yet.
+
+  python -m container_engine_accelerators_tpu_torch.cli.serve --tiny \
+      --device cpu --engine paged --tp 2
+
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back.
 """
@@ -118,24 +135,13 @@ from container_engine_accelerators_tpu_torch.metrics.request_metrics import (
     RequestRecorder,
     ServeMetricsExporter,
 )
-from container_engine_accelerators_tpu_torch.models import spec
+from container_engine_accelerators_tpu_torch.models import decode_tp, spec
 from container_engine_accelerators_tpu_torch.models.decode import (
     PageAllocator,
     PrefixIndex,
-    advance_lengths,
-    assign_pages,
-    decode_step_paged,
-    decode_step_slots,
     draft_layer_count,
-    generate,
-    init_paged_cache,
-    init_slot_cache,
     merge_tokens,
     pick_tokens,
-    prefill_suffix_paged,
-    prefill_suffix_slot,
-    set_slot_pages,
-    verify_step,
 )
 from container_engine_accelerators_tpu_torch.utils.profiling import (
     annotate,
@@ -298,7 +304,7 @@ class BatchingEngine:
                  engine_core: str = "async",
                  recorder: RequestRecorder | None = None,
                  speculate: str = "off", spec_k: int = 4,
-                 draft_layers: int = 2):
+                 draft_layers: int = 2, ops=None):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
@@ -308,8 +314,16 @@ class BatchingEngine:
         self.max_batch = max_batch
         self.window = window_ms / 1000.0
         self.max_prompt_len = max_prompt_len
+        # The decode operations: models.decode's own, or a tensor-
+        # parallel group's (decode_tp.TPRuntime) on this rank's shard.
+        self._ops = ops or decode_tp.LOCAL
         # Speculative decoding: each greedy batch runs generate()'s
-        # speculative loop; a sampled batch runs the plain loop.
+        # speculative loop; a sampled batch runs the plain loop. Under
+        # tensor parallelism generate() does not speculate (as in the
+        # JAX package): every batch runs the plain loop.
+        if self._ops.size > 1 and speculate != "off":
+            log.info("window engine under --tp: speculation off")
+            speculate = "off"
         self.speculate = speculate
         self.spec_k = spec_k
         self.draft_layers = draft_layers
@@ -480,7 +494,8 @@ class BatchingEngine:
                     # Dispatch only: the plain generate() never waits for
                     # the device (the speculative one reads each round's
                     # argmax).
-                    out = generate(self.model, tokens, self.cfg, n_new,
+                    out = self._ops.generate(
+                                   self.model, tokens, self.cfg, n_new,
                                    temperature=temp, generator=gen,
                                    speculate=(self.speculate if temp <= 0
                                               else "off"),
@@ -681,7 +696,7 @@ class ContinuousEngine:
                  engine_core: str = "async", plain: bool = False,
                  recorder: RequestRecorder | None = None,
                  speculate: str = "off", spec_k: int = 4,
-                 draft_layers: int = 2):
+                 draft_layers: int = 2, ops=None):
         if engine_core not in ("async", "sync"):
             raise ValueError(f"engine_core must be 'async' or 'sync', "
                              f"got {engine_core!r}")
@@ -693,6 +708,9 @@ class ContinuousEngine:
         self.model = model
         self.cfg = cfg
         self.device = model.device
+        # models.decode's operations, or a TPRuntime's: every call that
+        # touches the model or the cache goes through them.
+        self._ops = ops or decode_tp.LOCAL
         self.max_slots = max_slots
         self.max_len = max_len
         self.prompt_bucket = prompt_bucket
@@ -762,7 +780,7 @@ class ContinuousEngine:
         if speculate == "draft":
             n_draft = draft_layer_count(cfg, draft_layers)
             self._draft_cfg = spec.draft_config(cfg, n_draft)
-            self._draft_model = spec.truncate_params(model, n_draft)
+            self._draft_model = self._ops.truncate_params(model, n_draft)
         # The slot table and cache exist before the worker starts, so a
         # reader on another thread (the census) never sees them missing.
         self._fresh_slots()
@@ -870,16 +888,16 @@ class ContinuousEngine:
     def _fresh_state(self):
         # The old cache goes first, so the card never holds two.
         self._cache = None
-        self._cache = init_slot_cache(self.cfg, self.max_slots,
-                                      self.max_len, self.device)
+        self._cache = self._ops.init_slot_cache(self.cfg, self.max_slots,
+                                                self.max_len, self.device)
         self._fresh_draft_state()
 
     def _fresh_draft_state(self):
         if self.speculate != "draft":
             return
         self._draft_cache = None
-        self._draft_cache = init_slot_cache(self._draft_cfg, self.max_slots,
-                                            self.max_len, self.device)
+        self._draft_cache = self._ops.init_slot_cache(
+            self._draft_cfg, self.max_slots, self.max_len, self.device)
 
     def _admit_one(self, item, slot_idx) -> bool:
         """Register the request in a free slot; its prompt runs in the
@@ -898,16 +916,16 @@ class ContinuousEngine:
 
     def _run_chunk(self, slot_idx: int, tokens: torch.Tensor, start: int,
                    new_len: int) -> torch.Tensor:
-        last, self._cache = prefill_suffix_slot(
+        last, self._cache = self._ops.prefill_suffix_slot(
             self.model, self._cache, slot_idx, tokens, start, new_len,
             self.cfg, plain=self.plain)
         return last
 
     def _step(self, tokens: torch.Tensor, active: torch.Tensor
               ) -> torch.Tensor:
-        logits, self._cache = decode_step_slots(self.model, self._cache,
-                                                tokens, active, self.cfg,
-                                                plain=self.plain)
+        logits, self._cache = self._ops.decode_step_slots(
+            self.model, self._cache, tokens, active, self.cfg,
+            plain=self.plain)
         return logits
 
     def _on_prefill_complete(self, slot_idx: int, sl: dict) -> None:
@@ -1175,7 +1193,7 @@ class ContinuousEngine:
                 # never forwarded and the draft cache has no K/V there:
                 # drafts degrade, and the verifier keeps the output
                 # exact (a wrong draft is rejected, never emitted).
-                _, self._draft_cache = prefill_suffix_slot(
+                _, self._draft_cache = self._ops.prefill_suffix_slot(
                     self._draft_model, self._draft_cache, i, chunk, start,
                     new_len, self._draft_cfg, plain=self.plain)
             if final:
@@ -1364,9 +1382,9 @@ class ContinuousEngine:
                 ) -> torch.Tensor:
         """The verify pass over [slots, k+1] tokens; returns its logits,
         the cache's lengths unmoved."""
-        logits, self._cache = verify_step(self.model, self._cache, tokens,
-                                          active, self.cfg,
-                                          plain=self.plain)
+        logits, self._cache = self._ops.verify_step(
+            self.model, self._cache, tokens, active, self.cfg,
+            plain=self.plain)
         return logits
 
     def _spec_decode_tick(self) -> bool:
@@ -1405,7 +1423,7 @@ class ContinuousEngine:
             if self.speculate == "draft":
                 cols, cur = [], last
                 for _ in range(k):
-                    dlogits, self._draft_cache = decode_step_slots(
+                    dlogits, self._draft_cache = self._ops.decode_step_slots(
                         self._draft_model, self._draft_cache, cur, active,
                         self._draft_cfg, plain=self.plain)
                     cur = dlogits.argmax(dim=-1)
@@ -1447,13 +1465,13 @@ class ContinuousEngine:
                               {"tick": self.steps_run + 1, "spec": True,
                                "drafted": k, "committed": c}, ts=t_step)
         try:
-            self._cache = advance_lengths(
+            self._cache = self._ops.advance_lengths(
                 self._cache, _to_device(commit, torch.int32, dev), active)
             if self.speculate == "draft":
                 # The draft cache's prefix matches the main cache's token
                 # for token: the length is the whole re-anchor.
-                self._draft_cache = dataclasses.replace(
-                    self._draft_cache, length=self._cache.length.clone())
+                self._draft_cache = self._ops.copy_lengths(
+                    self._draft_cache, self._cache)
         except Exception as e:
             introspection.note_failure(e, "serve/decode_tick")
             log.exception("speculative commit failed")
@@ -1565,7 +1583,7 @@ class PagedContinuousEngine(ContinuousEngine):
                  speculate: str = "off", spec_k: int = 4,
                  draft_layers: int = 2,
                  thermal_hot_s: float = 2.0, thermal_warm_s: float = 10.0,
-                 thermal_interval_s: float = 1.0):
+                 thermal_interval_s: float = 1.0, ops=None):
         max_len = -(-max_len // page) * page
         self.page = page
         self.max_pages = max_len // page
@@ -1587,7 +1605,7 @@ class PagedContinuousEngine(ContinuousEngine):
                          prefill_workers=prefill_workers,
                          engine_core=engine_core, plain=plain,
                          recorder=recorder, speculate=speculate,
-                         spec_k=spec_k, draft_layers=draft_layers)
+                         spec_k=spec_k, draft_layers=draft_layers, ops=ops)
 
     def submit(self, tokens, max_new_tokens, temperature, stream=None,
                trace_ctx=None):
@@ -1671,9 +1689,9 @@ class PagedContinuousEngine(ContinuousEngine):
     def _fresh_state(self):
         # The old pool goes first, so the card never holds two.
         self._cache = None
-        self._cache = init_paged_cache(self.cfg, self.max_slots,
-                                       self.pool_pages, self.page,
-                                       self.max_pages, self.device)
+        self._cache = self._ops.init_paged_cache(
+            self.cfg, self.max_slots, self.pool_pages, self.page,
+            self.max_pages, self.device)
         self._alloc = PageAllocator(self.pool_pages)
         self.prefix_index = PrefixIndex(self._alloc, cap=self.prefix_cap)
         self._rerefs_seen = 0
@@ -1788,7 +1806,7 @@ class PagedContinuousEngine(ContinuousEngine):
                 "full_pages": n_full,
             })
         table_row = rows + [0] * (self.max_pages - len(rows))
-        self._cache = set_slot_pages(
+        self._cache = self._ops.set_slot_pages(
             self._cache, slot_idx,
             _to_device(table_row, torch.int32, self.device), p_len)
         self._admit_seq += 1
@@ -1808,15 +1826,15 @@ class PagedContinuousEngine(ContinuousEngine):
     def _run_chunk(self, slot_idx, tokens, start, new_len):
         # The start is length[slot] on the device, set by admission or
         # by the previous chunk.
-        last, self._cache = prefill_suffix_paged(
+        last, self._cache = self._ops.prefill_suffix_paged(
             self.model, self._cache, slot_idx, tokens, new_len, self.cfg,
             plain=self.plain)
         return last
 
     def _step(self, tokens, active):
-        logits, self._cache = decode_step_paged(self.model, self._cache,
-                                                tokens, active, self.cfg,
-                                                plain=self.plain)
+        logits, self._cache = self._ops.decode_step_paged(
+            self.model, self._cache, tokens, active, self.cfg,
+            plain=self.plain)
         return logits
 
     def _on_prefill_complete(self, slot_idx, sl):
@@ -1892,7 +1910,7 @@ class PagedContinuousEngine(ContinuousEngine):
             return False
         dev = self.device
         try:
-            self._cache = assign_pages(
+            self._cache = self._ops.assign_pages(
                 self._cache, _to_device(pos, torch.long, dev),
                 _to_device(rws, torch.int32, dev),
                 _to_device(mask, torch.bool, dev))
@@ -2044,6 +2062,54 @@ class EngineSupervisor:
                                 "backoff_s": round(delay, 3)})
 
 
+# Seconds between a lost tensor-parallel group failing the requests in
+# flight and the server's exit: time for their error answers to leave.
+TP_LOST_EXIT_GRACE_S = 1.0
+TP_LOST_EXIT_CODE = 3
+
+
+def fail_every_request(engine, err: Exception) -> int:
+    """Fail every request `engine` holds (in flight, batched, parked,
+    backlogged, queued) without taking its lock: the tensor-parallel
+    group is gone and its worker may be blocked in a collective that
+    will not return. Returns the count failed."""
+    items = []
+    for fl in list(getattr(engine, "_inflight", [])):
+        items += fl.get("batch", [])
+    items += list(getattr(engine, "_batch", []))
+    items += list(getattr(engine, "_pending", []))
+    items += list(getattr(engine, "_backlog", []))
+    while True:
+        try:
+            items.append(engine.queue.get_nowait())
+        except queue.Empty:
+            break
+    failed = 0
+    for item in items:
+        _fail(item[3], item[4], err, item[5], engine.recorder)
+        failed += 1
+    for sl in list(getattr(engine, "_slots", [])):
+        if sl is not None:
+            _fail(sl["fut"], sl["stream"], err, sl["rid"], engine.recorder)
+            failed += 1
+    return failed
+
+
+def on_tp_lost(engine, err: Exception) -> None:
+    """A follower rank died: /healthz turns red, every request fails,
+    and the process exits with TP_LOST_EXIT_CODE once their answers had
+    TP_LOST_EXIT_GRACE_S to leave. Nothing waits on the group: its
+    collectives will not complete."""
+    engine.tp_lost = str(err)
+    engine.stop()
+    n = fail_every_request(engine, err)
+    log.error("%s: failed %d requests; exiting in %ss", err, n,
+              TP_LOST_EXIT_GRACE_S)
+    t = threading.Timer(TP_LOST_EXIT_GRACE_S, os._exit, (TP_LOST_EXIT_CODE,))
+    t.daemon = True
+    t.start()
+
+
 def engine_state_snapshot(engine, recorder, replica_id: str,
                           engine_kind: str, fabric_mon=None) -> dict:
     """/debugz?state=1: the fleet scraper's machine-readable snapshot,
@@ -2066,6 +2132,11 @@ def engine_state_snapshot(engine, recorder, replica_id: str,
     })
     if fabric_mon is not None:
         snap["fabric"] = fabric_mon.snapshot()
+    # The tensor-parallel group: its backend, each rank's device and pid
+    # (absent under --tp 1, as the fabric block is without a monitor).
+    ops = getattr(engine, "_ops", decode_tp.LOCAL)
+    if ops.size > 1:
+        snap["tp"] = ops.describe()
     return snap
 
 
@@ -2086,8 +2157,11 @@ def make_server(engine, port: int,
         def do_GET(self):
             if self.path == "/healthz":
                 alive_fn = getattr(engine, "prefill_workers_alive", None)
+                lost = getattr(engine, "tp_lost", None)
+                ops = getattr(engine, "_ops", decode_tp.LOCAL)
                 return self._send({
-                    "ok": True,
+                    "ok": lost is None,
+                    **({"tp": ops.describe()} if ops.size > 1 else {}),
                     "replica_id": replica_id,
                     "batches": engine.batches_run,
                     "requests": engine.requests_served,
@@ -2101,7 +2175,8 @@ def make_server(engine, port: int,
                     "prefill_workers_alive": (alive_fn() if alive_fn
                                               else 0),
                     "prefill_worker_restarts": getattr(
-                        engine, "prefill_worker_restarts", 0)})
+                        engine, "prefill_worker_restarts", 0)},
+                    200 if lost is None else 503)
             return self._send({"error": "not found"}, 404)
 
         def _stream_response(self, stream_q):
@@ -2174,7 +2249,7 @@ def expect_serving_plan(args, cfg, engine, device) -> dict | None:
                 if args.pool_pages else 0.5)
     else:
         frac = 1.0  # full slots x max_len reservation
-    plan = plan_serving(cfg, tp=1, max_slots=args.max_batch,
+    plan = plan_serving(cfg, tp=args.tp, max_slots=args.max_batch,
                         max_len=args.max_len, pool_fraction=frac,
                         kv_dtype=args.kv_dtype,
                         weight_dtype=args.weight_dtype, device=device)
@@ -2373,10 +2448,34 @@ def main(argv=None) -> int:
     p.add_argument("--fabric-health-history", default=None,
                    help="append probe-history JSONL rows here "
                         "(tools/fabric_report.py input)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (models/decode_tp.py): "
+                        "weights, KV cache and each layer's compute "
+                        "shard over N processes, this one rank 0 and "
+                        "N-1 it spawns; rank r on cuda:r over NCCL "
+                        "where the process sees N cards, every rank on "
+                        "cuda:0 over gloo where it sees fewer, gloo on "
+                        "the CPU with --device cpu")
+    p.add_argument("--moe-decode-ep", action="store_true",
+                   help="with --tp > 1 on an MoE model: shard experts "
+                        "over the tp ranks (n_experts/tp a rank and one "
+                        "all_reduce of the partial combines) instead of "
+                        "replicating them (models/decode_tp.py)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if not (args.tiny or args.checkpoint):
         p.error("pass --checkpoint DIR or --tiny")
+    if args.tp < 1:
+        p.error("--tp must be >= 1")
+    if args.tp > 1:
+        for flag, on in (("--prefill-workers", args.prefill_workers),
+                         ("--supervise", args.supervise),
+                         ("--fabric-health", args.fabric_health)):
+            if on:
+                p.error(f"{flag} does not run under --tp > 1 yet: the "
+                        f"prefill pools, the supervisor and the fabric "
+                        f"monitor under tensor parallelism are what "
+                        f"remains of ROADMAP item 8")
     logging.basicConfig(level=logging.INFO)
     replica_id = (args.replica_id or os.environ.get("TPU_REPLICA_ID")
                   or f"pid-{os.getpid()}")
@@ -2406,8 +2505,18 @@ def main(argv=None) -> int:
         quantize_llama_params,
     )
 
-    model, cfg = load_model(None if args.tiny else args.checkpoint,
-                            device=args.device)
+    rt = None
+    if args.tp > 1:
+        model, cfg, rt = _tp_model(p, args)
+    else:
+        model, cfg = load_model(None if args.tiny else args.checkpoint,
+                                device=args.device)
+        if args.moe_decode_ep:
+            if not cfg.n_experts:
+                p.error("--moe-decode-ep requires an MoE model")
+            # At one rank the experts stay whole: the flag changes the
+            # layout only under --tp > 1, as in the JAX package.
+            cfg = dataclasses.replace(cfg, moe_decode_ep=True)
     if args.kv_dtype != "bf16":
         # One cfg field carries the mode to every engine's cache
         # allocation (init_cache, init_slot_cache, init_paged_cache).
@@ -2420,7 +2529,8 @@ def main(argv=None) -> int:
             p.error("--weight-dtype int8 is not supported for MoE "
                     "models (expert weights have no int8 decode path "
                     "yet)")
-        model = quantize_llama_params(model)
+        model = (rt.quantize(model) if rt is not None
+                 else quantize_llama_params(model))
         log.info("serving int8-quantized weights")
     if args.speculate != "off":
         if args.spec_k < 1:
@@ -2429,7 +2539,7 @@ def main(argv=None) -> int:
                  args.speculate, args.spec_k)
     spec_kw = dict(speculate=args.speculate, spec_k=args.spec_k,
                    draft_layers=args.draft_layers,
-                   engine_core=args.engine_core)
+                   engine_core=args.engine_core, ops=rt)
     recorder = RequestRecorder()
     # Replica identity on the scrape surface as an info-style gauge: ONE
     # labeled family carrying the id, rather than a replica label on
@@ -2460,8 +2570,14 @@ def main(argv=None) -> int:
         engine = BatchingEngine(model, cfg, max_batch=args.max_batch,
                                 window_ms=args.batch_window_ms,
                                 recorder=recorder, **spec_kw)
+    if rt is not None:
+        rt.on_death.append(functools.partial(on_tp_lost, engine))
     if args.engine in ("continuous", "paged"):
-        expect_serving_plan(args, cfg, engine, model.device)
+        plan = expect_serving_plan(args, cfg, engine, model.device)
+        if rt is not None and plan is not None:
+            log.info("rank peaks against plan_serving: %s", [
+                (r["rank"], r.get("max_memory_allocated_bytes"))
+                for r in rt.stats()])
     doc = None
     if args.doctor:
         from container_engine_accelerators_tpu_torch.metrics import doctor
@@ -2552,7 +2668,57 @@ def main(argv=None) -> int:
         engine.stop()
         if exporter is not None:
             exporter.stop()
+        if rt is not None:
+            rt.close()
     return 0
+
+
+def _tp_model(p, args):
+    """(rank 0's model shard, cfg, the TPRuntime) for --tp > 1: the
+    config validated before any rank starts (a bad tp exits 2), the
+    kernels built before the followers spawn (so the ranks do not race
+    to build them), then every rank builds its own shard: random weights
+    (--tiny) drawn from seed 0, or its part of each weight of the
+    checkpoint, read one weight at a time."""
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        checkpoint_weights,
+    )
+    from container_engine_accelerators_tpu_torch.models.llama import (
+        llama_tiny,
+    )
+
+    if args.tiny:
+        cfg = llama_tiny()
+    else:
+        # The config alone: no weight is read here.
+        _, cfg = checkpoint_weights(args.checkpoint)
+    if args.moe_decode_ep:
+        if not cfg.n_experts:
+            p.error("--moe-decode-ep requires an MoE model")
+        cfg = dataclasses.replace(cfg, moe_decode_ep=True)
+    try:
+        decode_tp.validate_tp(cfg, args.tp)
+    except ValueError as e:
+        p.error(str(e))
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--tp on the card needs CUDA, and "
+                               "torch.cuda.is_available() is False; pass "
+                               "--device cpu to run on the CPU")
+        from container_engine_accelerators_tpu_torch import kernels
+        kernels.load()
+    rt = decode_tp.TPRuntime(args.tp, device=args.device)
+    try:
+        if args.tiny:
+            model = rt.random_model(cfg, seed=0)
+        else:
+            model, cfg = rt.checkpoint_model(
+                args.checkpoint, moe_decode_ep=cfg.moe_decode_ep)
+    except BaseException:
+        rt.close()
+        raise
+    log.info("tensor-parallel over %d ranks: %s", args.tp, rt.describe())
+    return model, cfg, rt
 
 
 if __name__ == "__main__":

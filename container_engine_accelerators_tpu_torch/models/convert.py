@@ -2,10 +2,13 @@
 
 `load_model` routes as the JAX package's does: a directory of numeric
 step dirs holding `state/` is a training checkpoint
-(training/checkpoint.load_serving_params); another directory is an HF
-export (`load_hf_checkpoint`); no checkpoint gives a random
-`llama_tiny`. The model comes back frozen on the device, each weight in
-its decode-path dtype (models/llama.py).
+(training/checkpoint.serving_state_file); another directory is an HF
+export; no checkpoint gives a random `llama_tiny`. The model comes back
+frozen on the device, each weight in its decode-path dtype
+(models/llama.py). `checkpoint_weights` reads a checkpoint's config at
+once and each weight only when it is looked up, so a loader holds one
+weight on the host at a time, and a tensor-parallel rank cuts its shard
+from each before it goes to the device.
 
 The HF route reads `config.json` and the weights without `transformers`:
 `*.safetensors` files through utils/safetensors.py (parsed by hand), a
@@ -21,6 +24,7 @@ ops/rope.py, so Q and K need no permutation; a checkpoint without
 
 from __future__ import annotations
 
+import collections.abc
 import json
 import os
 
@@ -87,29 +91,57 @@ def config_to_hf(cfg: LlamaConfig) -> dict:
     }
 
 
-def _read_weight_file(path: str) -> dict[str, torch.Tensor]:
-    if path.endswith(".safetensors"):
-        return safetensors.read(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+class _LazyTensors(collections.abc.Mapping):
+    """{name: CPU tensor} of weight files, each tensor of a `.safetensors`
+    file read from it when it is looked up and not kept (a `.bin` file
+    is read whole)."""
+
+    def __init__(self, paths: list[str]):
+        self._where: dict = {}
+        for path in paths:
+            if path.endswith(".safetensors"):
+                with open(path, "rb") as f:
+                    header, start = safetensors.read_header(f)
+                for name, info in header.items():
+                    self._where[name] = (path, info, start)
+            else:
+                self._where.update(torch.load(path, map_location="cpu",
+                                              weights_only=True))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        where = self._where[name]
+        if isinstance(where, torch.Tensor):
+            return where
+        path, info, start = where
+        with open(path, "rb") as f:
+            return safetensors.read_tensor(f, info, start)
+
+    def __iter__(self):
+        return iter(self._where)
+
+    def __len__(self) -> int:
+        return len(self._where)
 
 
-def read_hf_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """The HF state dict of an export directory: one `model.safetensors`
+def _hf_files(path: str) -> list[str]:
+    """The weight files of an HF export directory: one `model.safetensors`
     or `pytorch_model.bin`, or the shards `model.safetensors.index.json`
     names."""
     index_path = os.path.join(path, "model.safetensors.index.json")
     if os.path.exists(index_path):
         with open(index_path) as f:
             files = sorted(set(json.load(f)["weight_map"].values()))
-        sd = {}
-        for name in files:
-            sd.update(safetensors.read(os.path.join(path, name)))
-        return sd
+        return [os.path.join(path, name) for name in files]
     for name in ("model.safetensors", "pytorch_model.bin"):
         if os.path.exists(os.path.join(path, name)):
-            return _read_weight_file(os.path.join(path, name))
+            return [os.path.join(path, name)]
     raise FileNotFoundError(f"{path}: no model.safetensors, "
                             "pytorch_model.bin or shard index")
+
+
+def read_hf_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The HF state dict of an export directory (_hf_files), read whole."""
+    return dict(_LazyTensors(_hf_files(path)).items())
 
 
 # HF name (per layer i) -> (port name, transpose).
@@ -126,24 +158,50 @@ _HF_LAYER = {
 }
 
 
+def _hf_names(cfg: LlamaConfig, has_lm_head: bool
+              ) -> dict[str, tuple[str, bool]]:
+    """{port parameter name: (HF name, transpose)}; without
+    `lm_head.weight` the head is the embedding transposed (tied, Llama-3.2
+    1B/3B style)."""
+    out = {"embed": ("model.embed_tokens.weight", False)}
+    for i in range(cfg.n_layers):
+        for hf_name, (name, transpose) in _HF_LAYER.items():
+            out[f"layers.{i}.{name}"] = (f"model.layers.{i}.{hf_name}",
+                                         transpose)
+    out["final_norm"] = ("model.norm.weight", False)
+    out["lm_head"] = (("lm_head.weight", True) if has_lm_head
+                      else ("model.embed_tokens.weight", True))
+    return out
+
+
+def _f32(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    t = t.float()
+    return (t.t() if transpose else t).contiguous()
+
+
 def weights_from_hf(sd: dict[str, torch.Tensor], cfg: LlamaConfig
                     ) -> dict[str, torch.Tensor]:
     """HF names -> {port parameter name: f32 CPU tensor [in, out]}."""
-    def f32(t, transpose=False):
-        t = t.float()
-        return (t.t() if transpose else t).contiguous()
+    return {name: _f32(sd[hf], transpose) for name, (hf, transpose)
+            in _hf_names(cfg, "lm_head.weight" in sd).items()}
 
-    out = {"embed": f32(sd["model.embed_tokens.weight"])}
-    for i in range(cfg.n_layers):
-        for hf_name, (name, transpose) in _HF_LAYER.items():
-            out[f"layers.{i}.{name}"] = f32(
-                sd[f"model.layers.{i}.{hf_name}"], transpose)
-    out["final_norm"] = f32(sd["model.norm.weight"])
-    if "lm_head.weight" in sd:
-        out["lm_head"] = f32(sd["lm_head.weight"], True)
-    else:   # tied embeddings (Llama-3.2-1B/3B style)
-        out["lm_head"] = out["embed"].t().contiguous()
-    return out
+
+class _PortWeights(collections.abc.Mapping):
+    """{port parameter name: f32 CPU tensor [in, out]} over a lazy source,
+    each weight read (and transposed where named) when looked up."""
+
+    def __init__(self, source, names: dict[str, tuple[str, bool]]):
+        self._source, self._names = source, names
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        src, transpose = self._names[name]
+        return _f32(self._source[src], transpose)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
 
 
 def weights_to_hf(weights: dict[str, torch.Tensor], cfg: LlamaConfig
@@ -192,14 +250,20 @@ def save_hf_checkpoint(model: Llama, cfg: LlamaConfig, path: str) -> None:
 
 # ---------- the CLIs' loading policy ----------
 
-def serving_model(weights: dict[str, torch.Tensor], cfg: LlamaConfig,
-                  device: str | torch.device) -> Llama:
+def serving_model(weights, cfg: LlamaConfig, device: str | torch.device,
+                  keep=None) -> Llama:
     """{Llama.named_parameters() name: tensor} -> a frozen Llama on
     `device`, each weight cast to its decode-path dtype there (the cast
-    runs on the device, from the tensor as given)."""
+    runs on the device, from the tensor as given). The weights are
+    looked up one at a time, in the model's order; `keep(short name,
+    tensor)`, where given, cuts each one on the host first (a
+    tensor-parallel rank's shard)."""
     def w(name):
-        return weights[name].to(device).to(decode_dtype(cfg, name.rsplit(
-            ".", 1)[-1]))
+        short = name.rsplit(".", 1)[-1]
+        t = weights[name]
+        if keep is not None:
+            t = keep(short, t)
+        return t.to(device).to(decode_dtype(cfg, short))
 
     layers = [LlamaLayer(**{n: w(f"layers.{i}.{n}")
                             for n in layer_weights(cfg)})
@@ -216,21 +280,38 @@ def is_training_checkpoint(path: str) -> bool:
         for name in os.listdir(path))
 
 
+def checkpoint_weights(checkpoint: str
+                       ) -> tuple[collections.abc.Mapping, LlamaConfig]:
+    """(weights, cfg) of a training checkpoint's newest step or an HF
+    export. Only the config and the files' headers are read here: each
+    weight (an f32 CPU tensor [in, out] under its
+    Llama.named_parameters() name) is read when it is looked up, so a
+    caller that takes them one at a time holds one weight on the host,
+    and one that wants the config alone reads no weight."""
+    if is_training_checkpoint(checkpoint):
+        from container_engine_accelerators_tpu_torch.training.checkpoint import (  # noqa: E501
+            serving_state_file,
+        )
+        path, cfg = serving_state_file(checkpoint)
+        source = _LazyTensors([path])
+        return _PortWeights(source, {n: (n, False) for n in source}), cfg
+    with open(os.path.join(checkpoint, "config.json")) as f:
+        cfg = config_from_hf(json.load(f))
+    source = _LazyTensors(_hf_files(checkpoint))
+    return _PortWeights(source, _hf_names(cfg, "lm_head.weight" in source)
+                        ), cfg
+
+
 def load_model(checkpoint: str | None = None, seed: int = 0,
                device: str | torch.device = "cuda"
                ) -> tuple[Llama, LlamaConfig]:
     """(model, cfg) on `device`: a training checkpoint's newest step or
-    an HF export when `checkpoint` is given, else a random llama_tiny
-    from `seed`."""
+    an HF export when `checkpoint` is given (checkpoint_weights, one
+    weight on the host at a time), else a random llama_tiny from
+    `seed`."""
     dev = resolve_device(device)
     if checkpoint:
-        if is_training_checkpoint(checkpoint):
-            from container_engine_accelerators_tpu_torch.training.checkpoint import (  # noqa: E501
-                load_serving_params,
-            )
-            weights, cfg = load_serving_params(checkpoint)
-        else:
-            weights, cfg = load_hf_checkpoint(checkpoint)
+        weights, cfg = checkpoint_weights(checkpoint)
         return serving_model(weights, cfg, dev), cfg
     cfg = llama_tiny()
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -38,11 +38,11 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from container_engine_accelerators_tpu_torch.models import moe, spec
 from container_engine_accelerators_tpu_torch.models.llama import (
-    MOE_DECODE_EP_TODO,
     Llama,
     LlamaConfig,
     check_kv_cache_dtype,
@@ -132,6 +132,15 @@ def _storage_layout(cfg: LlamaConfig, dtype) -> tuple[torch.dtype, int]:
     return dtype, cfg.head_dim
 
 
+def _heads_of(storage: torch.Tensor, cfg: LlamaConfig) -> LlamaConfig:
+    """cfg with the KV head count of a cache's K/V storage [..., Hkv,
+    D]: under tensor parallelism a rank's cache holds Hkv / tp heads."""
+    hkv = storage.shape[-2]
+    if hkv == cfg.n_kv_heads:
+        return cfg
+    return dataclasses.replace(cfg, n_kv_heads=hkv)
+
+
 def _scale_planes(dtype: torch.dtype, shape: tuple, device) -> dict:
     """Zeroed f32 k_scales/v_scales of `shape` for an int8 payload."""
     if dtype != torch.int8:
@@ -179,12 +188,34 @@ def init_paged_cache(cfg: LlamaConfig, slots: int, n_pages: int, page: int,
         **_scale_planes(dtype, scales, device))
 
 
-def _proj(h: torch.Tensor, w, plain: bool) -> torch.Tensor:
+def _proj(h: torch.Tensor, w, plain: bool, tp=None,
+          reduce: bool = False) -> torch.Tensor:
+    """h @ w, through K2 for a QuantWeight. `reduce` marks the
+    row-sharded products (wo, w_down): under tensor parallelism their
+    outputs are partial sums, summed over the group in the activation
+    dtype, as the JAX package rounds each partial before its psum. A
+    row shard's QuantWeight carries the whole weight's scales (they are
+    constant along the contraction), so dequantize-then-sum is exact."""
     if isinstance(w, QuantWeight):
         matmul = int8_matmul_plain if plain else int8_matmul
         out = matmul(h.reshape(-1, h.shape[-1]), w)
-        return out.reshape(*h.shape[:-1], -1)
-    return h @ w
+        out = out.reshape(*h.shape[:-1], -1)
+    else:
+        out = h @ w
+    if reduce and tp is not None:
+        dist.all_reduce(out, group=tp.group)
+    return out
+
+
+def _gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The vocab shards of [..., V / tp] logits concatenated in rank
+    order: [..., V] on every rank (the JAX package's tiled all_gather)."""
+    if tp is None:
+        return logits
+    logits = logits.contiguous()
+    parts = [torch.empty_like(logits) for _ in range(tp.size)]
+    dist.all_gather(parts, logits, group=tp.group)
+    return torch.cat(parts, dim=-1)
 
 
 _MOE_DECODE_SKEW_WARNED = False
@@ -198,7 +229,7 @@ _MOE_DECODE_SKEW_WARNED = False
 MOE_ALL_EXPERTS_TOKENS = 256
 
 
-def _moe_ffn_decode(h2: torch.Tensor, layer, cfg: LlamaConfig
+def _moe_ffn_decode(h2: torch.Tensor, layer, cfg: LlamaConfig, tp=None
                     ) -> torch.Tensor:
     """The mixture-of-experts FFN at decode: h2 [B, T, D] normalized ->
     [B, T, D] (the caller adds the residual).
@@ -211,10 +242,14 @@ def _moe_ffn_decode(h2: torch.Tensor, layer, cfg: LlamaConfig
     this computes the same function, over all experts up to
     MOE_ALL_EXPERTS_TOKENS tokens and over the routed pairs alone above
     (moe.dropless_ffn), and combines each token's k outputs in rank
-    order."""
+    order.
+
+    Under tensor parallelism the layout is read off the weights, as in
+    the JAX package: replicated experts ([E, ...] stacks) need no
+    collective; expert-sharded ones ([E / tp, ...], cfg.moe_decode_ep,
+    this rank's experts rank * E / tp onwards) keep only their own
+    experts' gates, and one all_reduce sums the partial combines."""
     global _MOE_DECODE_SKEW_WARNED
-    if cfg.moe_decode_ep:
-        raise NotImplementedError(MOE_DECODE_EP_TODO)
     if (not cfg.moe_dropless and cfg.moe_router == "token_choice"
             and not _MOE_DECODE_SKEW_WARNED):
         # Once a process: a capacity-dropping training config decodes
@@ -235,11 +270,27 @@ def _moe_ffn_decode(h2: torch.Tensor, layer, cfg: LlamaConfig
     x = h2.reshape(b * t, d)
     _, gate_vals, expert_idx = moe._gating(moe._router_logits(x, layer),
                                            cfg.moe_top_k)
+    e_loc = layer.w_gate.shape[0]
+    sharded = e_loc != cfg.n_experts
+    if sharded:
+        if tp is None or e_loc * tp.size != cfg.n_experts:
+            raise ValueError(
+                f"{e_loc} of {cfg.n_experts} experts on this rank: "
+                f"expert-sharded weights need the tp group they were "
+                f"sharded over")
+        lo = tp.rank * e_loc
+        mine = (expert_idx >= lo) & (expert_idx < lo + e_loc)
+        gate_vals = torch.where(mine, gate_vals, 0.0)
+        # Another rank's pair: index e_loc, whose row dropless_ffn
+        # leaves zero (over every expert: the last local one, at gate 0).
+        expert_idx = torch.where(mine, expert_idx - lo, e_loc)
     if b * t > MOE_ALL_EXPERTS_TOKENS:
-        out = moe.dropless_ffn(x, layer, cfg.n_experts, gate_vals,
-                               expert_idx)
+        out = moe.dropless_ffn(x, layer, e_loc, gate_vals, expert_idx)
     else:
-        out = moe_ffn_every_expert(x, layer, gate_vals, expert_idx)
+        out = moe_ffn_every_expert(x, layer, gate_vals,
+                                   expert_idx.clamp(max=e_loc - 1))
+    if sharded:
+        dist.all_reduce(out, group=tp.group)
     return out.view(b, t, d)
 
 
@@ -261,7 +312,7 @@ def moe_ffn_every_expert(x: torch.Tensor, layer, gate_vals: torch.Tensor,
 def decode_step(model: Llama, cache: KVCache | PagedKVCache,
                 tokens: torch.Tensor, cfg: LlamaConfig,
                 active: torch.Tensor | None = None,
-                plain: bool = False, advance: bool = True
+                plain: bool = False, advance: bool = True, tp=None
                 ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """Run T new tokens ([B, T]; T = prompt length for prefill, 1 for
     decode). Returns (logits [B, T, vocab] f32, cache with the new K/V
@@ -285,7 +336,17 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
     (int4 at head_dim / 2), and the new tokens are quantized after RoPE
     and written with their scales through the same indices. `plain=True`
     runs the kernels' plain PyTorch versions on any device (the on-card
-    reference for the kernel path)."""
+    reference for the kernel path).
+
+    `tp` (a parallel.distributed.TPGroup) is Megatron-style tensor
+    parallelism over that group (models/decode_tp.py): `model` is this
+    rank's shard (wq/wk/wv/w_gate/w_up by output column, wo/w_down by
+    input row, the lm_head by vocab) and the cache holds this rank's KV
+    heads. Activations stay replicated; one all_reduce follows wo and
+    one w_down in every layer, and the f32 logits are all-gathered on
+    the vocab axis, so every rank returns the whole [B, T, vocab].
+    Every rank of the group must make the same calls in the same
+    order. With no group nothing of this runs."""
     b, t = tokens.shape
     dev = tokens.device
     paged = isinstance(cache, PagedKVCache)
@@ -373,18 +434,19 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
             write(k_cache, k.to(k_cache.dtype))
             write(v_cache, v.to(v_cache.dtype))
         attn = attention(q.to(dt), k_cache, v_cache, att_len, ks, vs)
-        x = x + _proj(attn.reshape(b, t, -1), layer.wo, plain)
+        x = x + _proj(attn.reshape(b, t, -1), layer.wo, plain, tp,
+                      reduce=True)
         h2 = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
         if cfg.n_experts:
-            x = x + _moe_ffn_decode(h2, layer, cfg)
+            x = x + _moe_ffn_decode(h2, layer, cfg, tp)
             continue
         gate = F.silu(_proj(h2, layer.w_gate, plain))
         up = _proj(h2, layer.w_up, plain)
-        x = x + _proj(gate * up, layer.w_down, plain)
+        x = x + _proj(gate * up, layer.w_down, plain, tp, reduce=True)
 
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     # The vocab projection is a true f32 product (TF32 stays off).
-    logits = _proj(x.float(), model.lm_head, plain)
+    logits = _gather_vocab(_proj(x.float(), model.lm_head, plain), tp)
 
     if not advance:
         return logits, cache
@@ -400,11 +462,12 @@ def decode_step(model: Llama, cache: KVCache | PagedKVCache,
 
 def decode_step_slots(model: Llama, cache: KVCache, tokens: torch.Tensor,
                       active: torch.Tensor, cfg: LlamaConfig,
-                      plain: bool = False) -> tuple[torch.Tensor, KVCache]:
+                      plain: bool = False, tp=None
+                      ) -> tuple[torch.Tensor, KVCache]:
     """One decode step for every slot: tokens [B], active [B] bool.
     Returns (last-token logits [B, vocab] f32, cache)."""
     logits, cache = decode_step(model, cache, tokens[:, None], cfg,
-                                active=active, plain=plain)
+                                active=active, plain=plain, tp=tp)
     return logits[:, 0], cache
 
 
@@ -426,30 +489,32 @@ def _slot_view(planes: torch.Tensor | None, slot: int):
 
 def prefill_slot(model: Llama, cache: KVCache, slot: int,
                  tokens: torch.Tensor, true_len: int, cfg: LlamaConfig,
-                 plain: bool = False) -> tuple[torch.Tensor, KVCache]:
+                 plain: bool = False, tp=None
+                 ) -> tuple[torch.Tensor, KVCache]:
     """Prefill one request into slot `slot` of a slot cache: `tokens`
     [Tp] (the prompt padded to a bucket; the padding's K/V sits past
     true_len) runs through a temporary cache of the slot cache's layout,
     which is then copied, scales included, into the slot's first Tp
     positions. Sets length[slot] = true_len in place. Returns (logits of
     the last live token [vocab] f32, cache)."""
-    tp = tokens.shape[0]
-    tmp = init_cache(cfg, 1, tp, cache.k.device,
+    n = tokens.shape[0]
+    tmp = init_cache(_heads_of(cache.k, cfg), 1, n, cache.k.device,
                      dtype=_storage_token(cache.k, cfg))
-    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain)
-    cache.k[:, slot, :tp] = tmp.k[:, 0]
-    cache.v[:, slot, :tp] = tmp.v[:, 0]
+    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain,
+                              tp=tp)
+    cache.k[:, slot, :n] = tmp.k[:, 0]
+    cache.v[:, slot, :n] = tmp.v[:, 0]
     if cache.k_scales is not None:   # [L, slots, Hkv, max_len]
-        cache.k_scales[:, slot, :, :tp] = tmp.k_scales[:, 0]
-        cache.v_scales[:, slot, :, :tp] = tmp.v_scales[:, 0]
+        cache.k_scales[:, slot, :, :n] = tmp.k_scales[:, 0]
+        cache.v_scales[:, slot, :, :n] = tmp.v_scales[:, 0]
     cache.length[slot] = true_len
     return logits[0, true_len - 1], cache
 
 
 def prefill_suffix_slot(model: Llama, cache: KVCache, slot: int,
                         suffix_tokens: torch.Tensor, start: int,
-                        new_len: int, cfg: LlamaConfig, plain: bool = False
-                        ) -> tuple[torch.Tensor, KVCache]:
+                        new_len: int, cfg: LlamaConfig, plain: bool = False,
+                        tp=None) -> tuple[torch.Tensor, KVCache]:
     """(Continue) prefilling slot `slot` of a slot cache: the chunk
     `suffix_tokens` [Ts] (padded; the padding's K/V sits past new_len,
     where later chunks and decode overwrite it) lands at positions
@@ -462,43 +527,44 @@ def prefill_suffix_slot(model: Llama, cache: KVCache, slot: int,
                   length=torch.full((1,), start, dtype=torch.int32,
                                     device=cache.length.device))
     logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
-                            plain=plain)
+                            plain=plain, tp=tp)
     cache.length[slot] = new_len
     return logits[0, max(new_len - start - 1, 0)], cache
 
 
 def decode_step_paged(model: Llama, cache: PagedKVCache,
                       tokens: torch.Tensor, active: torch.Tensor,
-                      cfg: LlamaConfig, plain: bool = False
+                      cfg: LlamaConfig, plain: bool = False, tp=None
                       ) -> tuple[torch.Tensor, PagedKVCache]:
     """One decode step for every slot of a paged cache: tokens [slots],
     active [slots] bool. Each active slot's next page (tables[s,
     len // page]) must already be assigned. Returns (logits [slots,
     vocab] f32, cache)."""
     logits, cache = decode_step(model, cache, tokens[:, None], cfg,
-                                active=active, plain=plain)
+                                active=active, plain=plain, tp=tp)
     return logits[:, 0], cache
 
 
 def prefill_slot_paged(model: Llama, cache: PagedKVCache, slot: int,
                        rows: torch.Tensor, tokens: torch.Tensor,
-                       true_len: int, cfg: LlamaConfig, plain: bool = False
-                       ) -> tuple[torch.Tensor, PagedKVCache]:
+                       true_len: int, cfg: LlamaConfig, plain: bool = False,
+                       tp=None) -> tuple[torch.Tensor, PagedKVCache]:
     """Prefill one request into the paged cache: `tokens` [Tp] (the
     prompt padded to a page multiple) runs through a temporary contiguous
     cache of the pools' layout, whose pages, and scale pages, are then
     scattered to pool rows `rows` [Tp // page]; the slot's first table
     entries point at them and length[slot] = true_len, in place. Returns
     (logits of the last live token [vocab] f32, cache)."""
-    tp = tokens.shape[0]
+    n = tokens.shape[0]
     n_layers, _, page, hkv, d_store = cache.k_pool.shape
-    if tp % page or rows.shape != (tp // page,):
-        raise ValueError(f"{tp} tokens need {tp} // {page} page rows and a "
+    if n % page or rows.shape != (n // page,):
+        raise ValueError(f"{n} tokens need {n} // {page} page rows and a "
                          f"page multiple, got rows {tuple(rows.shape)}")
-    n_pg = tp // page
-    tmp = init_cache(cfg, 1, tp, cache.k_pool.device,
+    n_pg = n // page
+    tmp = init_cache(_heads_of(cache.k_pool, cfg), 1, n, cache.k_pool.device,
                      dtype=_storage_token(cache.k_pool, cfg))
-    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain)
+    logits, tmp = decode_step(model, tmp, tokens[None, :], cfg, plain=plain,
+                              tp=tp)
     rows = rows.long()
     cache.k_pool[:, rows] = tmp.k.reshape(n_layers, n_pg, page, hkv, d_store)
     cache.v_pool[:, rows] = tmp.v.reshape(n_layers, n_pg, page, hkv, d_store)
@@ -525,7 +591,7 @@ def set_slot_pages(cache: PagedKVCache, slot: int, rows: torch.Tensor,
 
 def prefill_suffix_paged(model: Llama, cache: PagedKVCache, slot: int,
                          suffix_tokens: torch.Tensor, true_len: int,
-                         cfg: LlamaConfig, plain: bool = False
+                         cfg: LlamaConfig, plain: bool = False, tp=None
                          ) -> tuple[torch.Tensor, PagedKVCache]:
     """Prefill the next chunk of a slot whose first length[slot] tokens
     are already in the cache (shared prefix pages, or earlier chunks):
@@ -538,7 +604,7 @@ def prefill_suffix_paged(model: Llama, cache: PagedKVCache, slot: int,
     sub = dataclasses.replace(cache, tables=cache.tables[slot:slot + 1],
                               length=start)
     logits, _ = decode_step(model, sub, suffix_tokens[None, :], cfg,
-                            plain=plain)
+                            plain=plain, tp=tp)
     cache.length[slot] = true_len
     last = (true_len - 1 - start).clamp(min=0).long()
     return logits[0].index_select(0, last)[0], cache
@@ -581,7 +647,7 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
              generator: torch.Generator | None = None,
              plain: bool = False, speculate: str = "off", spec_k: int = 4,
              draft_layers: int = 2,
-             spec_stats: dict | None = None) -> torch.Tensor:
+             spec_stats: dict | None = None, tp=None) -> torch.Tensor:
     """Greedy (temperature 0) or sampled generation. prompt: [B, T0]
     integer tokens. Returns [B, T0 + max_new_tokens] int64 on the
     prompt's device, without waiting for the device (speculation reads
@@ -601,7 +667,15 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
     drafts by prompt lookup (models/spec.ngram_draft, no weights);
     'draft' runs the first `draft_layers` layers of the model as the
     proposer. It needs temperature 0. `spec_stats` (a dict) accumulates
-    drafted / accepted / verifies / committed totals."""
+    drafted / accepted / verifies / committed totals.
+
+    `tp` (a TPGroup) runs every step tensor-parallel on this rank's
+    shard of the model (decode_step), with a cache of this rank's KV
+    heads; every rank of the group calls generate with the same prompt.
+    Rank 0 alone picks each token from the gathered logits and
+    broadcasts it, so the group's steps see rank 0's tokens. As in the
+    JAX package, speculation does not run tensor-parallel here (the
+    serving engines' speculative ticks do)."""
     if speculate not in ("off", "ngram", "draft"):
         raise ValueError(f"speculate must be 'off', 'ngram' or 'draft', "
                          f"got {speculate!r}")
@@ -610,6 +684,10 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
             raise ValueError(
                 "speculative decoding verifies greedily; it requires "
                 "temperature=0")
+        if tp is not None and tp.size > 1:
+            raise NotImplementedError(
+                "speculative generate() does not run tensor-parallel; "
+                "the serving engines run tp speculative decoding")
         return _generate_speculative(model, prompt, cfg, max_new_tokens,
                                      mode=speculate, spec_k=spec_k,
                                      draft_layers=draft_layers,
@@ -618,20 +696,31 @@ def generate(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
     prompt = prompt.long()
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device=prompt.device).manual_seed(0)
-    cache = init_cache(cfg, b, t0 + max_new_tokens, prompt.device)
+    cache_cfg = cfg
+    if tp is not None:
+        from container_engine_accelerators_tpu_torch.models import decode_tp
+        cache_cfg = decode_tp.local_cache_cfg(cfg, tp.size)
+    cache = init_cache(cache_cfg, b, t0 + max_new_tokens, prompt.device)
 
     def pick(logits):
         last = logits[:, -1]
-        if temperature <= 0.0:
-            return last.argmax(dim=-1)
-        return _sample(last / temperature, generator)
+        if tp is not None and tp.rank != 0:
+            tok = torch.empty(b, dtype=torch.long, device=last.device)
+        elif temperature <= 0.0:
+            tok = last.argmax(dim=-1)
+        else:
+            tok = _sample(last / temperature, generator)
+        if tp is not None:
+            dist.broadcast(tok, src=tp.global_rank(0), group=tp.group)
+        return tok
 
-    logits, cache = decode_step(model, cache, prompt, cfg, plain=plain)
+    logits, cache = decode_step(model, cache, prompt, cfg, plain=plain,
+                                tp=tp)
     tok = pick(logits)
     out = [prompt, tok[:, None]]
     for _ in range(1, max_new_tokens):
         logits, cache = decode_step(model, cache, tok[:, None], cfg,
-                                    plain=plain)
+                                    plain=plain, tp=tp)
         tok = pick(logits)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
@@ -760,7 +849,7 @@ def _generate_speculative(model: Llama, prompt: torch.Tensor,
 
 def verify_step(model: Llama, cache: KVCache | PagedKVCache,
                 tokens: torch.Tensor, active: torch.Tensor | None,
-                cfg: LlamaConfig, plain: bool = False
+                cfg: LlamaConfig, plain: bool = False, tp=None
                 ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """Score k+1 speculative candidates in one pass: tokens [B, k+1] =
     [last committed but uncached token, draft_1..draft_k] a row. Returns
@@ -769,7 +858,7 @@ def verify_step(model: Llama, cache: KVCache | PagedKVCache,
     length + k + 1 must already be in the table. Commit with
     advance_lengths."""
     return decode_step(model, cache, tokens, cfg, active=active,
-                       plain=plain, advance=False)
+                       plain=plain, advance=False, tp=tp)
 
 
 def advance_lengths(cache: KVCache | PagedKVCache, counts: torch.Tensor,

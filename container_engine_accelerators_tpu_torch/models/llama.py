@@ -129,11 +129,6 @@ def llama_tiny(**overrides) -> LlamaConfig:
 
 _DTYPE_KEYS = ("dtype", "param_dtype")
 
-MOE_DECODE_EP_TODO = (
-    "moe_decode_ep (experts sharded over tensor parallelism at decode) "
-    "waits for the port's tensor parallelism (ROADMAP item 8)")
-
-
 def cfg_to_json_dict(cfg: LlamaConfig) -> dict:
     """LlamaConfig -> JSON-serializable dict; dtypes become their numpy
     names ("bfloat16", "float32"), as in the JAX package's form."""
@@ -145,10 +140,7 @@ def cfg_to_json_dict(cfg: LlamaConfig) -> dict:
 
 def cfg_from_json_dict(d: dict) -> LlamaConfig:
     """Inverse of cfg_to_json_dict; also reads the JAX package's form.
-    Unknown keys are dropped. A config that shards its experts over
-    tensor parallelism at decode raises."""
-    if d.get("moe_decode_ep"):
-        raise NotImplementedError(MOE_DECODE_EP_TODO)
+    Unknown keys are dropped."""
     d = dict(d)
     for key in _DTYPE_KEYS:
         if isinstance(d.get(key), str):
@@ -205,13 +197,18 @@ class Llama(nn.Module):
 
 
 def _random_llama(cfg: LlamaConfig, generator: torch.Generator, device,
-                  dtype_of, trainable: bool) -> Llama:
+                  dtype_of, trainable: bool, keep=None) -> Llama:
     """Random weights with the JAX package's distributions (normal *
     fan_in^-0.5, embed normal * 0.02, norms one), drawn in f32 from
-    `generator` on `device`, each cast to dtype_of(its name)."""
+    `generator` on `device`, each cast to dtype_of(its name). `keep(name,
+    w)`, when given, returns the part of each drawn f32 weight to keep
+    (a tensor-parallel rank's shard, models/decode_tp.py); the draws, and
+    so the kept values, are those of the whole model."""
     hd, d = cfg.head_dim, cfg.d_model
 
     def param(name, w):
+        if keep is not None:
+            w = keep(name, w)
         return nn.Parameter(w.to(dtype_of(name)), requires_grad=trainable)
 
     def normal(name, shape, std):

@@ -182,7 +182,9 @@ def dropless_ffn(x: torch.Tensor, lp, n_experts: int,
     experts are [N, k]: the rows sorted by expert; expert i takes the
     next counts[i] rows (counts read on the host) through the SwiGLU FFN,
     one matmul a weight (the JAX package's three ragged_dot calls); the
-    sort inverted (a gather, not a scatter-add) and sum_top_k.
+    sort inverted (a gather, not a scatter-add) and sum_top_k. An
+    expert index of n_experts marks a pair computed on another rank: its
+    output row is zero.
 
     Each stack is cast once and unbound, so the backward stacks the
     experts' gradients into one [E, ...] tensor; indexing the stack per
@@ -197,12 +199,16 @@ def dropless_ffn(x: torch.Tensor, lp, n_experts: int,
                             for w in (lp.w_gate, lp.w_up, lp.w_down))
     outs = []
     start = 0
-    for i, n in enumerate(counts):
+    for i, n in enumerate(counts[:n_experts]):
         if n:
             r = rows[start:start + n]
             gate = F.silu(r @ w_gate[i])
             outs.append((gate * (r @ w_up[i])) @ w_down[i])
             start += n
+    if start < order.numel():
+        # Pairs of index n_experts sort last: another rank computes
+        # them (expert-sharded decode), and their rows stay zero here.
+        outs.append(x.new_zeros(order.numel() - start, x.shape[-1]))
     down = torch.cat(outs)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)

@@ -62,11 +62,16 @@ class QuantWeight(nn.Module):
         return self.values.shape
 
 
-def quantize_weights(w: torch.Tensor) -> QuantWeight:
+def quantize_weights(w: torch.Tensor, absmax_of=None) -> QuantWeight:
     """Symmetric per-output-channel int8, absmax reduced over axis -2
-    only (stacked [L, D, F] weights get per-(layer, channel) scales)."""
+    only (stacked [L, D, F] weights get per-(layer, channel) scales).
+    `absmax_of`, when given, maps the local absmax [..., 1, F] to the
+    whole weight's: a tensor-parallel row shard holds some of the rows
+    and takes the maximum over the group (models/decode_tp.py)."""
     w_f = w.float()
     absmax = w_f.abs().amax(dim=-2, keepdim=True)
+    if absmax_of is not None:
+        absmax = absmax_of(absmax)
     scales = absmax.clamp_min(1e-8) / 127.0
     q = torch.clamp(torch.round(w_f / scales), -127, 127).to(torch.int8)
     return QuantWeight(q, scales.squeeze(-2))

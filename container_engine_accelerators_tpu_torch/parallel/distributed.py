@@ -16,10 +16,21 @@ Backends. On the card a group is NCCL over CUDA tensors; gloo over CPU
 tensors is for runs on the CPU (the tests). Nothing here switches to
 gloo when NCCL fails: a caller names its backend, and an NCCL group
 without CUDA raises.
+
+A tensor-parallel serving group (`TPGroup`, models/decode_tp.py) places
+its ranks by one rule, `tp_placement`: where the process sees at least
+`tp` cards, rank r takes `cuda:r` over NCCL; where it sees fewer, the
+ranks share `cuda:0` over gloo, each holding only its own shard there
+(gloo takes CUDA tensors and stages them through the host); on the CPU,
+when the caller asks for it, the ranks use gloo. The backend follows
+from the placement and is never a fallback. The group's collectives
+time out after `timeout_s` seconds.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import logging
 import os
 import re
@@ -170,3 +181,51 @@ def start_cost(group=None) -> dict:
             "ranks": dist.get_world_size(group),
             "first_collective_s": time.perf_counter() - t0,
             "card_bytes": used() - before}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """One rank's view of a tensor-parallel group: the process group,
+    this rank, the group's size, its backend and this rank's device."""
+    group: object
+    rank: int
+    size: int
+    backend: str
+    device: torch.device
+
+    def global_rank(self, group_rank: int) -> int:
+        return global_rank(self.group, group_rank)
+
+
+def tp_placement(tp: int, device="cuda") -> tuple[str, list[torch.device]]:
+    """(backend, each rank's device) of a `tp`-rank group: NCCL with rank
+    r on cuda:r where the process sees at least tp cards, gloo with every
+    rank on cuda:0 where it sees fewer, gloo on the CPU for device
+    'cpu'. A CUDA placement without CUDA raises."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if torch.device(device).type == "cpu":
+        return "gloo", [torch.device("cpu")] * tp
+    if not torch.cuda.is_available():
+        raise RuntimeError("a tensor-parallel group on the card needs "
+                           "CUDA, and torch.cuda.is_available() is False; "
+                           "pass --device cpu to run on the CPU")
+    if torch.cuda.device_count() >= tp:
+        return "nccl", [torch.device("cuda", r) for r in range(tp)]
+    return "gloo", [torch.device("cuda", 0)] * tp
+
+
+def init_tp_group(rank: int, tp: int, store, backend: str, device,
+                  timeout_s: float) -> TPGroup:
+    """Join the `tp`-rank group as `rank`, over `store` (a TCPStore
+    rank 0 serves), on this rank's `device` (tp_placement). The
+    collectives time out after timeout_s seconds."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    log.info("tp rank %d of %d: %s on %s", rank, tp, backend, device)
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=tp,
+        timeout=datetime.timedelta(seconds=timeout_s),
+        **(device_kwargs(backend, device) if backend == "nccl" else {}))
+    return TPGroup(dist.group.WORLD, rank, tp, backend, device)

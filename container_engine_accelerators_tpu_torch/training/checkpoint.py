@@ -513,12 +513,12 @@ class CheckpointManager:
         self._pinned = {}
 
 
-def load_serving_params(directory: str, step: int | None = None):
-    """(weights, cfg) from a training checkpoint for inference: the
-    model's f32 masters as {name: CPU tensor} and the LlamaConfig
-    recorded with them. The optimizer's state is never read. Needs a
-    checkpoint saved with a config (CheckpointManager.save(...,
-    cfg=cfg))."""
+def serving_state_file(directory: str, step: int | None = None):
+    """(the model's state file, cfg) of a training checkpoint's step (the
+    newest by default), for inference: the file holds the f32 masters
+    under Llama.named_parameters() names, and the LlamaConfig is the
+    one recorded with them. Needs a checkpoint saved with a config
+    (CheckpointManager.save(..., cfg=cfg))."""
     from container_engine_accelerators_tpu_torch.models.llama import (
         cfg_from_json_dict,
     )
@@ -536,5 +536,14 @@ def load_serving_params(directory: str, step: int | None = None):
             f"checkpoint step {step} in {directory} has no cfg record; "
             "re-save with CheckpointManager.save(..., cfg=cfg) or serve "
             "from an HF export")
-    return (safetensors.read(state_file(step_dir, MODEL_FILE, meta)),
+    return (state_file(step_dir, MODEL_FILE, meta),
             cfg_from_json_dict(meta["cfg"]))
+
+
+def load_serving_params(directory: str, step: int | None = None):
+    """(weights, cfg) from a training checkpoint for inference: the
+    model's f32 masters as {name: CPU tensor} and the LlamaConfig
+    recorded with them (serving_state_file). The optimizer's state is
+    never read."""
+    path, cfg = serving_state_file(directory, step)
+    return safetensors.read(path), cfg

@@ -5,8 +5,8 @@ dropless config and for a capacity config that drops nothing; generate,
 the slot, continuous and paged engines (chunked and batched) and
 speculation (verify_step, ngram and draft) give JAX generate's greedy
 tokens; a checkpoint of the port's fit serves through load_model, an
-engine and cli/serve.py's checks; int8 experts, decode-time expert
-sharding and ep > 1 raise.
+engine and cli/serve.py's checks; int8 experts and ep > 1 raise, and
+decode-time expert sharding at one rank computes the default's FFN.
 
 llama_tiny with 4 experts, top-2, in f32, on weights carried across by
 interop.params_from_jax. The prompts below are checked for router
@@ -328,8 +328,19 @@ def test_int8_experts_decode_ep_and_ep_raise(pair):
     h = torch.zeros(1, 1, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="int8-quantized"):
         decode._moe_ffn_decode(h, qlayer, tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        decode._moe_ffn_decode(h, layer, dataclasses.replace(
-            tcfg, moe_decode_ep=True))
+    # Decode-time expert sharding is ported (models/decode_tp.py): at
+    # one rank, with its experts whole, it computes the default's FFN;
+    # a rank's expert shard without its group raises.
+    h = torch.randn(2, 3, tcfg.d_model, generator=torch.Generator(
+        ).manual_seed(0))
+    ep = dataclasses.replace(tcfg, moe_decode_ep=True)
+    assert torch.equal(decode._moe_ffn_decode(h, layer, ep),
+                       decode._moe_ffn_decode(h, layer, tcfg))
+    half = tllama.LlamaLayer(**{
+        n: (getattr(layer, n)[:tcfg.n_experts // 2]
+            if n in ("w_gate", "w_up", "w_down") else getattr(layer, n))
+        for n in tllama.layer_weights(tcfg)})
+    with pytest.raises(ValueError, match="tp group"):
+        decode._moe_ffn_decode(h, half, ep)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         tmoe.moe_mlp_dropless(h, layer, tcfg, ep=2)

@@ -101,12 +101,13 @@ def test_config_json_round_trips_both_ways():
     assert jc.d_model == 96 and jc.dtype == jnp.float32
     back = tllama.cfg_from_json_dict(jllama.cfg_to_json_dict(jc))
     assert back == tc
-    # A mixture of experts loads; experts sharded over tensor
-    # parallelism at decode wait for the port's tensor parallelism.
+    # A mixture of experts loads, with its experts sharded over tensor
+    # parallelism at decode too (models/decode_tp.py), as the JAX
+    # package reads it.
     assert tllama.cfg_from_json_dict({**d, "n_experts": 4}).n_experts == 4
-    with pytest.raises(NotImplementedError, match="moe_decode_ep"):
-        tllama.cfg_from_json_dict({**d, "n_experts": 4,
-                                   "moe_decode_ep": True})
+    ep = {**d, "n_experts": 4, "moe_decode_ep": True}
+    assert tllama.cfg_from_json_dict(ep).moe_decode_ep
+    assert jllama.cfg_from_json_dict(ep).moe_decode_ep
 
 
 def test_params_from_jax_moves_bits_exactly():

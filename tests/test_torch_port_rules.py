@@ -33,7 +33,8 @@ def _imported_roots(path: Path):
 
 # Modules the scan must reach, the speculative path's, the node layer's,
 # the NRI injector's, the scheduler's, the vision demos', device
-# telemetry's and the mixture of experts' among them.
+# telemetry's, the mixture of experts' and tensor-parallel serving's
+# among them.
 REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/generate.py", "metrics/request_metrics.py",
             "metrics/train_metrics.py", "training/checkpoint.py",
@@ -58,7 +59,8 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "parallel/__init__.py", "parallel/distributed.py",
             "cli/collective_bench.py", "metrics/fabric.py",
             "metrics/fabric_health.py", "metrics/introspection.py",
-            "utils/hbm_plan.py", "utils/profiling.py", "models/moe.py")
+            "utils/hbm_plan.py", "utils/profiling.py", "models/moe.py",
+            "models/decode_tp.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -115,6 +117,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.main(["--tiny", "--prompt-ids", "1,2", "--speculate",
                        "ngram"])
+    # Tensor parallelism places its ranks on the card unless asked for
+    # the CPU, and raises before it spawns any rank.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--tiny", "--port", "0", "--tp", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.main(["--tiny", "--prompt-ids", "1,2", "--tp", "2"])
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it():
@@ -152,6 +160,12 @@ def test_generate_cli_runs_on_the_cpu_when_asked(capsys):
                               "--weight-dtype", "int8", "--speculate",
                               mode]) == 0
         assert capsys.readouterr().out.split("token ids:")[1] == ids
+    # --tp 2 on the CPU: two gloo ranks, this process and one it spawns,
+    # each with its shard of the int8 weights; the tokens are tp 1's.
+    assert generate.main(["--tiny", "--prompt-ids", "1,5,42",
+                          "--max-new-tokens", "3", "--device", "cpu",
+                          "--weight-dtype", "int8", "--tp", "2"]) == 0
+    assert capsys.readouterr().out.split("token ids:")[1] == ids
 
 
 def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):

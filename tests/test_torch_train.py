@@ -176,10 +176,11 @@ def test_unported_and_unknown_configs_raise():
                     ({"flash_causal_grid": "triangular"}, ValueError)):
         with pytest.raises(err):
             tllama.forward(model, tokens, dataclasses.replace(tcfg, **kw))
-    # Of the MoE fields only decode-time expert sharding is unported.
-    with pytest.raises(NotImplementedError):
-        tllama.cfg_from_json_dict({**tllama.cfg_to_json_dict(tcfg),
-                                   "n_experts": 4, "moe_decode_ep": True})
+    # Every MoE field is ported: decode-time expert sharding loads (it
+    # shapes only the tensor-parallel layout, models/decode_tp.py).
+    assert tllama.cfg_from_json_dict({**tllama.cfg_to_json_dict(tcfg),
+                                      "n_experts": 4,
+                                      "moe_decode_ep": True}).moe_decode_ep
     # 'dots_save_attn' is ported: without flash it runs and warns, as the
     # JAX package does, since the hoisted attention keeps its S x S
     # probabilities.
