@@ -15,6 +15,7 @@ health paths on one GPU.
   python3 chip_smoke.py telemetry
   python3 chip_smoke.py moe
   python3 chip_smoke.py tp
+  python3 chip_smoke.py dist_train
 
 `k4` times K4 alone beside SDPA's forward in the k4_* cases, B 4 x S
 2048 unless asked otherwise, one JSON line. `bwd` times K5 and K6 (and
@@ -40,7 +41,8 @@ card. `training` runs the build and the training path's phases alone
 (train through serve_ckpt below), `node` the build and the node phase,
 `doctor` the build and the doctor phase, `vision` the build and the
 vision phase, `telemetry` the build and the telemetry phase, `moe` the
-build and the moe phase, `tp` the build and the tp phase.
+build and the moe phase, `tp` the build and the tp phase,
+`dist_train` the build and the dist_train phase.
 
 Phases, one JSON line each:
   device   the card's name and power limit (nvidia-smi);
@@ -111,6 +113,9 @@ Phases, one JSON line each:
            size. One line a run: TTFT, TPOT and queue-wait p50/p99,
            tokens/s, host_gap_fraction, each host phase's p50, the
            thermal census's ms a call at the full pool, nvidia-smi;
+           kv_quant, observe, spec, pools and supervise run the first
+           **8 of the 32 layers** (SERVE_CUT_LAYERS: the whole smoke's
+           time; serve through continuous keep all 32);
   tp       (after the serving phases, the 8B weights freed)
            tensor-parallel serving over two rank processes sharing
            cuda:0 over gloo (models/decode_tp.py), llama3_8b at full
@@ -205,6 +210,31 @@ Phases, one JSON line each:
            engine, one request, against generate on the same weights
            (divergence rule, SERVE_CKPT_D); the same on int8 weights
            (K2); cli/generate.py --checkpoint prints generate's tokens;
+  dist_train  multi-rank training (parallel/, training/ on a mesh):
+           two rank processes on cuda:0 over gloo, llama3_8b at full
+           width **cut to 2 of 32 layers** (the phase's budget), seed 0.
+           First K4/K5/K6 against their plain versions at Ulysses's
+           heads (ulysses_k4_main ...: B 1, S 4096, 16 q and 4 KV
+           heads). Then in the ranks: (a) fsdp 2 at B 2 x 2048, 2 + 1
+           steps, each step's loss and grad norm and the params after
+           step 2 within 2x the gap between two one-rank runs of the
+           same batch (grad_accum 2 and 1), saved after step 2; (b) dp 2
+           through make_train_step(dcn_overlap=), one step each of
+           compress none and int8: both losses and none's grad norm by
+           that rule, int8's reduced gradient within its quantization
+           bound of none's, then fit's int8 calibration through
+           record_dcn_attribution; (c) ring and Ulysses attention at sp
+           2 over S 4096 against one-rank K4/K5/K6, a Ulysses train step
+           at sp 2 by the rule and a ring one within 2x the one-rank
+           run's gap to its f32 twin; (d) The fsdp
+           checkpoint restored here at fsdp 1: bit
+           for bit each rank's shards, the recorder's reshard bucket,
+           the next step by the rule. (e) cli/train.py as two processes
+           under JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+           JAX_PROCESS_ID (fsdp 2, one step): both ranks print the job's
+           topology and one loss. Each rank's step ms, collectives' host
+           ms, flash launches and peak beside plan_training(fsdp=2);
+           rank 0's progress lines go to stderr;
   health   the node health path: K7 (kernels/scale_demo.cu) as the
            node's workload; then K7 built with the whole [4096, 4096]
            array as one shared-memory tile (refused by ptxas), an
@@ -296,8 +326,9 @@ Phases, one JSON line each:
            a live Doctor in this process (chaos timescales: the
            scenario's window, 0.25 s period, episode re-arm off, SLOs
            off), with no incident allowed in the clean warmup before it.
-           On llama3_8b at full width and depth (bf16, random weights
-           from the seed), behind make_server, with a ServeMetricsExporter
+           On llama3_8b at full width **cut to 8 of 32 layers**
+           (SERVE_CUT_LAYERS; bf16, random weights from the seed),
+           behind make_server, with a ServeMetricsExporter
            polling the card's memory every 0.25 s and cli/loadgen as a
            process: engine-hang (the continuous engine, K1: `--kind
            hang` 5 s against hang_after_s 2 s, engine_hang once, every
@@ -371,7 +402,13 @@ KV_MODES = ("int8", "int4")
 # Cache bytes of one token at llama3_8b widths (32 layers, 8 KV heads,
 # head_dim 128, K and V): bf16 2 bytes a value; int8 1 byte plus a 4-byte
 # scale per (layer, head); int4 half a byte plus the same scales.
-KV_BYTES_PER_TOKEN = {"bf16": 131072, "int8": 67584, "int4": 34816}
+# A cached token's bytes a layer (llama3_8b: 8 KV heads of 128, K and V).
+KV_BYTES_PER_TOKEN_LAYER = {"bf16": 4096, "int8": 2112, "int4": 1088}
+# The serving phases after the full-depth engines (kv_quant, observe,
+# spec, pools, supervise) and the doctor's engines run the first
+# SERVE_CUT_LAYERS of llama3_8b's 32 layers at full width (the whole
+# smoke's time; their checks are per layer or relative).
+SERVE_CUT_LAYERS = 8
 # paged_preempt's pool of 9 pages (8 usable), and pools of the same
 # bytes in the quantized layouts (rounded down).
 PREEMPT_POOL_PAGES = {"bf16": 9, "int8": 17, "int4": 33}
@@ -1150,6 +1187,37 @@ def profile_steps(torch, step, steps: int = 4, top: int = 6,
             "kernels": kernels}
 
 
+def busy_ms_each(torch, fns, gap_s: float = 1.0) -> list:
+    """The device-busy ms of each fn() of `fns`, run in order under ONE
+    torch.profiler session (card activity only): the host sleeps `gap_s`
+    between them with the card idle, and the kernels are split into runs
+    where the card sat idle for more than half of that."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns):
+            if i:
+                time.sleep(gap_s)
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted(((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA))
+    out, busy, last_end = [], 0.0, None
+    for start, end in kernels:
+        if last_end is not None and start - last_end > gap_s * 1e6 / 2:
+            out.append(busy)
+            busy = 0.0
+        busy += (end - start) / 1e3
+        last_end = end if last_end is None else max(last_end, end)
+    out.append(busy)
+    require(len(out) == len(fns), f"busy_ms_each: {len(out)} runs seen "
+            f"for {len(fns)}")
+    return out
+
+
 def profile_decode(torch, dev, decode, model, cfg, batch,
                    steps: int = 4) -> dict:
     """profile_steps over decode steps of the contiguous cache at the
@@ -1741,8 +1809,10 @@ def kv_quant_phase(torch, dev, np, model, cfg, preempt_bf16) -> dict:
             for mode in ("bf16",) + KV_MODES}
     per_token = {mode: _cache_bytes_per_token(torch, dev, c)
                  for mode, c in cfgs.items()}
-    require(per_token == KV_BYTES_PER_TOKEN,
-            f"cache bytes per token {per_token}, want {KV_BYTES_PER_TOKEN}")
+    want = {mode: n * cfg.n_layers
+            for mode, n in KV_BYTES_PER_TOKEN_LAYER.items()}
+    require(per_token == want,
+            f"cache bytes per token {per_token}, want {want}")
     pool_bytes = {mode: PREEMPT_POOL_PAGES[mode] * 128 * per_token[mode]
                   for mode in cfgs}
     result = {"phase": "kv_quant", "model": "llama3_8b",
@@ -2230,14 +2300,15 @@ def spec_generate_run(torch, dev, np, model, cfg) -> dict:
 
     prompts = _pattern_prompts(np, cfg, SEED + 20, 2)
     p = torch.tensor(prompts, device=dev)
-    runs, launches = {}, {}
+    runs, launches, fns = {}, {}, {}
     for mode in ("off", "ngram", "draft"):
-        def run(stats=None):
+        def run(stats=None, mode=mode):
             return decode.generate(model, p, cfg, SPEC_NEW_TOKENS,
                                    speculate=mode, spec_k=SPEC_K,
                                    draft_layers=SPEC_DRAFT_LAYERS,
                                    spec_stats=stats)
 
+        fns[mode] = run
         run()   # warm
         stats: dict = {}
         torch.cuda.synchronize()
@@ -2248,10 +2319,7 @@ def spec_generate_run(torch, dev, np, model, cfg) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
         for name, n in kernels.launches.items():
             launches[name] = launches.get(name, 0) + n
-        busy = profile_steps(torch, run, steps=1,
-                             cpu=False)["busy_ms_per_step"]
-        runs[mode] = {"tokens": out.tolist(), "wall_ms": wall,
-                      "device_busy_ms": busy, **stats}
+        runs[mode] = {"tokens": out.tolist(), "wall_ms": wall, **stats}
         if stats:
             runs[mode]["acceptance_rate"] = (stats["accepted"]
                                              / stats["drafted"])
@@ -2259,6 +2327,9 @@ def spec_generate_run(torch, dev, np, model, cfg) -> dict:
                                                / stats["verifies"])
             require(stats["verifies"] > 0, f"spec generate {mode}: no "
                     "verify ran")
+    # One profiler session for the three modes' busy time.
+    for mode, busy in zip(fns, busy_ms_each(torch, list(fns.values()))):
+        runs[mode]["device_busy_ms"] = busy
     plain = runs["off"]["tokens"]
     window = torch.tensor([r[128:128 + SPEC_K + 1] for r in plain],
                           device=dev)
@@ -3722,10 +3793,13 @@ def _sdpa_times(torch, q, k, v, seg, causal, do) -> dict:
 
 
 def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
-                hkv: int = 8) -> dict:
+                hkv: int = 8, cases: tuple | None = None,
+                label: str = "") -> dict:
     """K4, K5 and K6 against their plain versions at the train phase's
-    attention shapes; the backward kernels take the plain forward's out
-    and lse, so each is held alone. Returns {kernel: {case: result}}."""
+    attention shapes (or another's: dist_train takes Ulysses's), the
+    cases named in `cases` (all by default), each line's phase prefixed
+    by `label`; the backward kernels take the plain forward's out and
+    lse, so each is held alone. Returns {kernel: {case: result}}."""
     from container_engine_accelerators_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -3737,6 +3811,8 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
         require(report["spill_bytes"] == 0, f"{name} spills: {report}")
     for case, causal, seg, q, k, v, do in _flash_cases(torch, dev, b, s, hq,
                                                        hkv):
+        if cases is not None and case not in cases:
+            continue
         work = _flash_work(torch, seg, b, s, hq, hkv, d, causal)
         out, lse = fa.flash_fwd_cuda(q, k, v, seg, causal)
         torch.cuda.synchronize()
@@ -3792,7 +3868,7 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
                                  ", boolean mask, KV heads repeated")
                               + f", {sdpa['sdpa_backend']} backend")
             results[name][case] = res
-            emit({"phase": f"{prefix[name]}_{case}", "B": b, "S": s,
+            emit({"phase": f"{label}{prefix[name]}_{case}", "B": b, "S": s,
                   "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
                   "visible_pairs": work["visible_pairs"],
                   "row_rtol": (K1_ROW_RTOL if name == "flash_fwd"
@@ -3804,7 +3880,7 @@ def flash_phase(torch, dev, b: int = 4, s: int = 2048, hq: int = 32,
         # summing dq without atomics.
         pair = (results["flash_bwd_dq"][case]["ms"]
                 + results["flash_bwd_dkv"][case]["ms"])
-        emit({"phase": f"k5_k6_{case}", "pair_ms": pair,
+        emit({"phase": f"{label}k5_k6_{case}", "pair_ms": pair,
               "pair_bound_ms": (results["flash_bwd_dq"][case]["bound_ms"]
                                 + results["flash_bwd_dkv"][case]["bound_ms"]),
               "sdpa_backward_ms": sdpa["sdpa_backward_ms"],
@@ -7446,7 +7522,8 @@ def doctor_replica_kill(root, tmp_dir, torch, launch: FleetLaunch,
 def doctor_phase(torch, dev, np, tmp_dir: str, model=None, cfg=None,
                  sizes: dict | None = None, shm: str = CKPT_SHM) -> dict:
     """The doctor and the fleet plane on the card (the module docstring's
-    `doctor`): llama3_8b at full width and depth unless a model is given,
+    `doctor`): llama3_8b at full width and SERVE_CUT_LAYERS of its 32
+    layers unless a model is given,
     the scenarios in order, the model freed before the training ones."""
     import dataclasses
 
@@ -7467,7 +7544,7 @@ def doctor_phase(torch, dev, np, tmp_dir: str, model=None, cfg=None,
     root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
     device_flags = ["--device", "cpu"] if dev.type == "cpu" else []
     if model is None:
-        cfg = llama3_8b()
+        cfg = llama3_8b(n_layers=SERVE_CUT_LAYERS)
         model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                             dev)
     scen, launches, seconds = {}, {}, {}
@@ -8877,6 +8954,942 @@ def tp_main(torch) -> int:
     return 0
 
 
+# ------------------------------------------------------------- dist_train
+#
+# Multi-rank training (parallel/, training/train.py on a mesh): rank
+# processes on cuda:0 over gloo (parallel/distributed.placement: the
+# machine shows one card), llama3_8b at full width cut to DIST_LAYERS of
+# 32 layers, weights and batches from the seed. Every rank-vs-one-rank
+# figure is held to DIST_RULE x the gap between two one-rank runs of the
+# same global batch (grad_accum 2 and 1), the gap floored at DIST_FLOOR
+# of the reference's magnitude.
+
+DIST_LAYERS = 2
+DIST_RANKS = 2
+DIST_RULE = 2.0
+# The gap's floor, relative: the f32 tolerance of the port's CPU parity
+# tests. Two one-rank runs can agree to the bit in f32 (the CPU
+# rehearsal), where an f32 sum in another order still parts by ulps.
+DIST_FLOOR = 1e-5
+DIST_SIZES = {
+    "preset": "8b", "cfg": {"n_layers": DIST_LAYERS},
+    "batch": 2, "seq": 2048,    # (a), (b): the global batch
+    # (a): fsdp steps before the save; (a) and (d) take one more each.
+    # 2 + 1: over gloo an fsdp step of full-width weights costs 11-23 s
+    # of the host's copies, inside the whole smoke's 1200 s.
+    "steps": 2,
+    "sp_batch": 2, "sp_seq": 4096,          # (c)
+    # (c)'s train steps; Ulysses's layers run K4/K5/K6 at 16/4 heads.
+    "sp_train_modes": ("ring", "ulysses"),
+    "bucket_mb": 64.0,          # (b)'s bucket target
+    "cli_args": ["--preset", "8b", "--n-layers", str(DIST_LAYERS),
+                 "--steps", "1", "--batch-size", "4", "--seq-len", "256"],
+}
+# (a) always; (b) dp, (c) sp, (d) restore and (e) cli unless a caller
+# (the CPU rehearsal's mutation check) names fewer.
+DIST_PARTS = ("dp", "sp", "restore", "cli")
+DIST_RANK_TARGET = "chip_smoke:dist_rank"
+DIST_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_reduce", "all_gather", "all_to_all_single",
+                    "batch_isend_irecv")
+# Ulysses at sp 2 runs K4/K5/K6 on half of llama3_8b's heads at the
+# whole sequence.
+DIST_ULYSSES_HEADS = (16, 4)
+DIST_TRAIN_MODULE = "container_engine_accelerators_tpu_torch.cli.train"
+
+
+def _dist_cfg(sz: dict, **kw):
+    from container_engine_accelerators_tpu_torch.models import llama
+
+    preset = {"8b": llama.llama3_8b, "tiny": llama.llama_tiny}[sz["preset"]]
+    return preset(**{**sz["cfg"], **kw})
+
+
+class _CollectiveClock:
+    """Host seconds inside torch.distributed's collectives (gloo blocks
+    the caller until its copy through the host is done; an async call
+    counts its launch only), by wrapping the module's functions for the
+    rank's lifetime."""
+
+    def __init__(self, dist):
+        self.seconds = 0.0
+        self.calls = 0
+        for name in DIST_COLLECTIVES:
+            fn = getattr(dist, name)
+
+            def timed(*a, _fn=fn, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+            setattr(dist, name, timed)
+
+
+def _bits_checksum(torch, t) -> list[int]:
+    """Two exact integer checksums of a tensor's 32-bit words (summed,
+    and summed with position weights): equal bits give equal sums, and
+    one changed word changes the first."""
+    w = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+    return [int(w.sum().item()), int((w * (pos % 65521 + 1)).sum().item())]
+
+
+def _state_checksums(torch, state, blocks=None) -> dict:
+    """Checksums of this rank's params and AdamW moments, by name; with
+    `blocks(name, tensor)`, of that block of each (the restored whole
+    state cut as a rank of the saving mesh held it)."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        tensors = {name: p.detach(), **{
+            f"{name}/{k}": v for k, v in state.optimizer.state[p].items()}}
+        for key, t in tensors.items():
+            out[key] = _bits_checksum(
+                torch, t if blocks is None else blocks(name, t))
+    return out
+
+
+def dist_rule(got: float, ref1: float, ref2: float,
+              scale: float | None = None) -> dict:
+    """`got` against the one-rank run `ref1`: within DIST_RULE x the gap
+    to the other one-rank run `ref2`, the gap floored at DIST_FLOOR of
+    `scale` (|ref1| by default)."""
+    scale = abs(ref1) if scale is None else scale
+    gap = max(abs(ref2 - ref1), DIST_FLOOR * scale)
+    err = abs(got - ref1)
+    return {"got": got, "ref": ref1, "err": err, "gap": abs(ref2 - ref1),
+            "limit": DIST_RULE * gap, "ratio": err / (DIST_RULE * gap),
+            "held": bool(err <= DIST_RULE * gap)}
+
+
+def _steps_rule(run: dict, refs: dict, upto: int, other=2) -> dict:
+    """dist_rule on each step's loss and grad norm of `run` against the
+    one-rank run refs[1] (grad_accum 1), the gap to refs[other]
+    (grad_accum 2 unless named)."""
+    return {key: [dist_rule(run[key][i], refs[1][key][i],
+                            refs[other][key][i]) for i in range(upto)]
+            for key in ("loss", "grad_norm")}
+
+
+def _all_held(rules) -> bool:
+    if isinstance(rules, dict):
+        if "held" in rules:
+            return rules["held"]
+        return all(_all_held(v) for v in rules.values())
+    return all(_all_held(v) for v in rules)
+
+
+def _worst(rules) -> float:
+    if isinstance(rules, dict):
+        if "ratio" in rules:
+            return rules["ratio"]
+        return max((_worst(v) for v in rules.values()), default=0.0)
+    return max((_worst(v) for v in rules), default=0.0)
+
+
+def _dist_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dist_steps(torch, dev, step_fn, model, batches, prepare, clock,
+                after_step=None, what: str = "") -> dict:
+    """step_fn over `batches`: each step's loss, grad norm, wall ms (the
+    device synchronized), collectives' host ms and flash launches; each
+    step a progress line on stderr (_dist_progress)."""
+    from container_engine_accelerators_tpu_torch import kernels
+
+    out = {"loss": [], "grad_norm": [], "step_ms": [], "collective_ms": [],
+           "launches": []}
+    for i, b in enumerate(batches):
+        _dist_sync(torch, dev)
+        before = dict(kernels.launches)
+        c0, t0 = clock.seconds, time.perf_counter()
+        metrics = step_fn(model, prepare(b))
+        loss, gnorm = torch.stack([metrics["loss"].float(),
+                                   metrics["grad_norm"].float()]).tolist()
+        _dist_sync(torch, dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collective_ms"].append((clock.seconds - c0) * 1e3)
+        out["loss"].append(loss)
+        out["grad_norm"].append(gnorm)
+        out["launches"].append({k: kernels.launches.get(k, 0)
+                                - before.get(k, 0) for k in FLASH_REPLACES})
+        _dist_progress(what, step=i + 1, step_ms=out["step_ms"][-1],
+                       collective_ms=out["collective_ms"][-1])
+        if after_step is not None:
+            after_step(i + 1)
+    return out
+
+
+def _dist_progress(what: str, **kw) -> None:
+    """A rank's progress line on stderr, so a run cut short (or over its
+    budget) shows where its time went."""
+    import torch.distributed as dist
+
+    if what:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        print(json.dumps({"dist_rank": rank, "what": what, **kw,
+                          "t": time.time()}), file=sys.stderr, flush=True)
+
+
+def _dist_refs(torch, dev, cfg, batches, clock, keep_at=None, mesh=None,
+               gas=(2, 1)) -> dict:
+    """The one-rank runs (no mesh, each grad_accum of `gas`) over
+    `batches`, in this rank's process: {grad_accum: metrics}, with this
+    rank's fsdp block of each param (its block on `mesh`) after step
+    `keep_at` kept on the device."""
+    from container_engine_accelerators_tpu_torch.parallel import sharding
+    from container_engine_accelerators_tpu_torch.training import train
+
+    refs = {}
+    for ga in gas:
+        state = train.create_train_state(cfg, train.make_optimizer(),
+                                         seed=SEED, device=dev)
+        kept = {}
+
+        def keep(i, state=state, kept=kept):
+            if i == keep_at:
+                kept.update({n: sharding.shard_param(
+                    p.detach(), sharding.param_spec(n), mesh).clone()
+                    for n, p in state.model.named_parameters()})
+
+        refs[ga] = _dist_steps(
+            torch, dev, train.make_train_step(cfg, state.optimizer, ga),
+            state.model, batches, lambda b: train.to_device(b, dev), clock,
+            keep, what=f"ref grad_accum {ga}")
+        refs[ga]["params"] = kept
+        del state
+        _free_card(torch)
+    return refs
+
+
+def _dist_fsdp(torch, dev, cfg, batches, sz, ckpt_dir, refs, clock,
+               mesh) -> dict:
+    """(a): fsdp over every rank for steps + 1 steps, saved after step
+    `steps` (for (d)) with the checksums of this rank's shards, and the
+    params there held to the one-rank runs' by their relative L2
+    distance (each rank's blocks, summed over the ranks)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import sharding
+    from container_engine_accelerators_tpu_torch.training import (
+        checkpoint,
+        train,
+    )
+    from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
+        plan_training,
+    )
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = train.create_train_state(cfg, train.make_optimizer(),
+                                     mesh=mesh, seed=SEED)
+    out = {}
+    peaks = []      # the steps' peaks, the save and checksums left out
+
+    def after(i):
+        if i != sz["steps"]:
+            return
+        if cuda:
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+        state.step = i
+        t0 = time.perf_counter()
+        checkpoint.CheckpointManager(ckpt_dir, mesh=mesh).save(
+            i, state, force=True, cfg=cfg)
+        out["save_s"] = time.perf_counter() - t0
+        out["checksums"] = _state_checksums(torch, state)
+        # Sums of squares over this rank's blocks (a weight replicated
+        # over fsdp on fsdp rank 0 only), then over the ranks.
+        sums = torch.zeros(3, dtype=torch.float64, device=dev)
+        for name, p in state.model.named_parameters():
+            if (mesh.coord["fsdp"] and sharding.fsdp_dim(
+                    sharding.param_spec(name), mesh) is None):
+                continue
+            a, b, c_ = p.detach(), refs[1]["params"][name], \
+                refs[2]["params"][name]
+            sums += torch.stack([(a - b).double().pow(2).sum(),
+                                 (c_ - b).double().pow(2).sum(),
+                                 b.double().pow(2).sum()])
+        dist.all_reduce(sums)
+        num, gap, den = (math.sqrt(x) for x in sums.tolist())
+        out["params_rule"] = dist_rule(num / den, 0.0, gap / den, scale=1.0)
+        _dist_progress("fsdp saved and compared", seconds=time.perf_counter()
+                       - t0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    run = _dist_steps(
+        torch, dev, train.make_train_step(cfg, state.optimizer, mesh=mesh),
+        state.model, batches,
+        lambda b: train.to_device(train.shard_batch(b, mesh), dev), clock,
+        after, what="fsdp")
+    plan = plan_training(cfg, fsdp=mesh.size, batch_size=sz["batch"],
+                         seq_len=sz["seq"], device=dev,
+                         **({} if dev.type == "cuda" else
+                            {"hbm_bytes": 80e9, "chip": "none"}))
+    # plan_training is the JAX package's budget: it leaves out the bf16
+    # weights GatherShard gathers whole and the f32 gradient each
+    # reduce-scatter takes.
+    out.update(run, max_memory_allocated_bytes=(
+        max(peaks + [torch.cuda.max_memory_allocated(dev)]) if cuda
+        else None), plan=plan)
+    del state
+    _free_card(torch)
+    return out
+
+
+def _dist_dp(torch, dev, cfg, batch, sz, refs, clock) -> dict:
+    """(b): dp over every rank (fsdp 1) through the training entry
+    point, make_train_step(mesh=, dcn_overlap=): one step each of
+    compress none and int8 from the seed's state and the same batch
+    (the reducer's buckets launched from the backward's hooks, the
+    update, the loss over the slices). Each step's loss, and none's
+    grad norm, held to the one-rank runs' first step by (a)'s rule;
+    int8's reduced gradient (p.grad after its step) to none's, leaf by
+    leaf (the JAX package's leaves): with the error feedback zero, each
+    slot's int8 value is within half a step of its own gradient (step:
+    its channel's max |g| / 127), so the mean is within the sum over
+    slots of (the leaf's max |g| / 127) / 2 / n_slices, each slot's
+    max |g| read by a hook that runs before the reducer's. Then, as fit
+    does after its first step, the int8 calibration (train.
+    _dcn_calibrate, over the step's error feedback) through the
+    recorder's record_dcn_attribution. Both modes' buckets and wire
+    bytes beside it."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        grad_comm,
+        mesh as pmesh,
+    )
+    from container_engine_accelerators_tpu_torch.training import train
+
+    mesh = pmesh.make_mesh(pmesh.MeshAxes(dp=dist.get_world_size()),
+                           device=dev)
+    out = {"reducers": {}, "steps": {}}
+    for compress in ("none", "int8"):
+        dcn = grad_comm.DcnOverlapConfig(
+            bucket_bytes=int(sz["bucket_mb"] * (1 << 20)), compress=compress)
+        state = train.create_train_state(cfg, train.make_optimizer(),
+                                         mesh=mesh, seed=SEED,
+                                         dcn_overlap=dcn)
+        named = list(state.model.named_parameters())
+        step = train.make_train_step(cfg, state.optimizer, mesh=mesh,
+                                     dcn_overlap=dcn, state=state)
+        absmax, hooks = {}, []
+        if compress == "int8":
+            # Registered before the step attaches the reducer's, so each
+            # reads the slot's own gradient.
+            hooks = [p.register_post_accumulate_grad_hook(
+                lambda p, name=name: absmax.__setitem__(
+                    name, torch.linalg.vector_norm(p.grad, float("inf"))))
+                for name, p in named]
+        run = _dist_steps(torch, dev, step, state.model, [batch],
+                          functools.partial(_dp_prepare, dev, mesh), clock,
+                          what=f"dp {compress}")
+        for h in hooks:
+            h.remove()
+        out["steps"][compress] = run
+        out["reducers"][compress] = grad_comm.summarize(step.reducer)
+        if compress == "none":
+            # The reduced mean on the host, the card left to int8's state.
+            none_mean = {name: p.grad.detach().cpu() for name, p in named}
+        else:
+            # The moments are not needed any more: the comparison's
+            # copies, and then the probes' scratch feedback, take their
+            # room.
+            state.optimizer.state.clear()
+            _free_card(torch)
+            out["int8_bound"] = _int8_bound(torch, dev, mesh, named,
+                                            absmax, none_mean)
+            del none_mean
+            # fit's calibration after its first step.
+            t0 = time.perf_counter()
+            for _, p in named:
+                p.grad = None
+            _free_card(torch)
+            rec = TrainRecorder()
+            train._dcn_calibrate(cfg, mesh, dcn, state,
+                                 _dp_prepare(dev, mesh, batch), rec,
+                                 train._quiet)
+            require(rec.last_dcn_attribution is not None,
+                    "dist_train dp: the int8 calibration recorded nothing")
+            out["attribution"] = {**rec.last_dcn_attribution, "gauges": {
+                name: rec.registry.get_sample_value(name) for name in (
+                    "train_dcn_overlap_fraction",
+                    "train_dcn_exposed_seconds_per_step",
+                    "train_dcn_busbw_bytes_per_second",
+                    "train_dcn_wire_bytes_per_step")}}
+            out["calibrate_s"] = time.perf_counter() - t0
+        del state, step, named
+        _free_card(torch)
+    none, int8 = out["steps"]["none"], out["steps"]["int8"]
+    out.update(loss=none["loss"], grad_norm=none["grad_norm"],
+               int8_loss=int8["loss"], int8_grad_norm=int8["grad_norm"])
+    out["rule"] = {**_steps_rule(none, refs, 1), "int8_loss": [dist_rule(
+        int8["loss"][0], refs[1]["loss"][0], refs[2]["loss"][0])]}
+    return out
+
+
+def _int8_bound(torch, dev, mesh, named, absmax: dict,
+                none_mean: dict) -> dict:
+    """(b)'s int8 bound, leaf by leaf: max |int8 mean - none mean| within
+    the sum over the dp slots of the leaf's max |g| / (2 x 127 x n)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import grad_comm
+
+    n = mesh.axis_size("dp")
+    leaves = grad_comm.jax_leaves([name for name, _ in named],
+                                  [p for _, p in named], mesh)
+    mine = torch.stack([max(absmax[named[m][0]] for m in lf.members)
+                        for lf in leaves]).float()
+    parts = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(parts, mine, group=mesh.group("dp"))
+    bound = torch.stack(parts).sum(0) / (2 * 127 * n)
+    rows = []
+    for i, lf in enumerate(leaves):
+        err = top = 0.0
+        for m in lf.members:
+            name, p = named[m]
+            want = none_mean[name].to(dev)
+            err = max(err, float((p.grad - want).abs().max()))
+            top = max(top, float(want.abs().max()))
+        limit = float(bound[i]) * (1 + 1e-3) + 1e-6 * top
+        rows.append({"leaf": lf.key, "max_abs_err": err, "limit": limit,
+                     "ratio": err / limit, "held": err <= limit})
+    return {"leaves": rows, "held": all(r["held"] for r in rows),
+            "worst_ratio": max(r["ratio"] for r in rows)}
+
+
+def _dp_prepare(dev, mesh, b):
+    from container_engine_accelerators_tpu_torch.training import train
+
+    return train.to_device(train.shard_batch(b, mesh), dev)
+
+
+def _sp_inputs(torch, dev, b, s, hq, hkv, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16 if dev.type == "cuda" else torch.float32)
+
+    return (rnd(b, s, hq, 128), rnd(b, s, hkv, 128), rnd(b, s, hkv, 128),
+            rnd(b, s, hq, 128))
+
+
+def _row_rel(torch, got, want, d: int) -> float:
+    """The worst row's max |got - want| over its max |want| plus
+    FLASH_TENSOR_ATOL of the tensor's max |want| (rows of d): a row whose
+    exact value is zero (causal dq's first query) reads its difference
+    against the tensor's scale, as _row_errors does."""
+    err = (got.float() - want.float()).abs().reshape(-1, d).amax(-1)
+    scale = want.float().abs().reshape(-1, d).amax(-1)
+    floor = FLASH_TENSOR_ATOL * float(scale.max())
+    return float((err / (scale + max(floor, 1e-30))).max())
+
+
+def _dist_sp_attention(torch, dev, mesh, sz, cfg) -> dict:
+    """(c) first part: one attention layer's output and q/k/v gradients
+    (of sum(out * w)) through ring and Ulysses attention at sp 2, each
+    rank's chunk against the same rows of one-rank flash attention (K4,
+    K5, K6) over the whole sequence. Ring computes its chunks in f32 and
+    K4 rounds P to bf16, two roundings of the same attention, so each
+    is held by the rule of (a): its worst row-relative difference from
+    K4's within DIST_RULE x K4's own from the f32 reference attention
+    on the same inputs (floored at one bf16 step, 2^-8)."""
+    from container_engine_accelerators_tpu_torch.ops.attention import (
+        multi_head_attention,
+        reference_attention,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+        spmd_util,
+        ulysses,
+    )
+
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v, w = _sp_inputs(torch, dev, 1, sz["sp_seq"], hq, hkv, SEED + 20)
+
+    def grads(fn, xs, w):
+        xs = [x.detach().clone().requires_grad_() for x in xs]
+        out = fn(*xs)
+        dq, dk, dv = torch.autograd.grad((out.float() * w.float()).sum(), xs)
+        return [t.detach() for t in (out, dq, dk, dv)]
+
+    names = ("out", "dq", "dk", "dv")
+    f32 = grads(lambda a, b, c: reference_attention(a, b, c),
+                [t.float() for t in (q, k, v)], w)
+    f32 = [spmd_util.local_cols(t, mesh) for t in f32]
+    ref = grads(lambda a, b, c: multi_head_attention(a, b, c,
+                                                     use_flash=True),
+                (q, k, v), w)
+    ref = [spmd_util.local_cols(t, mesh) for t in ref]
+    gap = {n: max(_row_rel(torch, r, f, 128), 2 ** -8)
+           for n, r, f in zip(names, ref, f32)}
+    del f32
+    local = [spmd_util.local_cols(t, mesh).contiguous()
+             for t in (q, k, v, w)]
+    out = {}
+    for mode, fn in (
+            ("ring", lambda a, b, c: ring_attention.ring_attention(
+                a, b, c, mesh)),
+            ("ulysses", lambda a, b, c: ulysses.ulysses_attention(
+                a, b, c, mesh, use_flash=True))):
+        got = grads(fn, local[:3], local[3])
+        out[mode] = {n: {**dist_rule(_row_rel(torch, g, r, 128), 0.0,
+                                     gap[n], scale=1.0),
+                         "bit_identical": bool(torch.equal(g, r))}
+                     for n, g, r in zip(names, got, ref)}
+    return out
+
+
+def _dist_sp_train(torch, dev, mesh, sz, refs_fn) -> dict:
+    """(c) second part: one train step at sp over every rank, ring and
+    Ulysses, from the seed's weights, its loss and grad norm held to the
+    one-rank runs at sp 1 (the config's default mode, ring over one
+    chunk) of the same global batch (rank 0: refs_fn()). Ulysses by
+    (a)'s rule. Ring's chunks round in bf16 where one chunk did not (a
+    row's softmax in two parts, each part's probabilities rounded to
+    bf16 against its own max), a different bf16 computation of the same
+    step rather than another order of one sum, so its yardstick is the
+    one-rank run's own bf16 rounding: within DIST_RULE x the gap between
+    that run and its f32 twin (the same weights and batch, f32
+    activations; refs["f32"]), as the tp phase holds tp 2 to tp 1's f32
+    twin."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.training import data, train
+
+    base = _dist_cfg(sz, sequence_parallel=True)
+    batch = list(data.synthetic_batches(base.vocab_size, sz["sp_batch"],
+                                        sz["sp_seq"], num_batches=1,
+                                        seed=SEED + 21))
+    refs = refs_fn(base, batch)
+    out = {}
+    for mode in sz["sp_train_modes"]:
+        cfg = dataclasses.replace(base, sequence_parallel_mode=mode)
+        state = train.create_train_state(cfg, train.make_optimizer(),
+                                         mesh=mesh, seed=SEED)
+        run = _dist_steps(
+            torch, dev, train.make_train_step(cfg, state.optimizer,
+                                              mesh=mesh),
+            state.model, batch,
+            lambda b: train.to_device(train.shard_batch(
+                b, mesh, sequence_parallel=True), dev),
+            _NO_CLOCK)
+        if refs is not None:
+            run["rule"] = _steps_rule(
+                run, refs, 1, other="f32" if mode == "ring" else 2)
+        out[mode] = run
+        del state
+        _free_card(torch)
+    return out
+
+
+class _NoClock:
+    seconds = 0.0
+
+
+_NO_CLOCK = _NoClock()
+
+
+def dist_rank(ckpt_dir: str, sz: dict, device: str = "cuda") -> dict:
+    """One rank of the dist_train phase (parallel/launch.run_ranks): the
+    one-rank references (rank 0, the others waiting), then (a) fsdp over
+    every rank, (b) dp with the bucketed reducer, (c) sp. Returns this
+    rank's figures (rank 0's hold the comparisons)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch import kernels
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+        mesh as pmesh,
+    )
+    from container_engine_accelerators_tpu_torch.training import data
+
+    distributed.initialize_from_env(backend=None, device=device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    backend, dev = distributed.job_placement()
+    if dev.type == "cuda":
+        kernels.load()
+    clock = _CollectiveClock(dist)
+    cfg = _dist_cfg(sz)
+    batches = list(data.synthetic_batches(
+        cfg.vocab_size, sz["batch"], sz["seq"], num_batches=sz["steps"] + 1,
+        seed=SEED))
+    out = {"rank": rank, "backend": backend, "device": str(dev)}
+
+    def done(part: str, t0: float) -> None:
+        out[f"{part}_s"] = time.perf_counter() - t0
+        _dist_progress(part, seconds=out[f"{part}_s"],
+                       max_memory_allocated_bytes=(
+                           torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None))
+
+    # Every rank runs the one-rank references itself (at once, on the
+    # shared card), keeping its fsdp block of their params after step
+    # `steps`.
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(pmesh.MeshAxes(fsdp=world), device=dev)
+    refs = _dist_refs(torch, dev, cfg, batches, clock, sz["steps"], mesh)
+    done("refs", t0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out["fsdp"] = _dist_fsdp(torch, dev, cfg, batches, sz, ckpt_dir, refs,
+                             clock, mesh)
+    done("fsdp", t0)
+    for r in refs.values():
+        r.pop("params")
+    out["refs"] = refs
+    out["fsdp"]["rule"] = _steps_rule(out["fsdp"], refs, sz["steps"] + 1)
+    _free_card(torch)
+    parts = sz.get("parts", DIST_PARTS)
+    if "dp" in parts:
+        t0 = time.perf_counter()
+        out["dp"] = _dist_dp(torch, dev, cfg, batches[0], sz, refs,
+                               clock)
+        done("dp", t0)
+    if "sp" in parts:
+        t0 = time.perf_counter()
+        sp_mesh = pmesh.make_mesh(pmesh.MeshAxes(sp=world), device=dev)
+        out["sp_attention"] = _dist_sp_attention(torch, dev, sp_mesh, sz,
+                                                 cfg)
+
+        def sp_refs(c, batch):
+            r = None
+            if rank == 0:
+                r = _dist_refs(torch, dev, c, batch, _NO_CLOCK)
+                r["f32"] = _dist_refs(
+                    torch, dev, dataclasses.replace(c, dtype=torch.float32),
+                    batch, _NO_CLOCK, gas=(1,))[1]
+            dist.barrier()
+            return r
+
+        out["sp_train"] = _dist_sp_train(torch, dev, sp_mesh, sz, sp_refs)
+        done("sp", t0)
+    out["launches"] = dict(kernels.launches)
+    out["collectives"] = {"seconds": clock.seconds, "calls": clock.calls}
+    return out
+
+
+def _dist_cli_pair(root: str, sz: dict, device: str) -> list:
+    """Two processes of cli/train.py under the manifests' env (the
+    coordinator on a free local port), started together; their
+    processes, to be read by _dist_cli_read."""
+    from container_engine_accelerators_tpu_torch.parallel import launch
+
+    port = launch.free_port()
+    procs = []
+    for rank in range(DIST_RANKS):
+        env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "JAX_NUM_PROCESSES": str(DIST_RANKS),
+               "JAX_PROCESS_ID": str(rank)}
+        env.update({k: "" for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                    "WORLD_SIZE") if k in os.environ})
+        procs.append(_popen_port(
+            root, DIST_TRAIN_MODULE, *sz["cli_args"], "--device", device,
+            env={**env, "PYTORCH_CUDA_ALLOC_CONF":
+                          "expandable_segments:True"},
+            code=TRAIN_WITH_LAUNCHES,
+            stderr=subprocess.PIPE))
+    return procs
+
+
+def _dist_cli_read(procs, what: str, timeout_s: float = 600) -> dict:
+    """Each rank's summary line and launch counts; both ranks must exit
+    0 with the job's topology and one final loss."""
+    summaries, launches = [], []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"dist_train cli {what}: timed out")
+            lines = [json.loads(ln) for ln in out.strip().splitlines()
+                     if ln.startswith("{")]
+            require(p.returncode == 0 and len(lines) >= 2,
+                    f"dist_train cli {what}: rc {p.returncode}: "
+                    f"{err[-2000:]}")
+            summaries.append(lines[-2])
+            launches.append(lines[-1]["kernel_launches"])
+    finally:
+        # A rank left waiting on a failed peer is stopped, not orphaned.
+        _stop_procs(procs)
+    return {"summaries": summaries, "launches": launches}
+
+
+def dist_train_phase(torch, dev, np, sz: dict = DIST_SIZES,
+                     device: str = "cuda", flash_check: bool = True
+                     ) -> dict:
+    """The dist_train phase (see the module docstring): K4/K5/K6 at
+    Ulysses's head counts against their plain versions; the ranks' (a),
+    (b) and (c); (d) the fsdp checkpoint restored here at fsdp 1 and
+    stepped once; (e) the CLI as two processes under the manifests'
+    env, fsdp 2, during (d). A second pair with --dcn-slices 2
+    --dcn-overlap --dcn-grad-compress int8 would cost ~35 s of
+    host-staged steps and calibration: (b) runs that step and
+    calibration through make_train_step on the card, and
+    tests/test_torch_train_cli_dist.py runs the pair on the CPU. Its
+    line is emitted before its checks fail the run."""
+    from container_engine_accelerators_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    parts = sz.get("parts", DIST_PARTS)
+    res = {"phase": "dist_train", "ranks": DIST_RANKS,
+           "model": (f"llama3_8b x {DIST_LAYERS} layers"
+                     if sz["preset"] == "8b" else sz["preset"]),
+           "nvidia_smi": nvidia_smi_line() if dev.type == "cuda" else None,
+           "sizes": json.loads(json.dumps(
+               {k: v for k, v in sz.items() if k != "cli_args"},
+               default=str))}
+    seconds = {}
+    if flash_check:
+        t0 = time.perf_counter()
+        hq, hkv = DIST_ULYSSES_HEADS
+        res["ulysses_kernels"] = flash_phase(
+            torch, dev, b=1, s=sz["sp_seq"], hq=hq, hkv=hkv,
+            cases=("main",), label="ulysses_")
+        seconds["ulysses_kernels"] = time.perf_counter() - t0
+    root = port_root()
+    res["swept"] = sweep_ckpt_roots()
+    cli = {}
+    _free_card(torch)
+    with tempfile.TemporaryDirectory(
+            prefix=f"{CKPT_ROOT_PREFIX}{os.getpid()}-",
+            dir=CKPT_SHM if os.path.isdir(CKPT_SHM) else None) as ckpt_dir:
+        t0 = time.perf_counter()
+        try:
+            ranks = launch.run_ranks(
+                DIST_RANK_TARGET, DIST_RANKS,
+                {"ckpt_dir": ckpt_dir, "sz": sz, "device": device},
+                timeout=1000, cwd=root, echo=True,
+                env={"PYTHONPATH": root,
+                     "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"},
+                # The host's cores for the card's ranks (gloo's copies);
+                # one each for the CPU rehearsal beside other tests.
+                threads=(1 if device == "cpu"
+                         else max(1, (os.cpu_count() or 2) // DIST_RANKS)))
+        except RuntimeError as e:
+            raise SmokeFailure(f"dist_train ranks: {e}") from e
+        seconds["ranks"] = time.perf_counter() - t0
+        seconds.update({k: v for k, v in ranks[0].items()
+                        if k.endswith("_s")})
+        t0 = time.perf_counter()
+        if "cli" in parts:
+            # (e)'s plain pair beside (d): fsdp 2, a shard a rank.
+            cli["plain"] = _dist_cli_pair(root, sz, device)
+        try:
+            if "restore" in parts:
+                res["restore"] = _dist_restore(torch, dev, sz, ckpt_dir,
+                                               ranks)
+        except BaseException:
+            _stop_procs(cli.get("plain", []))
+            raise
+        seconds["restore"] = time.perf_counter() - t0
+    if "cli" in parts:
+        res["cli"] = {"plain": _dist_cli_read(cli["plain"], "plain")}
+        seconds["cli"] = time.perf_counter() - t0
+    rules = _dist_figures(res, ranks, sz)
+    seconds["phase"] = time.perf_counter() - t_phase
+    res["seconds"] = seconds
+    emit(res)
+    _dist_check(res, ranks, rules, sz)
+    return res
+
+
+def _dist_restore(torch, dev, sz: dict, ckpt_dir: str, ranks: list) -> dict:
+    """(d): the fsdp run's checkpoint (saved after step `steps`) restored
+    in this process at fsdp 1 into a state from another seed: its params
+    and AdamW moments, cut as each rank held them, bit for bit that
+    rank's shards (checksums), the
+    recorder's `reshard` bucket charged, and one more step held to the
+    fsdp run's next step by (a)'s rule."""
+    from container_engine_accelerators_tpu_torch.metrics.train_metrics import (  # noqa: E501
+        TrainRecorder,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+    from container_engine_accelerators_tpu_torch.parallel import sharding
+    from container_engine_accelerators_tpu_torch.training import (
+        checkpoint,
+        data,
+        train,
+    )
+
+    cfg = _dist_cfg(sz)
+    state = train.create_train_state(cfg, train.make_optimizer(),
+                                     mesh=pm.single_mesh(dev),
+                                     seed=SEED + 1)
+    rec = TrainRecorder()
+    mngr = checkpoint.CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    require(mngr.restore(state) is state, "dist_train: nothing restored")
+    info = mngr.last_restore_info
+    rec.record_restore(time.perf_counter() - t0, step=state.step,
+                       resharded=bool(info["topology_changed"]))
+    identical = []
+    for r in ranks:
+        # The restored whole state cut as rank r of the fsdp mesh held it.
+        view = pm.single_mesh(dev)
+        view.axes = pm.MeshAxes(fsdp=len(ranks))
+        view.coord = dict(view.coord, fsdp=r["rank"])
+        sums = _state_checksums(torch, state, lambda name, t, v=view: (
+            sharding.shard_param(t, sharding.param_spec(name), v)))
+        identical.append(sums == r["fsdp"]["checksums"])
+    r0 = ranks[0]
+    batch = list(data.synthetic_batches(
+        cfg.vocab_size, sz["batch"], sz["seq"], num_batches=sz["steps"] + 1,
+        seed=SEED))[sz["steps"]]
+    step = train.make_train_step(cfg, state.optimizer)
+    run = _dist_steps(torch, dev, step, state.model, [batch],
+                      lambda b: train.to_device(b, dev), _NO_CLOCK)
+    i = sz["steps"]
+    fsdp, refs = r0["fsdp"], r0["refs"]
+    rule = {key: dist_rule(run[key][0], fsdp[key][i],
+                           fsdp[key][i] + refs[2][key][i] - refs[1][key][i])
+            for key in ("loss", "grad_norm")}
+    out = {"step": state.step, "bytes": info["bytes"],
+           "seconds": info["seconds"],
+           "gb_per_s": info["bytes"] / 1e9 / info["seconds"],
+           "saved_topology": info["saved_topology"],
+           "topology_changed": info["topology_changed"],
+           "tensors": len(r0["fsdp"]["checksums"]),
+           "bit_identical": all(identical),
+           "reshard_s": rec.goodput()["reshard"],
+           "next_step": run, "rule": rule}
+    mngr.close()
+    del state, step
+    _free_card(torch)
+    return out
+
+
+def _dist_figures(res: dict, ranks: list, sz: dict) -> dict:
+    """The phase's figures by rank and rank 0's comparisons into `res`;
+    returns the rules _dist_check holds."""
+    r0 = ranks[0]
+    res["by_rank"] = [{
+        "rank": r["rank"], "backend": r["backend"], "device": r["device"],
+        "fsdp_step_ms": r["fsdp"]["step_ms"],
+        "fsdp_collective_ms": r["fsdp"]["collective_ms"],
+        "fsdp_launches_per_step": r["fsdp"]["launches"],
+        "max_memory_allocated_bytes": r["fsdp"][
+            "max_memory_allocated_bytes"],
+        "plan_fsdp2": {k: r["fsdp"]["plan"][k] for k in (
+            "state_gb", "grads_gb", "acts_gb", "logits_gb", "total_gb")},
+        **({"dp_step_ms": {c: v["step_ms"] for c, v in
+                           r["dp"]["steps"].items()},
+            "dp_collective_ms": {c: v["collective_ms"] for c, v in
+                                 r["dp"]["steps"].items()}}
+           if "dp" in r else {}),
+        **({"sp_step_ms": {m: v["step_ms"]
+                           for m, v in r["sp_train"].items()}}
+           if "sp_train" in r else {}),
+        "launches": r["launches"], "collectives": r["collectives"]}
+        for r in ranks]
+    res["refs"] = r0["refs"]
+    res["fsdp"] = {"loss": r0["fsdp"]["loss"],
+                   "grad_norm": r0["fsdp"]["grad_norm"],
+                   "rule": r0["fsdp"]["rule"],
+                   "params_rule": r0["fsdp"]["params_rule"],
+                   "save_s": r0["fsdp"]["save_s"]}
+    rules = {"fsdp": res["fsdp"]["rule"],
+             "params": res["fsdp"]["params_rule"]}
+    if "dp" in r0:
+        res["dp"] = r0["dp"]
+        rules["dp_none"] = res["dp"]["rule"]
+    if "sp_train" in r0:
+        res["sp_attention"] = r0["sp_attention"]
+        res["sp_train"] = {m: {k: v[k] for k in ("loss", "grad_norm",
+                                                  "rule")}
+                           for m, v in r0["sp_train"].items()}
+        rules.update({f"sp_{m}": v["rule"]
+                      for m, v in res["sp_train"].items()})
+        rules["sp_attention"] = res["sp_attention"]
+    if "restore" in res:
+        rules["restore_step"] = res["restore"]["rule"]
+    res["worst_rule_ratio"] = {k: _worst(v) for k, v in rules.items()}
+    res["launches"] = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                       for k in FLASH_REPLACES}
+    if "restore" in res:
+        for k in FLASH_REPLACES:
+            res["launches"][k] += res["restore"]["next_step"][
+                "launches"][0].get(k, 0)
+    for mode in res.get("cli", {}):
+        for counts in res["cli"][mode]["launches"]:
+            for k in FLASH_REPLACES:
+                res["launches"][k] += counts.get(k, 0)
+    return rules
+
+
+def _dist_check(res: dict, ranks: list, rules: dict, sz: dict) -> None:
+    """The phase's checks, each a SmokeFailure."""
+    for name, rule in rules.items():
+        require(_all_held(rule), f"dist_train {name}: outside {DIST_RULE}x "
+                f"the one-rank gap (worst ratio {_worst(rule)}): {rule}")
+    if "dp" in res:
+        require(res["dp"]["int8_bound"]["held"],
+                f"dist_train: int8 past its bound {res['dp']['int8_bound']}")
+    if "restore" in res:
+        rs = res["restore"]
+        require(rs["bit_identical"] and rs["topology_changed"]
+                and rs["reshard_s"] > 0 and rs["step"] == sz["steps"],
+                f"dist_train restore: {rs}")
+    for mode, slices in (("plain", 1),):
+        if mode not in res.get("cli", {}):
+            continue
+        sums = res["cli"][mode]["summaries"]
+        topo = {"processes": DIST_RANKS, "devices": DIST_RANKS,
+                "slices": slices}
+        require(all({k: s["topology"][k] for k in topo} == topo
+                    for s in sums) and len({s["loss"] for s in sums}) == 1
+                and all(math.isfinite(s["loss"]) for s in sums),
+                f"dist_train cli {mode}: {sums}")
+    for r in ranks:
+        for i, step in enumerate(r["fsdp"]["launches"]):
+            require(all(step.get(k, 0) > 0 for k in FLASH_REPLACES),
+                    f"dist_train: rank {r['rank']} step {i + 1} launched "
+                    f"{step}")
+
+
+def dist_train_main(torch) -> int:
+    """`chip_smoke.py dist_train`: the build and the dist_train phase
+    alone."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import kernels
+
+    try:
+        dev = torch.device("cuda", 0)
+        smi = nvidia_smi_line()
+        emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+              "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        kernels.build()
+        kernels.load()
+        seconds = {"build": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        dist_train_phase(torch, dev, np)
+        seconds["dist_train"] = time.perf_counter() - t0
+        emit({"phase_seconds": seconds})
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def training_phases(torch, dev, np, timed) -> dict:
     """The training path's phases in order, the card's memory freed
     between them: train under 'dots' then 'dots_save_attn', train_parity,
@@ -9061,6 +10074,8 @@ def main() -> int:
         return moe_main(torch)
     if sys.argv[1:2] == ["tp"]:
         return tp_main(torch)
+    if sys.argv[1:2] == ["dist_train"]:
+        return dist_train_main(torch)
 
     try:
         dev = torch.device("cuda", 0)
@@ -9077,6 +10092,7 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*args)
             seconds[name] = time.perf_counter() - t0
+            emit({"phase_done": name, "seconds": seconds[name]})
             return out
 
         lib = timed("build", kernels.build)
@@ -9098,20 +10114,26 @@ def main() -> int:
                         np, model, cfg)
         cont = timed("continuous", continuous_phase, torch, dev, np, model,
                      cfg)
-        kvq = timed("kv_quant", kv_quant_phase, torch, dev, np, model, cfg,
-                    preempt)
-        obs = timed("observe", observe_phase, torch, dev, np, model, cfg)
-        spec = timed("spec", spec_phase, torch, dev, np, model, cfg)
-        pools = timed("pools", pools_phase, torch, dev, np, model, cfg)
-        sup = timed("supervise", supervise_phase, torch, dev, np, model,
-                    cfg)
-        del model   # the training phases need the card's memory
+        from container_engine_accelerators_tpu_torch.models.spec import (
+            truncate_params,
+        )
+        cut = truncate_params(model, SERVE_CUT_LAYERS)
+        kvq = timed("kv_quant", kv_quant_phase, torch, dev, np, cut,
+                    cut.cfg, preempt)
+        obs = timed("observe", observe_phase, torch, dev, np, cut, cut.cfg)
+        spec = timed("spec", spec_phase, torch, dev, np, cut, cut.cfg)
+        pools = timed("pools", pools_phase, torch, dev, np, cut, cut.cfg)
+        sup = timed("supervise", supervise_phase, torch, dev, np, cut,
+                    cut.cfg)
+        del model, cut   # the training phases need the card's memory
         gc.collect()
         torch.cuda.empty_cache()
         tp = timed("tp", tp_phase, torch, dev, np)
         moe = timed("moe", moe_phase, torch, dev, np)
         flash = timed("flash", flash_phase, torch, dev)
         tr = training_phases(torch, dev, np, timed)
+        dist = timed("dist_train", dist_train_phase, torch, dev, np)
+        _free_card(torch)
         with tempfile.TemporaryDirectory() as tmp_dir:
             health = timed("health", health_phase, torch, dev, tmp_dir)
         with tempfile.TemporaryDirectory() as tmp_dir:
@@ -9139,7 +10161,7 @@ def main() -> int:
                    for phase in ("train", "train_save_attn", "ckpt",
                                  "observe_train", "eval")) + sum(
                                      phase["launches"].get(name, 0)
-                                     for phase in (moe, tele, doc))
+                                     for phase in (moe, tele, doc, dist))
 
     def prefill(case):
         """The main prefill case of K1 or K3, beside decode's."""

@@ -1,4 +1,5 @@
-"""train — train a Llama-3-family model on one device.
+"""train — train a Llama-3-family model on one device or across the
+ranks of a job.
 
   python -m container_engine_accelerators_tpu_torch.cli.train \
       --preset tiny --steps 20 --ckpt-dir /tmp/ckpt --metrics-port 0 \
@@ -35,17 +36,43 @@ over synthetic data (or a token file from `training/dataset.py`,
   TPU_PROFILE_DIR   a torch.profiler capture of the run (utils/
                     profiling.py) with its train/* regions
 
+A job of several processes. The manifests' JAX_COORDINATOR_ADDRESS,
+JAX_NUM_PROCESSES and JAX_PROCESS_ID (or torchrun's MASTER_ADDR,
+MASTER_PORT, RANK and WORLD_SIZE) make each process one rank of one
+training run (parallel/distributed.initialize_from_env; a rank waits
+JAX_COORDINATOR_TIMEOUT_S for the coordinator, then fails naming it).
+The ranks form a mesh of fsdp = n, or with --dcn-slices S (default
+MEGASCALE_NUM_SLICES / JAX_NUM_SLICES) dp = S x fsdp = n / S with the
+slices along dp; --batch-size is the global batch, each rank steps on
+its block of it. Placement: rank r on cuda:r over NCCL where the process
+sees as many cards as ranks, every rank on cuda:0 over gloo where it
+sees fewer, gloo on the CPU with --device cpu.
+
+  --dcn-overlap     the bucketed dp gradient reduction (parallel/
+                    grad_comm.py): each bucket's collective launched as
+                    soon as its gradients exist; --dcn-bucket-mb sets
+                    the bucket size, --dcn-grad-compress int8 the
+                    quantized wire with error feedback
+
 On the card the run records the utils/hbm_plan budget it should fit
 (plan_training), which OOM bundles and oom_precursor verdicts carry.
+That budget is the JAX package's: under fsdp > 1 it leaves out what
+the port holds for a moment beyond it, the bf16 weights GatherShard
+gathers whole (a layer's, the embedding, the lm_head) and the f32
+gradient each reduce-scatter takes, so a rank's peak runs above it.
 
 Runs on the GPU unless `--device cpu` is given; without CUDA it exits
 with an error instead of falling back. Prints one JSON line at the end:
 the recorder's summary (steps and tokens of this run, tokens_per_sec
 over productive time without the first step, MFU, step percentiles,
-the goodput split), final_step, the last step's loss and, with
---doctor, doctor_incidents. The remat
-policy comes with the preset's config ('dots'); multi-device meshes are
-not ported yet.
+the goodput split), final_step, the last step's loss, the job's
+topology (processes, devices: the mesh's size, slices, and the
+placement's backend and device), with --dcn-overlap the calibration's
+dcn_attribution, and with --doctor doctor_incidents.
+Every rank prints its own line. The remat policy comes with the
+preset's config ('dots'). Not ported yet: --elastic (training/
+elastic.py), and the tp and pp training axes (ROADMAP item 12's
+remainder).
 """
 
 from __future__ import annotations
@@ -148,9 +175,33 @@ def main(argv=None) -> int:
     p.add_argument("--fabric-health-history", default=None,
                    help="append probe-history JSONL rows here "
                         "(tools/fabric_report.py input)")
+    p.add_argument("--dcn-slices", type=int, default=None,
+                   help="DCN slice count for the multislice mesh (slices "
+                        "land on the dp axis); default: "
+                        "MEGASCALE_NUM_SLICES / JAX_NUM_SLICES env, "
+                        "else 1")
+    p.add_argument("--dcn-overlap", action="store_true",
+                   help="bucketed overlapped dp gradient reduction "
+                        "(parallel/grad_comm.py), with a one-shot "
+                        "exposed-comm calibration on the recorder and the "
+                        "step log")
+    p.add_argument("--dcn-bucket-mb", type=float, default=4.0,
+                   help="target gradient bucket size in MiB for "
+                        "--dcn-overlap (uncompressed f32 bytes)")
+    p.add_argument("--dcn-grad-compress", choices=("none", "int8"),
+                   default="none",
+                   help="compress dp gradient traffic: int8 quantization "
+                        "with per-leaf error feedback (requires "
+                        "--dcn-overlap)")
+    p.add_argument("--elastic", action="store_true",
+                   help="not ported yet: training/elastic.py (ROADMAP "
+                        "item 12's remainder)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.elastic:
+        raise SystemExit("--elastic is not ported yet: training/elastic.py "
+                         "waits for ROADMAP item 12's remainder")
 
     from container_engine_accelerators_tpu_torch.metrics import events
     if args.trace_dump:
@@ -169,36 +220,59 @@ def main(argv=None) -> int:
     )
 
     cfg = build_config(args.preset, args.vocab_size, args.n_layers)
-    if args.data:
-        from container_engine_accelerators_tpu_torch.training.dataset import (
-            token_file_batches,
-        )
-        batches = token_file_batches(args.data, args.batch_size,
-                                     args.seq_len, seed=args.seed)
-    else:
-        from container_engine_accelerators_tpu_torch.training.data import (
-            synthetic_batches,
-        )
-        batches = synthetic_batches(cfg.vocab_size, args.batch_size,
-                                    args.seq_len, seed=args.seed)
 
     # Asking for CUDA without it raises here, before any thread starts.
     from container_engine_accelerators_tpu_torch.models.convert import (
         resolve_device,
     )
     dev = resolve_device(args.device)
+    if args.dcn_grad_compress != "none" and not args.dcn_overlap:
+        raise SystemExit("--dcn-grad-compress requires --dcn-overlap "
+                         "(compression rides the bucketed reducer)")
+    mesh, slices = _job_mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+    dcn_overlap = None
+    if args.dcn_overlap:
+        from container_engine_accelerators_tpu_torch.parallel.grad_comm import (  # noqa: E501
+            DcnOverlapConfig,
+        )
+        dcn_overlap = DcnOverlapConfig(
+            bucket_bytes=max(int(args.dcn_bucket_mb * (1 << 20)), 1),
+            compress=args.dcn_grad_compress)
+        log.info("dcn overlap on: bucket %.1f MiB, compress=%s",
+                 args.dcn_bucket_mb, args.dcn_grad_compress)
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if mesh is not None else 1
+    rank = mesh.rank if mesh is not None else 0
+    if args.data:
+        from container_engine_accelerators_tpu_torch.training.dataset import (
+            token_file_batches,
+        )
+        batches = token_file_batches(args.data, args.batch_size,
+                                     args.seq_len, process_id=rank,
+                                     num_processes=world, seed=args.seed)
+    else:
+        from container_engine_accelerators_tpu_torch.training.data import (
+            synthetic_batches,
+        )
+        batches = synthetic_batches(cfg.vocab_size, args.batch_size,
+                                    args.seq_len, seed=args.seed)
     if dev.type == "cuda":
         # The budget this run should fit under, embedded in any OOM
-        # bundle and the doctor's oom_precursor evidence.
+        # bundle and the doctor's oom_precursor evidence (without the
+        # fsdp gathers' transients: see the module docstring).
         from container_engine_accelerators_tpu_torch.metrics import (
             introspection,
         )
         from container_engine_accelerators_tpu_torch.utils.hbm_plan import (
             plan_training,
         )
+        shape = mesh.shape if mesh is not None else {}
         introspection.set_expected_hbm(plan_training(
-            cfg, batch_size=args.batch_size, seq_len=args.seq_len,
-            device=dev))
+            cfg, dp=shape.get("dp", 1), fsdp=shape.get("fsdp", 1),
+            batch_size=args.batch_size, seq_len=args.seq_len, device=dev))
     # The CLI owns the recorder (fit would build one too) so the summary
     # can be printed after fit returns.
     recorder = TrainRecorder(log_path=args.metrics_log,
@@ -235,7 +309,9 @@ def main(argv=None) -> int:
             baseline_path=args.fabric_health_baseline,
             history_path=args.fabric_health_history,
             registry=recorder.registry,
-            backend="gloo" if dev.type == "cpu" else "nccl", device=dev)
+            backend=(mesh.backend if mesh is not None
+                     else "gloo" if dev.type == "cpu" else "nccl"),
+            device=dev)
         fmon.train_every = max(args.fabric_health_every, 1)
         fabric_health.set_active(fmon)
         log.info("fabric health monitor on (sweep every %d steps)",
@@ -249,8 +325,11 @@ def main(argv=None) -> int:
             ckpt_async=args.ckpt_async, recorder=recorder,
             metrics_port=args.metrics_port, metrics_host=args.metrics_host,
             heartbeat_dir=args.heartbeat_dir,
-            watchdog_threshold_s=args.watchdog_threshold)
+            watchdog_threshold_s=args.watchdog_threshold, mesh=mesh,
+            dcn_overlap=dcn_overlap)
         summary = recorder.summary()
+        if recorder.last_dcn_attribution is not None:
+            summary["dcn_attribution"] = recorder.last_dcn_attribution
         if doc is not None:
             doc.poll_once()  # a final evaluation over the run's tail
             summary["doctor_incidents"] = len(doc.incidents)
@@ -267,8 +346,53 @@ def main(argv=None) -> int:
     summary["final_step"] = state.step
     summary["loss"] = (float(metrics["loss"]) if metrics is not None
                        else None)
-    print(json.dumps(summary))
+    summary["topology"] = {
+        "processes": world,
+        "devices": mesh.size if mesh is not None else 1,
+        "slices": slices,
+        "placement": {"backend": mesh.backend if mesh is not None else None,
+                      "device": str(dev)}}
+    print(json.dumps(summary), flush=True)
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
+
+
+def _job_mesh(args, dev):
+    """(mesh, slices) of the job the environment names, as the JAX
+    package's CLI builds it: fsdp = n, or dp = slices x fsdp = n /
+    slices with the slices along dp; (None, 1) for one process."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        MeshAxes,
+        make_mesh,
+    )
+    import torch.distributed as dist
+
+    slices = args.dcn_slices if args.dcn_slices else distributed.num_slices()
+    if not distributed.initialize_from_env(backend=None, device=dev.type):
+        if slices > 1:
+            raise SystemExit(f"1 devices do not split into {slices} slices")
+        return None, 1
+    n_dev = dist.get_world_size()
+    device = distributed.job_placement()[1]
+    if slices > 1:
+        if n_dev % slices:
+            raise SystemExit(
+                f"{n_dev} devices do not split into {slices} slices")
+        if args.batch_size % slices:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be a multiple "
+                f"of the {slices} dp slices")
+        mesh = make_mesh(MeshAxes(dp=slices, fsdp=n_dev // slices),
+                         dcn_slices=slices, device=device)
+    else:
+        mesh = make_mesh(MeshAxes(fsdp=n_dev), device=device)
+    log.info("mesh %s over %d rank(s), %d slice(s), %s on %s", mesh.shape,
+             n_dev, slices, mesh.backend, mesh.device)
+    return mesh, slices
 
 
 if __name__ == "__main__":

@@ -72,20 +72,34 @@ def params_from_jax(tree: dict, cfg: LlamaConfig,
 
 
 def train_params_from_jax(tree: dict, cfg: LlamaConfig,
-                          device: str | torch.device = "cpu") -> Llama:
+                          device: str | torch.device = "cpu",
+                          mesh=None) -> Llama:
     """The JAX training tree (masters in cfg.param_dtype) as a trainable
     Llama on `device`, bit for bit: every weight a Parameter in its
-    tree dtype that requires grad."""
-    def param(arr):
-        return nn.Parameter(to_torch(arr).to(device))
+    tree dtype that requires grad. With a `mesh` (parallel/mesh.py),
+    this rank's shards of each weight (parallel/sharding.shard_param),
+    on the mesh's device."""
+    from container_engine_accelerators_tpu_torch.parallel import sharding
+
+    if mesh is not None:
+        device = mesh.device
+    is_moe = bool(cfg.n_experts)
+
+    def param(arr, name):
+        t = to_torch(arr)
+        if mesh is not None:
+            t = sharding.shard_param(
+                t, sharding.param_spec(name, is_moe), mesh).contiguous()
+        return nn.Parameter(t.to(device))
 
     stacked = tree["layers"]
-    layers = [LlamaLayer(**{name: param(stacked[name][i])
+    layers = [LlamaLayer(**{name: param(stacked[name][i],
+                                        f"layers.{i}.{name}")
                             for name in layer_weights(cfg)})
               for i in range(cfg.n_layers)]
-    return Llama(cfg, embed=param(tree["embed"]), layers=layers,
-                 final_norm=param(tree["final_norm"]),
-                 lm_head=param(tree["lm_head"]))
+    return Llama(cfg, embed=param(tree["embed"], "embed"), layers=layers,
+                 final_norm=param(tree["final_norm"], "final_norm"),
+                 lm_head=param(tree["lm_head"], "lm_head"))
 
 
 def params_to_numpy(model: Llama) -> dict:

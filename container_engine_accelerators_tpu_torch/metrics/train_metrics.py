@@ -24,9 +24,16 @@ is classified into
                  snapshot + the wait for the previous save)
     stalled      data waits, plus any wall-clock the loop never
                  accounted for (hangs, host overhead)
-    reshard / detection / restart   elastic recovery (charged through
-                 record_restore(resharded=) and record_badput; the port
-                 has no elastic path yet, so they stay 0 here)
+    reshard      a restore into another topology than the save's (a
+                 checkpoint written at fsdp 2 restored at fsdp 1:
+                 record_restore(resharded=True), from fit)
+    detection / restart   elastic recovery (record_badput; the port has
+                 no elastic path yet, so they stay 0 here)
+
+A bucketed dp reduction's calibration (training/train.py
+make_dcn_probes) is exported by record_dcn_attribution: the overlap
+fraction, exposed seconds a step, busBW and wire bytes, and a counter
+of exposed seconds that grows at every later step edge.
 
 Metric family names, labels, buckets and JSONL keys are the JAX
 package's, so one scraper and one trace merge read either package.
@@ -190,6 +197,11 @@ class TrainRecorder:
         self._tokens_productive = 0  # excludes first-step tokens
         self._last_step = 0
         self._last_step_ts: float | None = None  # monotonic, step edges
+        # Gauges of record_dcn_attribution, made at its first call: a
+        # registered gauge never set would read 0, "fully overlapped".
+        self._dcn_gauges: dict | None = None
+        self._dcn_exposed_per_step = 0.0
+        self.last_dcn_attribution: dict | None = None
         self.samples = {k: collections.deque(maxlen=max_samples)
                         for k in SAMPLE_KINDS}
 
@@ -347,6 +359,11 @@ class TrainRecorder:
             self._observe("data_wait", self.data_wait, data_wait_s)
             cs = max(compute_s, 0.0)
             self._buckets["recompile" if first else "productive"] += cs
+            if not first and self._dcn_exposed_per_step > 0.0:
+                # The calibration's exposed reduction of a steady step,
+                # capped at the step's own time.
+                self._dcn_gauges["exposed_total"].inc(
+                    min(self._dcn_exposed_per_step, cs))
             self._buckets["stalled"] += max(data_wait_s, 0.0)
             self._steps += 1
             self._tokens += tokens
@@ -438,6 +455,57 @@ class TrainRecorder:
                 s = max(seconds, 0.0)
                 events.complete("train/restore", now - s, s, "train",
                                 {"step": step, "resharded": resharded})
+
+    def record_dcn_attribution(self, attr: dict) -> None:
+        """A bucketed dp reduction's calibration (training/train.py
+        make_dcn_probes): the overlap fraction, exposed seconds a step,
+        the reduction's busBW and the wire bytes a step as gauges; later
+        steps grow `train_dcn_exposed_seconds` by the exposed seconds.
+        Charges no bucket (the probes are not training)."""
+        with self._lock:
+            if self._dcn_gauges is None:
+                reg = self.registry
+                self._dcn_gauges = {
+                    "overlap_fraction": Gauge(
+                        "train_dcn_overlap_fraction",
+                        "Fraction of the bucketed dp gradient-reduction "
+                        "time hidden under backward compute, in [0,1] "
+                        "(calibration probe)", registry=reg),
+                    "exposed": Gauge(
+                        "train_dcn_exposed_seconds_per_step",
+                        "Exposed (non-overlapped) DCN communication per "
+                        "step: full-step minus compute-only probe time",
+                        registry=reg),
+                    "busbw": Gauge(
+                        "train_dcn_busbw_bytes_per_second",
+                        "Gradient-reduction bus bandwidth over the dp "
+                        "axis (wire bytes / summed bucket reduce time)",
+                        registry=reg),
+                    "wire": Gauge(
+                        "train_dcn_wire_bytes_per_step",
+                        "Bytes crossing the dp axis per step after "
+                        "gradient compression", registry=reg),
+                    "exposed_total": Counter(
+                        "train_dcn_exposed_seconds",
+                        "Cumulative exposed-DCN wall clock charged at "
+                        "step edges (per-step exposure x steady steps)",
+                        registry=reg),
+                }
+            g = self._dcn_gauges
+            exposed = max(float(attr.get("exposed_s_per_step", 0.0)), 0.0)
+            g["overlap_fraction"].set(attr.get("overlap_fraction", 0.0))
+            g["exposed"].set(exposed)
+            g["busbw"].set(attr.get("busbw_bytes_per_second", 0.0))
+            g["wire"].set(attr.get("wire_bytes_per_step", 0.0))
+            self._dcn_exposed_per_step = exposed
+            self.last_dcn_attribution = dict(attr)
+            self._append_log({"kind": "dcn_attribution",
+                              "t": round(time.time(), 3), **attr})
+            if events.enabled():
+                events.counter("train/dcn_overlap", {
+                    "overlap_fraction": round(
+                        float(attr.get("overlap_fraction", 0.0)), 4),
+                    "exposed_ms_per_step": round(exposed * 1e3, 3)})
 
     def record_badput(self, bucket: str, seconds: float,
                       detail: dict | None = None,

@@ -116,6 +116,27 @@ class _LazyTensors(collections.abc.Mapping):
         with open(path, "rb") as f:
             return safetensors.read_tensor(f, info, start)
 
+    def shape(self, name: str) -> tuple:
+        where = self._where[name]
+        if isinstance(where, torch.Tensor):
+            return tuple(where.shape)
+        return tuple(where[1]["shape"])
+
+    def rows(self, name: str, begin: int, end: int) -> torch.Tensor:
+        """Rows [begin, end) of a tensor's leading dim; of a
+        `.safetensors` tensor only their bytes are read."""
+        where = self._where[name]
+        if isinstance(where, torch.Tensor):
+            return where[begin:end]
+        path, info, start = where
+        shape = list(info["shape"])
+        row = (info["data_offsets"][1] - info["data_offsets"][0]) // shape[0]
+        first = info["data_offsets"][0]
+        part = dict(info, shape=[end - begin] + shape[1:],
+                    data_offsets=[first + begin * row, first + end * row])
+        with open(path, "rb") as f:
+            return safetensors.read_tensor(f, part, start)
+
     def __iter__(self):
         return iter(self._where)
 
@@ -197,6 +218,26 @@ class _PortWeights(collections.abc.Mapping):
         src, transpose = self._names[name]
         return _f32(self._source[src], transpose)
 
+    def part(self, name: str, axis: int | None, rank: int, n: int
+             ) -> torch.Tensor:
+        """Rank `rank`'s block of `n` along `axis` of weight `name` ([in,
+        out]; None: the whole weight). Where the block is a run of the
+        stored tensor's rows (the output columns of a transposed HF
+        weight, the input rows of an untransposed one), only those rows
+        are read."""
+        src, transpose = self._names[name]
+        if axis is None or n == 1:
+            return self[name]
+        shape = self._source.shape(src)
+        stored = (1 - axis) if transpose and len(shape) == 2 else axis
+        if stored != 0:
+            w = self[name]
+            size = w.shape[axis] // n
+            return w.narrow(axis, rank * size, size).contiguous()
+        size = shape[0] // n
+        return _f32(self._source.rows(src, rank * size, (rank + 1) * size),
+                    transpose)
+
     def __iter__(self):
         return iter(self._names)
 
@@ -251,16 +292,18 @@ def save_hf_checkpoint(model: Llama, cfg: LlamaConfig, path: str) -> None:
 # ---------- the CLIs' loading policy ----------
 
 def serving_model(weights, cfg: LlamaConfig, device: str | torch.device,
-                  keep=None) -> Llama:
+                  keep=None, read=None) -> Llama:
     """{Llama.named_parameters() name: tensor} -> a frozen Llama on
     `device`, each weight cast to its decode-path dtype there (the cast
     runs on the device, from the tensor as given). The weights are
     looked up one at a time, in the model's order; `keep(short name,
     tensor)`, where given, cuts each one on the host first (a
-    tensor-parallel rank's shard)."""
+    tensor-parallel rank's shard); `read(name)`, where given, looks a
+    weight up in place of weights[name] (a rank reading its part
+    alone)."""
     def w(name):
         short = name.rsplit(".", 1)[-1]
-        t = weights[name]
+        t = read(name) if read is not None else weights[name]
         if keep is not None:
             t = keep(short, t)
         return t.to(device).to(decode_dtype(cfg, short))

@@ -301,14 +301,17 @@ def _op_model_random(st, name, cfg, seed):
 
 def _op_model_checkpoint(st, name, path, cfg_fields):
     """Each weight of the checkpoint read on the host one at a time and
-    cut to this rank's shard before it goes to the device."""
+    cut to this rank's shard before it goes to the device; a shard that
+    is a run of the file's rows (a column shard of a transposed HF
+    weight) is all that is read of it."""
     weights, cfg = checkpoint_weights(path)
     cfg = dataclasses.replace(cfg, **cfg_fields)
     validate_tp(cfg, st.tp.size)
     axes = _weight_axes(cfg)
     st.models[name] = serving_model(
         weights, cfg, st.device,
-        keep=lambda n, w: _shard(w, axes[n], st.tp.rank, st.tp.size))
+        read=lambda n: weights.part(n, axes[n.rsplit(".", 1)[-1]],
+                                    st.tp.rank, st.tp.size))
     return cfg
 
 

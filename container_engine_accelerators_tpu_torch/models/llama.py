@@ -9,6 +9,14 @@ lm_head in f32. For training (`init_train_params`, `forward`), every
 weight is a trainable master in cfg.param_dtype, cast to cfg.dtype where
 it is used, as in the JAX package.
 
+Across ranks (`forward(..., mesh=)`, training/train.py) each rank holds
+its fsdp shards of the f32 masters (parallel/sharding.py): a layer's
+weights reach it through GatherShard inside the region its remat policy
+recomputes, the embedding and the lm_head once a step; with sp > 1
+(cfg.sequence_parallel) the rank holds one chunk of the sequence, RoPE
+takes the chunk's global positions, and the attention core is ring or
+Ulysses attention (parallel/ring_attention.py, parallel/ulysses.py).
+
 A config with n_experts > 0 is a mixture-of-experts model
 (models/moe.py): each layer's FFN is a router w_router [D, E] and
 expert stacks w_gate, w_up [E, D, F] and w_down [E, F, D]. At decode
@@ -35,6 +43,8 @@ from container_engine_accelerators_tpu_torch.ops import (
 from container_engine_accelerators_tpu_torch.ops.attention import (
     multi_head_attention,
 )
+from container_engine_accelerators_tpu_torch.parallel import sharding
+from container_engine_accelerators_tpu_torch.parallel.mesh import TOKEN_AXES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +85,12 @@ class LlamaConfig:
     moe_z_weight: float = 0.001
     # Experts sharded over tensor parallelism at decode (ROADMAP item 8).
     moe_decode_ep: bool = False
+    # Sequence parallelism over the mesh's 'sp' axis in training: 'ring'
+    # rotates KV chunks around the sp ranks, 'ulysses' trades the
+    # sequence for heads with one all-to-all each way (needs n_heads and
+    # n_kv_heads divisible by sp).
+    sequence_parallel: bool = False
+    sequence_parallel_mode: str = "ring"
 
     @property
     def head_dim(self) -> int:
@@ -271,12 +287,15 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 def init_train_params(cfg: LlamaConfig, generator: torch.Generator,
-                      device: str | torch.device) -> Llama:
+                      device: str | torch.device, keep=None) -> Llama:
     """Trainable master weights in cfg.param_dtype, drawn as init_params
-    draws them; every weight requires grad. Carry JAX weights across
-    with interop.train_params_from_jax where they must match."""
+    draws them; every weight requires grad. `keep(name, w)` keeps a part
+    of each drawn weight (a rank's shard: training/train.py), as
+    _random_llama does. Carry JAX weights across with
+    interop.train_params_from_jax where they must match."""
     return _random_llama(cfg, generator, device,
-                         lambda name: cfg.param_dtype, trainable=True)
+                         lambda name: cfg.param_dtype, trainable=True,
+                         keep=keep)
 
 
 class _MatmulF32Out(torch.autograd.Function):
@@ -359,20 +378,79 @@ def _check_train_config(cfg: LlamaConfig) -> None:
         raise ValueError(f"flash_causal_grid must be 'rect' or 'tri', got "
                          f"{cfg.flash_causal_grid!r}")
     check_kv_cache_dtype(cfg)
+    if (cfg.flash_causal_grid == "tri" and cfg.sequence_parallel
+            and cfg.sequence_parallel_mode == "ring"):
+        # Ring attention never reaches the flash causal grid: a 'tri'
+        # config would be measured as something it is not.
+        raise ValueError(
+            "flash_causal_grid='tri' has no effect under "
+            "sequence_parallel_mode='ring'; use 'rect' (ring schedules "
+            "its own KV rotation) or ulysses sequence parallelism")
+
+
+class _LayerView:
+    """A layer's weights as the layer uses them. Without a mesh, the
+    layer's own parameters (the layer casts them); on a mesh, each
+    weight the first time it is read: gathered over fsdp in cfg.dtype
+    (parallel/sharding.gather_param), the norms as they are and the
+    router in f32."""
+
+    def __init__(self, layer: LlamaLayer, cfg: LlamaConfig, mesh):
+        self._layer, self._cfg, self._mesh = layer, cfg, mesh
+
+    def __getattr__(self, name: str):
+        w = getattr(self._layer, name)
+        if self._mesh is None:
+            return w
+        dtype = (w.dtype if name in ("attn_norm", "mlp_norm")
+                 else torch.float32 if name == "w_router"
+                 else self._cfg.dtype)
+        out = sharding.gather_param(
+            w, sharding.param_spec(f"layers.0.{name}",
+                                   bool(self._cfg.n_experts)),
+            self._mesh, dtype)
+        setattr(self, name, out)
+        return out
 
 
 def _attention_qkv(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-                   cos: torch.Tensor, sin: torch.Tensor):
+                   cos: torch.Tensor, sin: torch.Tensor, mesh=None):
     b, s, _ = x.shape
     hd, dt = cfg.head_dim, cfg.dtype
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-    q = (h @ layer.wq.to(dt)).view(b, s, cfg.n_heads, hd)
-    k = (h @ layer.wk.to(dt)).view(b, s, cfg.n_kv_heads, hd)
-    v = (h @ layer.wv.to(dt)).view(b, s, cfg.n_kv_heads, hd)
+    lp = _LayerView(layer, cfg, mesh)
+    h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    q = (h @ lp.wq.to(dt)).view(b, s, cfg.n_heads, hd)
+    k = (h @ lp.wk.to(dt)).view(b, s, cfg.n_kv_heads, hd)
+    v = (h @ lp.wv.to(dt)).view(b, s, cfg.n_kv_heads, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _attention_core(q, k, v, cfg: LlamaConfig, plain: bool) -> torch.Tensor:
+def _attention_core(q, k, v, cfg: LlamaConfig, plain: bool,
+                    mesh=None) -> torch.Tensor:
+    """Flash (or the reference) on one rank's whole sequence, or ring or
+    Ulysses attention over the sp ranks' chunks, as the JAX package
+    dispatches."""
+    if cfg.sequence_parallel:
+        if mesh is None:
+            from container_engine_accelerators_tpu_torch.parallel.mesh import (  # noqa: E501
+                single_mesh,
+            )
+            mesh = single_mesh(q.device)
+        if cfg.sequence_parallel_mode == "ulysses":
+            from container_engine_accelerators_tpu_torch.parallel import (
+                ulysses,
+            )
+            return ulysses.ulysses_attention(
+                q, k, v, mesh, causal=True, use_flash=cfg.use_flash,
+                causal_grid=cfg.flash_causal_grid, plain=plain)
+        if cfg.sequence_parallel_mode == "ring":
+            from container_engine_accelerators_tpu_torch.parallel import (
+                ring_attention,
+            )
+            return ring_attention.ring_attention(q, k, v, mesh, causal=True)
+        raise ValueError(
+            f"unknown sequence_parallel_mode "
+            f"{cfg.sequence_parallel_mode!r}; valid: ring, ulysses")
     return multi_head_attention(q, k, v, causal=True,
                                 use_flash=cfg.use_flash,
                                 causal_grid=cfg.flash_causal_grid,
@@ -380,29 +458,35 @@ def _attention_core(q, k, v, cfg: LlamaConfig, plain: bool) -> torch.Tensor:
 
 
 def _attention_out_mlp(x: torch.Tensor, attn: torch.Tensor,
-                       layer: LlamaLayer, cfg: LlamaConfig):
+                       layer: LlamaLayer, cfg: LlamaConfig, mesh=None,
+                       share=None):
     """wo, the residual and the FFN: (x, the router's aux loss). The aux
     is moe_aux_weight * aux_loss + moe_z_weight * router_z_loss for a
-    mixture of experts, None for a dense layer."""
+    mixture of experts (with a `share`, this rank's share of them:
+    models/moe.py), None for a dense layer."""
     b, s, _ = x.shape
     dt = cfg.dtype
-    x = x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ layer.wo.to(dt)
-    h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+    lp = _LayerView(layer, cfg, mesh)
+    x = x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.wo.to(dt)
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
     if cfg.n_experts:
-        mlp = moe.moe_mlp_dropless if cfg.moe_dropless else moe.moe_mlp
-        out, metrics = mlp(h, layer, cfg)
+        if cfg.moe_dropless:
+            out, metrics = moe.moe_mlp_dropless(h, lp, cfg, share=share)
+        else:
+            out, metrics = moe.moe_mlp(h, lp, cfg, share=share)
         return x + out, (cfg.moe_aux_weight * metrics.aux_loss
                          + cfg.moe_z_weight * metrics.router_z_loss)
-    gate = F.silu(h @ layer.w_gate.to(dt))
-    up = h @ layer.w_up.to(dt)
-    return x + (gate * up) @ layer.w_down.to(dt), None
+    gate = F.silu(h @ lp.w_gate.to(dt))
+    up = h @ lp.w_up.to(dt)
+    return x + (gate * up) @ lp.w_down.to(dt), None
 
 
 def _layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor, plain: bool):
-    q, k, v = _attention_qkv(x, layer, cfg, cos, sin)
-    return _attention_out_mlp(x, _attention_core(q, k, v, cfg, plain),
-                              layer, cfg)
+           cos: torch.Tensor, sin: torch.Tensor, plain: bool, mesh=None,
+           share=None):
+    q, k, v = _attention_qkv(x, layer, cfg, cos, sin, mesh)
+    return _attention_out_mlp(x, _attention_core(q, k, v, cfg, plain, mesh),
+                              layer, cfg, mesh, share)
 
 
 def _saved_ops_context(policy: str):
@@ -411,16 +495,17 @@ def _saved_ops_context(policy: str):
 
 
 def _split_attn_layer(x: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig,
-                      cos: torch.Tensor, sin: torch.Tensor, plain: bool):
+                      cos: torch.Tensor, sin: torch.Tensor, plain: bool,
+                      mesh=None, share=None):
     """'dots_save_attn': the pre half (norm, q/k/v, RoPE) and the post
     half (wo, residual, MLP) each under the 'dots' checkpoint, the
     attention core between them outside both."""
-    q, k, v = ckpt.checkpoint(_attention_qkv, x, layer, cfg, cos, sin,
+    q, k, v = ckpt.checkpoint(_attention_qkv, x, layer, cfg, cos, sin, mesh,
                               use_reentrant=False,
                               context_fn=_saved_ops_context("dots"))
-    attn = _attention_core(q, k, v, cfg, plain)
-    return ckpt.checkpoint(_attention_out_mlp, x, attn, layer, cfg,
-                           use_reentrant=False,
+    attn = _attention_core(q, k, v, cfg, plain, mesh)
+    return ckpt.checkpoint(_attention_out_mlp, x, attn, layer, cfg, mesh,
+                           share, use_reentrant=False,
                            context_fn=_saved_ops_context("dots"))
 
 
@@ -438,7 +523,8 @@ def _warn_if_flash_off(cfg: LlamaConfig, device: torch.device) -> None:
 
 
 def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-            plain: bool = False, return_aux: bool = False):
+            plain: bool = False, return_aux: bool = False, mesh=None,
+            loss_axes: tuple = TOKEN_AXES):
     """tokens [B, S] -> logits [B, S, vocab] f32: the JAX package's
     forward on one device. With `return_aux`, (logits, aux): the
     routers' aux losses summed over layers (an f32 scalar, zero for a
@@ -451,31 +537,47 @@ def forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     keeps its own residuals ('dots_save_attn'); the lm_head multiplies
     cfg.dtype operands into f32 logits. Attention dispatches as
     `multi_head_attention` does; `plain=True` runs flash attention's
-    plain versions on the card."""
+    plain versions on the card.
+
+    On a `mesh` (parallel/mesh.py) `model` holds this rank's shards and
+    `tokens` its block of the batch [B/(dp*fsdp), S/sp]: weights are
+    gathered as the module docstring says, and the logits are the
+    block's. A mixture of experts' aux is then this rank's share of the
+    mean over the ranks of `loss_axes` (the step's tokens, or one dp
+    slice's), so the shares sum to the JAX package's aux."""
     _check_train_config(cfg)
     b, s = tokens.shape
-    cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
+    share = None
+    if mesh is not None and mesh.axis_size(*loss_axes) > 1:
+        share = (mesh.group(*loss_axes), mesh.axis_size(*loss_axes))
+    offset = 0 if mesh is None else mesh.coord["sp"] * s
+    cos, sin = rope_frequencies(cfg.head_dim, offset + s, cfg.rope_theta,
                                 device=tokens.device)
-    x = F.embedding(tokens, model.embed.to(cfg.dtype))
+    cos, sin = cos[offset:], sin[offset:]
+    x = F.embedding(tokens, sharding.gather_param(
+        model.embed, sharding.param_spec("embed"), mesh, cfg.dtype))
     if cfg.remat_policy == REMAT_SPLIT_ATTN:
         _warn_if_flash_off(cfg, tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in model.layers:
         if cfg.remat_policy == "none":
-            x, aux = _layer(x, layer, cfg, cos, sin, plain)
+            x, aux = _layer(x, layer, cfg, cos, sin, plain, mesh, share)
         elif cfg.remat_policy == REMAT_SPLIT_ATTN:
-            x, aux = _split_attn_layer(x, layer, cfg, cos, sin, plain)
+            x, aux = _split_attn_layer(x, layer, cfg, cos, sin, plain, mesh,
+                                       share)
         else:
             context_fn = ckpt.noop_context_fn
             if cfg.remat_policy in _SAVED_OPS:
                 context_fn = _saved_ops_context(cfg.remat_policy)
             x, aux = ckpt.checkpoint(_layer, x, layer, cfg, cos, sin, plain,
-                                     use_reentrant=False,
+                                     mesh, share, use_reentrant=False,
                                      context_fn=context_fn)
         if aux is not None:
             aux_total = aux_total + aux
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _logits(x.to(cfg.dtype).reshape(b * s, cfg.d_model),
-                     model.lm_head.to(cfg.dtype))
+                     sharding.gather_param(model.lm_head,
+                                           sharding.param_spec("lm_head"),
+                                           mesh, cfg.dtype))
     logits = logits.view(b, s, cfg.vocab_size)
     return (logits, aux_total) if return_aux else logits

@@ -21,8 +21,16 @@ combine inverts the sort and sums each token's k rows in rank order, so
 its result does not depend on atomics. The spans come from a bincount
 read on the host: one device sync a layer.
 
+Across ranks (fsdp, dp or sp > 1, models/llama.forward's `share`) the
+routing stays per batch row and local; the router's aux and z losses,
+means over every token of the step in the JAX package, become each
+rank's additive share of those means: its token sums over the step's
+token count, with the first choices' expert fractions all-reduced (they
+carry no gradient). The shares summed over the ranks are the JAX
+package's values, and their gradients its gradients.
+
 Expert parallelism (ep > 1, the JAX package's `_moe_dropless_ep`) waits
-for ROADMAP item 12.
+for ROADMAP item 12's remainder.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ import dataclasses
 import warnings
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-EP_TODO = ("expert parallelism (ep > 1) waits for a machine with more "
-           "than one card (ROADMAP item 12)")
+EP_TODO = ("expert parallelism (ep > 1) is not ported yet: MoE's ep > 1, "
+           "the JAX package's _moe_dropless_ep (ROADMAP item 12's "
+           "remainder)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,19 +82,43 @@ def _router(h: torch.Tensor, lp, top_k: int):
     return (router_logits, *_gating(router_logits, top_k))
 
 
-def _aux_losses(router_logits, probs, expert_idx, n_experts: int):
+def _token_mean(x: torch.Tensor, share=None, dims=None) -> torch.Tensor:
+    """x's mean over its token dims (all of them, or `dims`), or with a
+    `share` (group, ranks) this rank's part of the mean over every
+    rank's tokens: its sum over the step's token count."""
+    dims = tuple(range(x.ndim)) if dims is None else dims
+    if share is None:
+        return x.mean(dim=dims)
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    return x.sum(dim=dims) / (n * share[1])
+
+
+def _z_loss(router_logits, share=None) -> torch.Tensor:
+    return _token_mean(torch.logsumexp(router_logits, dim=-1) ** 2, share)
+
+
+def _aux_losses(router_logits, probs, expert_idx, n_experts: int,
+                share=None):
     """The Switch load-balancing loss E * sum(f_i * P_i) over first
-    choices, and the router z-loss."""
+    choices, and the router z-loss; with a `share`, this rank's share
+    of each (see the module docstring)."""
     onehot0 = F.one_hot(expert_idx[..., 0], n_experts).float()
-    frac_tokens = onehot0.mean(dim=(0, 1))
-    mean_probs = probs.mean(dim=(0, 1))
+    if share is None:
+        frac_tokens = onehot0.mean(dim=(0, 1))
+    else:
+        counts = onehot0.sum(dim=(0, 1))
+        dist.all_reduce(counts, group=share[0])
+        frac_tokens = counts / (onehot0.shape[0] * onehot0.shape[1]
+                                * share[1])
+    mean_probs = _token_mean(probs, share, dims=(0, 1))
     aux = n_experts * (frac_tokens * mean_probs).sum()
-    z = (torch.logsumexp(router_logits, dim=-1) ** 2).mean()
-    return aux, z
+    return aux, _z_loss(router_logits, share)
 
 
 def route(router_logits: torch.Tensor, n_experts: int, top_k: int,
-          cap: int):
+          cap: int, share=None):
     """router_logits [B, S, E] f32 -> (dispatch, combine, metrics), with
     dispatch and combine [B, S, E, C]. Earlier positions claim an
     expert's capacity first, and first choices before second ones."""
@@ -103,12 +137,13 @@ def route(router_logits: torch.Tensor, n_experts: int, top_k: int,
     dispatch = torch.einsum("bske,bskc->bsec", within, slot_oh * kept)
     combine = torch.einsum("bske,bskc->bsec",
                            within * gate_vals[..., None], slot_oh)
-    aux, z = _aux_losses(router_logits, probs, expert_idx, e)
+    aux, z = _aux_losses(router_logits, probs, expert_idx, e, share)
     dropped = 1.0 - dispatch.sum() / (b * s * top_k)
     return dispatch, combine, MoeMetrics(aux, z, dropped)
 
 
-def route_expert_choice(router_logits: torch.Tensor, cap: int):
+def route_expert_choice(router_logits: torch.Tensor, cap: int,
+                        share=None):
     """Expert-choice routing: each expert takes its top-`cap` tokens of
     the row (cap clamped to S). Returns (dispatch, combine, metrics) in
     route's shapes; the aux loss is zero (every expert is full) and
@@ -121,7 +156,7 @@ def route_expert_choice(router_logits: torch.Tensor, cap: int):
     slot_token = F.one_hot(token_idx, s).float()             # [B,E,C,S]
     dispatch = slot_token.permute(0, 3, 1, 2)                # [B,S,E,C]
     combine = torch.einsum("becs,bec->bsec", slot_token, gate_vals)
-    z = (torch.logsumexp(router_logits, dim=-1) ** 2).mean()
+    z = _z_loss(router_logits, share)
     picked = dispatch.sum(dim=(2, 3)).clamp(0.0, 1.0)
     unrouted = 1.0 - picked.mean()
     return dispatch, combine, MoeMetrics(
@@ -129,7 +164,7 @@ def route_expert_choice(router_logits: torch.Tensor, cap: int):
         z, unrouted)
 
 
-def moe_mlp(h: torch.Tensor, lp, cfg):
+def moe_mlp(h: torch.Tensor, lp, cfg, share=None):
     """h [B, S, D] normalized activations -> (out [B, S, D], metrics),
     through capacity (cfg.moe_router 'token_choice') or expert-choice
     routing and the one-hot dispatch and combine einsums."""
@@ -146,10 +181,11 @@ def moe_mlp(h: torch.Tensor, lp, cfg):
                 "positions into the router and creates train/decode skew. "
                 "Use token_choice (optionally moe_dropless) for causal "
                 "training.", stacklevel=2)
-        dispatch, combine, metrics = route_expert_choice(router_logits, cap)
+        dispatch, combine, metrics = route_expert_choice(router_logits, cap,
+                                                         share)
     elif cfg.moe_router == "token_choice":
         dispatch, combine, metrics = route(router_logits, e, cfg.moe_top_k,
-                                           cap)
+                                           cap, share)
     else:
         raise ValueError(f"unknown moe_router {cfg.moe_router!r}; valid: "
                          f"token_choice, expert_choice")
@@ -215,7 +251,7 @@ def dropless_ffn(x: torch.Tensor, lp, n_experts: int,
     return sum_top_k(down[inv].view(n_tok, k, -1), gate_vals)
 
 
-def moe_mlp_dropless(h: torch.Tensor, lp, cfg, ep: int = 1):
+def moe_mlp_dropless(h: torch.Tensor, lp, cfg, ep: int = 1, share=None):
     """Dropless token-choice MoE: h [B, S, D] -> (out, metrics), the
     router and weights of moe_mlp, every routed token computed
     (dropped_fraction 0)."""
@@ -227,6 +263,6 @@ def moe_mlp_dropless(h: torch.Tensor, lp, cfg, ep: int = 1):
     out = dropless_ffn(h.reshape(b * s, d), lp, e,
                        gate_vals.reshape(b * s, k),
                        expert_idx.reshape(b * s, k))
-    aux, z = _aux_losses(router_logits, probs, expert_idx, e)
+    aux, z = _aux_losses(router_logits, probs, expert_idx, e, share)
     return out.view(b, s, d), MoeMetrics(
         aux, z, torch.zeros((), dtype=torch.float32, device=h.device))

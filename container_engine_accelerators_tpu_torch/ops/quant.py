@@ -11,6 +11,11 @@ dispatches on the device: CUDA launches kernels/int8_matmul.cu (int8
 converted to bf16 in registers, products on the tensor cores, one launch
 a call as `plan` lays it out), CPU runs `int8_matmul_plain`.
 
+Gradients on the dp wire (parallel/grad_comm.py's int8 reducer), the
+JAX package's quantize_grads / dequantize_grads:
+  q, s = quantize_grads(g)      # stacked [slots, ...] -> int8, f32 scales
+  g = dequantize_grads(q, s, scale=1 / (n_slices * grad_accum))
+
 KV cache, symmetric per (token, KV head), scales head-major:
   q, s = quantize_kv(kv)        # [..., T, Hkv, D] -> int8, f32 [..., Hkv, T]
   kv = dequantize_kv(q, s)
@@ -98,6 +103,74 @@ def dequantize_kv(q: torch.Tensor, scales: torch.Tensor,
     scales [..., Hkv, T] -> [..., T, Hkv, D] in `dtype`, the product
     taken in f32."""
     return (q.float() * scales.transpose(-1, -2)[..., None]).to(dtype)
+
+
+GRAD_CHUNK = 1 << 26    # elements of a gradient quantized at a time
+
+
+def grad_chunks(x: torch.Tensor):
+    """Slices along dim 1 of a stacked gradient leaf, each about
+    GRAD_CHUNK elements: its f32 temporaries a chunk at a time (the
+    embedding's gradient is 2.1 GB at Llama-3-8B)."""
+    if x.ndim < 2:
+        yield slice(None)
+        return
+    row = max(1, x[:, :1].numel())
+    step = max(1, GRAD_CHUNK // row)
+    for i in range(0, x.shape[1], step):
+        yield slice(i, i + step)
+
+
+def quantize_grads(g: torch.Tensor, absmax_of=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 of a STACKED gradient leaf (leading axis: the dp
+    slot), scales kept per slot (keepdims):
+
+      ndim <= 1  one scale over everything
+      ndim == 2  one a leading row (absmax over the rest)
+      ndim >= 3  one a (slot, last-dim channel)
+
+    The absmax floor is 1e-30, not the weights' 1e-8: late gradients
+    lie decades below weights. `absmax_of(absmax)`, when given, returns
+    the absmax of the whole leaf from this rank's part of it (an fsdp
+    shard's all-reduce of the max), as the JAX package's GSPMD reduces
+    over the sharded dims. Worked through in chunks along dim 1
+    (grad_chunks), which the absmax and every element's rounding do
+    not see."""
+    g_f = g.float()
+    if g_f.ndim <= 1:
+        dims = tuple(range(g_f.ndim))
+    elif g_f.ndim == 2:
+        dims = (1,)
+    else:
+        dims = tuple(range(1, g_f.ndim - 1))
+    if not dims:
+        absmax = g_f.abs()
+    else:
+        absmax = None
+        for sl in grad_chunks(g_f):
+            part = torch.amax(g_f[:, sl].abs() if g_f.ndim >= 2
+                              else g_f.abs(), dim=dims, keepdim=True)
+            absmax = part if absmax is None else torch.maximum(absmax, part)
+    if absmax_of is not None:
+        absmax = absmax_of(absmax)
+    scales = absmax.clamp(min=1e-30) / 127.0
+    if g_f.ndim < 2:
+        return (torch.div(g_f, scales).round_().clamp_(-127, 127)
+                .to(torch.int8), scales)
+    q = torch.empty(g_f.shape, dtype=torch.int8, device=g_f.device)
+    for sl in grad_chunks(g_f):
+        scale = scales if scales.shape[1] == 1 else scales[:, sl]
+        q[:, sl] = torch.div(g_f[:, sl], scale).round_().clamp_(-127, 127)
+    return q, scales
+
+
+def dequantize_grads(q: torch.Tensor, scales: torch.Tensor,
+                     scale: float = 1.0) -> torch.Tensor:
+    """Inverse of quantize_grads, with `scale` (the mean's 1 / (n_slices
+    * grad_accum)) folded into the small scale tensor before the
+    broadcast multiply."""
+    return torch.mul(q, scales * scale)
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

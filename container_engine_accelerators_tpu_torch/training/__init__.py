@@ -1,5 +1,5 @@
-"""Training on one device: the step, the loop, checkpoints, AdamW and
-the data."""
+"""Training on one device or across the ranks of a mesh: the step, the
+loop, checkpoints, AdamW and the data."""
 
 from container_engine_accelerators_tpu_torch.training.train import (
     TrainState,

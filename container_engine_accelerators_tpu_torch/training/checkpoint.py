@@ -1,4 +1,4 @@
-"""Checkpoint and resume for training on one device: the JAX package's
+"""Checkpoint and resume for training: the JAX package's
 CheckpointManager without orbax (which imports jax), writing tensors as
 raw bytes in the safetensors layout (utils/safetensors.py). torch.save's
 zip writer checksums every byte: 0.64-0.85 GB/s into RAM on the card's
@@ -15,19 +15,36 @@ either kind by the same rule (numeric step directories holding
                                               values, config (JSON),
                                               file sizes
 
+A state sharded over a mesh's fsdp axis (training/train.py on several
+ranks) is saved as one pair of files a shard,
+`model-<i>-of-<n>.safetensors` and `optimizer-<i>-of-<n>.safetensors`,
+by the ranks at dp and sp coordinate 0: shard i holds fsdp rank i's
+block of each sharded tensor, and shard 0 also the replicated ones
+(the norms). meta.json records `fsdp_shards` n. Every step's meta also
+records the topology it was saved under (`current_topology`: processes,
+devices, mesh axes).
+
 A step is written into `<dir>/<step>.tmp-<pid>-<n>`, every file and
 directory fsynced, then renamed into place and the directory fsynced:
 a crash leaves either the whole step or none of it (the tmp dir, swept
-by the next manager). Restore of the newest step falls back to the one
-before when the newest is torn or unreadable, and moves the torn one
-aside (`<step>.corrupt`). A sync save streams each tensor to the file
-through one small pinned staging buffer; async mode snapshots the state
-into pinned host buffers on the step path and writes them on a
-background thread, at most one save in flight.
+by the next manager). On several ranks the save is collective: every
+rank calls it at the same step, rank 0 names the tmp dir, each writer
+writes its shards there, and after every rank has reported its files
+rank 0 alone writes the meta and commits by the rename. Restore reads
+any topology's shards into the current mesh's blocks (a checkpoint
+saved at fsdp 2 restores bit for bit at fsdp 1, and back) and reports
+`topology_changed` in last_restore_info. Restore of the newest step
+falls back to the one before when the newest is torn or unreadable, and
+rank 0 alone moves the torn one aside (`<step>.corrupt`). In-process,
+saving into one directory is single-writer. A sync save streams each
+tensor to the file through one small pinned staging buffer; async mode
+(one rank) snapshots the state into pinned host buffers on the step
+path and writes them on a background thread, at most one save in
+flight.
 
-Left out (ROADMAP slice 10): the topology tag and the relayout or
-reshard of a saved state, the elastic pre-restart hook and the
-multi-process collective save.
+Left out: the relayout of the circular pipeline's interleaved layer
+order (it waits for parallel/pipeline.py; a checkpoint that records it
+raises) and the elastic pre-restart hook (training/elastic.py).
 """
 
 from __future__ import annotations
@@ -42,8 +59,10 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from container_engine_accelerators_tpu_torch.metrics import events
+from container_engine_accelerators_tpu_torch.parallel import sharding
 from container_engine_accelerators_tpu_torch.utils import safetensors
 
 log = logging.getLogger(__name__)
@@ -54,6 +73,39 @@ MODEL_FILE, OPTIMIZER_FILE, META_FILE = (
     "model.safetensors", "optimizer.safetensors", "meta.json")
 _TMP_RE = re.compile(r"^\d+\.tmp-")
 _tmp_ids = itertools.count()
+
+
+PIPELINE_TODO = ("this checkpoint stores its layers in the circular "
+                 "pipeline's interleaved order; relaying them out waits "
+                 "for parallel/pipeline.py (ROADMAP item 12's remainder: "
+                 "training tp and pp with parallel/pipeline.py)")
+
+
+def shard_files(i: int, n: int) -> tuple[str, str]:
+    """The model and optimizer files of fsdp shard i of n."""
+    return (f"model-{i}-of-{n}.safetensors",
+            f"optimizer-{i}-of-{n}.safetensors")
+
+
+def current_topology(mesh=None) -> dict:
+    """The topology tag every save records: the job's processes and
+    devices (one a process here) and, with a mesh, its axis sizes."""
+    procs = dist.get_world_size() if dist.is_initialized() else 1
+    t = {"processes": procs, "devices": procs}
+    if mesh is not None:
+        t["axes"] = {name: int(size) for name, size in mesh.shape.items()}
+        t["devices"] = int(mesh.size)
+    return t
+
+
+def topology_changed(saved: dict | None, current: dict | None) -> bool:
+    """True when a checkpoint written under `saved` restores into a run
+    shaped `current`; a missing tag makes no claim."""
+    if not saved or not current:
+        return False
+    keys = ("processes", "devices", "axes")
+    return any(saved.get(k) != current.get(k) for k in keys
+               if k in saved and k in current)
 
 
 def _fsync_dir(path: str) -> None:
@@ -130,6 +182,23 @@ def _header(path: str) -> tuple[dict, int]:
         return safetensors.read_header(f)
 
 
+def _fsdp_entry(spec: tuple) -> int:
+    """The dim of `spec` that fsdp shards (whatever the mesh's size)."""
+    for dim, entry in enumerate(spec):
+        if entry == "fsdp" or (isinstance(entry, tuple) and "fsdp" in entry):
+            return dim
+    raise ValueError(f"spec {spec} has no fsdp dim")
+
+
+def _saved_shape(pieces: list, spec: tuple) -> list:
+    """The global shape a saved tensor's shards assemble to."""
+    shape = list(pieces[0][1]["shape"])
+    if len(pieces) > 1:
+        dim = _fsdp_entry(spec)
+        shape[dim] = sum(info["shape"][dim] for _, info, _ in pieces)
+    return shape
+
+
 class CheckpointManager:
     """Save every N steps, keep the last K, restore the newest.
 
@@ -151,9 +220,21 @@ class CheckpointManager:
     _inflight: dict[str, int] = {}
 
     def __init__(self, directory: str, save_interval_steps: int = 100,
-                 max_to_keep: int = 3, async_save: bool = False):
+                 max_to_keep: int = 3, async_save: bool = False,
+                 mesh=None, process_index: int | None = None):
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
+        self._mesh = mesh
+        if process_index is None:
+            process_index = (mesh.rank if mesh is not None
+                             else dist.get_rank() if dist.is_initialized()
+                             else 0)
+        self._rank = process_index
+        self._sharded = mesh is not None and mesh.size > 1
+        if self._sharded and async_save:
+            raise NotImplementedError(
+                "async saves of a state sharded over several ranks are "
+                "not ported yet; save synchronously")
         self._save_interval = max(1, int(save_interval_steps))
         self._max_to_keep = max_to_keep
         self.async_save = bool(async_save)
@@ -166,7 +247,8 @@ class CheckpointManager:
         # {"step", "bytes", "seconds"} of the last restore.
         self.last_save_info: dict | None = None
         self.last_restore_info: dict | None = None
-        self._sweep_tmp_dirs()
+        if self._rank == 0:
+            self._sweep_tmp_dirs()
 
     def _sweep_tmp_dirs(self) -> None:
         swept = False
@@ -203,14 +285,17 @@ class CheckpointManager:
     # ---------- save ----------
 
     def save(self, step: int, state, force: bool = False,
-             cfg=None) -> bool:
+             cfg=None, topology: dict | None = None) -> bool:
         """Save `state` (training/train.TrainState) as `step` when the
         interval (or `force`) says so; returns whether it saved (async:
         whether a write was launched). `cfg` (a LlamaConfig) is recorded
         as JSON, so the checkpoint is self-describing for
-        load_serving_params."""
+        load_serving_params; `topology` (default current_topology of the
+        manager's mesh) as the tag a restore compares. On several ranks
+        every rank calls it at the same step (the module docstring)."""
+        meta = self._meta(step, state, cfg, topology)
         if self.async_save:
-            return self._save_async(step, state, force, cfg)
+            return self._save_async(step, state, force, meta)
         if not self.should_save(step, force):
             return False
         self._acquire_inflight()
@@ -218,11 +303,78 @@ class CheckpointManager:
             # Nothing runs on the state while a sync save writes, so the
             # live tensors are written as they are (a card tensor through
             # safetensors.write's pinned staging chunk).
-            self._commit(step, state_tensors(state),
-                         self._meta(step, state, cfg), 0.0)
+            if self._sharded:
+                self._commit_sharded(step, state, meta)
+            else:
+                self._commit(step, state_tensors(state), meta, 0.0)
         finally:
             self._release_inflight()
         return True
+
+    def saved_topology(self, step: int) -> dict | None:
+        """The topology tag a committed step was saved under."""
+        return read_meta(os.path.join(self._dir, str(step))).get(
+            "topology")
+
+    def _commit_sharded(self, step: int, state, meta: dict) -> None:
+        """The collective save (the module docstring): rank 0 names the
+        tmp dir, the writers (dp and sp coordinate 0) write their shard
+        files, every rank reports, and rank 0 commits or, when any rank
+        failed, removes the tmp dir; every rank raises on a failure."""
+        mesh = self._mesh
+        n, i = mesh.axis_size("fsdp"), mesh.coord["fsdp"]
+        name = [None]
+        if self._rank == 0:
+            name[0] = os.path.join(
+                self._dir, f"{step}.tmp-{os.getpid()}-{next(_tmp_ids)}")
+            os.makedirs(os.path.join(name[0], STATE_DIR))
+        dist.broadcast_object_list(name, src=0)
+        tmp = name[0]
+        state_dir = os.path.join(tmp, STATE_DIR)
+        writer = all(c == 0 for axis, c in mesh.coord.items()
+                     if axis != "fsdp")
+        t0 = time.perf_counter()
+        report = {"ok": True, "files": {}, "values": {}}
+        try:
+            if writer:
+                is_moe = bool(state.model.cfg.n_experts)
+                for fname, tensors in zip(shard_files(i, n),
+                                          state_tensors(state).values()):
+                    keep = {}
+                    for key, value in tensors.items():
+                        if not isinstance(value, torch.Tensor):
+                            if i == 0:
+                                report["values"][key] = value
+                            continue
+                        spec = sharding.param_spec(
+                            key.partition("/")[0], is_moe)
+                        if i == 0 or sharding.fsdp_dim(spec, mesh) \
+                                is not None:
+                            keep[key] = value
+                    report["files"][fname] = _write_file(
+                        os.path.join(state_dir, fname),
+                        lambda f, t=keep: safetensors.write(f, t))
+        except Exception as e:  # reported to every rank below
+            report = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        reports = [None] * dist.get_world_size()
+        dist.all_gather_object(reports, report)
+        errors = [r["error"] for r in reports if not r["ok"]]
+        landed = [False]
+        if self._rank == 0:
+            if errors:
+                shutil.rmtree(tmp, ignore_errors=True)
+            else:
+                files = {k: v for r in reports for k, v in r["files"].items()}
+                values = {k: v for r in reports
+                          for k, v in r["values"].items()}
+                self._finish_commit(step, tmp, dict(
+                    meta, files=files, optimizer_values=values,
+                    fsdp_shards=n), t0)
+                landed[0] = True
+        dist.broadcast_object_list(landed, src=0)
+        if errors or not landed[0]:
+            raise RuntimeError(f"checkpoint step {step} was not saved: "
+                               f"{errors or 'rank 0 failed to commit'}")
 
     def _acquire_inflight(self) -> None:
         with CheckpointManager._inflight_lock:
@@ -237,12 +389,17 @@ class CheckpointManager:
         with CheckpointManager._inflight_lock:
             CheckpointManager._inflight.pop(self._dir, None)
 
-    @staticmethod
-    def _meta(step: int, state, cfg) -> dict:
+    def _meta(self, step: int, state, cfg, topology: dict | None) -> dict:
         meta = {"format": FORMAT_VERSION, "step": int(step),
                 "tokens": int(state.tokens),
                 "optimizer_count": getattr(state.optimizer, "count", None),
-                "cfg": None}
+                "cfg": None,
+                # Depth order: the circular pipeline's interleaved order
+                # (state_layer_layout in the JAX package) waits for
+                # parallel/pipeline.py, and pp > 1 raises before a save.
+                "layout": {"interleaved": False},
+                "topology": (topology if topology is not None
+                             else current_topology(self._mesh))}
         if cfg is not None:
             from container_engine_accelerators_tpu_torch.models.llama import (
                 cfg_to_json_dict,
@@ -304,6 +461,22 @@ class CheckpointManager:
                 meta["files"][fname] = _write_file(
                     os.path.join(state_dir, fname),
                     lambda f, t=tensors: safetensors.write(f, t))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self._finish_commit(step, tmp, meta, t0, snapshot_s)
+
+    def _finish_commit(self, step: int, tmp: str, meta: dict, t0: float,
+                       snapshot_s: float = 0.0) -> None:
+        """Write the meta into a tmp step whose state files are written,
+        fsync, rename it into place, fsync the parent, drop old steps."""
+        final = os.path.join(self._dir, str(step))
+        if os.path.exists(final):
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise FileExistsError(f"checkpoint step {step} already exists "
+                                  f"in {self._dir}")
+        state_dir = os.path.join(tmp, STATE_DIR)
+        try:
             _write_file(os.path.join(state_dir, META_FILE),
                         lambda f: f.write(json.dumps(meta).encode()))
             _fsync_dir(state_dir)
@@ -327,7 +500,7 @@ class CheckpointManager:
 
     # ---------- async mode ----------
 
-    def _save_async(self, step: int, state, force: bool, cfg) -> bool:
+    def _save_async(self, step: int, state, force: bool, meta: dict) -> bool:
         if not self.should_save(step, force):
             return False
         # The previous save lands before the next snapshot: the
@@ -349,7 +522,7 @@ class CheckpointManager:
                            {"phase": "start", "step": step})
         self._async_thread = threading.Thread(
             target=self._async_commit,
-            args=(step, snap, self._meta(step, state, cfg), snapshot_s),
+            args=(step, snap, meta, snapshot_s),
             daemon=True, name=f"ckpt-async-save-{step}")
         self._async_thread.start()
         return True
@@ -404,25 +577,37 @@ class CheckpointManager:
 
     # ---------- restore ----------
 
-    def restore(self, state, step: int | None = None):
+    def restore(self, state, step: int | None = None,
+                topology: dict | None = None):
         """Load a step into `state` in place (the model's parameters and
-        the optimizer's state on the devices they live on, the host step
-        and token counts) and return it; None when there is no step.
+        the optimizer's state on the devices they live on, each rank its
+        blocks under the state's mesh, the host step and token counts)
+        and return it; None when there is no step. last_restore_info
+        says whether the step was saved under another topology than
+        `topology` (default current_topology of the state's mesh):
+        `topology_changed`, `saved_topology`.
 
         With `step=None` (the newest), a newest step that is torn or
-        unreadable is moved aside (`<step>.corrupt`) with a logged reason
-        and a `ckpt/restore_fallback` instant, and the step before it is
-        tried. An explicit `step` fails loudly. Every file of a step is
-        checked (its size against the commit's, its header against the
-        state) before any tensor of `state` is written."""
+        unreadable is moved aside (`<step>.corrupt`, by rank 0 only) with
+        a logged reason and a `ckpt/restore_fallback` instant, and the
+        step before it is tried. An explicit `step` fails loudly. Every
+        file of a step is checked (its size against the commit's, its
+        header against the state) before any tensor of `state` is
+        written."""
         self.last_restore_info = None
         candidates = [step] if step is not None else self.all_steps()[::-1]
         if not candidates:
             return None
+        mesh = self._mesh if self._mesh is not None else getattr(
+            state, "mesh", None)
+        if topology is None:
+            topology = current_topology(mesh)
         t0 = time.perf_counter()
         for i, s in enumerate(candidates):
             try:
-                meta, files = self._check_step(s, state)
+                meta, index = self._check_step(s, state, mesh)
+            except NotImplementedError:
+                raise
             except Exception as e:
                 if step is not None or i == len(candidates) - 1:
                     raise
@@ -435,54 +620,83 @@ class CheckpointManager:
                                    {"bad_step": s,
                                     "fallback_step": candidates[i + 1],
                                     "error": str(e)[:200]})
-                self._quarantine_step(s)
+                if self._rank == 0:
+                    self._quarantine_step(s)
                 continue
-            self._load_into(state, meta, files)
+            self._load_into(state, meta, index, mesh)
+            saved = meta.get("topology")
             self.last_restore_info = {
                 "step": s, "bytes": sum(meta["files"].values()),
-                "seconds": time.perf_counter() - t0}
+                "seconds": time.perf_counter() - t0,
+                "saved_topology": saved,
+                "topology_changed": topology_changed(saved, topology)}
             return state
         raise AssertionError("unreachable: every candidate raised")
 
-    def _check_step(self, step: int, state):
-        """(meta, {file: (path, header, data offset)}) of a step whose
-        files hold what was committed and fit `state`; raises
-        otherwise."""
+    def _check_step(self, step: int, state, mesh):
+        """(meta, {key: [(path, header info, data offset), ...] by shard})
+        of a step whose files hold what was committed and whose tensors
+        assemble to the state's global shapes; raises otherwise."""
         step_dir = os.path.join(self._dir, str(step))
         meta = read_meta(step_dir)
-        files = {}
-        for fname in (MODEL_FILE, OPTIMIZER_FILE):
-            path = state_file(step_dir, fname, meta)
-            files[fname] = (path, *_header(path))
-        want = {k: (list(v.shape), v.dtype) for k, v in
-                state_tensors(state)[MODEL_FILE].items()}
-        got = {k: (info["shape"], safetensors.DTYPES[info["dtype"]])
-               for k, info in files[MODEL_FILE][1].items()}
+        if meta.get("layout", {}).get("interleaved"):
+            raise NotImplementedError(PIPELINE_TODO)
+        n = meta.get("fsdp_shards", 0)
+        names = ([(MODEL_FILE, OPTIMIZER_FILE)] if not n
+                 else [shard_files(i, n) for i in range(n)])
+        index: dict[str, list] = {}
+        for pair in names:
+            for fname in pair:
+                path = state_file(step_dir, fname, meta)
+                header, start = _header(path)
+                for key, info in header.items():
+                    index.setdefault(key, []).append((path, info, start))
         params = dict(state.model.named_parameters())
-        if got != want or any(k.rpartition("/")[0] not in params
-                              for k in files[OPTIMIZER_FILE][1]):
+        is_moe = bool(state.model.cfg.n_experts)
+        for name, p in params.items():
+            spec = sharding.param_spec(name, is_moe)
+            want = (list(p.shape) if mesh is None else list(
+                sharding.global_shape(p.shape, spec, mesh)))
+            pieces = index.get(name)
+            got = None if pieces is None else _saved_shape(pieces, spec)
+            if got != want or any(
+                    safetensors.DTYPES[info["dtype"]] != p.dtype
+                    for _, info, _ in pieces):
+                raise ValueError(f"checkpoint step {step} in {self._dir} "
+                                 "does not match the model's parameters "
+                                 f"({name}: {got}, want {want})")
+        if any(k.rpartition("/")[0] not in params for k in index if "/" in k) \
+                or any(k not in params for k in index if "/" not in k):
             raise ValueError(f"checkpoint step {step} in {self._dir} does "
                              "not match the model's parameters")
-        return meta, files
+        return meta, index
 
     @staticmethod
     @torch.no_grad()
-    def _load_into(state, meta: dict, files: dict) -> None:
-        """Each tensor read into host memory and copied onto the device
-        of the parameter it belongs to."""
+    def _load_into(state, meta: dict, index: dict, mesh) -> None:
+        """Each saved tensor assembled from its shards on the host, this
+        rank's block of it (under the state's mesh) copied onto the
+        device of the parameter it belongs to."""
         params = dict(state.model.named_parameters())
+        is_moe = bool(state.model.cfg.n_experts)
         opt = state.optimizer
         opt.state.clear()
-        for fname, (path, header, start) in files.items():
-            with open(path, "rb") as f:
-                for key, info in header.items():
-                    t = safetensors.read_tensor(f, info, start)
-                    if fname == MODEL_FILE:
-                        params[key].copy_(t)
-                        continue
-                    name, _, field = key.rpartition("/")
-                    opt.state[params[name]][field] = t.to(
-                        params[name].device)
+        for key, pieces in index.items():
+            name, _, field = key.partition("/")
+            spec = sharding.param_spec(name, is_moe)
+            parts = []
+            for path, info, start in pieces:
+                with open(path, "rb") as f:
+                    parts.append(safetensors.read_tensor(f, info, start))
+            t = (parts[0] if len(parts) == 1
+                 else torch.cat(parts, dim=_fsdp_entry(spec)))
+            if mesh is not None:
+                t = sharding.shard_param(t, spec, mesh)
+            if not field:
+                params[key].copy_(t)
+                continue
+            opt.state[params[name]][field] = t.to(
+                params[name].device).clone()
         for key, value in meta.get("optimizer_values", {}).items():
             name, _, field = key.rpartition("/")
             opt.state[params[name]][field] = value

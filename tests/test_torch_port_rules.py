@@ -60,7 +60,10 @@ REQUIRED = ("models/spec.py", "models/decode.py", "cli/serve.py",
             "cli/collective_bench.py", "metrics/fabric.py",
             "metrics/fabric_health.py", "metrics/introspection.py",
             "utils/hbm_plan.py", "utils/profiling.py", "models/moe.py",
-            "models/decode_tp.py")
+            "models/decode_tp.py", "parallel/mesh.py",
+            "parallel/sharding.py", "parallel/spmd_util.py",
+            "parallel/grad_comm.py", "parallel/ring_attention.py",
+            "parallel/ulysses.py", "parallel/launch.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
